@@ -1,0 +1,1 @@
+"""models of the PyTorch port (mirrors audio_flamingo_tpu/models)."""

@@ -1,0 +1,1 @@
+"""runtime of the PyTorch port (mirrors audio_flamingo_tpu/runtime)."""
