@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config, WhisperEncoderConfig, bucket_tokens
+from audio_flamingo_tpu_torch.device import resolve_device
 from audio_flamingo_tpu_torch.models import af3
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
 from audio_flamingo_tpu_torch.runtime import generate as gen
@@ -24,16 +25,6 @@ from audio_flamingo_tpu_torch.runtime.processor import AUDIO_TOKEN, AF3Processor
 from audio_flamingo_tpu_torch.runtime.tokenizer import BBPETokenizer, train_bpe
 
 _NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, Queue 1: {})")
-
-
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """None means CUDA; without a card that raises rather than falling back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on "
-                               "the CPU explicitly")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
 
 
 @dataclass

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from audio_flamingo_tpu_torch.config import MelConfig
+from audio_flamingo_tpu_torch.device import resolve_device
 
 
 def _hertz_to_mel(freq, mel_scale: str = "slaney"):
@@ -74,11 +75,12 @@ def _windowed_dft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
 class WhisperMelFrontend:
     """[batch, k * 480000] f32 waveform -> [batch, k * 3000, num_mel_bins] f32 log-mel.
 
-    Each 30 s window is normalized on its own (its own max - 8 clamp)."""
+    Each 30 s window is normalized on its own (its own max - 8 clamp). Runs on CUDA
+    unless ``device`` names another device; without a card and a device it raises."""
 
-    def __init__(self, cfg: MelConfig = MelConfig(), device: torch.device | str = "cpu"):
+    def __init__(self, cfg: MelConfig = MelConfig(), device: torch.device | str | None = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.window_samples = cfg.chunk_length_s * cfg.sampling_rate
         self.frames_per_window = self.window_samples // cfg.hop_length
         n_bins = cfg.n_fft // 2 + 1

@@ -99,9 +99,17 @@ def embed(lm: Qwen2, token_ids: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(lm: Qwen2, hidden: torch.Tensor) -> torch.Tensor:
-    """hidden -> f32 logits, through lm_head or the tied embedding."""
+    """hidden -> f32 logits, through lm_head or the tied embedding.
+
+    A bf16 head on the card is multiplied as it is, accumulating and writing f32, so no
+    f32 copy of the [vocab, d] head is made per step. bf16 products are exact in f32, so
+    this is the reference's upcast-then-multiply up to the order of the sums."""
     head = lm.embed_tokens if lm.lm_head is None else lm.lm_head
-    return F.linear(hidden.float(), head.float())
+    if head.device.type != "cuda" or head.dtype == torch.float32 or hidden.dtype != head.dtype:
+        return F.linear(hidden.float(), head.float())
+    h = hidden.reshape(-1, hidden.shape[-1])
+    logits = torch.mm(h, head.t(), out_dtype=torch.float32)
+    return logits.reshape(*hidden.shape[:-1], head.shape[0])
 
 
 def _layer_forward(x, layer: DecoderLayer, cfg: Qwen2Config, cos, sin, mask,

@@ -23,19 +23,49 @@ KERNEL_HEAD_DIMS = (64, 128)
 
 
 class LaunchCounter:
-    """Counts kernel launches, in total and by (q shape, k shape, causal)."""
+    """Counts kernel launches, in total and by (q shape, k shape, causal).
+
+    Two switches, both off by default, serve measurement: ``timing`` brackets each launch
+    with CUDA events (``device_ms`` sums them), and ``capture`` keeps each launch's
+    inputs in ``inputs`` as (q, k, v, dict(causal, scale, q_offset)) so that they can be
+    replayed. Off, they cost one attribute test per launch."""
 
     def __init__(self):
         self.count = 0
         self.shapes: collections.Counter = collections.Counter()
+        self.timing = False
+        self.capture = False
+        self.inputs: list = []
+        self._events: list = []
 
     def reset(self) -> None:
         self.count = 0
         self.shapes.clear()
+        self.inputs.clear()
+        self._events.clear()
 
-    def record(self, q_shape, k_shape, causal: bool) -> None:
+    def start(self, device: torch.device):
+        """A start event recorded on the device's current stream when timing, else None."""
+        if not self.timing:
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(device))
+        return event
+
+    def record(self, q, k, v, kw: dict, start=None) -> None:
         self.count += 1
-        self.shapes[(tuple(q_shape), tuple(k_shape), bool(causal))] += 1
+        self.shapes[(tuple(q.shape), tuple(k.shape), bool(kw["causal"]))] += 1
+        if start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(q.device))
+            self._events.append((start, end))
+        if self.capture:
+            self.inputs.append((q, k, v, dict(kw)))
+
+    def device_ms(self) -> float:
+        """Summed device time of the timed launches since the last reset."""
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self._events)
 
 
 LAUNCHES = LaunchCounter()
@@ -110,6 +140,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        start = LAUNCHES.start(q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.af_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -121,7 +152,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             float(scale), int(bool(causal)), int(q_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
-    LAUNCHES.record(q.shape, k.shape, causal)
+    LAUNCHES.record(q, k, v, dict(causal=bool(causal), scale=float(scale), q_offset=int(q_offset)),
+                    start)
     return o, lse
 
 

@@ -38,13 +38,14 @@ def bucket_windows(n: int, buckets=WINDOW_BUCKETS) -> int:
 class AF3Processor:
     tokenizer: BBPETokenizer
     cfg: AF3Config
-    device: torch.device | str = "cpu"       # where the log-mel frontend runs
+    device: torch.device | str | None = None   # log-mel frontend's device; None = CUDA
     system_prompt: str = "You are a helpful audio-understanding assistant."
     frontend: WhisperMelFrontend = field(init=False)
 
     def __post_init__(self):
         self.frontend = WhisperMelFrontend(
             MelConfig(num_mel_bins=self.cfg.encoder.num_mel_bins), device=self.device)
+        self.device = self.frontend.device
 
     def apply_chat_template(self, messages: list[dict], add_generation_prompt: bool = True) -> str:
         """messages: [{'role': 'user'|'assistant'|'system', 'content': str}] -> ChatML."""

@@ -53,10 +53,22 @@ def test_sources_name_no_jax_import():
 
 def test_entry_points_require_cuda_or_explicit_cpu(monkeypatch, tmp_path):
     from audio_flamingo_tpu_torch import api
+    from audio_flamingo_tpu_torch.audio.mel import WhisperMelFrontend
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.runtime.processor import AF3Processor
+    from audio_flamingo_tpu_torch.runtime.tokenizer import BBPETokenizer, train_bpe
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tok = BBPETokenizer(*train_bpe(["describe the sound"], 300))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.AudioFlamingo.from_random()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.load(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WhisperMelFrontend()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AF3Processor(tokenizer=tok, cfg=AF3Config.tiny())
     assert api.resolve_device("cpu") == torch.device("cpu")
+    assert WhisperMelFrontend(device="cpu").device == torch.device("cpu")
+    assert AF3Processor(tokenizer=tok, cfg=AF3Config.tiny(), device="cpu").device == \
+        torch.device("cpu")
