@@ -11,21 +11,20 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config, WhisperEncoderConfig, bucket_tokens
+from audio_flamingo_tpu_torch.config import (NOT_PORTED, AF3Config, Qwen2Config,
+                                             WhisperEncoderConfig, bucket_tokens)
 from audio_flamingo_tpu_torch.device import resolve_device
 from audio_flamingo_tpu_torch.models import af3
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
 from audio_flamingo_tpu_torch.runtime import generate as gen
 from audio_flamingo_tpu_torch.runtime.processor import AUDIO_TOKEN, AF3Processor
 from audio_flamingo_tpu_torch.runtime.tokenizer import BBPETokenizer, train_bpe
-
-_NOT_PORTED = ("{} is not ported to the PyTorch package yet (ROADMAP.md, Queue 1: {})")
-
 
 @dataclass
 class AudioFlamingo:
@@ -37,6 +36,7 @@ class AudioFlamingo:
     eos_token_id: int
     history: list = field(default_factory=list)
     last_output: gen.GenerateOutput | None = None   # ids, prefill logits and timings
+    last_processor_s: float | None = None   # the last generate's processor, device-synced
 
     THINK_INSTRUCTION = ("Please think and reason about the input audio before you "
                          "respond. Put your thoughts between <think> and </think>, then "
@@ -48,21 +48,28 @@ class AudioFlamingo:
 
     def with_config(self, cfg: AF3Config) -> "AudioFlamingo":
         """The same weights under another config (e.g. the flash switches flipped)."""
-        return dataclasses.replace(self, cfg=cfg, history=[], last_output=None)
+        return dataclasses.replace(self, cfg=cfg, history=[], last_output=None,
+                                   last_processor_s=None)
 
     def generate(self, sound: np.ndarray | list[np.ndarray] | None = None,
                  prompt: str = "Describe the audio.", *, max_new_tokens: int = 256,
                  sampling: SamplingParams = SamplingParams(), seed: int = 0,
                  chat: bool = False, stream: bool = False, think: bool = False,
-                 num_beams: int = 1) -> str:
+                 num_beams: int = 1, length_penalty: float = 1.0,
+                 early_stopping: bool | str = False) -> str:
         """sound: mono 16 kHz float32 waveform(s). Returns the decoded answer.
 
         think=True asks the model to reason inside <think>...</think> first. The run's
-        token ids, prefill logits and timings are kept in ``last_output``."""
-        if num_beams > 1:
-            raise NotImplementedError(_NOT_PORTED.format("beam search", "runtime/beam.py"))
+        token ids, prefill logits and timings are kept in ``last_output``, and the
+        processor's time (chat template, log-mel, tokenizer; device-synchronized) in
+        ``last_processor_s``: it runs before ``last_output.ttft_s`` starts, so the TTFT a
+        caller sees is their sum. length_penalty and early_stopping are beam-search
+        options, as in the JAX API."""
+        if num_beams > 1 or length_penalty != 1.0 or early_stopping is not False:
+            raise NotImplementedError(NOT_PORTED.format(
+                "beam search (num_beams, length_penalty, early_stopping)", "runtime/beam.py"))
         if stream:
-            raise NotImplementedError(_NOT_PORTED.format(
+            raise NotImplementedError(NOT_PORTED.format(
                 "streaming", "generate features of runtime/generate.py"))
         audios = None
         text = prompt
@@ -77,8 +84,11 @@ class AudioFlamingo:
         all_audios = history_audios + (audios or [])
         messages = ([{k: v for k, v in m.items() if k != "audios"} for m in self.history]
                     if chat else []) + [{"role": "user", "content": text}]
+        t0 = time.perf_counter()
         batch = self.processor(messages=messages, audios=all_audios or None)
         ids = torch.as_tensor(batch["ids"], dtype=torch.long, device=self.device)
+        gen.sync(self.device)
+        self.last_processor_s = time.perf_counter() - t0
 
         # right-pad the prompt with EOS to its token bucket: one prefill shape per bucket
         t = ids.shape[1]
@@ -172,17 +182,20 @@ def config_from_hf(raw: dict) -> AF3Config:
 
 
 def load(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, *,
-         use_flash: bool = True, device: torch.device | str | None = None,
-         quantize_lm: bool | str = False) -> AudioFlamingo:
+         quantize_lm: bool | str = False, use_flash: bool = True, a8_prefill: bool = False,
+         a8_encoder: bool = False, device: torch.device | str | None = None) -> AudioFlamingo:
     """Load an AF3-family checkpoint directory (HF '-hf' layout): config.json,
     tokenizer.json (or vocab.json + merges.txt), model.safetensors[.index.json].
-    use_flash routes the encoder and the LM prefill through the flash-attention kernel."""
+    use_flash routes the encoder and the LM prefill through the flash-attention kernel.
+    quantize_lm, a8_prefill and a8_encoder are the JAX API's quantization options."""
     from audio_flamingo_tpu_torch.io.convert import state_dict_from_hf
     from audio_flamingo_tpu_torch.io.safetensors import load_checkpoint_dir
 
-    if quantize_lm:
-        raise NotImplementedError(_NOT_PORTED.format("quantize_lm",
-                                                     "weight-quantized decode"))
+    for name, value in (("quantize_lm", quantize_lm), ("a8_prefill", a8_prefill),
+                        ("a8_encoder", a8_encoder)):
+        if value:
+            raise NotImplementedError(NOT_PORTED.format(
+                name, "quantized weights and activations"))
     device = resolve_device(device)
     with open(os.path.join(model_path, "config.json")) as f:
         cfg = config_from_hf(json.load(f))
@@ -201,5 +214,5 @@ def load(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, *,
 
 def load_draft(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, **kwargs):
     """Speculative-decoding draft loader of the JAX API (api.load_draft)."""
-    raise NotImplementedError(_NOT_PORTED.format("speculative decoding",
+    raise NotImplementedError(NOT_PORTED.format("speculative decoding",
                                                  "speculative decoding"))

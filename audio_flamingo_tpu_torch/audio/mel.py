@@ -1,8 +1,9 @@
-"""Whisper log-mel frontend in plain PyTorch (f32), as ``audio_flamingo_tpu/audio/mel.py``.
+"""Whisper log-mel frontend (f32), as ``audio_flamingo_tpu/audio/mel.py``.
 
 The STFT is a matmul against a windowed real-DFT basis: reflect-pad by n_fft/2, frame at
 hop 160 (3000 frames per 30 s window, the 3001st dropped), power = (x C)^2 + (x S)^2,
-mel matmul, log10(max(., 1e-10)), then per 30 s window max(x, max - 8) and (x + 4) / 4.
+mel matmul, log10(max(., 1e-10)), then per 30 s window max(x, max - 8) and (x + 4) / 4
+(ops/kernels/log_mel.py: the plain version, and the fused kernel with ``use_pallas``).
 The filterbank and basis are host-side float64 numpy constants (slaney mel scale and
 norm, periodic Hann), cast to f32 on the frontend's device.
 """
@@ -11,10 +12,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from audio_flamingo_tpu_torch.config import MelConfig
 from audio_flamingo_tpu_torch.device import resolve_device
+from audio_flamingo_tpu_torch.ops.kernels.log_mel import fused_log_mel, log_mel_reference
 
 
 def _hertz_to_mel(freq, mel_scale: str = "slaney"):
@@ -76,10 +77,15 @@ class WhisperMelFrontend:
     """[batch, k * 480000] f32 waveform -> [batch, k * 3000, num_mel_bins] f32 log-mel.
 
     Each 30 s window is normalized on its own (its own max - 8 clamp). Runs on CUDA
-    unless ``device`` names another device; without a card and a device it raises."""
+    unless ``device`` names another device; without a card and a device it raises.
+    ``use_pallas`` (the JAX frontend's name for its fused kernel) sends the windows
+    through the hand-written log-mel kernel (ops/kernels/log_mel.py); off, through its
+    plain PyTorch version. On the CPU both are the plain version."""
 
-    def __init__(self, cfg: MelConfig = MelConfig(), device: torch.device | str | None = None):
+    def __init__(self, cfg: MelConfig = MelConfig(), use_pallas: bool = False,
+                 device: torch.device | str | None = None):
         self.cfg = cfg
+        self.use_pallas = use_pallas
         self.device = resolve_device(device)
         self.window_samples = cfg.chunk_length_s * cfg.sampling_rate
         self.frames_per_window = self.window_samples // cfg.hop_length
@@ -114,14 +120,6 @@ class WhisperMelFrontend:
 
     def _window_mels(self, wins: torch.Tensor) -> torch.Tensor:
         """[N, window_samples] -> [N, 3000, n_mels] with per-window normalization."""
-        cfg = self.cfg
-        half = cfg.n_fft // 2
-        padded = F.pad(wins[:, None], (half, half), mode="reflect")[:, 0]
-        frames = padded.unfold(-1, cfg.n_fft, cfg.hop_length)[:, : self.frames_per_window]
-        re = frames @ self.dft_cos
-        im = frames @ self.dft_sin
-        power = re * re + im * im
-        log_spec = torch.log10(torch.clamp(power @ self.mel_weights, min=1e-10))
-        mx = log_spec.amax(dim=(1, 2), keepdim=True)
-        log_spec = torch.maximum(log_spec, mx - 8.0)
-        return (log_spec + 4.0) / 4.0
+        fn = fused_log_mel if self.use_pallas else log_mel_reference
+        return fn(wins, self.dft_cos, self.dft_sin, self.mel_weights, self.cfg.hop_length,
+                  self.frames_per_window)

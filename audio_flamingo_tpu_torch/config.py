@@ -10,6 +10,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Sequence
 
+# message of the NotImplementedError raised for a JAX option this port does not run yet
+NOT_PORTED = "{} is not ported to the PyTorch package yet (ROADMAP.md, Queue 1: {})"
+
 
 @dataclass(frozen=True)
 class MelConfig:

@@ -14,7 +14,9 @@
 // thread (ty, tx) owns rows ty + 16 i (i < 4) of the tile. For S = Q K^T it computes keys
 // tx + 16 j (j < 4), a 4 x 4 register tile fed by 128-bit shared loads along D; for
 // O += P V it owns dims 4 tx + 64 c .. + 3. Row max and row sum reduce across the 16
-// lanes of a row with warp shuffles. A row that sees no key gives o = 0 and lse = -inf.
+// lanes of a row with warp shuffles. In bf16, P is rounded to bf16 before P.V and l sums
+// the unrounded P, as in the JAX kernel. A row that sees no key gives o = 0 and
+// lse = -inf (the port's convention; see flash_attention_reference).
 //
 // Bound on the H100 at the main-path shapes: bf16 tensor-core FLOPs. Encoder
 // [1,1500,20,64] non-causal: 4*T^2*D*H = 1.15e10 FLOP = 11.6 us at 989 TFLOP/s; LM
@@ -36,6 +38,14 @@ constexpr int kPS = kBK + 4;  // P row stride (floats): 16-byte aligned rows
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// p as P.V consumes it: rounded to the input dtype, as the JAX kernel's
+// p.astype(q.dtype) (exact for f32); the row sum l adds the unrounded p.
+template <typename T> __device__ __forceinline__ float round_p(float p);
+template <> __device__ __forceinline__ float round_p<float>(float p) { return p; }
+template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float p) {
+  return __bfloat162float(__float2bfloat16(p));
+}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -182,7 +192,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         acc[i][c].w *= alpha;
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sp[(ty + 16 * i) * kPS + tx + 16 * j] = s[i][j];
+      for (int j = 0; j < 4; ++j) sp[(ty + 16 * i) * kPS + tx + 16 * j] = round_p<T>(s[i][j]);
     }
     __syncthreads();
 

@@ -12,63 +12,18 @@ a CUDA tensor launches the kernel or raises. There is no fallback between the tw
 
 from __future__ import annotations
 
-import collections
-
 import torch
+import torch.nn.functional as F
 
 from audio_flamingo_tpu_torch.ops.kernels import _build
+from audio_flamingo_tpu_torch.ops.kernels.launches import LaunchCounter
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
+KV_TILE = 64   # keys per K/V tile of the online softmax (csrc/flash_attention.cu kBK)
 
 
-class LaunchCounter:
-    """Counts kernel launches, in total and by (q shape, k shape, causal).
-
-    Two switches, both off by default, serve measurement: ``timing`` brackets each launch
-    with CUDA events (``device_ms`` sums them), and ``capture`` keeps each launch's
-    inputs in ``inputs`` as (q, k, v, dict(causal, scale, q_offset)) so that they can be
-    replayed. Off, they cost one attribute test per launch."""
-
-    def __init__(self):
-        self.count = 0
-        self.shapes: collections.Counter = collections.Counter()
-        self.timing = False
-        self.capture = False
-        self.inputs: list = []
-        self._events: list = []
-
-    def reset(self) -> None:
-        self.count = 0
-        self.shapes.clear()
-        self.inputs.clear()
-        self._events.clear()
-
-    def start(self, device: torch.device):
-        """A start event recorded on the device's current stream when timing, else None."""
-        if not self.timing:
-            return None
-        event = torch.cuda.Event(enable_timing=True)
-        event.record(torch.cuda.current_stream(device))
-        return event
-
-    def record(self, q, k, v, kw: dict, start=None) -> None:
-        self.count += 1
-        self.shapes[(tuple(q.shape), tuple(k.shape), bool(kw["causal"]))] += 1
-        if start is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record(torch.cuda.current_stream(q.device))
-            self._events.append((start, end))
-        if self.capture:
-            self.inputs.append((q, k, v, dict(kw)))
-
-    def device_ms(self) -> float:
-        """Summed device time of the timed launches since the last reset."""
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self._events)
-
-
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter()   # key: (q shape, k shape, causal); inputs: (q, k, v, kwargs)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -92,9 +47,22 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: (o [B,Tq,H,D] in q.dtype, lse [B,Tq,H] f32).
 
-    Scores, softmax and P.V in f32; KV head of q head h is h // (H/Hkv); key j is visible
-    to row i iff j <= i + q_offset under causal masking. A row with no visible key gives
-    o = 0 and lse = -inf.
+    Scores and softmax statistics in f32. KV head of q head h is h // (H/Hkv); key j is
+    visible to row i iff j <= i + q_offset under causal masking.
+
+    The probabilities are rounded to q.dtype before P.V (exact for f32), as the JAX
+    kernel's ``p.astype(q.dtype)``, while the row sum l adds the unrounded ones. Both
+    kernels round p = exp(s - m) against the running max m of the online softmax, which
+    grows tile by tile, so this version does too: p of a key in tile t (keys
+    [64 t, 64 t + 64), the CUDA kernel's K/V tile) is rounded against the max over tiles
+    0..t and then scaled by exp(m_t - m). The JAX kernel run with block_k=64 tiles its
+    keys the same way.
+
+    A row with no visible key (a negative q_offset, or Tk = 0) gives o = 0 and
+    lse = -inf. The JAX kernel has no such fixed value: it masks with a finite NEG_INF,
+    skips super-tiles past the causal frontier and pads Tk to tile multiples, so its
+    output for such a row depends on its tiling. Code that merges or differentiates by
+    the LSE (ring attention, the backward kernel) must treat -inf as "no keys".
     """
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -105,12 +73,19 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         rows = torch.arange(tq, device=q.device)[:, None] + q_offset
         s = s.masked_fill(torch.arange(tk, device=q.device)[None, :] > rows, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
+    n_tiles = -(-tk // KV_TILE)
+    s = F.pad(s, (0, n_tiles * KV_TILE - tk), value=float("-inf"))
+    s = s.reshape(*s.shape[:-1], n_tiles, KV_TILE)
+    m_run = torch.cummax(s.amax(dim=-1), dim=-1).values      # [b, kv, g, q, tiles]
+    m = m_run[..., -1:]
     m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
+    rescale = torch.exp(m_run - m)[..., None]                 # 0 before the first key
+    m_run = torch.where(torch.isneginf(m_run), torch.zeros_like(m_run), m_run)
+    p = torch.exp(s - m_run[..., None])                       # against the running max
+    l = (p * rescale).sum(dim=(-2, -1))[..., None]            # [b, kv, g, q, 1]
+    p = (p.to(q.dtype).float() * rescale).flatten(-2)[..., :tk]
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    l_q = l.permute(0, 3, 1, 2, 4)                      # [b, q, kv, g, 1]
+    l_q = l.permute(0, 3, 1, 2, 4)                            # [b, q, kv, g, 1]
     o = torch.where(l_q > 0, o / l_q, torch.zeros_like(o))
     lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
     lse = lse[..., 0].permute(0, 3, 1, 2).reshape(b, tq, h)
@@ -120,7 +95,11 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = False, scale: float | None = None,
                         q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """q [B,Tq,H,D], k/v [B,Tk,Hkv,D] -> (o [B,Tq,H,D], lse [B,Tq,H] f32)."""
+    """q [B,Tq,H,D], k/v [B,Tk,Hkv,D] -> (o [B,Tq,H,D], lse [B,Tq,H] f32).
+
+    f32 or bf16 inputs; the kernel takes head dims 64 and 128. The numerics, including
+    the convention for a row with no visible key (o = 0, lse = -inf), are those of
+    ``flash_attention_reference``."""
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -152,8 +131,9 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             float(scale), int(bool(causal)), int(q_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
-    LAUNCHES.record(q, k, v, dict(causal=bool(causal), scale=float(scale), q_offset=int(q_offset)),
-                    start)
+    kw = dict(causal=bool(causal), scale=float(scale), q_offset=int(q_offset))
+    LAUNCHES.record((tuple(q.shape), tuple(k.shape), kw["causal"]), q.device, start,
+                    (q, k, v, kw))
     return o, lse
 
 

@@ -22,6 +22,7 @@ class SamplingParams(NamedTuple):
     greedy: bool = True
     repetition_penalty: float = 1.0  # 1.0 = off; spans prompt + generated tokens
     min_new_tokens: int = 0          # EOS masked for the first N generated tokens
+    no_repeat_ngram_size: int = 0    # 0 = off; other values raise (not ported yet)
 
 
 def mask_eos(logits: torch.Tensor, eos_token_id: int, blocked: torch.Tensor) -> torch.Tensor:

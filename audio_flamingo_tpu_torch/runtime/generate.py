@@ -15,7 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
-from audio_flamingo_tpu_torch.config import AF3Config
+from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config
 from audio_flamingo_tpu_torch.models import af3, qwen2
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams, mask_eos, sample_token
 
@@ -30,7 +30,7 @@ class GenerateOutput:
     decode_steps: int
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -71,6 +71,9 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
     up to a multiple of 128. prompt_len: the true length of a right-padded prompt."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
+    if sampling.no_repeat_ngram_size:
+        raise NotImplementedError(NOT_PORTED.format(
+            "no_repeat_ngram_size", "generate features of runtime/generate.py"))
     b, t = token_ids.shape
     device = token_ids.device
     if capacity == 0:
@@ -90,7 +93,7 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
     out = torch.full((b, max_new_tokens), eos_token_id, dtype=torch.long, device=device)
     out[:, 0] = tok
     done = tok == eos_token_id
-    _sync(device)
+    sync(device)
     ttft = time.perf_counter() - t0
 
     t1 = time.perf_counter()
@@ -111,7 +114,7 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
         out[:, step] = nxt
         done = done | (nxt == eos_token_id)
         tok = nxt
-    _sync(device)
+    sync(device)
     decode_s = time.perf_counter() - t1
 
     eos_hit = out == eos_token_id

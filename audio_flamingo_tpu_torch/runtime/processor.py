@@ -3,12 +3,12 @@
 
 Each ``<sound>`` placeholder becomes windows x 750 copies between the audio BOS/EOS
 markers before tokenization, so prefill sees the final length. Clips are zero-padded to
-whole 30 s windows, and the window count is rounded up to a bucket.
+whole 30 s windows, and the window count is rounded up to a bucket (``use_buckets``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -36,15 +36,25 @@ def bucket_windows(n: int, buckets=WINDOW_BUCKETS) -> int:
 
 @dataclass
 class AF3Processor:
+    """Fields as the JAX processor's, plus ``device``: the log-mel frontend's device
+    (None = CUDA) when no ``frontend`` is given. An injected frontend keeps its own
+    device (e.g. ``WhisperMelFrontend(use_pallas=True)`` for the log-mel kernel).
+    ``use_buckets`` rounds each clip's window count up to ``WINDOW_BUCKETS``."""
+
     tokenizer: BBPETokenizer
     cfg: AF3Config
-    device: torch.device | str | None = None   # log-mel frontend's device; None = CUDA
+    frontend: WhisperMelFrontend | None = None
     system_prompt: str = "You are a helpful audio-understanding assistant."
-    frontend: WhisperMelFrontend = field(init=False)
+    use_buckets: bool = True
+    device: torch.device | str | None = None
 
     def __post_init__(self):
-        self.frontend = WhisperMelFrontend(
-            MelConfig(num_mel_bins=self.cfg.encoder.num_mel_bins), device=self.device)
+        if self.frontend is None:
+            self.frontend = WhisperMelFrontend(
+                MelConfig(num_mel_bins=self.cfg.encoder.num_mel_bins), device=self.device)
+        elif self.device is not None:
+            raise ValueError("pass a frontend or a device, not both: an injected frontend "
+                             "keeps its own device")
         self.device = self.frontend.device
 
     def apply_chat_template(self, messages: list[dict], add_generation_prompt: bool = True) -> str:
@@ -87,7 +97,9 @@ class AF3Processor:
         if audios:
             windows, mel_list = [], []
             for wav in audios:
-                nw = bucket_windows(max(1, -(-len(wav) // self.frontend.window_samples)))
+                nw = max(1, -(-len(wav) // self.frontend.window_samples))
+                if self.use_buckets:
+                    nw = bucket_windows(nw)
                 padded = self.frontend.pad_or_trim(np.asarray(wav), num_windows=nw)
                 m = self.frontend(padded[None])                    # [1, nw * 3000, n_mels]
                 mel_list.append(m.reshape(nw, -1, m.shape[-1]))

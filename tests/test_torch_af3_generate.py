@@ -156,3 +156,50 @@ def test_chat_think_and_unported_options(models):
         tm.generate(prompt="x", stream=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.load_draft("unused")
+
+
+def test_jax_api_arguments_exist_with_jax_defaults():
+    """Every argument of the JAX entry points exists in the port with the JAX default, so a
+    caller written for the JAX API gets no TypeError."""
+    import inspect
+
+    from audio_flamingo_tpu import api as japi
+    from audio_flamingo_tpu.audio.mel import WhisperMelFrontend as JWhisperMelFrontend
+    from audio_flamingo_tpu.runtime.processor import AF3Processor as JAF3Processor
+    from audio_flamingo_tpu_torch.audio.mel import WhisperMelFrontend
+    from audio_flamingo_tpu_torch.runtime.processor import AF3Processor
+
+    pairs = [(japi.AudioFlamingo.generate, AudioFlamingo.generate), (japi.load, api.load),
+             (JAF3Processor, AF3Processor), (JWhisperMelFrontend.__init__,
+                                             WhisperMelFrontend.__init__)]
+    for jfn, tfn in pairs:
+        tparams = inspect.signature(tfn).parameters
+        for name, jp in inspect.signature(jfn).parameters.items():
+            assert name in tparams, (tfn, name)
+            if name not in ("compute_dtype", "cfg", "frontend"):
+                assert tparams[name].default == jp.default, (tfn, name)
+    assert ts.SamplingParams._fields[: len(js.SamplingParams._fields)] == js.SamplingParams._fields
+    assert ts.SamplingParams()._asdict() == js.SamplingParams()._asdict()
+
+
+def test_jax_api_arguments_run_at_default_and_raise_otherwise(models, tmp_path):
+    _, tm = models
+    tm.generate(prompt="x", max_new_tokens=2, length_penalty=1.0, early_stopping=False,
+                sampling=ts.SamplingParams(no_repeat_ngram_size=0))
+    want = tm.last_output.tokens.clone()
+    tm.generate(prompt="x", max_new_tokens=2)
+    assert torch.equal(tm.last_output.tokens, want)
+    for kw in (dict(length_penalty=0.5), dict(early_stopping=True),
+               dict(sampling=ts.SamplingParams(no_repeat_ngram_size=3))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tm.generate(prompt="x", max_new_tokens=2, **kw)
+    for kw in (dict(a8_prefill=True), dict(a8_encoder=True), dict(quantize_lm="int4")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            api.load(str(tmp_path), device="cpu", **kw)
+
+
+def test_generate_reports_processor_time(models):
+    _, tm = models
+    tm.generate(sound=TONE, prompt="hi", max_new_tokens=2)
+    assert tm.last_processor_s is not None and tm.last_processor_s > 0
+    assert tm.with_config(tm.cfg).last_processor_s is None

@@ -86,6 +86,51 @@ def test_row_without_visible_key_is_zero():
     torch.testing.assert_close(o[:, 3:], ref, atol=2e-6, rtol=0)
 
 
+BF16_BOUND = (2.0 ** -7, 1e-3)   # per element: |o - o_ref| <= 2^-7 |o_ref| + 1e-3
+
+
+@pytest.mark.parametrize("tq,tk,h,hkv,d,causal,q_offset,scale", CASES)
+def test_reference_matches_jax_flash_bf16(tq, tk, h, hkv, d, causal, q_offset, scale):
+    """bf16 inputs: both round P to bf16 before P.V against the running max of 64-key
+    tiles (the JAX kernel at block_k=64), so the port's plain version stays within the
+    bf16 output bound of the JAX kernel (interpret mode) per element."""
+    q, k, v = _inputs(5, 1, tq, tk, h, hkv, d)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jo, jlse = _jax_flash(jq, jk, jv, causal=causal, scale=scale, q_offset=q_offset,
+                          block_q=128, block_k=64)
+    to, tlse = tfa.flash_attention_lse(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+                                       causal=causal, scale=scale, q_offset=q_offset)
+    assert to.dtype == torch.bfloat16
+    want = np.asarray(jo.astype(jnp.float32))
+    diff = np.abs(to.float().numpy() - want)
+    rel, floor = BF16_BOUND
+    assert (diff <= rel * np.abs(want) + floor).all(), diff.max()
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=1e-4, rtol=0)
+
+
+def test_reference_rounds_p_to_bf16_before_pv():
+    """The bf16 plain version multiplies V by bf16-rounded probabilities and divides by
+    the f32 sum of the unrounded ones, as the JAX kernel does (one 64-key tile here, so
+    the running max is the row max)."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _inputs(6, 1, 16, 40, 2, 2, 16))
+    o, _ = tfa.flash_attention_reference(q, k, v)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * 16 ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    want = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), v.float())
+    want = want / p.sum(-1).permute(0, 2, 1)[..., None]
+    assert torch.equal(o, want.bfloat16())
+
+
+def test_row_without_visible_key_is_zero_bf16():
+    """The same convention in bf16: o = 0 and lse = -inf where no key is visible."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _inputs(2, 1, 8, 8, 2, 1, 16))
+    o, lse = tfa.flash_attention_lse(q, k, v, causal=True, q_offset=-3)
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o.float()).all()
+    assert (o[:, :3] == 0).all() and torch.isneginf(lse[:, :3]).all()
+    ref, _ = tfa.flash_attention_reference(q[:, 3:], k, v, causal=True)
+    assert torch.equal(o[:, 3:], ref)
+
+
 def test_cpu_dispatch_uses_reference_and_counts_no_launch():
     q, k, v = map(torch.from_numpy, _inputs(3, 1, 16, 16, 2, 2, 16))
     tfa.LAUNCHES.reset()
