@@ -20,7 +20,9 @@ import torch
 from audio_flamingo_tpu_torch.config import (NOT_PORTED, AF3Config, Qwen2Config,
                                              WhisperEncoderConfig, bucket_tokens)
 from audio_flamingo_tpu_torch.device import resolve_device
-from audio_flamingo_tpu_torch.models import af3
+from audio_flamingo_tpu_torch.models import af3, qwen2
+from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
 from audio_flamingo_tpu_torch.runtime import generate as gen
 from audio_flamingo_tpu_torch.runtime.processor import AUDIO_TOKEN, AF3Processor
@@ -44,7 +46,7 @@ class AudioFlamingo:
 
     @property
     def device(self) -> torch.device:
-        return self.model.lm.embed_tokens.device
+        return next(self.model.encoder.parameters()).device
 
     def with_config(self, cfg: AF3Config) -> "AudioFlamingo":
         """The same weights under another config (e.g. the flash switches flipped)."""
@@ -119,11 +121,22 @@ class AudioFlamingo:
     def from_state_dict(cfg: AF3Config, state: dict[str, torch.Tensor],
                         tokenizer: BBPETokenizer, compute_dtype: torch.dtype = torch.float32,
                         device: torch.device | str | None = None) -> "AudioFlamingo":
-        """Weights in the port's names (io/convert.py) -> model in compute_dtype on device."""
+        """Weights in the port's names (io/convert.py) -> model in compute_dtype on device.
+        A quantized LM (``lm.*`` in the JAX tree layout, e.g. ``lm.layers.qkv.w_p``) keeps
+        its integer codes and f32 scales."""
         device = resolve_device(device)
-        model = af3.build(cfg, device, compute_dtype,
-                          adaptor_layers=2 if "adaptor.fc2.weight" in state else 1)
-        model.load_state_dict(state, strict=True)
+        adaptor_layers = 2 if "adaptor.fc2.weight" in state else 1
+        lm = None
+        if "lm.ln_f_w" in state:
+            lm = qwen2.quantized_lm(
+                qwen2.unflatten({k[3:]: v for k, v in state.items() if k.startswith("lm.")}),
+                compute_dtype, device)
+            state = {k: v for k, v in state.items() if not k.startswith("lm.")}
+        model = af3.build(cfg, device, compute_dtype, adaptor_layers=adaptor_layers, lm=lm)
+        missing, unexpected = model.load_state_dict(state, strict=lm is None)
+        if lm is not None and (unexpected or [k for k in missing if not k.startswith("lm.")]):
+            raise RuntimeError(f"state dict does not match the model: missing {missing}, "
+                               f"unexpected {unexpected}")
         return AudioFlamingo._assemble(cfg, model, tokenizer, device)
 
     @staticmethod
@@ -187,15 +200,19 @@ def load(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, *,
     """Load an AF3-family checkpoint directory (HF '-hf' layout): config.json,
     tokenizer.json (or vocab.json + merges.txt), model.safetensors[.index.json].
     use_flash routes the encoder and the LM prefill through the flash-attention kernel.
-    quantize_lm, a8_prefill and a8_encoder are the JAX API's quantization options."""
+    quantize_lm=True (or "int8") stores the LM's linears, head and embedding in int8
+    (weight-only, per channel, ``ops/quant.py``); quantize_lm="int4" packs the layer
+    linears to group-scale int4 (``ops/quant4.py``, embedding and head int8), decoded
+    through the K5 and K6 kernels. The LM is quantized from the checkpoint's own values on
+    ``device`` before the cast to compute_dtype; scales stay f32. a8_prefill and
+    a8_encoder (w8a8) are not ported and raise."""
     from audio_flamingo_tpu_torch.io.convert import state_dict_from_hf
     from audio_flamingo_tpu_torch.io.safetensors import load_checkpoint_dir
 
-    for name, value in (("quantize_lm", quantize_lm), ("a8_prefill", a8_prefill),
-                        ("a8_encoder", a8_encoder)):
+    for name, value in (("a8_prefill", a8_prefill), ("a8_encoder", a8_encoder)):
         if value:
             raise NotImplementedError(NOT_PORTED.format(
-                name, "quantized weights and activations"))
+                name, "quantized weights and activations (w8a8)"))
     device = resolve_device(device)
     with open(os.path.join(model_path, "config.json")) as f:
         cfg = config_from_hf(json.load(f))
@@ -208,8 +225,16 @@ def load(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, *,
         sd[k] = (torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
                  if v.dtype == np.uint16 else torch.from_numpy(v))
     tokenizer = BBPETokenizer.from_pretrained_dir(model_path)
-    return AudioFlamingo.from_state_dict(cfg, state_dict_from_hf(sd, cfg), tokenizer,
-                                         compute_dtype=compute_dtype, device=device)
+    state = state_dict_from_hf(sd, cfg)
+    if quantize_lm:
+        lm_state = {k[3:]: state.pop(k).to(device) for k in [k for k in state
+                                                             if k.startswith("lm.")]}
+        tree = (quantize_lm_params_w4(lm_state) if quantize_lm == "int4"
+                else quantize_lm_params(lm_state))
+        del lm_state
+        state.update(qwen2.flatten(tree, "lm."))
+    return AudioFlamingo.from_state_dict(cfg, state, tokenizer, compute_dtype=compute_dtype,
+                                         device=device)
 
 
 def load_draft(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, **kwargs):

@@ -1,7 +1,9 @@
 """Weight conversion into the port's ``AF3Model`` state dict.
 
 - ``params_from_jax(params, cfg)``: the JAX package's AF3 params pytree, as numpy arrays
-  (layers stacked on a leading axis, linears [in, out], convs WIO [k, in, out]).
+  (layers stacked on a leading axis, linears [in, out], convs WIO [k, in, out]). A
+  quantized LM (``ops/quant.py`` / ``ops/quant4.py`` trees) crosses as it is: int8 codes,
+  f32 scales and the stacked layout, under ``lm.<tree path>`` (``lm.layers.qkv.w_p``).
 - ``state_dict_from_hf(sd, cfg)``: an HF-named AF3 state dict (qwen2_audio names
   ``audio_tower.* / multi_modal_projector.linear.* / language_model.*``, or the llava
   ``mm_projector`` variants), torch layouts, as ``load`` reads from safetensors.
@@ -14,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.config import AF3Config
+from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config
+from audio_flamingo_tpu_torch.models.qwen2 import flatten
 
 
 def _t(x) -> torch.Tensor:
@@ -32,6 +35,18 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def _is_quantized(lm: dict) -> bool:
+    return isinstance(lm["embed"], dict) or any(
+        isinstance(v, dict) and ("w_q" in v or "w_p" in v) for v in lm["layers"].values())
+
+
+def _as_tensor(value) -> torch.Tensor:
+    """A quantized tree's leaf as it is: integer codes keep their dtype, floats go to f32."""
+    arr = np.array(value)
+    return torch.from_numpy(arr if np.issubdtype(arr.dtype, np.integer)
+                            else arr.astype(np.float32))
 
 
 def params_from_jax(params: dict, cfg: AF3Config) -> dict[str, torch.Tensor]:
@@ -58,20 +73,31 @@ def params_from_jax(params: dict, cfg: AF3Config) -> dict[str, torch.Tensor]:
     for name, p in params["adaptor"].items():
         _lin(p, f"adaptor.{name}", sd)
 
-    lm = params["lm"]
-    sd["lm.embed_tokens"] = _t(lm["embed"])
-    for i in range(cfg.lm.num_layers):
+    sd.update(lm_params_from_jax(params["lm"], cfg.lm, "lm."))
+    return sd
+
+
+def lm_params_from_jax(lm: dict, cfg: Qwen2Config, prefix: str = "") -> dict[str, torch.Tensor]:
+    """The JAX Qwen2 tree -> the port's LM state dict (names under ``prefix``): a float
+    tree into ``Qwen2``'s names and torch layout, a quantized tree as it is."""
+    if _is_quantized(lm):
+        if not isinstance(lm["embed"], dict):
+            raise ValueError("a quantized LM tree needs its int8 embedding "
+                             "(quantize_lm_params with quantize_embed=True)")
+        return {k: _as_tensor(v) for k, v in flatten(lm, prefix).items()}
+    sd: dict[str, torch.Tensor] = {prefix + "embed_tokens": _t(lm["embed"])}
+    for i in range(cfg.num_layers):
         lp = _layer(lm["layers"], i)
-        p = f"lm.layers.{i}."
+        p = f"{prefix}layers.{i}."
         sd[p + "input_layernorm.weight"] = _t(lp["ln1_w"])
         for ours, theirs in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("o_proj", "o")):
             _lin(lp[theirs], p + ours, sd)
         sd[p + "post_attention_layernorm.weight"] = _t(lp["ln2_w"])
         for ours, theirs in (("gate_proj", "gate"), ("up_proj", "up"), ("down_proj", "down")):
             _lin({"w": lp["mlp"][theirs]}, p + ours, sd)
-    sd["lm.norm.weight"] = _t(lm["ln_f_w"])
-    if not cfg.lm.tie_word_embeddings:
-        sd["lm.lm_head"] = _t(np.asarray(lm["lm_head"]).T)
+    sd[prefix + "norm.weight"] = _t(lm["ln_f_w"])
+    if not cfg.tie_word_embeddings:
+        sd[prefix + "lm_head"] = _t(np.asarray(lm["lm_head"]).T)
     return sd
 
 

@@ -16,22 +16,31 @@ from audio_flamingo_tpu_torch.models import adaptor, qwen2, whisper_encoder
 
 
 class AF3Model(nn.Module):
-    def __init__(self, cfg: AF3Config, adaptor_layers: int = 2, **factory):
+    """The audio tower, the adaptor and the LM: a float ``qwen2.Qwen2`` or a quantized
+    ``qwen2.QuantQwen2``."""
+
+    def __init__(self, encoder: whisper_encoder.WhisperEncoder, adaptor_: adaptor.Adaptor,
+                 lm: qwen2.Qwen2 | qwen2.QuantQwen2):
         super().__init__()
-        self.encoder = whisper_encoder.WhisperEncoder(cfg.encoder, **factory)
-        self.adaptor = adaptor.Adaptor(cfg.encoder.d_model, cfg.lm.hidden_size,
-                                       adaptor_layers, **factory)
-        self.lm = qwen2.Qwen2(cfg.lm, **factory)
+        self.encoder = encoder
+        self.adaptor = adaptor_
+        self.lm = lm
 
 
 def build(cfg: AF3Config, device: torch.device | str, dtype: torch.dtype,
-          adaptor_layers: int = 2) -> AF3Model:
+          adaptor_layers: int = 2, lm: qwen2.QuantQwen2 | None = None) -> AF3Model:
     """Allocate an AF3Model's weights (uninitialized) directly on ``device`` in ``dtype``:
     the modules are built on the meta device, so no host copy of the weights exists.
-    adaptor_layers: 2 for AF3's MLP adaptor, 1 for a single-Linear projector."""
+    adaptor_layers: 2 for AF3's MLP adaptor, 1 for a single-Linear projector. ``lm``: a
+    quantized LM already on ``device``, taken as it is in place of a float one."""
     with torch.device("meta"):
-        model = AF3Model(cfg, adaptor_layers, dtype=dtype)
-    return model.to_empty(device=device).eval().requires_grad_(False)
+        enc = whisper_encoder.WhisperEncoder(cfg.encoder, dtype=dtype)
+        adp = adaptor.Adaptor(cfg.encoder.d_model, cfg.lm.hidden_size, adaptor_layers,
+                              dtype=dtype)
+        float_lm = qwen2.Qwen2(cfg.lm, dtype=dtype) if lm is None else None
+    parts = [m.to_empty(device=device) for m in (enc, adp)]
+    lm = float_lm.to_empty(device=device) if lm is None else lm
+    return AF3Model(*parts, lm).eval().requires_grad_(False)
 
 
 @torch.no_grad()

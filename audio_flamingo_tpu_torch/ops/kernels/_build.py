@@ -95,5 +95,12 @@ def load_library() -> ctypes.CDLL:
         fn = lib.af_log_mel_clamp
         fn.restype = i32
         fn.argtypes = [ptr, i32, i64, ptr]
+        fn = lib.af_w4a16_matmul
+        fn.restype = i32
+        fn.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        for name in ("af_w4_suffix_a", "af_w4_suffix_b"):
+            fn = getattr(lib, name)
+            fn.restype = i32
+            fn.argtypes = [ptr] * 11 + [i32] * 9 + [ctypes.c_float, ptr]
         _lib = lib
     return _lib

@@ -193,7 +193,7 @@ def test_jax_api_arguments_run_at_default_and_raise_otherwise(models, tmp_path):
                dict(sampling=ts.SamplingParams(no_repeat_ngram_size=3))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.generate(prompt="x", max_new_tokens=2, **kw)
-    for kw in (dict(a8_prefill=True), dict(a8_encoder=True), dict(quantize_lm="int4")):
+    for kw in (dict(a8_prefill=True), dict(a8_encoder=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.load(str(tmp_path), device="cpu", **kw)
 

@@ -102,7 +102,7 @@ def test_converters_agree(tied):
 
 def test_load_rejects_unported_options_and_missing_parts(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.load(str(tmp_path), quantize_lm=True, device="cpu")
+        api.load(str(tmp_path), quantize_lm=True, a8_prefill=True, device="cpu")
     cfg, params, _ = _tiny()
     sd = export_af3_state_dict(params, cfg)
     with pytest.raises(KeyError):
