@@ -56,6 +56,16 @@ class KVCache:
         return self.k.shape[2]
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., nkv, hd] -> (int8 codes, f32 scales [..., nkv]): per token and head, scale =
+    max(amax, 1e-6) / 127, codes round(x / scale) half to even, clipped to +-127 (the
+    JAX ``_quantize_kv`` :78 of the int8 KV caches)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
 def init_cache(cfg: Qwen2Config, batch: int, capacity: int, dtype: torch.dtype,
                device: torch.device | str) -> KVCache:
     shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.resolved_head_dim())
@@ -246,10 +256,13 @@ def mlp_forward(hn: torch.Tensor, lm, cfg: Qwen2Config, i: int) -> torch.Tensor:
 
 
 def embed(lm, token_ids: torch.Tensor) -> torch.Tensor:
-    """Token ids -> embeddings in the compute dtype (an int8 row times its scale)."""
+    """Token ids -> embeddings in the compute dtype (an int8 row times its scale). An id
+    past the vocabulary reads the last row, as the JAX gather clamps (an engine feeds its
+    EOS id to finished rows and bucket padding, which may lie outside a test vocab)."""
     if isinstance(lm, Qwen2):
-        return F.embedding(token_ids, lm.embed_tokens)
+        return F.embedding(token_ids.clamp(max=lm.embed_tokens.shape[0] - 1), lm.embed_tokens)
     emb = lm.embed
+    token_ids = token_ids.clamp(max=emb["w_q"].shape[0] - 1)
     rows = emb["w_q"][token_ids].float() * emb["scale"][token_ids][..., None]
     return rows.to(lm.dtype)
 

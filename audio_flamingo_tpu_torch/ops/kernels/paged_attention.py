@@ -1,0 +1,233 @@
+"""Paged-attention decode (K3): the hand-written Hopper kernel, its plain PyTorch version,
+the dense reference and the current-token merge.
+
+Replaces the Pallas TPU kernel ``audio_flamingo_tpu/ops/pallas/paged_attention.py``
+(``paged_attention`` :116, kernel ``_paged_kernel`` :45); ``merge_current_token`` (:215)
+and ``paged_attention_reference`` (:266) are ported as they are. One query token per row,
+GQA-grouped, attends the row's context through its block table; the kernel returns the
+unnormalized triple (o, m, l) and ``merge_current_token`` folds in the token being
+decoded, whose K/V is not in the pool yet. The CUDA source is ``csrc/paged_attention.cu``;
+its header states the design (each row's pages split over several blocks in three
+launches, counted here as one launch of K3), the bound and what the design leaves.
+
+Dispatch is by the tensors' device: a CPU tensor goes to ``paged_attention_plain``, a
+CUDA tensor launches the kernel or raises. There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from audio_flamingo_tpu_torch.ops.kernels import _build
+from audio_flamingo_tpu_torch.ops.kernels.launches import LaunchCounter
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+KERNEL_HEAD_DIM = 128
+KERNEL_MAX_GROUP = 8
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# key: (B, nkv, g, hd, pool dtype, max pages); inputs: the call's arguments
+LAUNCHES = LaunchCounter()
+
+
+def _check(q, k_pool, v_pool, block_tables, lengths, layer_idx, k_scale, v_scale) -> None:
+    if q.ndim != 4:
+        raise ValueError(f"q must be [B, nkv, g, hd], got {tuple(q.shape)}")
+    if k_pool.ndim not in (4, 5) or k_pool.shape != v_pool.shape:
+        raise ValueError(f"pools must be [NB, BS, nkv, hd] or [L, NB, BS, nkv, hd] alike, got "
+                         f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
+    b, nkv, _, hd = q.shape
+    if k_pool.shape[-2:] != (nkv, hd):
+        raise ValueError(f"pool heads {tuple(k_pool.shape[-2:])} do not match q {(nkv, hd)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k_pool.dtype != v_pool.dtype or k_pool.dtype not in (q.dtype, torch.bfloat16, torch.int8):
+        raise TypeError(f"pools must be {q.dtype}, bfloat16 or int8, got {k_pool.dtype}, "
+                        f"{v_pool.dtype}")
+    if k_pool.dtype == torch.int8 and (k_scale is None or v_scale is None
+                                       or k_scale.shape != k_pool.shape[:-1]
+                                       or v_scale.shape != k_scale.shape):
+        raise ValueError("int8 pools need k_scale and v_scale shaped like the pool without "
+                         "its head dim")
+    if k_pool.ndim == 5 and layer_idx is None:
+        raise ValueError("a stacked [L, ...] pool needs layer_idx")
+    if block_tables.ndim != 2 or block_tables.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(f"block_tables [B, MP] and lengths [B] for B = {b}, got "
+                         f"{tuple(block_tables.shape)} and {tuple(lengths.shape)}")
+    devices = {t.device for t in (q, k_pool, v_pool, block_tables, lengths)}
+    if len(devices) != 1:
+        raise ValueError(f"paged_attention operands on different devices: {devices}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def kernel_parts(b: int, nkv: int, max_pages: int, device: torch.device) -> int:
+    """Blocks per (row, kv head) for the CUDA kernel: whole table entries each, enough
+    to give every SM about two blocks (1 when B x nkv already does)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    parts = max(1, min(max_pages, 2 * _sm_count(index) // (b * nkv)))
+    per_part = -(-max_pages // parts)
+    return -(-max_pages // per_part)
+
+
+def _layer(pools: tuple, layer_idx) -> tuple:
+    """The layer's view of each stacked pool (no copy)."""
+    return tuple(None if p is None else p[int(layer_idx)] for p in pools)
+
+
+def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          block_tables: torch.Tensor, lengths: torch.Tensor,
+                          layer_idx=None, *, k_scale: torch.Tensor | None = None,
+                          v_scale: torch.Tensor | None = None, scale: float | None = None):
+    """Plain PyTorch version of the kernel: the JAX kernel's online softmax, one page of
+    every row per step, in plain torch ops -> (o [B, nkv, g, hd], m, l [B, nkv, g]) f32.
+
+    Row b takes pages j < ceil(len / BS) (pages past that leave its triple as it is);
+    keys at or past len score NEG_INF; for int8 pools the score is multiplied by the key's
+    scale after the dot and p by the value's scale before P.V. p = exp(s - m_new) against
+    the running max after the page, rounded to q's dtype before P.V while l adds it
+    unrounded. A row with len = 0 keeps o = 0, l = 0, m = NEG_INF."""
+    if k_pool.ndim == 5:
+        k_pool, v_pool, k_scale, v_scale = _layer((k_pool, v_pool, k_scale, v_scale), layer_idx)
+    quantized = k_pool.dtype == torch.int8
+    b, nkv, g, hd = q.shape
+    bs = k_pool.shape[1]
+    if scale is None:
+        scale = hd ** -0.5
+    qf = q.float()
+    lengths = lengths.long()
+    num_pages = (lengths + bs - 1) // bs
+    o = torch.zeros((b, nkv, g, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((b, nkv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, nkv, g), dtype=torch.float32, device=q.device)
+    keys = torch.arange(bs, device=q.device)
+    for j in range(block_tables.shape[1]):
+        live = (j < num_pages)[:, None, None]                          # [B, 1, 1]
+        page = torch.where(j < num_pages, block_tables[:, j].long(),
+                           torch.zeros_like(lengths)).clamp(min=0)
+        kj = k_pool[page].to(q.dtype).float()                          # [B, BS, nkv, hd]
+        vj = v_pool[page].to(q.dtype).float()
+        s = torch.einsum("bkgd,btkd->bkgt", qf, kj) * scale
+        if quantized:
+            s = s * k_scale[page].float().permute(0, 2, 1)[:, :, None, :]
+        visible = (j * bs + keys)[None, :] < lengths[:, None]          # [B, BS]
+        s = torch.where(visible[:, None, None, :], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        pv = p * v_scale[page].float().permute(0, 2, 1)[:, :, None, :] if quantized else p
+        upd = torch.einsum("bkgt,btkd->bkgd", pv.to(q.dtype).float(), vj)
+        o = torch.where(live[..., None], o * alpha[..., None] + upd, o)
+        l = torch.where(live, l * alpha + p.sum(dim=-1), l)
+        m = torch.where(live, m_new, m)
+    return o, m, l
+
+
+def paged_attention_reference(q, k_pool, v_pool, block_tables, lengths, layer_idx=None, *,
+                              k_scale=None, v_scale=None, scale: float | None = None):
+    """The JAX dense-gather reference (:266): every mapped page gathered at once, masked,
+    one softmax over the row; int8 pools dequantized up front. Same (o, m, l) contract,
+    but a row with len = 0 gets p = 1 on every masked key (its merged result is the same)."""
+    b, nkv, g, hd = q.shape
+    if k_pool.ndim == 5:
+        k_pool, v_pool, k_scale, v_scale = _layer((k_pool, v_pool, k_scale, v_scale), layer_idx)
+    if k_pool.dtype == torch.int8:
+        k_pool = k_pool.float() * k_scale[..., None]
+        v_pool = v_pool.float() * v_scale[..., None]
+    bs = k_pool.shape[1]
+    mp = block_tables.shape[1]
+    if scale is None:
+        scale = hd ** -0.5
+    idx = block_tables.long().clamp(min=0)
+    k_seq = k_pool[idx].reshape(b, mp * bs, nkv, hd).float()
+    v_seq = v_pool[idx].reshape(b, mp * bs, nkv, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", q.float(), k_seq) * scale
+    valid = torch.arange(mp * bs, device=q.device)[None] < lengths.long()[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return torch.einsum("bkgt,btkd->bkgd", p, v_seq), m, p.sum(dim=-1)
+
+
+def merge_current_token(q, k_cur, v_cur, o, m, l, *, scale: float | None = None):
+    """One more online-softmax step folding the current token's (k, v) into the paged
+    triple. q [B, nkv, g, hd], k_cur / v_cur [B, nkv, hd] -> normalized attention
+    [B, nkv, g, hd] f32."""
+    hd = q.shape[-1]
+    if scale is None:
+        scale = hd ** -0.5
+    s_c = torch.einsum("bkgd,bkd->bkg", q.float(), k_cur.float()) * scale
+    m2 = torch.maximum(m, s_c)
+    alpha = torch.exp(m - m2)
+    w_c = torch.exp(s_c - m2)
+    l2 = l * alpha + w_c
+    acc = o * alpha[..., None] + w_c[..., None] * v_cur[:, :, None, :].float()
+    return acc / l2.clamp(min=1e-30)[..., None]
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    block_tables: torch.Tensor, lengths: torch.Tensor, layer_idx=None, *,
+                    k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+                    scale: float | None = None):
+    """Decode attention over paged K/V for one layer -> (o, m, l), f32.
+
+    q [B, nkv, g, hd] (head h of the flat layout is (h // g, h % g)); pools either one
+    layer's [NB, BS, nkv, hd] or the stacked [L, NB, BS, nkv, hd] with ``layer_idx`` (an
+    int), in q's dtype, bf16 (values read as they are), or int8 with ``k_scale`` /
+    ``v_scale`` [(L,) NB, BS, nkv] f32;
+    block_tables [B, MP] int (-1 = unmapped); lengths [B] tokens already in pages (the
+    current token excluded). o is unnormalized: merge with ``merge_current_token`` or
+    divide by l. The kernel takes hd = 128 and g <= 8; the stacked pool is read in place
+    at the layer's offset, never sliced into a copy."""
+    _check(q, k_pool, v_pool, block_tables, lengths, layer_idx, k_scale, v_scale)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, block_tables, lengths, layer_idx,
+                                     k_scale=k_scale, v_scale=v_scale, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda (kernel) or cpu (plain), not {q.device}")
+    b, nkv, g, hd = q.shape
+    if hd != KERNEL_HEAD_DIM or g > KERNEL_MAX_GROUP:
+        raise ValueError(f"the CUDA kernel takes hd = {KERNEL_HEAD_DIM} and g <= "
+                         f"{KERNEL_MAX_GROUP}, got hd = {hd}, g = {g}")
+    quantized = k_pool.dtype == torch.int8
+    pools = [k_pool, v_pool] + ([k_scale, v_scale] if quantized else [])
+    if not all(p.is_contiguous() for p in pools):
+        raise ValueError("the pools (and scales) must be contiguous: they are read in place")
+    layer = int(layer_idx) if k_pool.ndim == 5 else 0
+    n_layers, nb, bs = (k_pool.shape[:3] if k_pool.ndim == 5 else (1, *k_pool.shape[:2]))
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} of a pool of {n_layers} layers")
+    lib = _build.load_library()   # builds csrc/*.cu on first use
+    q = q.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    mp = tables.shape[1]
+    parts = kernel_parts(b, nkv, mp, q.device)
+    o = torch.empty((b, nkv, g, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, nkv, g), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, nkv, g), dtype=torch.float32, device=q.device)
+    # a split launch's page maxima and per-part (o, m, l)
+    scratch = (torch.empty(b * nkv * g * (mp + parts * (hd + 2)), dtype=torch.float32,
+                           device=q.device) if parts > 1 else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        start = LAUNCHES.start(q.device)
+        err = lib.af_paged_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
+            tables.data_ptr(), lens.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[k_pool.dtype], b, nkv, g, hd, nb, bs, mp, layer, parts, float(scale),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed with CUDA error {err}")
+    LAUNCHES.record((b, nkv, g, hd, k_pool.dtype, mp), q.device, start,
+                    (q, k_pool, v_pool, tables, lens, layer, k_scale, v_scale, float(scale)))
+    return o, m, l

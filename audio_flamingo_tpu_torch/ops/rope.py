@@ -10,8 +10,8 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float = 1_000_00
     """[..., seq] int positions -> cos/sin tables [..., seq, head_dim] (halves duplicated)."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=positions.device), exponent)
+    # theta as a CPU scalar: no host-to-device copy (and no sync) in a decode step
+    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exponent)
     freqs = positions.float()[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return emb.cos().to(dtype), emb.sin().to(dtype)

@@ -15,9 +15,10 @@ from dataclasses import dataclass
 
 import torch
 
-from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config
+from audio_flamingo_tpu_torch.config import AF3Config
 from audio_flamingo_tpu_torch.models import af3, qwen2
-from audio_flamingo_tpu_torch.ops.sampling import SamplingParams, mask_eos, sample_token
+from audio_flamingo_tpu_torch.ops.sampling import (SamplingParams, apply_no_repeat_ngram,
+                                                   mask_eos, sample_token)
 
 
 @dataclass
@@ -68,12 +69,13 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
              generator: torch.Generator | None = None,
              prompt_len: int | None = None) -> GenerateOutput:
     """Token ids [B, T] (+ mels) -> GenerateOutput. capacity=0 rounds T + max_new_tokens
-    up to a multiple of 128. prompt_len: the true length of a right-padded prompt."""
+    up to a multiple of 128. prompt_len: the true length of a right-padded prompt.
+
+    ``sampling.no_repeat_ngram_size`` bans, at every step, the tokens that would complete
+    an n-gram of the exact prompt plus the tokens generated so far (the JAX loop's rule;
+    a right-padded prompt counts only its first ``prompt_len`` ids)."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
-    if sampling.no_repeat_ngram_size:
-        raise NotImplementedError(NOT_PORTED.format(
-            "no_repeat_ngram_size", "generate features of runtime/generate.py"))
     b, t = token_ids.shape
     device = token_ids.device
     if capacity == 0:
@@ -87,6 +89,12 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
     if sampling.repetition_penalty != 1.0:
         valid = torch.arange(t, device=device)[None] < true_len
         history = torch.where(valid, token_ids.long(), torch.full_like(token_ids.long(), -1))
+    ngram = sampling.no_repeat_ngram_size
+    if ngram > 0:
+        prompt_tokens = token_ids[:, :true_len].long()
+        logits = apply_no_repeat_ngram(
+            logits, torch.cat([prompt_tokens, torch.zeros((b, max_new_tokens), dtype=torch.long,
+                                                          device=device)], 1), true_len, ngram)
     if sampling.min_new_tokens >= 1:
         logits = mask_eos(logits, eos_token_id, torch.ones(b, dtype=torch.bool, device=device))
     tok = sample_token(logits, sampling, generator, token_history=history)
@@ -105,6 +113,9 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
             gen = torch.where(torch.arange(max_new_tokens, device=device)[None] <= step,
                               out, torch.full_like(out, -1))
             hist = torch.cat([history, gen], dim=1)
+        if ngram > 0:
+            logits = apply_no_repeat_ngram(logits, torch.cat([prompt_tokens, out], 1),
+                                           true_len + step + 1, ngram)
         if sampling.min_new_tokens > 0:
             logits = mask_eos(logits, eos_token_id,
                               torch.full((b,), step + 1 < sampling.min_new_tokens, device=device))

@@ -44,7 +44,29 @@ Phases, each line stamped with elapsed seconds:
         own K5 and K6 launches replayed against (and timed beside) the plain versions;
      c. (after phase 6) f32 int4 card against CPU: full width, 2 + 2 layers, the int4 LM
         quantized on the CPU and moved to the card; logits within 1e-4, greedy ids
-        token-exact and not all one token, through K2, K5 and K6.
+        token-exact and not all one token, through K2, K5 and K6;
+  8. the paged serving engine (runtime/paged_engine.PagedEngine), run after phase 7b on
+     the same bf16 model:
+     a. paged-attention decode (K3) against its plain version at the 7B shapes (q
+        [4,4,7,128], stacked pools [28,88,128,4,128], tables shuffled over the pool, rows
+        of 548, 3848, 1 and 0 tokens, a current token merged), q f32 over f32, bf16 and
+        int8 pools and q bf16 over bf16 and int8 pools, timed with its plain version and
+        bound at those rows and at the engine's mixed rows;
+     b. bench.py's mixed workload (3 x 500 and 3 x 3800 random ids, 48 greedy tokens
+        each, plus a 30 s clip through the processor) on PagedEngine with its settings (4
+        rows, 88 x 128-token pages, 32 pages per row, chunks of 16), with a bf16 and an
+        int8 pool, each after a warm-up instance: every request finishes, the pool comes
+        back, 28 K3 launches per decode step and no other attention inside decode, tok/s,
+        TTFT, K3 ms per step, pool bytes and peak memory; a second run gives the same ids,
+        replays the first chunk's K3 launches against the plain version, runs one chunk
+        under torch.cuda.set_sync_debug_mode("error") and bounds each chunk's temporaries;
+     c. prefix caching: two requests with one system prompt and clip; the second hits the
+        shared pages and skips the encoder; both TTFTs;
+     d. the int4 LM (quantized on the card as in 7b) with an int8 pool, 2 requests, twice:
+        per decode step 28 K3, 1 K5 and 28 + 28 K6 launches, identical ids;
+     e. (after 7c) f32 card against CPU, full width, 2 + 2 layers: three requests through
+        PagedEngine on both with f32 and int8 pools; ids token-exact and not all one
+        token, first-token logits within 1e-4, and on the card the ids of generate().
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -928,6 +950,557 @@ def f32_int4_card_vs_cpu_phase(fa, k5, k6) -> None:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+PAGED_F32_TOL = 1e-5                 # K3 f32: o/l to 1e-5 max|plain|; m, l to 1e-5 relative
+#                                      (m relative to max(|m|, 1))
+PAGED_BF16_TOL = (2.0 ** -7, 1e-3)   # K3 bf16: |o/l - plain| <= 2^-7 |plain| + 1e-3
+PAGED_NO_LIBRARY = ("none (no single PyTorch call computes it: SDPA over a gathered copy "
+                    "has no block table and returns no (o, m, l))")
+ENGINE = dict(num_rows=4, num_blocks=88, block_size=128, max_blocks_per_seq=32, chunk=16,
+              eos_token_id=151_645)    # bench.py:486-488, the JAX mixed-workload engine
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of fn alone: fn captured once in a CUDA graph, the replay timed with CUDA
+    events (median), so the host's launch overhead is left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps, 3)
+
+
+def paged_bound_ms(lengths, block: int, max_pages: int, q_shape, q_dtype, kv_dtype) -> tuple:
+    """Least time for one K3 launch on these lengths: the K and V rows of the keys below
+    each row's length (and their int8 scales), the table entries read, q, and the (o, m, l)
+    written, over the HBM rate, against 4 nkv g hd per visible key (QK and PV) at the q
+    dtype's peak. Keys past a row's length in its last page are masked and not counted."""
+    b, nkv, g, hd = q_shape
+    pages = sum(min(-(-int(n) // block), max_pages) for n in lengths)
+    keys = sum(min(int(n), max_pages * block) for n in lengths)
+    kv_item = torch.empty((), dtype=kv_dtype).element_size()
+    q_item = torch.empty((), dtype=q_dtype).element_size()
+    nbytes = (keys * nkv * hd * kv_item * 2
+              + (keys * nkv * 4 * 2 if kv_dtype == torch.int8 else 0)
+              + pages * 4 + b * 4 + b * nkv * g * hd * q_item + b * nkv * g * (hd + 2) * 4)
+    flops = 4.0 * nkv * g * hd * keys
+    t_ops = flops / PEAK_FLOPS[str(q_dtype).split(".")[-1]]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def paged_compare(pa, args: tuple, k_cur=None, v_cur=None) -> dict:
+    """One K3 launch against its plain version on the same inputs. f32: the normalized
+    output o/l within 1e-5 max|plain|, m and l within 1e-5 relative (m to max(|m|, 1),
+    since a row's max score can sit near 0); bf16: o/l per
+    element within 2^-7 |plain| + 1e-3, m and l as in f32. Rows with no key must give
+    exactly o = 0, l = 0, m = NEG_INF; with (k_cur, v_cur) the merged output is held to
+    the same limits on every row. ratio: the largest error over its limit (<= 1)."""
+    q, k, v, tables, lengths, layer, ks, vs, scale = args
+    o, m, l = pa.paged_attention(q, k, v, tables, lengths, layer, k_scale=ks, v_scale=vs,
+                                 scale=scale)
+    o_p, m_p, l_p = pa.paged_attention_plain(q, k, v, tables, lengths, layer, k_scale=ks,
+                                             v_scale=vs, scale=scale)
+    keys = l_p > 0
+
+    def held(x, ref):
+        diff = (x - ref).abs()
+        if q.dtype == torch.float32:
+            return diff.max().item(), diff.max().item() / (PAGED_F32_TOL * ref.abs().max().item()
+                                                             + 1e-30)
+        rel, floor = PAGED_BF16_TOL
+        return diff.max().item(), (diff / (rel * ref.abs() + floor)).max().item()
+
+    r = dict(o_err=(o - o_p).abs().max().item(), ratio=0.0, err=0.0)
+    if bool(keys.any()):
+        err, ratio = held((o / l.clamp(min=1e-30)[..., None])[keys],
+                          (o_p / l_p.clamp(min=1e-30)[..., None])[keys])
+        # m relative to max(|m|, 1): a row's max score can sit near 0 at O(1) scores
+        stat = max(((m - m_p).abs() / m_p.abs().clamp(min=1.0))[keys].max().item(),
+                   ((l - l_p).abs() / l_p.clamp(min=1e-30))[keys].max().item())
+        r.update(err=err, ratio=max(ratio, stat / PAGED_F32_TOL), stat=stat)
+    empty = ~keys
+    check(bool((o[empty] == 0).all() and (l[empty] == 0).all()
+               and (m[empty] == pa.NEG_INF).all()), "K3: a row with no key is not (0, NEG_INF, 0)")
+    if k_cur is not None:
+        merged = pa.merge_current_token(q, k_cur, v_cur, o, m, l, scale=scale)
+        merged_p = pa.merge_current_token(q, k_cur, v_cur, o_p, m_p, l_p, scale=scale)
+        err, ratio = held(merged, merged_p)
+        r.update(merged_err=err, ratio=max(r["ratio"], ratio))
+    return r
+
+
+def paged_kernel_phase(pa) -> dict:
+    """8a. K3 alone at the 7B shapes: q [4, 4, 7, 128], stacked pools [28, 88, 128, 4, 128]
+    with the layer chosen in the kernel, tables shuffled over pages 1..87 (0 is the trash
+    page); rows of {548, 3848, 1, 0} tokens (partial pages, a one-token row, an empty
+    row) held to the plain version at layers 0 and 27 with a current token merged, for
+    q f32 over f32, bf16 and int8 pools and q bf16 over bf16 and int8 pools; timed at
+    layer 5 on those rows and on the engine's mixed rows {548, 548, 3848, 3848}, beside the
+    same launch with one part per row (no page split)."""
+    n_layers, nb, block, nkv, g, hd, mp = 28, 88, 128, 4, 7, 128, 32
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    perm = (torch.randperm(nb - 1, generator=gen, device="cuda") + 1).int()
+
+    def tables_for(lengths):
+        t = torch.full((len(lengths), mp), -1, dtype=torch.int32, device="cuda")
+        ptr = 0
+        for row, n in enumerate(lengths):
+            pages = -(-n // block)
+            t[row, :pages] = perm[ptr:ptr + pages]
+            ptr += pages
+        return t, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+    shape = (n_layers, nb, block, nkv, hd)
+    kf = torch.randn(shape, generator=gen, device="cuda")
+    vf = torch.randn(shape, generator=gen, device="cuda")
+    k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.018 + 0.002
+    vs = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.018 + 0.002
+    q32 = torch.randn((4, nkv, g, hd), generator=gen, device="cuda")
+    k_cur = torch.randn((4, nkv, hd), generator=gen, device="cuda")
+    v_cur = torch.randn((4, nkv, hd), generator=gen, device="cuda")
+    shapes = {"check": [548, 3848, 1, 0], "mixed": [548, 548, 3848, 3848]}
+    results = {}
+    for q_dtype, kv_name in ((torch.float32, "float32"), (torch.float32, "bfloat16"),
+                             (torch.float32, "int8"), (torch.bfloat16, "bfloat16"),
+                             (torch.bfloat16, "int8")):
+        q = q32.to(q_dtype)
+        if kv_name == "int8":
+            pools = (k8, v8, ks, vs)
+        else:
+            dt = getattr(torch, kv_name)
+            pools = (kf.to(dt), vf.to(dt), None, None)
+        qn = str(q_dtype).split(".")[-1]
+        worst = dict(err=0.0, ratio=0.0, o_err=0.0)
+        tables, lengths = tables_for(shapes["check"])
+        for layer in (0, n_layers - 1):
+            args = (q, pools[0], pools[1], tables, lengths, layer, pools[2], pools[3], None)
+            r = paged_compare(pa, args, k_cur, v_cur)
+            check(r["ratio"] <= 1.0, f"K3 q {qn} pool {kv_name} layer {layer}: at "
+                                     f"{r['ratio']:.3f} of its limit")
+            for key in worst:
+                worst[key] = max(worst[key], r[key])
+        for name, lens in shapes.items():
+            tables, lengths = tables_for(lens)
+            args = (q, pools[0], pools[1], tables, lengths, 5, pools[2], pools[3], None)
+            call = lambda: pa.paged_attention(*args[:6], k_scale=args[6], v_scale=args[7])
+            plain = lambda: pa.paged_attention_plain(*args[:6], k_scale=args[6], v_scale=args[7])
+            r = dict(worst, ms=time_ms(call), plain_ms=time_ms(plain, 3, 1), library_ms=None,
+                     graph_ms=graph_ms(call))
+            split = pa.kernel_parts      # the same launch without the page split, beside it
+            pa.kernel_parts = lambda *a: 1
+            try:
+                r["one_part_ms"] = time_ms(call)
+            finally:
+                pa.kernel_parts = split
+            r["bound_ms"], r["bound_by"] = paged_bound_ms(lens, block, mp, tuple(q.shape),
+                                                          q_dtype, pools[0].dtype)
+            log(f"K3 q {qn:8s} pool {kv_name:8s} rows {lens}: max|o/l - plain| "
+                f"{r['err']:.3e} (at {r['ratio']:.3f} of its limit, merged rows included) "
+                f"ms={r['ms']:.4f} (the call; device alone, CUDA graph replay: "
+                f"{r['graph_ms']:.4f}; one part per row, no split: {r['one_part_ms']:.4f}) "
+                f"plain_ms={r['plain_ms']:.4f} library_ms={PAGED_NO_LIBRARY} "
+                f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); "
+                f"{r['bound_ms'] / r['ms'] * 100:.2f} % of the bound")
+            results[(qn, kv_name, name)] = r
+        del pools
+    del kf, vf, k8, v8, ks, vs
+    torch.cuda.empty_cache()
+    return results
+
+
+class ChunkProbe:
+    """Stands in for paged_engine.paged_decode_chunk while the engine runs: counts chunks
+    and the plain attention calls made inside them; on request it measures each chunk's
+    peak memory over what was allocated before it, runs one chunk under
+    torch.cuda.set_sync_debug_mode("error") (a host sync inside raises), and captures
+    one chunk's K3 launches and replays each against the plain version right after the
+    chunk (before any page can be reused)."""
+
+    def __init__(self, pe, qwen2, pa):
+        self.pe, self.pa, self.qwen2 = pe, pa, qwen2
+        self.real_chunk, self.real_gqa = pe.paged_decode_chunk, qwen2.gqa_attention
+        self.reset()
+
+    def reset(self, memory=False, sync_chunk=None, replay_chunk=None):
+        self.chunks, self.steps, self.gqa, self.gqa_in_chunks = 0, 0, 0, 0
+        self.memory, self.sync_chunk, self.replay_chunk = memory, sync_chunk, replay_chunk
+        self.mem_delta, self.replay = 0, None
+
+    def __enter__(self):
+        self.pe.paged_decode_chunk = self
+        self.qwen2.gqa_attention = self._gqa
+        return self
+
+    def __exit__(self, *exc):
+        self.pe.paged_decode_chunk = self.real_chunk
+        self.qwen2.gqa_attention = self.real_gqa
+
+    def _gqa(self, *a, **kw):
+        self.gqa += 1
+        return self.real_gqa(*a, **kw)
+
+    def __call__(self, *args, chunk: int, **kw):
+        index = self.chunks
+        self.chunks += 1
+        self.steps += chunk
+        gqa0 = self.gqa
+        counter = self.pa.LAUNCHES
+        # the captured chunk holds every launch's inputs, so its memory is not measured
+        memory = self.memory and index != self.replay_chunk
+        if memory:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        if index == self.replay_chunk:
+            ms0 = counter.device_ms()
+            counter.capture = True
+        if index == self.sync_chunk:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = self.real_chunk(*args, chunk=chunk, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if memory:
+            torch.cuda.synchronize()
+            self.mem_delta = max(self.mem_delta, torch.cuda.max_memory_allocated() - base)
+        self.gqa_in_chunks += self.gqa - gqa0
+        if index == self.replay_chunk:
+            counter.capture = False
+            launches = list(counter.inputs)
+            counter.inputs.clear()
+            self.replay = self._replay(launches, counter.device_ms() - ms0, chunk)
+        return out
+
+    def _replay(self, launches, path_ms: float, steps: int) -> dict:
+        counter = self.pa.LAUNCHES
+        timing, counter.timing = counter.timing, False
+        tot = dict(launches=len(launches), steps=steps, path_ms=path_ms, ms=0.0, err=0.0,
+                   ratio=0.0, o_err=0.0)
+        for args in launches:
+            r = paged_compare(self.pa, args)
+            check(r["ratio"] <= 1.0, f"main-path K3 launch: at {r['ratio']:.3f} of its limit")
+            for key in ("err", "ratio", "o_err"):
+                tot[key] = max(tot[key], r[key])
+            q, k, v, tables, lengths, layer, ks, vs, scale = args
+            kw = dict(k_scale=ks, v_scale=vs, scale=scale)
+            tot["ms"] += time_ms(lambda: self.pa.paged_attention(q, k, v, tables, lengths, layer,
+                                                                 **kw), 3, 1)
+        tot.update(launch_sums(self.pa, launches))
+        counter.timing = timing
+        return tot
+
+
+def launch_sums(pa, launches) -> dict:
+    """K3's plain version timed on each captured launch's inputs (one call each), and the
+    launches' bounds, summed: plain_ms, bound_ms, bound_by."""
+    tot, by = dict(plain_ms=0.0, bound_ms=0.0), set()
+    for q, k, v, tables, lengths, layer, ks, vs, scale in launches:
+        tot["plain_ms"] += time_ms(lambda: pa.paged_attention_plain(
+            q, k, v, tables, lengths, layer, k_scale=ks, v_scale=vs, scale=scale), 1, 0)
+        b_ms, b_by = paged_bound_ms(lengths.tolist(), k.shape[2], tables.shape[1],
+                                    tuple(q.shape), q.dtype, k.dtype)
+        tot["bound_ms"] += b_ms
+        by.add(b_by)
+    tot["bound_by"] = "operations" if by == {"operations"} else "bytes"
+    return tot
+
+
+def mixed_workload(model, wav) -> list:
+    """The JAX bench's mixed workload (bench.py:452-462): 3 prompts of 500 and 3 of 3800
+    random ids, interleaved, plus one request with a 30 s clip through the processor."""
+    rng = np.random.default_rng(0)
+    specs = []
+    for i in range(3):
+        specs.append((f"s{i}", rng.integers(0, 150_000, (1, 500)).astype(np.int32), None))
+        specs.append((f"l{i}", rng.integers(0, 150_000, (1, 3800)).astype(np.int32), None))
+    batch = model.processor(messages=[{"role": "user", "content": "<sound>What do you hear?"}],
+                            audios=[wav])
+    specs.append(("clip", np.asarray(batch["ids"], np.int32), batch["mels"]))
+    return specs
+
+
+def serve(engine, specs, max_new_tokens: int) -> tuple:
+    """Submit every request, run the engine to the end: (results, wall seconds)."""
+    from audio_flamingo_tpu_torch.runtime.engine import Request
+
+    for rid, ids, mels in specs:
+        engine.submit(Request(request_id=rid, ids=ids.copy(), mels=mels,
+                              max_new_tokens=max_new_tokens))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run_until_done()
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
+    """8b. The mixed workload on PagedEngine at full width (bf16 LM, random weights),
+    bench.py's engine settings, greedy, 48 tokens each: a warm-up instance, the measured
+    run (K2 and K3 launches counted from 0 and timed), a second run on a fresh engine
+    with the first chunk's K3 launches replayed against the plain version, the second
+    under sync-debug "error", and every chunk's peak memory over its start, and a third
+    whose every K3 launch is timed in the path and kept, so that the plain version's time
+    and the bound are summed over the same launches (kept inputs hold memory, so neither
+    the measured run nor the second keeps them all)."""
+    from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
+
+    lm_cfg = model.cfg.lm
+    name = "int8" if kv_dtype is torch.int8 else "bf16"
+    specs = mixed_workload(model, wav)
+    make = lambda: PagedEngine(model=model.model, cfg=model.cfg, kv_dtype=kv_dtype, **ENGINE)
+    serve(make(), specs[:2], 48)                               # warm-up instance
+    for c in (fa.LAUNCHES, pa.LAUNCHES):
+        c.reset()
+        c.timing = True
+    probe.reset()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make()
+    results, wall = serve(eng, specs, 48)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k3_ms, k2_ms = pa.LAUNCHES.device_ms(), fa.LAUNCHES.device_ms()
+    run = dict(wall=wall, tokens=sum(len(v) for v in results.values()), steps=probe.steps,
+               chunks=probe.chunks, k3=pa.LAUNCHES.count, k3_shapes=dict(pa.LAUNCHES.shapes),
+               k2=fa.LAUNCHES.count, k3_ms=k3_ms, k2_ms=k2_ms, gqa=probe.gqa_in_chunks,
+               ttft=sorted(m["ttft_s"] for m in eng.request_metrics.values()), peak=peak)
+    for c in (fa.LAUNCHES, pa.LAUNCHES):
+        c.timing = False
+    pool_bytes = sum(t.numel() * t.element_size() for t in
+                     (eng.cache.k, eng.cache.v, eng.cache.k_scale, eng.cache.v_scale)
+                     if t is not None)
+    check(set(results) == {rid for rid, _, _ in specs} and all(results.values()),
+          f"paged {name}: not every request finished: {sorted(results)}")
+    check(len(eng.allocator.free) == eng.num_blocks - 1, f"paged {name}: pool not released "
+                                                         f"({len(eng.allocator.free)} free)")
+    check(run["k3"] == lm_cfg.num_layers * run["steps"] and run["steps"] > 0,
+          f"paged {name}: {run['k3']} K3 launches for {run['steps']} decode steps")
+    check(run["gqa"] == 0, f"paged {name}: {run['gqa']} plain attention calls inside decode")
+    n_prefill = len(specs)
+    k2_want = lm_cfg.num_layers * n_prefill + model.cfg.encoder.num_layers
+    check(run["k2"] == k2_want, f"paged {name}: {run['k2']} K2 launches, not {k2_want} "
+                                "(28 per fresh prefill + 32 for the clip's window)")
+    med = statistics.median(run["ttft"])
+    log(f"paged {name} pool, mixed workload ({len(specs)} requests, 4 rows, 88 x 128-token "
+        f"pages): {run['tokens']} tokens in {wall:.3f} s = {run['tokens'] / wall:.1f} tok/s; "
+        f"TTFT median {med:.3f} s, max {run['ttft'][-1]:.3f} s (from submit); "
+        f"{run['chunks']} chunks, {run['steps']} decode steps; K3 {run['k3']} launches "
+        f"({run['k3'] / run['steps']:.0f} per step), {run['k3_ms']:.2f} ms = "
+        f"{run['k3_ms'] / run['steps']:.3f} ms per step; K2 {run['k2']} launches "
+        f"{run['k2_ms']:.1f} ms; plain attention calls in decode {run['gqa']}; pool "
+        f"{pool_bytes / 1e6:.1f} MB; peak GPU memory {peak:.2f} GiB")
+
+    probe.reset(memory=True, sync_chunk=1, replay_chunk=0)
+    pa.LAUNCHES.reset()
+    pa.LAUNCHES.timing = True
+    eng2 = make()
+    again, wall2 = serve(eng2, specs, 48)
+    pa.LAUNCHES.timing = False
+    pa.LAUNCHES.reset()
+    rep = probe.replay
+    check(again == results, f"paged {name}: greedy ids differ between two runs")
+    check(len(eng2.allocator.free) == eng2.num_blocks - 1, f"paged {name}: pool not released")
+    layer_bytes = pool_bytes // lm_cfg.num_layers
+    check(probe.mem_delta < layer_bytes, f"paged {name}: a decode chunk allocated "
+                                         f"{probe.mem_delta / 1e6:.1f} MB over its start, more "
+                                         f"than one layer's pool ({layer_bytes / 1e6:.1f} MB)")
+    log(f"paged {name}: second run identical ids ({wall2:.3f} s with the replay); a decode "
+        f"chunk's peak over its start {probe.mem_delta / 1e6:.2f} MB at most (chunks 1 on; "
+        f"one layer's pool "
+        f"{layer_bytes / 1e6:.1f} MB); chunk 1 ran under sync-debug 'error' without a host "
+        f"sync; chunk 0's {rep['launches']} K3 launches ({rep['steps']} steps) replayed: "
+        f"max|o/l - plain| {rep['err']:.3e} (at {rep['ratio']:.3f} of its limit); in the path "
+        f"{rep['path_ms']:.3f} ms = {rep['path_ms'] / rep['steps']:.3f} ms per step, replayed "
+        f"{rep['ms']:.3f} ms, plain {rep['plain_ms']:.3f} ms, bound {rep['bound_ms']:.4f} ms "
+        f"= {rep['bound_ms'] / rep['steps']:.4f} ms per step ({rep['bound_by']}), library "
+        f"{PAGED_NO_LIBRARY}")
+
+    probe.reset()
+    pa.LAUNCHES.reset()
+    pa.LAUNCHES.timing = pa.LAUNCHES.capture = True
+    third, _ = serve(make(), specs, 48)
+    pa.LAUNCHES.timing = pa.LAUNCHES.capture = False
+    full = dict(launches=pa.LAUNCHES.count, steps=probe.steps, ms=pa.LAUNCHES.device_ms())
+    check(third == results, f"paged {name}: greedy ids differ in the third run")
+    check(full["launches"] == lm_cfg.num_layers * full["steps"] == len(pa.LAUNCHES.inputs),
+          f"paged {name}: third run {full['launches']} K3 launches for {full['steps']} steps")
+    full.update(launch_sums(pa, pa.LAUNCHES.inputs))
+    pa.LAUNCHES.reset()
+    steps = full["steps"]
+    log(f"paged {name}: third run identical ids; all {full['launches']} K3 launches "
+        f"({steps} steps): in the path {full['ms']:.3f} ms = {full['ms'] / steps:.4f} ms per "
+        f"step, plain {full['plain_ms']:.3f} ms = {full['plain_ms'] / steps:.3f} ms per step "
+        f"(timed on each launch's inputs), bound {full['bound_ms']:.4f} ms = "
+        f"{full['bound_ms'] / steps:.5f} ms per step ({full['bound_by']}); "
+        f"{full['bound_ms'] / full['ms'] * 100:.2f} % of the bound")
+    del eng, eng2
+    return dict(run=run, replay=rep, full=full, pool_bytes=pool_bytes,
+                tps=run["tokens"] / wall)
+
+
+def prefix_phase(model, probe) -> None:
+    """8c. prefix_cache=True: two requests with the same system prompt and 30 s clip and
+    different questions, served one after the other; the second must hit the shared pages
+    (which cover every audio token) and skip the encoder."""
+    from audio_flamingo_tpu_torch.models import af3
+    from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
+
+    rng = np.random.default_rng(1)
+    t = np.arange(30 * 16000) / 16000.0
+    wav = (0.3 * np.sin(2 * np.pi * 330.0 * t) + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    block = ENGINE["block_size"]
+    sentence = "Listen to the whole clip, then describe the sound of the music and the speech. "
+
+    def batch(reps, question):
+        msgs = [{"role": "system", "content": "You are a careful listener."},
+                {"role": "user", "content": f"<sound>{sentence * reps}{question}"}]
+        return model.processor(messages=msgs, audios=[wav])
+
+    for reps in range(1, 64):   # shared ids must cover 8 full pages past the audio
+        a, b = batch(reps, "What do you hear?"), batch(reps, "Which instruments play?")
+        ia, ib = np.asarray(a["ids"][0]), np.asarray(b["ids"][0])
+        n = min(ia.size, ib.size)
+        common = int(np.argmax(ia[:n] != ib[:n])) if (ia[:n] != ib[:n]).any() else n
+        if common > 8 * block:
+            break
+    audio_end = int(np.nonzero(ib == model.cfg.audio_token_id)[0][-1])
+    check(audio_end < 8 * block < common, f"prefix workload: audio ends at {audio_end}, "
+                                          f"shared {common} tokens")
+    encoded = []
+    real = af3.encode_audio
+    af3.encode_audio = lambda *x: encoded.append(1) or real(*x)
+    try:
+        eng = PagedEngine(model=model.model, cfg=model.cfg, prefix_cache=True, **ENGINE)
+        probe.reset()
+        serve(eng, [("first", np.asarray(a["ids"], np.int32), a["mels"])], 16)
+        n_enc = len(encoded)
+        serve(eng, [("second", np.asarray(b["ids"], np.int32), b["mels"])], 16)
+    finally:
+        af3.encode_audio = real
+    ttft = [eng.request_metrics[r]["ttft_s"] for r in ("first", "second")]
+    log(f"prefix cache: prompts of {ia.size} and {ib.size} tokens sharing {common} (audio "
+        f"ends at {audio_end}); store hits {eng.store.hits} pages, misses "
+        f"{eng.store.misses}; encoder runs {n_enc} then {len(encoded) - n_enc}; TTFT first "
+        f"{ttft[0] * 1e3:.1f} ms, second (hit) {ttft[1] * 1e3:.1f} ms")
+    check(eng.store.hits > 0, "prefix cache: the second request did not hit")
+    check(n_enc == 1 and len(encoded) == 1, "prefix cache: the hit did not skip the encoder")
+    check(len(eng.allocator.free) + len(eng.store.entries) == eng.num_blocks - 1,
+          "prefix cache: pages lost")
+
+
+def int4_engine_phase(model, fa, pa, k5, k6, probe) -> None:
+    """8d. The same engine over the bf16 model's LM quantized to int4 on the card
+    (quantize_lm_params_w4, as phase 7b) with an int8 pool: 2 requests of 500 ids, 16
+    tokens each, twice; per decode step 28 K3, 1 K5 (layer 0's qkv) and 28 + 28 K6."""
+    from audio_flamingo_tpu_torch.models import af3, qwen2
+    from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
+    from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
+
+    qlm = qwen2.quantized_lm(quantize_lm_params_w4(model.model.lm.state_dict()),
+                             torch.bfloat16, "cuda")
+    m4 = af3.AF3Model(model.model.encoder, model.model.adaptor, qlm)
+    rng = np.random.default_rng(2)
+    specs = [(f"q{i}", rng.integers(0, 150_000, (1, 500)).astype(np.int32), None)
+             for i in range(2)]
+    counters = {"K3": pa.LAUNCHES, "K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A,
+                "K6B": k6.LAUNCHES_B}
+    runs = []
+    for _ in range(2):
+        for c in counters.values():
+            c.reset()
+        probe.reset()
+        eng = PagedEngine(model=m4, cfg=model.cfg, kv_dtype=torch.int8, **ENGINE)
+        results, wall = serve(eng, specs, 16)
+        counts = {n: c.count for n, c in counters.items()}
+        steps = probe.steps
+        log(f"int4 LM + int8 pool: {sum(len(v) for v in results.values())} tokens in "
+            f"{wall:.3f} s, {steps} decode steps; launches K3 {counts['K3']}, K5 "
+            f"{counts['K5']}, K6 A {counts['K6A']}, K6 B {counts['K6B']}")
+        n_layers = model.cfg.lm.num_layers
+        want = {"K3": n_layers * steps, "K5": steps, "K6A": n_layers * steps,
+                "K6B": n_layers * steps}
+        check(steps > 0 and counts == want, f"int4 engine launches {counts} != {want}")
+        check(len(eng.allocator.free) == eng.num_blocks - 1, "int4 engine: pool not released")
+        runs.append(results)
+    check(runs[0] == runs[1], "int4 engine: greedy ids differ between two runs")
+    del qlm, m4
+
+
+def f32_engine_card_vs_cpu_phase(pa) -> None:
+    """8e. f32, full width, 2 encoder + 2 LM layers, the same weights on the card and on
+    the CPU: three requests (two text prompts and the 30 s clip) through PagedEngine on
+    both, with f32 and with int8 pools. Greedy ids token-exact and, for each request, not
+    all one token; first-token logits within 1e-4; and on the card the same ids as
+    generate(). The clip's chat prompt ends in 8 random ids: with random weights and the
+    template's fixed ending, its greedy ids were one token repeated, which would make
+    their comparison nearly empty."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+    from audio_flamingo_tpu_torch.runtime import paged_engine as pe
+
+    full = AF3Config()
+    cfg = with_flash(dataclasses.replace(
+        full, encoder=dataclasses.replace(full.encoder, num_layers=2),
+        lm=dataclasses.replace(full.lm, num_layers=2)), True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    real_emit = pe._emit_first_token
+    try:
+        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        card = AudioFlamingo.from_state_dict(cpu.cfg, cpu.model.state_dict(),
+                                             cpu.processor.tokenizer, torch.float32,
+                                             device="cuda")
+        rng = np.random.default_rng(3)
+        t = np.arange(30 * 16000) / 16000.0
+        wav = (0.3 * np.sin(2 * np.pi * 440.0 * t)
+               + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+        msgs = [{"role": "user", "content": "<sound>What do you hear?"}]
+        text = [rng.integers(0, 150_000, (1, n)).astype(np.int32) for n in (60, 100, 8)]
+
+        def specs(m):
+            b = m.processor(messages=msgs, audios=[wav])
+            clip = np.concatenate([np.asarray(b["ids"], np.int32), text[2]], axis=1)
+            return [("t0", text[0], None), ("t1", text[1], None), ("clip", clip, b["mels"])]
+
+        engine_cfg = dict(num_rows=4, num_blocks=32, block_size=128, max_blocks_per_seq=16,
+                          chunk=8, eos_token_id=card.eos_token_id)
+        for kv_dtype in (None, torch.int8):
+            out, first = {}, {}
+            for where, m in (("cpu", cpu), ("card", card)):
+                first[where] = {}
+                pe._emit_first_token = (lambda e, r, lg, where=where: first[where].__setitem__(
+                    r.request_id, lg.float().cpu()) or real_emit(e, r, lg))
+                pa.LAUNCHES.reset()
+                eng = pe.PagedEngine(model=m.model, cfg=m.cfg, kv_dtype=kv_dtype,
+                                     device=where if where == "cpu" else None, **engine_cfg)
+                out[where], _ = serve(eng, specs(m), 8)
+                if where == "card":
+                    check(pa.LAUNCHES.count > 0, "f32 engine on the card made no K3 launch")
+            err = max((first["card"][r] - first["cpu"][r]).abs().max().item() for r in first["cpu"])
+            name = "int8" if kv_dtype is torch.int8 else "f32"
+            log(f"f32 engine card vs CPU, {name} pool (2 + 2 layers, full width): ids card "
+                f"{out['card']} CPU {out['cpu']}; first-token logits max|card - CPU| {err:.3e} "
+                f"(limit {LOGITS_TOL})")
+            check(out["card"] == out["cpu"], f"f32 engine ids differ card vs CPU ({name} pool)")
+            for rid, v in out["card"].items():
+                check(len(set(v)) > 1, f"f32 engine {rid} ids are all one token ({name} pool)")
+            check(err <= LOGITS_TOL, f"f32 engine first-token logits card vs CPU {err}")
+            if kv_dtype is None:
+                for rid, ids, mels in specs(card):
+                    g = gen.generate(card.model, card.cfg, torch.as_tensor(ids, device="cuda").long(),
+                                     mels, max_new_tokens=8, eos_token_id=card.eos_token_id)
+                    want = g.tokens[0, : int(g.lengths[0])].tolist()
+                    n = min(len(want), len(out["card"][rid]))
+                    check(n >= 1 and out["card"][rid][:n] == want[:n],
+                          f"f32 engine {rid} != generate: {out['card'][rid]} vs {want}")
+                log("f32 engine on the card: every request's ids equal generate()'s")
+    finally:
+        pe._emit_first_token = real_emit
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def timed_generate(model, **kw) -> tuple:
     """One AudioFlamingo.generate call timed from its start: (text, wall seconds, and a
     line splitting it into the processor's share, ttft_s, their sum (the TTFT a user
@@ -958,6 +1531,7 @@ def main() -> int:
     from audio_flamingo_tpu_torch.ops.kernels import _build
     from audio_flamingo_tpu_torch.ops.kernels import flash_attention as fa
     from audio_flamingo_tpu_torch.ops.kernels import log_mel as lm
+    from audio_flamingo_tpu_torch.ops.kernels import paged_attention as pa
     from audio_flamingo_tpu_torch.ops.kernels import w4_suffix as k6
     from audio_flamingo_tpu_torch.ops.kernels import w4a16_matmul as k5
 
@@ -1061,6 +1635,17 @@ def main() -> int:
 
     # 7a, 7b. the int4 LM: kernels at the 7B shapes, then the 30 s path through K5 and K6
     w4 = int4_path_phase(model, fa, k5, k6, wav, runs[0][1].first_logits)
+
+    # 8a-8d. the paged serving engine: K3 alone, the mixed workload, prefix cache, int4
+    from audio_flamingo_tpu_torch.models import qwen2 as qwen2_mod
+    from audio_flamingo_tpu_torch.runtime import paged_engine as pe_mod
+
+    paged_k = paged_kernel_phase(pa)
+    with ChunkProbe(pe_mod, qwen2_mod, pa) as probe:
+        paged = {name: paged_engine_phase(model, fa, pa, probe, wav, dt)
+                 for name, dt in (("bf16", None), ("int8", torch.int8))}
+        prefix_phase(model, probe)
+        int4_engine_phase(model, fa, pa, k5, k6, probe)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1069,6 +1654,8 @@ def main() -> int:
     f32_card_vs_cpu_phase(fa, lm)
     # 7c. f32 int4 card against CPU
     f32_int4_card_vs_cpu_phase(fa, k5, k6)
+    # 8e. f32 paged engine card against CPU
+    f32_engine_card_vs_cpu_phase(pa)
 
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
@@ -1139,6 +1726,30 @@ def main() -> int:
             "bound_by": k6_path["bound_by"],
             "library_ms": None,
         })
+    full = paged["bf16"]["full"]
+    kernels.append({
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "audio_flamingo_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "audio_flamingo_tpu/ops/pallas/paged_attention.py:116",
+        "launches": full["launches"],
+        "max_abs_err": max([r["err"] for r in paged_k.values()]
+                           + [p["replay"]["err"] for p in paged.values()]),
+        "ms": full["ms"],
+        "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"],
+        "bound_by": full["bound_by"],
+        "library_ms": None,
+    })
+    for name, p in paged.items():
+        r, f = p["run"], p["full"]
+        log(f"paged engine, {name} pool: {p['tps']:.1f} tok/s, TTFT median "
+            f"{statistics.median(r['ttft']):.3f} s max {r['ttft'][-1]:.3f} s, K3 "
+            f"{r['k3_ms'] / r['steps']:.3f} ms per decode step; over the third run's "
+            f"{f['launches']} launches K3 {f['ms'] / f['steps']:.3f} ms per step against a "
+            f"bound of {f['bound_ms'] / f['steps']:.5f} ms and a plain "
+            f"{f['plain_ms'] / f['steps']:.3f} ms; pool {p['pool_bytes'] / 1e6:.1f} MB, "
+            f"peak {r['peak']:.2f} GiB")
     log("kernel line: flash_attention_fwd per warm 30 s generate: ms = the 60 launches' device "
         "time inside generate #2 (CUDA events around each launch); plain_ms, library_ms = the "
         "plain version and SDPA timed on each launch's captured inputs, summed; bound_ms = "
@@ -1150,7 +1761,11 @@ def main() -> int:
         "(torch._weight_int4pack_mm on the same codes) timed on each launch's captured "
         "inputs, summed; the suffixes' plain_ms = the plain version timed on every launch's "
         "captured inputs (median of 3), summed; their library_ms null: no single PyTorch "
-        "call computes a fused suffix")
+        "call computes a fused suffix. paged_attention: over every K3 launch of the third "
+        "bf16-pool mixed-workload run: launches = their count, ms = their device time in the "
+        "path, plain_ms = the plain version timed on each launch's captured inputs, summed, "
+        "bound_ms = summed per-launch bounds (keys below each row's length); max_abs_err = the largest |o/l - plain| of phase 8a and the "
+        "replays; library_ms null: " + PAGED_NO_LIBRARY)
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")

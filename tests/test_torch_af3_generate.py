@@ -189,10 +189,15 @@ def test_jax_api_arguments_run_at_default_and_raise_otherwise(models, tmp_path):
     want = tm.last_output.tokens.clone()
     tm.generate(prompt="x", max_new_tokens=2)
     assert torch.equal(tm.last_output.tokens, want)
-    for kw in (dict(length_penalty=0.5), dict(early_stopping=True),
-               dict(sampling=ts.SamplingParams(no_repeat_ngram_size=3))):
+    for kw in (dict(length_penalty=0.5), dict(early_stopping=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.generate(prompt="x", max_new_tokens=2, **kw)
+    # the n-gram ban is ported: with n = 1 no generated token repeats a prompt or
+    # generated token (its parity with JAX is in test_torch_row_sampling.py)
+    tm.generate(prompt="x", max_new_tokens=6, sampling=ts.SamplingParams(no_repeat_ngram_size=1))
+    out = tm.last_output.tokens[0, : int(tm.last_output.lengths[0])].tolist()
+    prompt_ids = tm.processor(messages=[{"role": "user", "content": "x"}])["ids"][0].tolist()
+    assert len(set(out)) == len(out) and not set(out) & set(prompt_ids)
     for kw in (dict(a8_prefill=True), dict(a8_encoder=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.load(str(tmp_path), device="cpu", **kw)
