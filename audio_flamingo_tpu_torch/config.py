@@ -40,6 +40,7 @@ class WhisperEncoderConfig:
     activation: str = "gelu"          # "gelu" (exact) or "relu"
     use_flash: bool = False           # flash-attention kernel; plain attention otherwise
     pool_stride: int = 2              # AvgPool after the stack, before ln_post
+    remat: str = "none"               # activation recompute per layer (ops/remat.py)
 
     @property
     def head_dim(self) -> int:
@@ -65,6 +66,7 @@ class Qwen2Config:
     # layer i slides iff sliding_window is set and i >= max_window_layers
     max_window_layers: int = 0
     use_flash: bool = False           # flash-attention kernel for fresh multi-token prefill
+    remat: str = "none"               # activation recompute per layer, cache-free forward only
 
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.hidden_size // self.num_heads

@@ -4,6 +4,11 @@ as ``audio_flamingo_tpu/models/af3.py``.
 Audio embeddings replace the ``<sound>`` placeholder embeddings in order (the processor
 has already expanded each placeholder to windows x 750 copies). The scatter is the JAX
 package's cumsum-gather: the j-th placeholder of a row takes that row's j-th audio token.
+
+``logits`` is the serving callers' forward (under inference mode). Training goes through
+``loss_terms`` / ``loss``: the same forward with autograd on, the shifted cross-entropy
+over label positions >= 0, dense or unembedded ``ce_chunk`` tokens at a time under full
+recompute.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from torch import nn
 
 from audio_flamingo_tpu_torch.config import AF3Config
 from audio_flamingo_tpu_torch.models import adaptor, qwen2, whisper_encoder
+from audio_flamingo_tpu_torch.ops.remat import remat_wrap
 
 
 class AF3Model(nn.Module):
@@ -79,12 +85,76 @@ def build_input_embeds(model: AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
     return scatter_audio_embeds(embeds, token_ids, audio, cfg.audio_token_id)
 
 
+def hidden_states(model: AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
+                  mels: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence forward to the LM's final-normed hidden states [B, T, d]."""
+    b, t = token_ids.shape
+    x = build_input_embeds(model, cfg, token_ids, mels)
+    pos = torch.arange(t, device=token_ids.device)[None].expand(b, t)
+    return qwen2.forward(model.lm, cfg.lm, x, pos)[0]
+
+
 @torch.inference_mode()
 def logits(model: AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
            mels: torch.Tensor | None = None) -> torch.Tensor:
     """Full-sequence forward: [B, T] (+ mels) -> [B, T, vocab] f32."""
-    b, t = token_ids.shape
-    x = build_input_embeds(model, cfg, token_ids, mels)
-    pos = torch.arange(t, device=token_ids.device)[None].expand(b, t)
-    h, _ = qwen2.forward(model.lm, cfg.lm, x, pos)
-    return qwen2.unembed(model.lm, h)
+    return qwen2.unembed(model.lm, hidden_states(model, cfg, token_ids, mels))
+
+
+def _ce_terms(lg: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of -log p(label), count) over the positions with a label >= 0."""
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(lg, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum(), valid.sum()
+
+
+def _shifted_ce_terms(lg: torch.Tensor, labels: torch.Tensor):
+    """Unnormalized shifted-CE terms (nll_sum, valid_token_count): position t predicts
+    label t + 1. Gradient accumulation divides by the GLOBAL count (train_step)."""
+    return _ce_terms(lg[:, :-1], labels[:, 1:])
+
+
+def _chunked_ce_terms(model: AF3Model, h: torch.Tensor, labels: torch.Tensor,
+                      ce_chunk: int):
+    """Shifted-CE terms from hidden states, unembedding ``ce_chunk`` tokens at a time;
+    each chunk's unembed and log-softmax run under full recompute, so the backward holds
+    one chunk's [B, ce_chunk, V] logits at a time (JAX models/af3.py:129-172). The tail
+    is padded with -100 labels."""
+    hs, ls = h[:, :-1], labels[:, 1:]
+    pad = (-hs.shape[1]) % ce_chunk
+    if pad:
+        hs = torch.nn.functional.pad(hs, (0, 0, 0, pad))
+        ls = torch.nn.functional.pad(ls, (0, pad), value=-100)
+
+    def body(hc, lc):
+        return _ce_terms(qwen2.unembed(model.lm, hc), lc)
+
+    body = remat_wrap(body, "full")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.long, device=h.device)
+    for c0 in range(0, hs.shape[1], ce_chunk):
+        s, c = body(hs[:, c0:c0 + ce_chunk], ls[:, c0:c0 + ce_chunk])
+        total = total + s
+        count = count + c
+    return total, count
+
+
+def loss_terms(model: AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
+               labels: torch.Tensor, mels: torch.Tensor | None = None, ce_chunk: int = 0):
+    """Unnormalized (nll_sum, valid_count) of the shifted CE, differentiable in the hot
+    weights. ce_chunk > 0: the memory-efficient chunked CE (see _chunked_ce_terms)."""
+    h = hidden_states(model, cfg, token_ids, mels)
+    if ce_chunk <= 0:
+        return _shifted_ce_terms(qwen2.unembed(model.lm, h), labels)
+    return _chunked_ce_terms(model, h, labels, ce_chunk)
+
+
+def loss(model: AF3Model, cfg: AF3Config, token_ids: torch.Tensor, labels: torch.Tensor,
+         mels: torch.Tensor | None = None, ce_chunk: int = 0) -> torch.Tensor:
+    """Mean shifted CE over label positions >= 0 (prompt and audio positions carry -100),
+    as [hf] modeling_qwen2_audio.py:853-866."""
+    s, c = loss_terms(model, cfg, token_ids, labels, mels, ce_chunk=ce_chunk)
+    return s / c.clamp(min=1)

@@ -38,8 +38,9 @@ from audio_flamingo_tpu_torch.ops.kernels.w4_suffix import (suffix_supported, w4
                                                             w4_suffix_b)
 from audio_flamingo_tpu_torch.ops.mlp import swiglu_mlp
 from audio_flamingo_tpu_torch.ops.norms import Norm, rms_norm
-from audio_flamingo_tpu_torch.ops.quant import int8_mm, q_matmul
+from audio_flamingo_tpu_torch.ops.quant import mm_f32, q_matmul
 from audio_flamingo_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_stacked
+from audio_flamingo_tpu_torch.ops.remat import remat_wrap
 from audio_flamingo_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 
@@ -273,8 +274,9 @@ def unembed(lm, hidden: torch.Tensor) -> torch.Tensor:
     A bf16 head on the card is multiplied as it is, accumulating and writing f32, so no
     f32 copy of the [vocab, d] head is made per step. bf16 products are exact in f32, so
     this is the reference's upcast-then-multiply up to the order of the sums. An int8
-    head (or tied int8 embedding) goes through ``int8_mm`` the same way and is then
-    scaled; an int4 head through ``q4_matmul`` on the f32 hidden state, as in JAX."""
+    head (or tied int8 embedding) goes through ``mm_f32`` the same way and is then
+    scaled; an int4 head through ``q4_matmul`` on the f32 hidden state, as in JAX. The
+    float and int8 heads pass gradients to ``hidden``."""
     if isinstance(lm, QuantQwen2):
         h = hidden.reshape(-1, hidden.shape[-1])
         tied = "lm_head" not in lm
@@ -282,13 +284,10 @@ def unembed(lm, hidden: torch.Tensor) -> torch.Tensor:
         if "w_p" in head:
             logits = q4_matmul(h.float(), head).float()
         else:
-            logits = int8_mm(h, head["w_q"].t() if tied else head["w_q"]) * head["scale"].float()
+            logits = mm_f32(h, head["w_q"].t() if tied else head["w_q"]) * head["scale"].float()
         return logits.reshape(*hidden.shape[:-1], logits.shape[-1])
     head = lm.embed_tokens if lm.lm_head is None else lm.lm_head
-    if head.device.type != "cuda" or head.dtype == torch.float32 or hidden.dtype != head.dtype:
-        return F.linear(hidden.float(), head.float())
-    h = hidden.reshape(-1, hidden.shape[-1])
-    logits = torch.mm(h, head.t(), out_dtype=torch.float32)
+    logits = mm_f32(hidden.reshape(-1, hidden.shape[-1]), head.t())
     return logits.reshape(*hidden.shape[:-1], head.shape[0])
 
 
@@ -398,10 +397,12 @@ def forward(lm: Qwen2 | QuantQwen2, cfg: Qwen2Config, embeds: torch.Tensor,
     if (stacked is not None and cache is not None and s == 1 and b <= 8 and not sliding
             and suffix_supported(stacked, cfg)):
         return _forward_w4_suffix(lm, cfg, embeds, cache, mask, cos, sin, stacked)
+    # the cache-free forward is the training path: each layer under cfg.remat
+    layer_fn = _layer_forward if cache is not None else remat_wrap(_layer_forward, cfg.remat)
     x = embeds
     for i in range(cfg.num_layers):
         layer_mask = sw_mask if sliding and i >= cfg.max_window_layers else mask
-        x = _layer_forward(x, lm, i, cfg, cos, sin, layer_mask, cache, flash_ok)
+        x = layer_fn(x, lm, i, cfg, cos, sin, layer_mask, cache, flash_ok)
     if cache is not None:
         cache.index += s
     final = lm.ln_f_w if quantized else lm.norm.weight

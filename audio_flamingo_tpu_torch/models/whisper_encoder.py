@@ -5,7 +5,9 @@ Conv stem (k=3, strides 1 and 2, exact GELU), sinusoid positions, pre-norm layer
 q pre-scaled after its bias and a bias-free k, strictly 3000 mel frames per window,
 then AvgPool (stride 2) BEFORE the final LayerNorm. Each 30 s window is a batch row.
 Attention goes to the flash-attention kernel (scale=1.0, q is pre-scaled) when
-``cfg.use_flash`` is set, to plain ``gqa_attention`` otherwise.
+``cfg.use_flash`` is set, to plain ``gqa_attention`` otherwise. Each layer runs under
+``remat_wrap(..., cfg.remat)`` (ops/remat.py), and nothing on the path writes in place,
+so the stack is differentiable end to end (flash through its backward kernel).
 
 ``WhisperEncoder`` holds the weights in torch layouts (Linear [out, in], Conv1d
 [out, in, k]); ``apply`` runs them under a config, as the JAX ``apply`` does, in the
@@ -26,6 +28,7 @@ from audio_flamingo_tpu_torch.ops.attention import gqa_attention
 from audio_flamingo_tpu_torch.ops.kernels.flash_attention import flash_attention
 from audio_flamingo_tpu_torch.ops.mlp import gelu_mlp
 from audio_flamingo_tpu_torch.ops.norms import Norm, layer_norm
+from audio_flamingo_tpu_torch.ops.remat import remat_wrap
 
 
 def sinusoid_positions(length: int, channels: int, max_timescale: float = 10_000.0) -> np.ndarray:
@@ -121,7 +124,8 @@ def apply(enc: WhisperEncoder, cfg: WhisperEncoderConfig, mels: torch.Tensor) ->
     x = F.gelu(F.conv1d(x, enc.conv1.weight, padding=1) + enc.conv1.bias[:, None])
     x = F.gelu(F.conv1d(x, enc.conv2.weight, stride=2, padding=1) + enc.conv2.bias[:, None])
     x = x.transpose(1, 2) + enc.embed_positions[None]
+    layer_fn = remat_wrap(lambda h, layer: _layer_forward(h, layer, cfg), cfg.remat)
     for layer in enc.layers:
-        x = _layer_forward(x, layer, cfg)
+        x = layer_fn(x, layer)
     x = pool_output(x, cfg.pool_stride)
     return layer_norm(x, enc.layer_norm.weight, enc.layer_norm.bias)

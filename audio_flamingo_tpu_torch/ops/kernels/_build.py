@@ -89,6 +89,10 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i32
         fn.argtypes = ([ptr] * 5 + [i32] * 7 + [i64] * 12
                        + [ctypes.c_float, i32, i32, ptr])
+        fn = lib.af_flash_attention_bwd
+        fn.restype = i32
+        fn.argtypes = ([ptr] * 9 + [i32] * 7 + [i64] * 21
+                       + [ctypes.c_float, i32, i32, ptr])
         fn = lib.af_log_mel_power
         fn.restype = i32
         fn.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]

@@ -1,13 +1,18 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain PyTorch version.
+"""Flash attention: the hand-written Hopper kernels (forward K2, backward K7) and their
+plain PyTorch versions.
 
-Replaces the Pallas TPU kernel ``audio_flamingo_tpu/ops/pallas/flash_attention.py``
-(``_flash_forward`` :258, kernel ``_flash_kernel`` :63, reached from ``flash_attention``
-and ``flash_attention_lse``). The CUDA source is ``csrc/flash_attention.cu``; its header
-states the kernel's design, what bounds it on the H100 (bf16 tensor-core FLOPs at the
-main-path shapes) and what the simple design leaves on the table.
+Replaces the Pallas TPU kernels of ``audio_flamingo_tpu/ops/pallas/flash_attention.py``:
+the forward ``_flash_forward`` :258 (kernel ``_flash_kernel`` :63) and the backward
+``_flash_backward`` :431 (kernels ``_flash_bwd_dkv_kernel`` :343, ``_flash_bwd_dq_kernel``
+:390), reached from ``flash_attention`` and ``flash_attention_lse``. The CUDA sources are
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``; their headers state each
+kernel's design, what bounds it on the H100 and what the simple design leaves undone.
 
-Dispatch is by the tensors' device: a CPU tensor goes to ``flash_attention_reference``;
-a CUDA tensor launches the kernel or raises. There is no fallback between the two.
+Both public functions are differentiable (a ``torch.autograd.Function``, as JAX's
+``custom_vjp``): ``flash_attention`` in o, ``flash_attention_lse`` in o and the LSE.
+Dispatch is by the tensors' device: a CPU tensor goes to the plain versions
+(``flash_attention_reference``, ``flash_attention_backward_reference``); a CUDA tensor
+launches the kernel or raises. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ KERNEL_HEAD_DIMS = (64, 128)
 KV_TILE = 64   # keys per K/V tile of the online softmax (csrc/flash_attention.cu kBK)
 
 
-LAUNCHES = LaunchCounter()   # key: (q shape, k shape, causal); inputs: (q, k, v, kwargs)
+LAUNCHES = LaunchCounter()       # K2; key: (q shape, k shape, causal); inputs: (q, k, v, kwargs)
+BWD_LAUNCHES = LaunchCounter()   # K7; key and inputs: as LAUNCHES, inputs (q, k, v, o, lse, do, g_lse, kwargs)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -92,27 +98,63 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, tq, h, d).to(q.dtype), lse
 
 
-def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = False, scale: float | None = None,
-                        q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """q [B,Tq,H,D], k/v [B,Tk,Hkv,D] -> (o [B,Tq,H,D], lse [B,Tq,H] f32).
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+        do: torch.Tensor, g_lse: torch.Tensor | None = None, *, causal: bool, scale: float,
+        q_offset: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: (dq, dk, dv) in the input dtype.
 
-    f32 or bf16 inputs; the kernel takes head dims 64 and 128. The numerics, including
-    the convention for a row with no visible key (o = 0, lse = -inf), are those of
-    ``flash_attention_reference``."""
-    _check(q, k, v)
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+    The JAX ``_flash_backward`` (flash_attention.py:431-527) step for step: dO rounded
+    to the input dtype; delta = sum(dO * O) in f32, shifted by the LSE cotangent
+    (delta - g_lse); p = exp(s * scale - lse) with p = 0 for causal pairs past the
+    frontier; pc = p in the input dtype feeds dV, ds = p (dp - delta) in the input dtype
+    feeds dK and dQ (times scale); products accumulate in f32, and dK and dV are summed
+    over each KV head's group of query heads in f32 before the cast. A row with no
+    visible key (lse = -inf, the forward's convention) gets p = 0, so zero gradient:
+    exp(s - lse) is never formed for it."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    dtype = q.dtype
+    do = do.to(dtype)
+    delta = (do.float() * o.float()).sum(dim=-1)                  # [b, q, h]
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    qg = q.float().reshape(b, tq, hkv, g, d)
+    dog = do.float().reshape(b, tq, hkv, g, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    if causal:
+        rows = torch.arange(tq, device=q.device)[:, None] + q_offset
+        s = s.masked_fill(torch.arange(tk, device=q.device)[None, :] > rows, float("-inf"))
+    lse_g = lse.float().reshape(b, tq, hkv, g).permute(0, 2, 3, 1)[..., None]
+    lse_g = torch.where(torch.isneginf(lse_g), torch.full_like(lse_g, float("inf")), lse_g)
+    p = torch.exp(s - lse_g)                                      # [b, kv, g, q, s]
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p.to(dtype).float(), dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    delta_g = delta.reshape(b, tq, hkv, g).permute(0, 2, 3, 1)[..., None]
+    ds = (p * (dp - delta_g)).to(dtype).float()
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    return dq.reshape(b, tq, h, d).to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def _device_check(q: torch.Tensor, name: str) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda (kernel) or cpu (reference), not {q.device}")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, got "
+                         f"{q.shape[-1]}")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float,
+             q_offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 on a CUDA tensor, the plain version on a CPU one."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, scale=scale,
                                          q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda (kernel) or cpu (reference), "
-                         f"not {q.device}")
+    _device_check(q, "flash_attention")
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, got {d}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q/k/v must be contiguous in the head dim")
     lib = _build.load_library()   # builds csrc/*.cu on first use
@@ -135,6 +177,89 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     LAUNCHES.record((tuple(q.shape), tuple(k.shape), kw["causal"]), q.device, start,
                     (q, k, v, kw))
     return o, lse
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                             g_lse: torch.Tensor | None = None, *, causal: bool,
+                             scale: float, q_offset: int
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the forward's (o, lse) under the cotangents do (and g_lse, the
+    LSE's, or None): K7 on a CUDA tensor, ``flash_attention_backward_reference`` on a
+    CPU one. delta = sum(dO * O) - g_lse is formed here with torch ops in f32, as JAX
+    forms it in XLA outside its kernels; K7 does the rest in two launches."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do, g_lse, causal=causal,
+                                                  scale=scale, q_offset=q_offset)
+    _device_check(q, "flash_attention backward")
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1:       # an expanded cotangent (the grad of a sum) has stride 0
+        do = do.contiguous()
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("q/k/v must be contiguous in the head dim")
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    delta = delta.contiguous()
+    lse = lse.contiguous()
+    lib = _build.load_library()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, tk, hkv, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, tk, hkv, d), dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        start = BWD_LAUNCHES.start(q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.af_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, tq, tk, h, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            float(scale), int(bool(causal)), int(q_offset), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed with CUDA "
+                           f"error {err}")
+    kw = dict(causal=bool(causal), scale=float(scale), q_offset=int(q_offset))
+    BWD_LAUNCHES.record((tuple(q.shape), tuple(k.shape), kw["causal"]), q.device, start,
+                        (q, k, v, o, lse, do, g_lse, kw))
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(o, lse) = flash(q, k, v); the backward takes the cotangents of both outputs
+    (either may be None: a caller that uses only o passes no LSE cotangent)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset):
+        o, lse = _forward(q, k, v, causal, scale, q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = dict(causal=causal, scale=scale, q_offset=q_offset)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, g_lse, **ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = False, scale: float | None = None,
+                        q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """q [B,Tq,H,D], k/v [B,Tk,Hkv,D] -> (o [B,Tq,H,D], lse [B,Tq,H] f32).
+
+    f32 or bf16 inputs; the kernels take head dims 64 and 128. The numerics, including
+    the convention for a row with no visible key (o = 0, lse = -inf, zero gradient), are
+    those of the plain versions. Differentiable in both outputs."""
+    _check(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, bool(causal), float(scale), int(q_offset))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

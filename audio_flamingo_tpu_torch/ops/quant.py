@@ -9,6 +9,8 @@ K4, is reached by no caller there). On the card a bf16 x is multiplied with the 
 converted to bf16, accumulating and writing f32, then scaled: int8 values and bf16 inputs
 are exact in bf16, so this is JAX's f32-accumulated dot up to the order of the sums, and
 no f32 copy of the weight is made. The bf16 copy of the codes is made on every call.
+``mm_f32`` and ``q_matmul`` are differentiable in their input, with the codes frozen:
+the gradient is ``g @ (w_q * scale)^T``, as JAX's autodiff of its dot gives it.
 """
 
 from __future__ import annotations
@@ -28,16 +30,55 @@ def dequantize(p: dict, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     return (p["w_q"].float() * p["scale"].unsqueeze(-2)).to(dtype)
 
 
-def int8_mm(x2: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
-    """x2 [m, K] @ int8 codes [K, N] (any strides) -> f32 [m, N], exact products."""
-    if x2.is_cuda and x2.dtype == torch.bfloat16:
-        return torch.mm(x2, w_q.to(torch.bfloat16), out_dtype=torch.float32)
-    return x2.float() @ w_q.float()
+class _MatmulF32Out(torch.autograd.Function):
+    """bf16 a [m, K] @ b [K, N] (bf16, or int8 codes converted to bf16 here) -> f32 [m, N]
+    with f32 accumulation, on the card. Saving b as it is (not its bf16 copy) keeps an
+    int8 weight at one byte per code for the backward. The f32 cotangent meets the bf16
+    operand split into bf16 high and low parts (two products), which keeps about 16 of
+    its bits, as JAX's f32 transpose products keep them; integer codes get no gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b.to(torch.bfloat16), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _split_mm(g, b.to(torch.bfloat16).t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _split_mm(a.t(), g).to(b.dtype)
+        return ga, gb
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b -> f32 where one operand is f32 and the other bf16: the f32 one is split
+    into hi = bf16(x) and lo = bf16(x - hi), and both products accumulate in f32."""
+    if a.dtype == torch.float32:
+        hi = a.to(torch.bfloat16)
+        lo = (a - hi.float()).to(torch.bfloat16)
+        return (torch.mm(hi, b, out_dtype=torch.float32)
+                + torch.mm(lo, b, out_dtype=torch.float32))
+    hi = b.to(torch.bfloat16)
+    lo = (b - hi.float()).to(torch.bfloat16)
+    return torch.mm(a, hi, out_dtype=torch.float32) + torch.mm(a, lo, out_dtype=torch.float32)
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [m, K] @ b [K, N] (any strides) -> f32 [m, N] with exact products: a bf16 ``a``
+    on the card against a bf16 or int8 ``b`` is multiplied in bf16 with f32 accumulation
+    and output (no f32 copy of b); anything else in f32. Differentiable in a and in a
+    float b."""
+    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype in (torch.bfloat16, torch.int8):
+        return _MatmulF32Out.apply(a, b)
+    return a.float() @ b.float()
 
 
 def q_matmul(x: torch.Tensor, p: dict) -> torch.Tensor:
     """[..., in] @ int8 [in, out] * scale -> [..., out] in x.dtype."""
-    y = int8_mm(x.reshape(-1, x.shape[-1]), p["w_q"]) * p["scale"].float()
+    y = mm_f32(x.reshape(-1, x.shape[-1]), p["w_q"]) * p["scale"].float()
     return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
 
 

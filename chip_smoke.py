@@ -67,6 +67,24 @@ Phases, each line stamped with elapsed seconds:
      e. (after 7c) f32 card against CPU, full width, 2 + 2 layers: three requests through
         PagedEngine on both with f32 and int8 pools; ids token-exact and not all one
         token, first-token logits within 1e-4, and on the card the ids of generate().
+  9. training (after every earlier phase's model is freed):
+     a. the flash-attention backward (K7) against its plain version at AF3 stage 2's
+        shapes ([4,1500,20,64] non-causal at scale 1, [4,1024,28,128] causal over 4 KV
+        heads), an unaligned causal case with a q_offset and a case with an LSE
+        cotangent, f32 and bf16; two launches on the same inputs bit-identical; timed
+        beside the plain version, SDPA's backward and the bound;
+     b. AF3 stage 2 at full width through train/loop.run: bf16 encoder and adaptor hot,
+        the 7B LM frozen in int8 (quantize_lm_params on the card), remat="full" and flash
+        on both towers, ce_chunk 256, batch 4 of one 30 s clip and ~64 answer tokens
+        from BatchBuilder (bucket 1024), warmup 1, 5 steps, twice from the same weights:
+        finite losses, per-step losses of the two runs within 1e-3, the frozen LM
+        bit-identical, the hot weights moved, 60 K7 and 120 K2 launches per step; ms per
+        step, tokens/s, audio-s/s, K7's and K2's device time per step beside their
+        bounds, peak memory; one more step's 60 K7 and 120 K2 launches replayed against
+        their plain versions (and the int8 product's bf16 backward against f32);
+     c. f32 card against CPU, full width, 2 + 2 layers, batch 1: one stage-2 train step
+        (loss, grad norm, every hot gradient, the step's change) within 1e-4, through
+        K2 and K7 on the card.
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -122,15 +140,19 @@ def time_ms(fn, reps: int = 15, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def visible_pairs(tq: int, tk: int, causal: bool, q_offset: int) -> int:
+    """(query row, key) pairs that attention computes: all, or under causal masking the
+    keys at or before each row's position q_offset + i."""
+    if not causal:
+        return tq * tk
+    return sum(max(0, min(tk, i + q_offset + 1)) for i in range(tq))
+
+
 def attention_bound_ms(q_shape, k_shape, causal: bool, q_offset: int, dtype: str) -> tuple:
     """Least time for the function on the card: max(FLOPs / peak, bytes / HBM rate)."""
     b, tq, h, d = q_shape
     tk, hkv = k_shape[1], k_shape[2]
-    if causal:
-        pairs = sum(max(0, min(tk, i + q_offset + 1)) for i in range(tq))
-    else:
-        pairs = tq * tk
-    flops = 4.0 * b * h * d * pairs
+    flops = 4.0 * b * h * d * visible_pairs(tq, tk, causal, q_offset)
     item = 4 if dtype == "float32" else 2
     nbytes = item * (2 * b * tq * h * d + 2 * b * tk * hkv * d) + 4 * b * tq * h
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
@@ -1208,6 +1230,26 @@ def launch_sums(pa, launches) -> dict:
     return tot
 
 
+def k2_launch_sums(fa, launches) -> dict:
+    """K2's captured launches of a serving run, each held against the plain version
+    (over row blocks) and its plain version and SDPA timed once on its inputs: summed
+    plain_ms, library_ms and bound_ms, with the largest error."""
+    tot, by = dict(err=0.0, ratio=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0), set()
+    plain = plain_blocked(fa, 1024)
+    for q, k, v, kw in launches:
+        r = compare(fa, q, k, v, kw, plain=plain)
+        check_compare("serving K2 launch", r)
+        tot["err"], tot["ratio"] = max(tot["err"], r["err"]), max(tot["ratio"], r["ratio"])
+        tot["plain_ms"] += time_ms(lambda: plain(q, k, v, **kw), 1, 0)
+        tot["library_ms"] += time_ms(sdpa_call(q, k, v, kw), 1, 1)
+        b_ms, b_by = attention_bound_ms(tuple(q.shape), tuple(k.shape), kw["causal"],
+                                        kw["q_offset"], r["dtype"])
+        tot["bound_ms"] += b_ms
+        by.add(b_by)
+    tot["bound_by"] = "operations" if by == {"operations"} else "bytes"
+    return tot
+
+
 def mixed_workload(model, wav) -> list:
     """The JAX bench's mixed workload (bench.py:452-462): 3 prompts of 500 and 3 of 3800
     random ids, interleaved, plus one request with a 30 s clip through the processor."""
@@ -1317,11 +1359,28 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
         f"{PAGED_NO_LIBRARY}")
 
     probe.reset()
-    pa.LAUNCHES.reset()
+    for c in (fa.LAUNCHES, pa.LAUNCHES):
+        c.reset()
     pa.LAUNCHES.timing = pa.LAUNCHES.capture = True
+    fa.LAUNCHES.timing = fa.LAUNCHES.capture = name == "bf16"   # K2's serving row
     third, _ = serve(make(), specs, 48)
     pa.LAUNCHES.timing = pa.LAUNCHES.capture = False
     full = dict(launches=pa.LAUNCHES.count, steps=probe.steps, ms=pa.LAUNCHES.device_ms())
+    if name == "bf16":
+        fa.LAUNCHES.timing = fa.LAUNCHES.capture = False
+        path = dict(launches=fa.LAUNCHES.count, ms=fa.LAUNCHES.device_ms())
+        captured = list(fa.LAUNCHES.inputs)
+        fa.LAUNCHES.reset()
+        k2 = {**k2_launch_sums(fa, captured), **path}   # the replays launch K2 again
+        fa.LAUNCHES.reset()
+        del captured
+        check(k2["launches"] == k2_want, f"paged {name}: third run {k2['launches']} K2 launches")
+        full["k2"] = k2
+        log(f"paged {name}: third run's {k2['launches']} K2 launches (7 fresh prefills x 28 + "
+            f"the clip's window x 32): in the path {k2['ms']:.2f} ms; each replayed on its "
+            f"inputs: max|o-plain| {k2['err']:.3e} (at {k2['ratio']:.3f} of its limit), "
+            f"plain {k2['plain_ms']:.1f} ms, SDPA {k2['library_ms']:.2f} ms, bound "
+            f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}), summed")
     check(third == results, f"paged {name}: greedy ids differ in the third run")
     check(full["launches"] == lm_cfg.num_layers * full["steps"] == len(pa.LAUNCHES.inputs),
           f"paged {name}: third run {full['launches']} K3 launches for {full['steps']} steps")
@@ -1501,6 +1560,433 @@ def f32_engine_card_vs_cpu_phase(pa) -> None:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+K7_F32_TOL = 1e-5                   # K7 f32: max|d - plain| <= 1e-5 max|plain|, each of dq, dk, dv
+K7_BF16_TOL = (2.0 ** -7, 2.0 ** -7)  # bf16: |d - plain| <= 2^-7 |plain| + 2^-7 max|plain|
+TRAIN_F32_TOL = 1e-4                # 9c, f32 card vs CPU: loss, grad norm, grads, the step's change
+STAGE2_LOSS_RTOL = 1e-3             # 9b: two runs from one seed, each step's loss, relative
+STAGE2_WORDS = "describe the sound of music and speech".split()   # the random tokenizer's corpus
+
+
+def k7_bound_ms(q_shape, k_shape, causal: bool, q_offset: int, dtype: str,
+                g_lse: bool = False) -> tuple:
+    """Least time for the backward on the card: five products of 2 B H D per visible
+    (row, key) pair (S and dP, each recomputed once, dV, dK, dQ counted once each) over
+    the dtype's peak, or the bytes of q, k, v, o, dO, lse (and g_lse) read and dq, dk,
+    dv written over the HBM rate, whichever is larger."""
+    b, tq, h, d = q_shape
+    tk, hkv = k_shape[1], k_shape[2]
+    flops = 5 * 2.0 * b * h * d * visible_pairs(tq, tk, causal, q_offset)
+    item = 4 if dtype == "float32" else 2
+    q_elems, kv_elems = b * tq * h * d, b * tk * hkv * d
+    nbytes = (item * (3 * q_elems + 2 * kv_elems) + 4 * b * tq * h * (2 if g_lse else 1)
+              + item * (q_elems + 2 * kv_elems))
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k7_compare(grads, plain) -> dict:
+    """err: the largest |d - plain| over dq, dk, dv; ratio: the largest |d - plain| over
+    its limit (K7_F32_TOL in f32, K7_BF16_TOL per element in bf16), which must be <= 1."""
+    err = ratio = 0.0
+    for a, r in zip(grads, plain):
+        check(bool(torch.isfinite(a).all()), "K7 gradient not finite")
+        diff = (a.float() - r.float()).abs()
+        mx = r.float().abs().max()
+        if a.dtype == torch.float32:
+            lim = K7_F32_TOL * mx
+        else:
+            rel, floor = K7_BF16_TOL
+            lim = rel * r.float().abs() + floor * mx
+        err = max(err, diff.max().item())
+        ratio = max(ratio, (diff / lim).max().item())
+    return dict(err=err, ratio=ratio)
+
+
+def sdpa_backward_call(q, k, v, do, kw):
+    """SDPA's backward alone on the same inputs: one retained SDPA graph (fused backends,
+    KV heads expanded outside) differentiated by torch.autograd.grad on each call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).detach().requires_grad_()
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).detach().requires_grad_()
+    dot = do.transpose(1, 2)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=kw["causal"],
+                                             scale=kw["scale"])
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    return call
+
+
+def k7_phase(fa) -> dict:
+    """9a. K7 against its plain backward at AF3 stage 2's shapes (encoder non-causal at
+    scale 1, LM causal GQA), an unaligned causal case with a q_offset and a case with an
+    LSE cotangent, in f32 and bf16; two launches on the same inputs bit-identical; the
+    first two timed beside the plain version, SDPA's backward and the bound."""
+    cases = [  # name, q shape, k shape, causal, scale, q_offset, with g_lse, timed
+        ("encoder", (4, 1500, 20, 64), (4, 1500, 20, 64), False, 1.0, 0, False, True),
+        ("lm", (4, 1024, 28, 128), (4, 1024, 4, 128), True, None, 0, False, True),
+        ("unaligned", (2, 300, 28, 128), (2, 700, 4, 128), True, None, 400, False, False),
+        ("g_lse", (2, 512, 28, 128), (2, 512, 4, 128), True, None, 0, True, False),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    results = {}
+    for name, qs, ks, causal, scale, q_offset, with_glse, timed in cases:
+        d = qs[-1]
+        sc = scale if scale is not None else d ** -0.5
+        q32 = torch.randn(qs, generator=gen, device="cuda") / (d ** 0.5 * sc)   # score std 1
+        k32 = torch.randn(ks, generator=gen, device="cuda")
+        v32 = torch.randn(ks, generator=gen, device="cuda")
+        do32 = torch.randn(qs, generator=gen, device="cuda")
+        gl = torch.randn(qs[:3], generator=gen, device="cuda") if with_glse else None
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+            kw = dict(causal=causal, scale=sc, q_offset=q_offset)
+            o, lse = fa.flash_attention_lse(q, k, v, **kw)
+
+            def k7():
+                return fa.flash_attention_backward(q, k, v, o, lse, do, gl, **kw)
+
+            def plain():
+                return fa.flash_attention_backward_reference(q, k, v, o, lse, do, gl, **kw)
+
+            out, again = k7(), k7()
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"K7 {name} {dn}: two launches on the same inputs differ")
+            r = k7_compare(out, plain())
+            msg = (f"K7 {name:9s} {dn:8s} q{list(qs)} k{list(ks)} causal={causal} "
+                   f"q_offset={q_offset} g_lse={with_glse}: max|d-plain|={r['err']:.3e} (at "
+                   f"{r['ratio']:.3f} of its limit), replay bit-identical")
+            if timed:
+                r["ms"] = time_ms(k7, reps=10)
+                r["plain_ms"] = time_ms(plain, reps=3, warm=1)
+                r["library_ms"] = time_ms(sdpa_backward_call(q, k, v, do, kw), reps=10)
+                r["bound_ms"], r["bound_by"] = k7_bound_ms(qs, ks, causal, q_offset, dn,
+                                                           with_glse)
+                msg += (f"; ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} SDPA-backward "
+                        f"ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                        f"({r['bound_by']})")
+            log(msg)
+            check(r["ratio"] <= 1.0, f"K7 {name} {dn}: |d - plain| at {r['ratio']:.3f} of "
+                                     "its limit")
+            results[(name, dn)] = r
+            del out, again, o, lse
+        torch.cuda.empty_cache()
+    return results
+
+
+def stage2_example(rng):
+    """One row of AF3 stage 2: a 30 s clip (a tone at a drawn pitch plus noise), a prompt
+    with <sound>, and an answer of 56 words of the random tokenizer's corpus (about 64
+    tokens): 750 audio tokens, bucket 1024."""
+    t = np.arange(30 * 16000) / 16000.0
+    wav = (0.3 * np.sin(2 * np.pi * rng.uniform(200.0, 800.0) * t)
+           + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    answer = " ".join(STAGE2_WORDS[i] for i in rng.integers(0, len(STAGE2_WORDS), 56))
+    return [wav], "<sound>What do you hear?", answer
+
+
+def matmul_f32_backward_check(qlm) -> None:
+    """The bf16 int8 product's backward on the card (ops/quant._MatmulF32Out, which the
+    frozen int8 LM's layers and head run in 9b): the input gradient of q_matmul against
+    the f32 product g (w_q * scale)^T, within bf16's rounding of the output."""
+    from audio_flamingo_tpu_torch.ops.quant import q_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p = {"w_q": qlm.layers["q"]["w_q"][0], "scale": qlm.layers["q"]["scale"][0]}
+    x = torch.randn((1024, p["w_q"].shape[0]), generator=gen, device="cuda")
+    x = x.bfloat16().requires_grad_()
+    g = torch.randn((1024, p["w_q"].shape[1]), generator=gen, device="cuda").bfloat16()
+    (gx,) = torch.autograd.grad(q_matmul(x, p), x, g)
+    ref = (g.float() * p["scale"]) @ p["w_q"].float().t()
+    err = ((gx.float() - ref).abs().max() / ref.abs().max()).item()
+    log(f"int8 q_matmul backward, bf16 [1024,{x.shape[1]}]: max|grad - f32|/max|f32| = "
+        f"{err:.2e} (limit 2^-8)")
+    check(gx.dtype == torch.bfloat16 and err <= 2.0 ** -8, f"int8 matmul backward off: {err}")
+
+
+def stage2_phase(fa) -> dict:
+    """9b. AF3 stage 2 at full width through the port's train/loop.run: a bf16 encoder and
+    adaptor hot, the 7B LM frozen in int8 (quantize_lm_params on the card, as
+    load(quantize_lm=True)), remat="full" and flash on both towers, ce_chunk 256, batch
+    4 from BatchBuilder, warmup 1, 5 steps; twice from the same weights."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.models import af3, qwen2
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+    from audio_flamingo_tpu_torch.train import loop
+    from audio_flamingo_tpu_torch.train.data import BatchBuilder, MixtureSampler, Source
+    from audio_flamingo_tpu_torch.train.stages import AF3_STAGES
+    from audio_flamingo_tpu_torch.train.train_step import init_state, loss_and_grads
+    from audio_flamingo_tpu_torch.utils.metrics import MetricsLogger
+
+    full = AF3Config()
+    cfg = dataclasses.replace(
+        full, encoder=dataclasses.replace(full.encoder, use_flash=True, remat="full"),
+        lm=dataclasses.replace(full.lm, use_flash=True, remat="full"))
+    t0 = time.perf_counter()
+    m = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.bfloat16, device="cuda")
+    cfg = m.cfg                                  # audio_token_id: the tokenizer's <sound>
+    qlm = qwen2.quantized_lm(quantize_lm_params(m.model.lm.state_dict()), torch.bfloat16,
+                             "cuda")
+    model = af3.AF3Model(m.model.encoder, m.model.adaptor, qlm)
+    m = dataclasses.replace(m, model=model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_hot = sum(p.numel() for n, p in model.named_parameters())
+    lm_bytes = sum(t.numel() * t.element_size() for t in qlm.state_dict().values())
+    log(f"stage 2: from_random (bf16) and quantize_lm_params on the card in "
+        f"{time.perf_counter() - t0:.1f}s: encoder + adaptor {n_hot / 1e9:.3f} B params bf16 "
+        f"(hot), int8 LM {lm_bytes / 1e9:.2f} GB (frozen)")
+    matmul_f32_backward_check(qlm)
+    hot0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    lm0 = {n: t.clone() for n, t in qlm.state_dict().items()}
+    run_cfg = loop.TrainRunConfig(stage="2_encoder_tuning", batch_size=4, num_steps=5,
+                                  log_every=1, warmup_steps=1, ce_chunk=256)
+    steps = run_cfg.num_steps
+    builder = BatchBuilder(processor=m.processor)
+    batch = builder.build([stage2_example(np.random.default_rng(5)) for _ in range(4)])
+    n_audio = (batch["ids"] == cfg.audio_token_id).sum(dim=1).tolist()
+    n_label = (batch["labels"] >= 0).sum(dim=1).tolist()
+    log(f"stage 2 batch: ids {tuple(batch['ids'].shape)} on {batch['ids'].device}, mels "
+        f"{tuple(batch['mels'].shape)} on {batch['mels'].device}; audio tokens per row "
+        f"{n_audio}, answer labels per row {n_label}")
+    check(tuple(batch["ids"].shape) == (4, 1024) and n_audio == [750] * 4
+          and batch["mels"].is_cuda, "the stage-2 batch is not 4 x 1024 with 750 audio tokens "
+                                     "per row on the card")
+    runs = []
+    for i in range(2):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(hot0[n])
+        for counter in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+            counter.reset()
+            counter.timing = i == 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = loop.run(cfg, model, MixtureSampler([Source("stage2", 1.0,
+                                                                     stage2_example)], seed=0),
+                                  builder, run_cfg, metrics=MetricsLogger(verbose=False),
+                                  device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2, k7 = fa.LAUNCHES.count, fa.BWD_LAUNCHES.count
+        k2_shapes, k7_shapes = dict(fa.LAUNCHES.shapes), dict(fa.BWD_LAUNCHES.shapes)
+        k2_ms = fa.LAUNCHES.device_ms() if i == 0 else None
+        k7_ms = fa.BWD_LAUNCHES.device_ms() if i == 0 else None
+        for counter in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+            counter.timing = False
+            counter.reset()
+        recs = metrics.records
+        ends = [r["s_per_step"] * r["step"] for r in recs]
+        step_s = [b - a for a, b in zip([0.0] + ends[:-1], ends)]
+        runs.append(dict(losses=[r["loss"] for r in recs], gnorms=[r["grad_norm"] for r in recs],
+                         step_s=step_s, wall=wall, k2=k2, k7=k7, k2_shapes=k2_shapes,
+                         k7_shapes=k7_shapes, k2_ms=k2_ms, k7_ms=k7_ms,
+                         peak=torch.cuda.max_memory_allocated() / 2 ** 30))
+        log(f"stage 2 run #{i + 1}: {steps} steps in {wall:.2f}s; losses "
+            f"{[round(x, 6) for x in runs[-1]['losses']]}; grad norms "
+            f"{[round(x, 4) for x in runs[-1]['gnorms']]}; s per step "
+            f"{[round(x, 3) for x in step_s]}; K2 {k2} and K7 {k7} launches; peak "
+            f"{runs[-1]['peak']:.2f} GiB")
+    r1, r2 = runs
+    enc_q, lm_q = (4, 1500, 20, 64), (4, 1024, 28, 128)
+    want_k7 = {(enc_q, enc_q, False): 32 * steps, (lm_q, (4, 1024, 4, 128), True): 28 * steps}
+    want_k2 = {k: 2 * n for k, n in want_k7.items()}
+    for r in runs:
+        check(all(np.isfinite(r["losses"])) and len(r["losses"]) == steps,
+              f"stage 2 losses {r['losses']}")
+        check(r["k7"] == 60 * steps and r["k7_shapes"] == want_k7,
+              f"K7 launches {r['k7_shapes']} != 60 per step {want_k7}")
+        check(r["k2"] == 120 * steps and r["k2_shapes"] == want_k2,
+              f"K2 launches {r['k2_shapes']} != 120 per step (forward + recompute) {want_k2}")
+    dloss = max(abs(a - b) / abs(a) for a, b in zip(r1["losses"], r2["losses"]))
+    log(f"stage 2: two runs from one seed, each step's loss within {dloss:.3e} relative "
+        f"(limit {STAGE2_LOSS_RTOL})")
+    check(dloss <= STAGE2_LOSS_RTOL, f"stage 2 runs differ: {r1['losses']} vs {r2['losses']}")
+    check(all(torch.equal(t, lm0[n]) for n, t in qlm.state_dict().items()),
+          "the frozen int8 LM changed")
+    moved = {part: max((p - hot0[n]).abs().max().item() for n, p in model.named_parameters()
+                       if n.startswith(part))
+             for part in ("encoder.", "adaptor.")}
+    log(f"stage 2: the frozen LM bit-identical after both runs; largest change of the hot "
+        f"weights: {moved}")
+    check(min(moved.values()) > 0, f"a hot part did not move: {moved}")
+    del lm0, hot0
+
+    # one more step's K7 and K2 launches kept, replayed against the plain versions, timed
+    _, opt = init_state(model, AF3_STAGES["2_encoder_tuning"])
+    for counter in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+        counter.reset()
+        counter.capture = True
+    loss_and_grads(model, batch, cfg=cfg, opt=opt, ce_chunk=256)
+    captured, k2_captured = list(fa.BWD_LAUNCHES.inputs), list(fa.LAUNCHES.inputs)
+    for counter in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+        counter.capture = False
+        counter.reset()
+    check(len(captured) == 60 and len(k2_captured) == 120,
+          f"captured {len(captured)} K7 and {len(k2_captured)} K2 launches, not 60 and 120")
+    k2_rep = k2_launch_sums(fa, k2_captured)
+    del k2_captured
+    rep = dict(err=0.0, ratio=0.0, kernel_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    for q, k, v, o, lse, do, g_lse, kw in captured:
+        def k7():
+            return fa.flash_attention_backward(q, k, v, o, lse, do, g_lse, **kw)
+
+        def plain():
+            return fa.flash_attention_backward_reference(q, k, v, o, lse, do, g_lse, **kw)
+
+        r = k7_compare(k7(), plain())
+        rep["err"], rep["ratio"] = max(rep["err"], r["err"]), max(rep["ratio"], r["ratio"])
+        rep["kernel_ms"] += time_ms(k7, 5, 1)
+        rep["plain_ms"] += time_ms(plain, 3, 1)
+        rep["library_ms"] += time_ms(sdpa_backward_call(q, k, v, do, kw), 3, 1)
+        b_ms, b_by = k7_bound_ms(tuple(q.shape), tuple(k.shape), kw["causal"], kw["q_offset"],
+                                 "bfloat16")
+        rep["bound_ms"] += b_ms
+        bound_by.add(b_by)
+    rep["bound_by"] = "operations" if bound_by == {"operations"} else "bytes"
+    del captured
+    check(rep["ratio"] <= 1.0, f"a stage-2 K7 launch at {rep['ratio']:.3f} of its limit")
+    tokens = 4 * 1024
+    step = statistics.median(r1["step_s"][1:])
+    log(f"stage 2 K7 launches of one step replayed on their own inputs (60, bf16): "
+        f"max|d-plain|={rep['err']:.3e} (at {rep['ratio']:.3f} of its limit); summed kernel "
+        f"{rep['kernel_ms']:.3f} ms, plain {rep['plain_ms']:.3f} ms, SDPA backward "
+        f"{rep['library_ms']:.3f} ms, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+    log(f"stage 2 K2 launches of the same step replayed on their own inputs (120, bf16): "
+        f"max|o-plain|={k2_rep['err']:.3e} (at {k2_rep['ratio']:.3f} of its limit); plain "
+        f"{k2_rep['plain_ms']:.3f} ms, SDPA {k2_rep['library_ms']:.3f} ms, bound "
+        f"{k2_rep['bound_ms']:.4f} ms ({k2_rep['bound_by']}), summed")
+    log(f"stage 2 step (run #1, steps 2-{steps}, median, batch built inside the step's "
+        f"time): {step * 1e3:.1f} ms = {tokens / step:.1f} tokens/s ({tokens} bucket tokens "
+        f"per step) = {4 * 30.0 / step:.2f} audio-s/s; first step {r1['step_s'][0]:.3f} s; "
+        f"per step K7 {r1['k7_ms'] / steps:.2f} ms (60 launches, bound "
+        f"{rep['bound_ms']:.3f} ms) and K2 {r1['k2_ms'] / steps:.2f} ms (120 launches, bound "
+        f"{k2_rep['bound_ms']:.3f} ms) in the path; peak {r1['peak']:.2f} GiB")
+    del model, m, qlm, state, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(run=r1, replay=rep, step_s=step, steps=steps)
+
+
+def f32_train_card_vs_cpu_phase(fa) -> None:
+    """9c. One stage-2 train step at f32, full width, 2 encoder + 2 LM layers, batch 1,
+    on the card and on the CPU from the same weights (the LM int8 by quantize_lm_params
+    on the CPU) and the same batch: the loss, the grad norm and every hot gradient (the
+    step's first half, loss_and_grads) within 1e-4 (relative; a gradient relative to its
+    tensor's largest), and the step's second half, AdamW's update on the card, within
+    1e-4 of the largest change (plus one f32 spacing of the weight, where p + change
+    rounds) of the CPU's update of the same gradients. The change each
+    side makes from its own gradients is printed, not held: after clipping (norm ~66),
+    many clipped gradients lie near AdamW's eps (1e-8), where the first step
+    g / (|g| + eps) follows a gradient's low digits. The card runs K2 and K7, the CPU
+    their plain versions."""
+    import copy
+
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.models import af3, qwen2
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+    from audio_flamingo_tpu_torch.train.data import BatchBuilder
+    from audio_flamingo_tpu_torch.train.stages import AF3_STAGES
+    from audio_flamingo_tpu_torch.train.train_step import global_norm, init_state, loss_and_grads
+
+    full = AF3Config()
+    cfg = dataclasses.replace(
+        full, encoder=dataclasses.replace(full.encoder, num_layers=2, use_flash=True,
+                                          remat="full"),
+        lm=dataclasses.replace(full.lm, num_layers=2, use_flash=True, remat="full"))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # the conv stem in full f32 (README)
+    try:
+        t0 = time.perf_counter()
+        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        cfg = cpu.cfg                            # audio_token_id: the tokenizer's <sound>
+        tree = quantize_lm_params(cpu.model.lm.state_dict())
+        models = {"cpu": af3.AF3Model(cpu.model.encoder, cpu.model.adaptor,
+                                      qwen2.quantized_lm(tree, torch.float32, "cpu")),
+                  "card": af3.AF3Model(copy.deepcopy(cpu.model.encoder).to("cuda"),
+                                       copy.deepcopy(cpu.model.adaptor).to("cuda"),
+                                       qwen2.quantized_lm(tree, torch.float32, "cuda"))}
+        del tree
+        batch = BatchBuilder(processor=cpu.processor).build(
+            [stage2_example(np.random.default_rng(1))])
+        check(int((batch["ids"] == cfg.audio_token_id).sum()) == 750,
+              "the f32 step's batch lacks its 750 audio tokens")
+        log(f"f32 train step card vs CPU: 2 + 2 layers at full width, int8 LM, batch "
+            f"{tuple(batch['ids'].shape)}, built in {time.perf_counter() - t0:.1f}s")
+        out = {}
+        for side, model in models.items():
+            state, opt = init_state(model, AF3_STAGES["2_encoder_tuning"], warmup_steps=0,
+                                    total_steps=10)
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            fa.LAUNCHES.reset()
+            fa.BWD_LAUNCHES.reset()
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(model, batch, cfg=cfg, opt=opt, ce_chunk=256)
+            opt.update(grads, state.opt_state, model)
+            if side == "card":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            change = {n: (p.detach() - before[n]).cpu() for n, p in model.named_parameters()
+                      if n in grads}
+            out[side] = dict(loss=loss.item(), gnorm=global_norm(grads.values()).item(),
+                             grads={n: g.cpu() for n, g in grads.items()}, change=change,
+                             before={n: b.cpu() for n, b in before.items() if n in grads},
+                             k2=fa.LAUNCHES.count, k7=fa.BWD_LAUNCHES.count, s=seconds)
+        cpu_r, card_r = out["cpu"], out["card"]
+        check(card_r["k7"] == 4 and card_r["k2"] == 8,
+              f"card step: {card_r['k7']} K7 and {card_r['k2']} K2 launches, not 4 and 8")
+        check(cpu_r["k7"] == 0 and cpu_r["k2"] == 0, "the CPU step launched a kernel")
+        dl = abs(card_r["loss"] - cpu_r["loss"]) / abs(cpu_r["loss"])
+        dn = abs(card_r["gnorm"] - cpu_r["gnorm"]) / cpu_r["gnorm"]
+        dg = max(((card_r["grads"][n] - g).abs().max() / g.abs().max()).item()
+                 for n, g in cpu_r["grads"].items())
+        # the CPU's AdamW on the card's gradients, from the same weights
+        model = models["cpu"]
+        state, opt = init_state(model, AF3_STAGES["2_encoder_tuning"], warmup_steps=0,
+                                total_steps=10)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in cpu_r["before"]:
+                    p.copy_(cpu_r["before"][n])
+        opt.update(card_r["grads"], state.opt_state, model)
+        params = dict(model.named_parameters())
+        same = {n: params[n].detach() - cpu_r["before"][n] for n in card_r["change"]}
+        largest = max(c.abs().max().item() for c in same.values())
+        # beyond 1e-4 of the largest change, each side may round p + change to the
+        # neighbouring f32 (6e-8 at a norm weight of 1, 3e-3 of a 2e-5 change)
+        eps = torch.finfo(torch.float32).eps
+        held = max((((card_r["change"][n] - c).abs() - eps * params[n].detach().abs())
+                    .clamp(min=0).max() / largest).item() for n, c in same.items())
+        own = max(((card_r["change"][n] - c).abs().max() / largest).item()
+                  for n, c in cpu_r["change"].items())
+        n_own = sum(int(((card_r["change"][n] - c).abs() > TRAIN_F32_TOL * largest).sum())
+                    for n, c in cpu_r["change"].items())
+        n_elems = sum(c.numel() for c in cpu_r["change"].values())
+        log(f"f32 train step: loss CPU {cpu_r['loss']:.6f} card {card_r['loss']:.6f} "
+            f"({dl:.2e} rel); grad norm {cpu_r['gnorm']:.6f} vs {card_r['gnorm']:.6f} "
+            f"({dn:.2e}); hot grads max|card - CPU| / max|CPU| {dg:.2e}; AdamW's change on "
+            f"the card within {held:.2e} of the largest (largest {largest:.3e}; beyond one "
+            f"f32 spacing of the weight) of the CPU's on the same gradients; from each side's own gradients {own:.2e} ({n_own} of "
+            f"{n_elems} elements past {TRAIN_F32_TOL}: clipped gradients near eps); CPU "
+            f"{cpu_r['s']:.1f}s, card {card_r['s']:.3f}s; card launches K2 {card_r['k2']}, K7 "
+            f"{card_r['k7']}")
+        for name, x in (("loss", dl), ("grad norm", dn), ("grads", dg), ("step change", held)):
+            check(x <= TRAIN_F32_TOL, f"f32 train step {name} card vs CPU {x} > {TRAIN_F32_TOL}")
+        check(largest > 0, "the f32 step did not move the hot weights")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def timed_generate(model, **kw) -> tuple:
     """One AudioFlamingo.generate call timed from its start: (text, wall seconds, and a
     line splitting it into the processor's share, ttft_s, their sum (the TTFT a user
@@ -1656,6 +2142,10 @@ def main() -> int:
     f32_int4_card_vs_cpu_phase(fa, k5, k6)
     # 8e. f32 paged engine card against CPU
     f32_engine_card_vs_cpu_phase(pa)
+    # 9a-9c. training: K7 alone, AF3 stage 2 through loop.run, f32 card against CPU
+    k7_res = k7_phase(fa)
+    stage2 = stage2_phase(fa)
+    f32_train_card_vs_cpu_phase(fa)
 
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
@@ -1741,6 +2231,20 @@ def main() -> int:
         "bound_by": full["bound_by"],
         "library_ms": None,
     })
+    rep7, run7 = stage2["replay"], stage2["run"]
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "audio_flamingo_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "audio_flamingo_tpu/ops/pallas/flash_attention.py:431",
+        "launches": run7["k7"] // stage2["steps"],
+        "max_abs_err": max([r["err"] for r in k7_res.values()] + [rep7["err"]]),
+        "ms": run7["k7_ms"] / stage2["steps"],
+        "plain_ms": rep7["plain_ms"],
+        "bound_ms": rep7["bound_ms"],
+        "bound_by": rep7["bound_by"],
+        "library_ms": rep7["library_ms"],
+    })
     for name, p in paged.items():
         r, f = p["run"], p["full"]
         log(f"paged engine, {name} pool: {p['tps']:.1f} tok/s, TTFT median "
@@ -1765,7 +2269,12 @@ def main() -> int:
         "bf16-pool mixed-workload run: launches = their count, ms = their device time in the "
         "path, plain_ms = the plain version timed on each launch's captured inputs, summed, "
         "bound_ms = summed per-launch bounds (keys below each row's length); max_abs_err = the largest |o/l - plain| of phase 8a and the "
-        "replays; library_ms null: " + PAGED_NO_LIBRARY)
+        "replays; library_ms null: " + PAGED_NO_LIBRARY + " flash_attention_bwd per AF3 "
+        "stage-2 train step (batch 4, bucket 1024): launches = the first run's K7 count over "
+        "its steps; ms = their device time in the path per step; plain_ms, library_ms (SDPA's "
+        "backward on a retained graph) and bound_ms summed over the 60 launches of one more "
+        "step, each replayed on its captured inputs; max_abs_err = the largest |d - plain| "
+        "of phase 9a and those replays.")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")
