@@ -20,8 +20,8 @@ import torch
 from audio_flamingo_tpu_torch.config import (NOT_PORTED, AF3Config, Qwen2Config,
                                              WhisperEncoderConfig, bucket_tokens)
 from audio_flamingo_tpu_torch.device import resolve_device
-from audio_flamingo_tpu_torch.models import af3, qwen2
-from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+from audio_flamingo_tpu_torch.models import af3, qwen2, whisper_encoder
+from audio_flamingo_tpu_torch.ops.quant import quantize_encoder_params, quantize_lm_params
 from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
 from audio_flamingo_tpu_torch.runtime import generate as gen
@@ -122,19 +122,30 @@ class AudioFlamingo:
                         tokenizer: BBPETokenizer, compute_dtype: torch.dtype = torch.float32,
                         device: torch.device | str | None = None) -> "AudioFlamingo":
         """Weights in the port's names (io/convert.py) -> model in compute_dtype on device.
-        A quantized LM (``lm.*`` in the JAX tree layout, e.g. ``lm.layers.qkv.w_p``) keeps
-        its integer codes and f32 scales."""
+        A quantized LM (``lm.*`` in the JAX tree layout, e.g. ``lm.layers.qkv.w_p``) and a
+        quantized encoder (``encoder.layers.*``, e.g. ``encoder.layers.qkv.w_q``) keep
+        their integer codes and f32 scales."""
         device = resolve_device(device)
         adaptor_layers = 2 if "adaptor.fc2.weight" in state else 1
-        lm = None
+        lm = encoder = None
         if "lm.ln_f_w" in state:
             lm = qwen2.quantized_lm(
                 qwen2.unflatten({k[3:]: v for k, v in state.items() if k.startswith("lm.")}),
                 compute_dtype, device)
             state = {k: v for k, v in state.items() if not k.startswith("lm.")}
-        model = af3.build(cfg, device, compute_dtype, adaptor_layers=adaptor_layers, lm=lm)
-        missing, unexpected = model.load_state_dict(state, strict=lm is None)
-        if lm is not None and (unexpected or [k for k in missing if not k.startswith("lm.")]):
+        if "encoder.layers.ln1_w" in state:
+            enc = {k[8:]: v for k, v in state.items() if k.startswith("encoder.")}
+            tree = qwen2.unflatten({k[7:]: v for k, v in enc.items() if k.startswith("layers.")})
+            encoder = whisper_encoder.quantized_encoder(
+                cfg.encoder, {k: v for k, v in enc.items() if not k.startswith("layers.")},
+                tree, compute_dtype, device)
+            state = {k: v for k, v in state.items() if not k.startswith("encoder.")}
+        model = af3.build(cfg, device, compute_dtype, adaptor_layers=adaptor_layers, lm=lm,
+                          encoder=encoder)
+        built = tuple(name for name, part in (("lm.", lm), ("encoder.", encoder))
+                      if part is not None)
+        missing, unexpected = model.load_state_dict(state, strict=not built)
+        if built and (unexpected or [k for k in missing if not k.startswith(built)]):
             raise RuntimeError(f"state dict does not match the model: missing {missing}, "
                                f"unexpected {unexpected}")
         return AudioFlamingo._assemble(cfg, model, tokenizer, device)
@@ -203,22 +214,26 @@ def load(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, *,
     quantize_lm=True (or "int8") stores the LM's linears, head and embedding in int8
     (weight-only, per channel, ``ops/quant.py``); quantize_lm="int4" packs the layer
     linears to group-scale int4 (``ops/quant4.py``, embedding and head int8), decoded
-    through the K5 and K6 kernels. The LM is quantized from the checkpoint's own values on
-    ``device`` before the cast to compute_dtype; scales stay f32. a8_prefill and
-    a8_encoder (w8a8) are not ported and raise."""
+    through the K5 and K6 kernels. a8_prefill (needs the int8 LM) runs the LM's
+    multi-token products w8a8 (decode stays w8a16); a8_encoder quantizes the encoder's
+    layer linears to int8 (``quantize_encoder_params``) and runs them w8a8. Both are the
+    TTFT option of JAX's ``load``; its other switches (``a8_attention``, the fused encoder
+    layout and ``fused_stages``) are reached as in JAX, through ``with_config`` and the
+    quantizers (``whisper_encoder.quantize``). The weights are quantized from the
+    checkpoint's own values on ``device`` before the cast to compute_dtype; scales stay
+    f32."""
     from audio_flamingo_tpu_torch.io.convert import state_dict_from_hf
     from audio_flamingo_tpu_torch.io.safetensors import load_checkpoint_dir
 
-    for name, value in (("a8_prefill", a8_prefill), ("a8_encoder", a8_encoder)):
-        if value:
-            raise NotImplementedError(NOT_PORTED.format(
-                name, "quantized weights and activations (w8a8)"))
+    if a8_prefill and quantize_lm not in (True, "int8"):
+        raise ValueError("a8_prefill requires quantize_lm=True/'int8' (w8a8 has no int4 "
+                         "mode)")
     device = resolve_device(device)
     with open(os.path.join(model_path, "config.json")) as f:
         cfg = config_from_hf(json.load(f))
     cfg = dataclasses.replace(
         cfg, encoder=dataclasses.replace(cfg.encoder, use_flash=use_flash),
-        lm=dataclasses.replace(cfg.lm, use_flash=use_flash))
+        lm=dataclasses.replace(cfg.lm, use_flash=use_flash, a8_prefill=a8_prefill))
     sd = {}
     for k, v in load_checkpoint_dir(model_path, upcast_bf16=False).items():
         v = np.array(v)   # writable copy; bf16 arrives as raw uint16
@@ -233,6 +248,11 @@ def load(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, *,
                 else quantize_lm_params(lm_state))
         del lm_state
         state.update(qwen2.flatten(tree, "lm."))
+    if a8_encoder:
+        enc_state = {k[8:]: state.pop(k).to(device) for k in [k for k in state
+                                                             if k.startswith("encoder.layers.")]}
+        state.update(qwen2.flatten(quantize_encoder_params(enc_state), "encoder.layers."))
+        del enc_state
     return AudioFlamingo.from_state_dict(cfg, state, tokenizer, compute_dtype=compute_dtype,
                                          device=device)
 

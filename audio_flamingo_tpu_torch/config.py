@@ -39,6 +39,11 @@ class WhisperEncoderConfig:
     max_source_positions: int = 1500  # tokens per 30 s window after the 2x conv stride
     activation: str = "gelu"          # "gelu" (exact) or "relu"
     use_flash: bool = False           # flash-attention kernel; plain attention otherwise
+    # int8-QK flash attention (K8) for the plain a8 layer's attention; needs use_flash
+    a8_attention: bool = False
+    # stages ("qkv", "out", "mlp") of the fused int8 layout that run their K9 kernel;
+    # the others run composed w8a8 torch ops (models/whisper_encoder.py)
+    fused_stages: tuple = ()
     pool_stride: int = 2              # AvgPool after the stack, before ln_post
     remat: str = "none"               # activation recompute per layer (ops/remat.py)
 
@@ -66,6 +71,11 @@ class Qwen2Config:
     # layer i slides iff sliding_window is set and i >= max_window_layers
     max_window_layers: int = 0
     use_flash: bool = False           # flash-attention kernel for fresh multi-token prefill
+    # w8a8 multi-token products on an int8 LM: dynamic per-token int8 activations
+    # (ops/quant.q_matmul_a8); decode (one token) stays w8a16
+    a8_prefill: bool = False
+    # int8-QK flash attention (K8) for a fresh flash prefill; needs use_flash
+    a8_attention: bool = False
     remat: str = "none"               # activation recompute per layer, cache-free forward only
 
     def resolved_head_dim(self) -> int:

@@ -3,7 +3,8 @@
 - ``params_from_jax(params, cfg)``: the JAX package's AF3 params pytree, as numpy arrays
   (layers stacked on a leading axis, linears [in, out], convs WIO [k, in, out]). A
   quantized LM (``ops/quant.py`` / ``ops/quant4.py`` trees) crosses as it is: int8 codes,
-  f32 scales and the stacked layout, under ``lm.<tree path>`` (``lm.layers.qkv.w_p``).
+  f32 scales and the stacked layout, under ``lm.<tree path>`` (``lm.layers.qkv.w_p``);
+  so do an int8 encoder's layers (either layout) under ``encoder.layers.<tree path>``.
 - ``state_dict_from_hf(sd, cfg)``: an HF-named AF3 state dict (qwen2_audio names
   ``audio_tower.* / multi_modal_projector.linear.* / language_model.*``, or the llava
   ``mm_projector`` variants), torch layouts, as ``load`` reads from safetensors.
@@ -42,6 +43,11 @@ def _is_quantized(lm: dict) -> bool:
         isinstance(v, dict) and ("w_q" in v or "w_p" in v) for v in lm["layers"].values())
 
 
+def _is_quantized_encoder(layers: dict) -> bool:
+    """Either int8 encoder layout (``quantize_encoder_params`` or ``..._fused``)."""
+    return "qkv" in layers or "w_q" in layers["q"]
+
+
 def _as_tensor(value) -> torch.Tensor:
     """A quantized tree's leaf as it is: integer codes keep their dtype, floats go to f32."""
     arr = np.array(value)
@@ -57,18 +63,22 @@ def params_from_jax(params: dict, cfg: AF3Config) -> dict[str, torch.Tensor]:
     sd["encoder.conv2.weight"] = _t(np.asarray(enc["conv2_w"]).transpose(2, 1, 0))
     sd["encoder.conv2.bias"] = _t(enc["conv2_b"])
     sd["encoder.embed_positions"] = _t(enc["pos"])
-    for i in range(cfg.encoder.num_layers):
-        lp = _layer(enc["layers"], i)
-        p = f"encoder.layers.{i}."
-        sd[p + "self_attn_layer_norm.weight"] = _t(lp["ln1_w"])
-        sd[p + "self_attn_layer_norm.bias"] = _t(lp["ln1_b"])
-        for ours, theirs in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
-                             ("out_proj", "o"), ("fc1", "fc1"), ("fc2", "fc2")):
-            _lin(lp[theirs], p + ours, sd)
-        sd[p + "final_layer_norm.weight"] = _t(lp["ln2_w"])
-        sd[p + "final_layer_norm.bias"] = _t(lp["ln2_b"])
     sd["encoder.layer_norm.weight"] = _t(enc["ln_post_w"])
     sd["encoder.layer_norm.bias"] = _t(enc["ln_post_b"])
+    layers = enc["layers"]
+    if _is_quantized_encoder(layers):
+        sd.update({k: _as_tensor(v) for k, v in flatten(layers, "encoder.layers.").items()})
+    else:
+        for i in range(cfg.encoder.num_layers):
+            lp = _layer(layers, i)
+            p = f"encoder.layers.{i}."
+            sd[p + "self_attn_layer_norm.weight"] = _t(lp["ln1_w"])
+            sd[p + "self_attn_layer_norm.bias"] = _t(lp["ln1_b"])
+            for ours, theirs in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                                 ("out_proj", "o"), ("fc1", "fc1"), ("fc2", "fc2")):
+                _lin(lp[theirs], p + ours, sd)
+            sd[p + "final_layer_norm.weight"] = _t(lp["ln2_w"])
+            sd[p + "final_layer_norm.bias"] = _t(lp["ln2_b"])
 
     for name, p in params["adaptor"].items():
         _lin(p, f"adaptor.{name}", sd)

@@ -22,8 +22,8 @@ from audio_flamingo_tpu_torch.ops.remat import remat_wrap
 
 
 class AF3Model(nn.Module):
-    """The audio tower, the adaptor and the LM: a float ``qwen2.Qwen2`` or a quantized
-    ``qwen2.QuantQwen2``."""
+    """The audio tower (a float ``WhisperEncoder`` or an int8 ``QuantWhisperEncoder``),
+    the adaptor and the LM (a float ``qwen2.Qwen2`` or a quantized ``qwen2.QuantQwen2``)."""
 
     def __init__(self, encoder: whisper_encoder.WhisperEncoder, adaptor_: adaptor.Adaptor,
                  lm: qwen2.Qwen2 | qwen2.QuantQwen2):
@@ -34,19 +34,22 @@ class AF3Model(nn.Module):
 
 
 def build(cfg: AF3Config, device: torch.device | str, dtype: torch.dtype,
-          adaptor_layers: int = 2, lm: qwen2.QuantQwen2 | None = None) -> AF3Model:
+          adaptor_layers: int = 2, lm: qwen2.QuantQwen2 | None = None,
+          encoder: whisper_encoder.QuantWhisperEncoder | None = None) -> AF3Model:
     """Allocate an AF3Model's weights (uninitialized) directly on ``device`` in ``dtype``:
     the modules are built on the meta device, so no host copy of the weights exists.
     adaptor_layers: 2 for AF3's MLP adaptor, 1 for a single-Linear projector. ``lm``: a
-    quantized LM already on ``device``, taken as it is in place of a float one."""
+    quantized LM already on ``device``, taken as it is in place of a float one;
+    ``encoder``: likewise a quantized encoder (``whisper_encoder.quantized_encoder``)."""
     with torch.device("meta"):
-        enc = whisper_encoder.WhisperEncoder(cfg.encoder, dtype=dtype)
+        enc = whisper_encoder.WhisperEncoder(cfg.encoder, dtype=dtype) if encoder is None else None
         adp = adaptor.Adaptor(cfg.encoder.d_model, cfg.lm.hidden_size, adaptor_layers,
                               dtype=dtype)
         float_lm = qwen2.Qwen2(cfg.lm, dtype=dtype) if lm is None else None
-    parts = [m.to_empty(device=device) for m in (enc, adp)]
+    enc = enc.to_empty(device=device) if encoder is None else encoder
+    adp = adp.to_empty(device=device)
     lm = float_lm.to_empty(device=device) if lm is None else lm
-    return AF3Model(*parts, lm).eval().requires_grad_(False)
+    return AF3Model(enc, adp, lm).eval().requires_grad_(False)
 
 
 @torch.no_grad()
@@ -57,7 +60,8 @@ def init_(model: AF3Model, cfg: AF3Config, generator: torch.Generator) -> None:
 
 
 def encode_audio(model: AF3Model, cfg: AF3Config, mels: torch.Tensor) -> torch.Tensor:
-    """[num_windows, 3000, n_mels] -> [num_windows, tokens_per_window, lm_hidden]."""
+    """[num_windows, 3000, n_mels] -> [num_windows, tokens_per_window, lm_hidden], through
+    the float or the quantized encoder."""
     h = whisper_encoder.apply(model.encoder, cfg.encoder, mels)
     return adaptor.apply(model.adaptor, h)
 

@@ -8,7 +8,12 @@ embeddings so audio tokens can be scattered in upstream (models/af3.py).
 
 Attention goes to the flash-attention kernel only on a fresh multi-token prefill with a
 purely causal mask (no extra mask, no sliding layer), as in the JAX ``forward``; every
-other call (decode, warm cache, masked) uses plain ``gqa_attention``.
+other call (decode, warm cache, masked) uses plain ``gqa_attention``. ``a8_attention``
+sends that fresh prefill to the int8-QK kernel (K8) instead.
+
+``a8_prefill`` on an int8 LM runs every multi-token layer's products w8a8 (per-token int8
+activations, ``ops/quant.q_matmul_a8q``), as JAX does; decode (one token) and the
+helpers the engines call (``qkv_proj``, ``o_proj``, ``mlp_forward``) stay w8a16.
 
 Unlike the JAX cache, ``KVCache`` is updated in place: prefill and decode write their
 K/V into the preallocated tensors and advance ``index``, so no step copies the cache.
@@ -34,11 +39,12 @@ from torch import nn
 from audio_flamingo_tpu_torch.config import Qwen2Config
 from audio_flamingo_tpu_torch.ops.attention import gqa_attention
 from audio_flamingo_tpu_torch.ops.kernels.flash_attention import flash_attention
+from audio_flamingo_tpu_torch.ops.kernels.flash_attention_a8 import flash_attention_a8
 from audio_flamingo_tpu_torch.ops.kernels.w4_suffix import (suffix_supported, w4_suffix_a,
                                                             w4_suffix_b)
 from audio_flamingo_tpu_torch.ops.mlp import swiglu_mlp
 from audio_flamingo_tpu_torch.ops.norms import Norm, rms_norm
-from audio_flamingo_tpu_torch.ops.quant import mm_f32, q_matmul
+from audio_flamingo_tpu_torch.ops.quant import mm_f32, q_matmul, q_matmul_a8q, quantize_act
 from audio_flamingo_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_stacked
 from audio_flamingo_tpu_torch.ops.remat import remat_wrap
 from audio_flamingo_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -170,23 +176,27 @@ def unflatten(state: dict) -> dict:
     return tree
 
 
+def cast_quantized(tree: dict, compute_dtype: torch.dtype, device) -> dict:
+    """A quantized tree on ``device``: float leaves in ``compute_dtype`` except the scales
+    ('scale', 'gscale'), which stay f32 (the JAX ``_cast_f32_leaves`` rule); integer codes
+    as they are."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = cast_quantized(value, compute_dtype, device)
+        elif key in ("scale", "gscale"):
+            out[key] = value.to(device=device, dtype=torch.float32)
+        elif value.is_floating_point():
+            out[key] = value.to(device=device, dtype=compute_dtype)
+        else:
+            out[key] = value.to(device=device)
+    return out
+
+
 def quantized_lm(tree: dict, compute_dtype: torch.dtype, device) -> QuantQwen2:
     """A quantized tree (``ops/quant.py`` / ``ops/quant4.py`` layout) -> QuantQwen2 on
-    ``device``: float leaves in ``compute_dtype`` except the scales ('scale', 'gscale'),
-    which stay f32 (the JAX ``_cast_f32_leaves`` rule); integer codes as they are."""
-    def cast(node: dict) -> dict:
-        out = {}
-        for key, value in node.items():
-            if isinstance(value, dict):
-                out[key] = cast(value)
-            elif key in ("scale", "gscale"):
-                out[key] = value.to(device=device, dtype=torch.float32)
-            elif value.is_floating_point():
-                out[key] = value.to(device=device, dtype=compute_dtype)
-            else:
-                out[key] = value.to(device=device)
-        return out
-    return QuantQwen2(cast(tree))
+    ``device``, cast by ``cast_quantized``."""
+    return QuantQwen2(cast_quantized(tree, compute_dtype, device))
 
 
 def split_stacked_w4(layers: TensorTree) -> dict | None:
@@ -291,9 +301,11 @@ def unembed(lm, hidden: torch.Tensor) -> torch.Tensor:
     return logits.reshape(*hidden.shape[:-1], head.shape[0])
 
 
-def _attend(q, k, v, cache: KVCache | None, layer_idx: int, mask, use_flash: bool):
+def _attend(q, k, v, cache: KVCache | None, layer_idx: int, mask, use_flash: bool,
+            a8_attention: bool = False):
     """Write this step's K/V into the cache (if any) and attend: flash over the block's
-    own K/V on a fresh prefill, else plain attention over the whole cache."""
+    own K/V on a fresh prefill (the int8-QK K8 with ``a8_attention``, at JAX's default
+    blocks), else plain attention over the whole cache."""
     s = q.shape[1]
     if cache is not None:
         ck, cv = cache.k[layer_idx], cache.v[layer_idx]
@@ -302,16 +314,66 @@ def _attend(q, k, v, cache: KVCache | None, layer_idx: int, mask, use_flash: boo
         if not use_flash:
             # the block's own K/V is the whole context only on a fresh prefill
             k, v = ck, cv
-    return flash_attention(q, k, v, causal=True) if use_flash else gqa_attention(q, k, v, mask=mask)
+    if not use_flash:
+        return gqa_attention(q, k, v, mask=mask)
+    if a8_attention:
+        return flash_attention_a8(q, k, v, causal=True)
+    return flash_attention(q, k, v, causal=True)
+
+
+def _qlinear_a8(xq_xs, x: torch.Tensor, p: TensorTree, layer: int) -> torch.Tensor:
+    """Layer ``layer`` of a stacked int8 linear on pre-quantized activations (w8a8), bias
+    added in x.dtype (JAX ``_linear_shared_a8``)."""
+    y = q_matmul_a8q(*xq_xs, {"w_q": p["w_q"][layer], "scale": p["scale"][layer]},
+                     out_dtype=x.dtype)
+    return y + p["b"][layer].to(x.dtype) if "b" in p else y
+
+
+def _linear_a8(x: torch.Tensor, p: TensorTree, layer: int) -> torch.Tensor:
+    """An int8 linear under a8 quantizes its own input; int4 stays weight-only (JAX
+    ``_linear(..., a8=True)``)."""
+    if "w_q" in p:
+        return _qlinear_a8(quantize_act(x), x, p, layer)
+    return _qlinear(x, p, layer)
+
+
+def _layer_forward_a8(x, lm: QuantQwen2, i: int, cfg: Qwen2Config, cos, sin, mask,
+                      cache: KVCache | None, flash_ok: bool) -> torch.Tensor:
+    """A multi-token layer of an int8 LM under ``a8_prefill`` (JAX ``_layer_forward`` with
+    a8): q/k/v share one activation quantization, gate/up another, o and down quantize
+    their own input."""
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    layers = lm.layers
+    h = rms_norm(x, layers["ln1_w"][i], cfg.rms_norm_eps)
+    if "q" in layers and "w_q" in layers["q"]:
+        hq = quantize_act(h)
+        q, k, v = (_qlinear_a8(hq, h, layers[n], i) for n in ("q", "k", "v"))
+        q, k, v = (q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
+                   v.reshape(b, s, nkv, hd))
+    else:
+        q, k, v = qkv_proj(h, lm, cfg, i)
+    q, k = apply_rope(q, k, cos, sin)
+    attn = _attend(q, k, v, cache, i, mask, flash_ok and s > 1, cfg.a8_attention)
+    x = x + _linear_a8(attn.reshape(b, s, -1), layers["o"], i)
+    h = rms_norm(x, layers["ln2_w"][i], cfg.rms_norm_eps)
+    mlp = layers["mlp"]
+    if "gate" not in mlp or "w_q" not in mlp["gate"]:
+        return x + mlp_forward(h, lm, cfg, i)
+    hq = quantize_act(h)
+    act = F.silu(_qlinear_a8(hq, h, mlp["gate"], i)) * _qlinear_a8(hq, h, mlp["up"], i)
+    return x + _linear_a8(act, mlp["down"], i)
 
 
 def _layer_forward(x, lm, i: int, cfg: Qwen2Config, cos, sin, mask, cache: KVCache | None,
                    flash_ok: bool) -> torch.Tensor:
     b, s, _ = x.shape
+    if cfg.a8_prefill and s > 1 and isinstance(lm, QuantQwen2):
+        return _layer_forward_a8(x, lm, i, cfg, cos, sin, mask, cache, flash_ok)
     ln1, ln2 = layer_norm_weights(lm, i)
     q, k, v = qkv_proj(rms_norm(x, ln1, cfg.rms_norm_eps), lm, cfg, i)
     q, k = apply_rope(q, k, cos, sin)
-    attn = _attend(q, k, v, cache, i, mask, flash_ok and s > 1)
+    attn = _attend(q, k, v, cache, i, mask, flash_ok and s > 1, cfg.a8_attention)
     x = x + o_proj(attn.reshape(b, s, -1), lm, i)
     return x + mlp_forward(rms_norm(x, ln2, cfg.rms_norm_eps), lm, cfg, i)
 

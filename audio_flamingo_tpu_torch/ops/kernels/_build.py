@@ -105,6 +105,18 @@ def load_library() -> ctypes.CDLL:
         fn = lib.af_paged_attention
         fn.restype = i32
         fn.argtypes = [ptr] * 11 + [i32] * 11 + [ctypes.c_float, ptr]
+        fn = lib.af_flash_attention_a8
+        fn.restype = i32
+        fn.argtypes = [ptr] * 5 + [i32] * 12 + [i64] * 3 + [ptr]
+        fn = lib.af_enc_ln_qkv
+        fn.restype = i32
+        fn.argtypes = [ptr] * 7 + [i32] * 4 + [ctypes.c_float, ptr]
+        fn = lib.af_enc_out_ln
+        fn.restype = i32
+        fn.argtypes = [ptr] * 10 + [i32] * 3 + [ctypes.c_float, ptr]
+        fn = lib.af_enc_mlp
+        fn.restype = i32
+        fn.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         for name in ("af_w4_suffix_a", "af_w4_suffix_b"):
             fn = getattr(lib, name)
             fn.restype = i32

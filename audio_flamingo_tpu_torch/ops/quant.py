@@ -1,8 +1,9 @@
 """Weight-only int8 quantization (w8a16), as ``audio_flamingo_tpu/ops/quant.py``.
 
 Per-output-channel scales; activations stay in the compute dtype. The codes and scales are
-bit-identical to the JAX package's: the same f32 amax, ``max(amax, 1e-8) / 127`` and a
-half-to-even ``round(w / scale)``.
+bit-identical to the JAX package's (run eagerly): the same f32 amax, ``max(amax, 1e-8) /
+127`` as a true division on every device (``div127``) and a half-to-even
+``round(w / scale)``.
 
 ``q_matmul`` is a plain product, as the JAX package leaves it to XLA (its Pallas kernel,
 K4, is reached by no caller there). On the card a bf16 x is multiplied with the int8 codes
@@ -11,6 +12,16 @@ are exact in bf16, so this is JAX's f32-accumulated dot up to the order of the s
 no f32 copy of the weight is made. The bf16 copy of the codes is made on every call.
 ``mm_f32`` and ``q_matmul`` are differentiable in their input, with the codes frozen:
 the gradient is ``g @ (w_q * scale)^T``, as JAX's autodiff of its dot gives it.
+
+w8a8 (the TTFT path: ``a8_prefill``, ``a8_encoder``): ``quantize_act`` gives per-token
+int8 codes and f32 scales, ``q_matmul_a8q`` multiplies them with int8 weights into an
+exact int32 product and then scales ``(y * x_scale) * scale`` in f32, as JAX's XLA
+product. The int32 product is a library call, as JAX leaves it to XLA:
+``torch._int_mm`` on both devices. On the card it needs more than 16 rows and K and N
+multiples of 8, so a short block's rows are padded with zero codes, and it takes the codes
+K-contiguous. It is exact on both: 127^2 * 18,944 < 2^31.
+``quantize_encoder_params`` and ``quantize_encoder_params_fused`` give the JAX package's
+two int8 encoder layouts, codes and scales bit-identical.
 """
 
 from __future__ import annotations
@@ -18,10 +29,16 @@ from __future__ import annotations
 import torch
 
 
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 as a true division on every device: on the card, torch divides by a Python
+    number through its reciprocal, which can move a scale by an ulp and flip codes."""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+
+
 def quantize_linear(w: torch.Tensor) -> dict:
     """[in, out] float -> {'w_q': int8 [in, out], 'scale': f32 [out]}."""
     wf = w.float()
-    scale = torch.clamp(wf.abs().amax(dim=-2), min=1e-8) / 127.0
+    scale = div127(torch.clamp(wf.abs().amax(dim=-2), min=1e-8))
     w_q = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -127, 127)
     return {"w_q": w_q.to(torch.int8), "scale": scale}
 
@@ -82,10 +99,49 @@ def q_matmul(x: torch.Tensor, p: dict) -> torch.Tensor:
     return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
 
 
+def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token dynamic int8 activation quantization: x [..., K] -> (int8 codes [..., K],
+    f32 scales [..., 1]); scale = max(amax, 1e-6) / 127, codes round(x / scale) half to
+    even, clipped to +-127."""
+    xf = x.float()
+    x_scale = div127(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6))
+    x_q = torch.clamp(torch.round(xf / x_scale), -127, 127)
+    return x_q.to(torch.int8), x_scale
+
+
+def q_matmul_a8q(x_q: torch.Tensor, x_scale: torch.Tensor, p: dict,
+                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 activations [..., K] (scales [..., 1]) x int8 weights {'w_q' [K, N], 'scale'
+    [N]} -> [..., N] in out_dtype: the exact int32 product (``torch._int_mm``), then
+    (y * x_scale) * scale in f32. On the card a block of 16 rows or fewer is padded with
+    zero codes to 17, and the [in, out] codes are handed over K-contiguous through a
+    per-call transposed copy: on the H100, cuBLAS's int8 product runs several times
+    slower on a row-major B (PERF.md), and the copy reads and writes the codes once."""
+    a = x_q.reshape(-1, x_q.shape[-1]).contiguous()
+    w = p["w_q"]
+    m = a.shape[0]
+    if a.is_cuda:
+        if a.shape[1] % 8 or w.shape[1] % 8:
+            raise ValueError(f"the card's int8 product needs K and N multiples of 8, got "
+                             f"{tuple(a.shape)} @ {tuple(w.shape)}")
+        if m <= 16:
+            a = torch.cat([a, a.new_zeros((17 - m, a.shape[1]))])
+        w = w.t().contiguous().t()
+    y = torch._int_mm(a, w)[:m]
+    y = y.reshape(*x_q.shape[:-1], y.shape[-1]).float() * x_scale
+    return (y * p["scale"].float()).to(out_dtype)
+
+
+def q_matmul_a8(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """w8a8: x quantized per token, times int8 weights, in x.dtype."""
+    x_q, x_scale = quantize_act(x)
+    return q_matmul_a8q(x_q, x_scale, p, out_dtype=x.dtype)
+
+
 def quantize_embedding(emb: torch.Tensor) -> dict:
     """[V, D] float -> int8 with per-ROW (vocab) scales, so a gather dequantizes per token."""
     ef = emb.float()
-    scale = torch.clamp(ef.abs().amax(dim=1), min=1e-8) / 127.0
+    scale = div127(torch.clamp(ef.abs().amax(dim=1), min=1e-8))
     w_q = torch.clamp(torch.round(ef / scale[:, None]), -127, 127)
     return {"w_q": w_q.to(torch.int8), "scale": scale}
 
@@ -184,3 +240,45 @@ def random_quantized_lm(generator: torch.Generator, cfg, device: torch.device | 
         params["lm_head"] = {"w_q": codes(d, cfg.vocab_size),
                              "scale": torch.full((cfg.vocab_size,), 0.02 / 127.0, **kw)}
     return params
+
+
+# ------------------------------------------------------------------ the encoder's weights
+# The float encoder arrives as a WhisperEncoder state dict (port names, torch layout); the
+# quantized layers leave as the JAX package's ``params["layers"]`` tree: leaves stacked on
+# [L], linears [in, out]. Conv stem, positions and ln_post stay float in the module.
+ENC_LINEARS = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "out_proj",
+               "fc1": "fc1", "fc2": "fc2"}
+ENC_NORMS = {"ln1_w": "self_attn_layer_norm.weight", "ln1_b": "self_attn_layer_norm.bias",
+             "ln2_w": "final_layer_norm.weight", "ln2_b": "final_layer_norm.bias"}
+
+
+def quantize_encoder_params(state: dict) -> dict:
+    """A WhisperEncoder state dict -> the JAX ``quantize_encoder_params`` layer tree: q, k,
+    v, o, fc1, fc2 as {'w_q' [L, in, out], 'scale' [L, out] (, 'b')} and the stacked
+    LayerNorm weights, in the dtypes they came in."""
+    layers = {name: stack_layers(state, key) for name, key in ENC_NORMS.items()}
+    for name, module in ENC_LINEARS.items():
+        layers[name] = quantized_linear_tree(state, module, quantize_linear)
+    return layers
+
+
+def quantize_encoder_params_fused(state: dict, head_dim: int) -> dict:
+    """A WhisperEncoder state dict -> the JAX ``quantize_encoder_params_fused`` layer tree
+    (the K9 kernels' layout): q|k|v concatenated into one {'w_q' [L, d, 3d], 'scale', 'b'}
+    with the q pre-scale head_dim^-0.5 folded into the q columns' scales and bias (k's
+    missing bias is zeros), then o, fc1, fc2 as in ``quantize_encoder_params``."""
+    layers = {name: stack_layers(state, key) for name, key in ENC_NORMS.items()}
+    lin = {name: quantized_linear_tree(state, module, quantize_linear)
+           for name, module in ENC_LINEARS.items()}
+    qs = torch.tensor(float(head_dim), dtype=torch.float32) ** -0.5
+    q_b = lin["q"]["b"]
+    k_b = lin["k"].get("b", torch.zeros_like(q_b))
+    layers["qkv"] = {
+        "w_q": torch.cat([lin[n]["w_q"] for n in ("q", "k", "v")], dim=2),
+        "scale": torch.cat([lin["q"]["scale"] * qs, lin["k"]["scale"], lin["v"]["scale"]],
+                           dim=1),
+        "b": torch.cat([q_b.float() * qs, k_b, lin["v"]["b"]], dim=1),
+    }
+    for name in ("o", "fc1", "fc2"):
+        layers[name] = lin[name]
+    return layers

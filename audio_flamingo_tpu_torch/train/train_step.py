@@ -1,14 +1,15 @@
 """Training step: stage freeze masks, a hand-written AdamW in optax's order, gradient
 accumulation and the chunked CE, as ``audio_flamingo_tpu/train/train_step.py``.
 
-The parameters live in the model; the hot ones (the stage's mask) require grad and the
-frozen ones neither get a gradient nor carry optimizer state. ``train_step`` updates the
-model's hot parameters and the optimizer state in place (no second copy of either) and
-returns the state with its step advanced. The step computes in the hot weights' dtype.
+The parameters live in the model; the hot ones (the stage's mask) require grad and
+carry optimizer state, the frozen ones do not. ``train_step`` updates the model's hot
+parameters and the optimizer state in place (no second copy of either) and returns the
+state with its step advanced. The step computes in the hot weights' dtype.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config
-from audio_flamingo_tpu_torch.models import af3, qwen2
+from audio_flamingo_tpu_torch.models import af3, qwen2, whisper_encoder
 from audio_flamingo_tpu_torch.train.stages import Stage, trainable_mask
 
 
@@ -68,9 +69,11 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: dict, opt_state: dict, model: torch.nn.Module) -> None:
-        """Clip, AdamW and apply, in place on the hot parameters and the state."""
+        """Clip, AdamW and apply, in place on the hot parameters and the state. Only the hot
+        gradients enter the clip's norm (optax's ``multi_transform`` masks the frozen
+        leaves); any other entry of ``grads`` is ignored."""
         params = dict(model.named_parameters())
-        g_norm = global_norm(grads.values())
+        g_norm = global_norm(grads[name] for name in self.hot)
         clip = g_norm < self.grad_clip
         count = opt_state["count"] + 1
         bc1 = float(1 - np.power(np.float32(self.B1), np.float32(count)))
@@ -98,7 +101,7 @@ def make_optimizer(stage: Stage, model: af3.AF3Model, *, weight_decay: float = 0
                    warmup_steps: int = 100, total_steps: int = 10_000,
                    grad_clip: float = 1.0, lora_only: bool = False) -> AdamW:
     """Set each parameter's requires_grad from the stage's mask and build the optimizer
-    over the hot ones. A hot quantized LM (int8 or int4 codes) raises."""
+    over the hot ones. A hot quantized LM (int8 or int4 codes) or int8 encoder raises."""
     if lora_only:
         raise NotImplementedError(NOT_PORTED.format("lora_only (LoRA / QLoRA)",
                                                     "10, training"))
@@ -106,6 +109,9 @@ def make_optimizer(stage: Stage, model: af3.AF3Model, *, weight_decay: float = 0
         raise NotImplementedError(
             f"stage {stage.name!r} trains the LM, whose weights are quantized codes; "
             + NOT_PORTED.format("training a quantized LM (QLoRA)", "10, training"))
+    if stage.train_encoder and isinstance(model.encoder, whisper_encoder.QuantWhisperEncoder):
+        raise ValueError(f"stage {stage.name!r} trains the encoder, whose layers are int8 "
+                         "codes (a8_encoder); train the float encoder")
     mask = trainable_mask(model, stage)
     hot = []
     for name, p in model.named_parameters():
@@ -129,10 +135,21 @@ def _hot_dtype(model: af3.AF3Model, opt: AdamW) -> torch.dtype:
     return dtypes.pop()
 
 
+def _differentiated(model: af3.AF3Model, opt: AdamW) -> tuple[str, ...]:
+    """The parameters whose gradients a step takes: every parameter when all of the
+    model's tensors are float, as JAX's ``value_and_grad`` takes them all; else (a
+    quantized LM or encoder, whose int8 leaves JAX cannot differentiate) the hot ones."""
+    if all(t.is_floating_point() for t in model.state_dict().values()):
+        return tuple(name for name, _ in model.named_parameters())
+    return opt.hot
+
+
 def loss_and_grads(model: af3.AF3Model, batch: dict, *, cfg: AF3Config, opt: AdamW,
                    accum_steps: int = 1, ce_chunk: int = 0) -> tuple[torch.Tensor, dict]:
-    """(mean loss, {hot name: gradient in the parameter's dtype}) of one batch, as
-    ``train_step`` takes them; see there for the batch and ``accum_steps``."""
+    """(mean loss, {name: gradient in the parameter's dtype}) of one batch, as
+    ``train_step`` takes them; see there for the batch and ``accum_steps``. The gradients
+    are the hot parameters' and, on an all-float model, the frozen ones' too (for the
+    norm only)."""
     device = next(model.parameters()).device
     ids = torch.as_tensor(batch["ids"], device=device).long()
     labels = torch.as_tensor(batch["labels"], device=device).long()
@@ -140,31 +157,45 @@ def loss_and_grads(model: af3.AF3Model, batch: dict, *, cfg: AF3Config, opt: Ada
     if mels is not None:
         mels = torch.as_tensor(mels, device=device)
     params = dict(model.named_parameters())
-    hot = [params[n] for n in opt.hot]
-    if accum_steps == 1:
-        s, c = af3.loss_terms(model, cfg, ids, labels, mels, ce_chunk=ce_chunk)
-        loss = s / c.clamp(min=1)
-        grads = torch.autograd.grad(loss, hot)
-    else:
-        b = ids.shape[0]
-        if b % accum_steps:
-            raise ValueError(f"batch {b} is not a multiple of accum_steps {accum_steps}")
-        m = b // accum_steps
-        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in hot]
-        ssum = torch.zeros((), dtype=torch.float32, device=device)
-        csum = torch.zeros((), dtype=torch.long, device=device)
-        for i in range(accum_steps):
-            rows = slice(i * m, (i + 1) * m)
-            s, c = af3.loss_terms(model, cfg, ids[rows], labels[rows],
-                                  None if mels is None else mels[rows], ce_chunk=ce_chunk)
-            for acc, g in zip(gsum, torch.autograd.grad(s, hot)):
-                acc.add_(g.float())
-            ssum = ssum + s.detach()
-            csum = csum + c
-        denom = csum.clamp(min=1).float()
-        grads = tuple((g / denom).to(p.dtype) for g, p in zip(gsum, hot))
-        loss = ssum / denom
-    return loss.detach(), dict(zip(opt.hot, grads))
+    names = _differentiated(model, opt)
+    wrt = [params[n] for n in names]
+    with _grads_on([p for p in wrt if not p.requires_grad]):
+        if accum_steps == 1:
+            s, c = af3.loss_terms(model, cfg, ids, labels, mels, ce_chunk=ce_chunk)
+            loss = s / c.clamp(min=1)
+            grads = torch.autograd.grad(loss, wrt)
+        else:
+            b = ids.shape[0]
+            if b % accum_steps:
+                raise ValueError(f"batch {b} is not a multiple of accum_steps {accum_steps}")
+            m = b // accum_steps
+            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in wrt]
+            ssum = torch.zeros((), dtype=torch.float32, device=device)
+            csum = torch.zeros((), dtype=torch.long, device=device)
+            for i in range(accum_steps):
+                rows = slice(i * m, (i + 1) * m)
+                s, c = af3.loss_terms(model, cfg, ids[rows], labels[rows],
+                                      None if mels is None else mels[rows], ce_chunk=ce_chunk)
+                for acc, g in zip(gsum, torch.autograd.grad(s, wrt)):
+                    acc.add_(g.float())
+                ssum = ssum + s.detach()
+                csum = csum + c
+            denom = csum.clamp(min=1).float()
+            grads = tuple((g / denom).to(p.dtype) for g, p in zip(gsum, wrt))
+            loss = ssum / denom
+    return loss.detach(), dict(zip(names, grads))
+
+
+@contextlib.contextmanager
+def _grads_on(frozen: list):
+    """Let autograd reach the frozen parameters for the length of one step."""
+    for p in frozen:
+        p.requires_grad_(True)
+    try:
+        yield
+    finally:
+        for p in frozen:
+            p.requires_grad_(False)
 
 
 def train_step(state: TrainState, batch: dict, *, cfg: AF3Config, opt: AdamW,
@@ -172,10 +203,13 @@ def train_step(state: TrainState, batch: dict, *, cfg: AF3Config, opt: AdamW,
                accum_steps: int = 1, ce_chunk: int = 0) -> tuple[TrainState, dict]:
     """One step on batch {'ids': [B, T], 'labels': [B, T], 'mels': [B, W, 3000, M] or
     None} (tensors, moved to the model's device if they lie elsewhere). Returns the
-    state and {'loss', 'grad_norm'} as device tensors. grad_norm is the norm of the hot
-    parameters' unclipped gradients: JAX differentiates every parameter and reports the
-    norm over all of them, frozen ones included; the port computes no gradient for a
-    frozen parameter, so the two agree when every parameter is hot.
+    state and {'loss', 'grad_norm'} as device tensors. grad_norm is the norm of the
+    unclipped gradients of every parameter, frozen ones included, as JAX reports it, when
+    all of the model's tensors are float (the frozen gradients are taken for the norm
+    only: they get no optimizer state, and the clip uses the hot part's norm, as optax's
+    ``multi_transform`` does). With a quantized LM or encoder it is the hot parameters'
+    norm: JAX's ``value_and_grad`` cannot differentiate int8 leaves, so it has no number
+    to match there.
 
     accum_steps > 1 splits the batch into that many microbatches: each one's summed NLL
     is differentiated on its own, the gradients add up in f32, and the sum is divided by

@@ -85,6 +85,27 @@ Phases, each line stamped with elapsed seconds:
      c. f32 card against CPU, full width, 2 + 2 layers, batch 1: one stage-2 train step
         (loss, grad norm, every hot gradient, the step's change) within 1e-4, through
         K2 and K7 on the card.
+ 10. the w8a8 TTFT path (load(quantize_lm=True, a8_prefill=True, a8_encoder=True) with
+     a8_attention, and the fused encoder layout), after every earlier model is freed:
+     a. the int8-QK flash attention (K8) against its plain version from the same prelude
+        outputs at the encoder's shapes ([1,1500,20,64], [20,1500,20,64], non-causal,
+        block_k 2048) and the LM's ([1,1024,28,128], [1,16384,28,128] causal, and an
+        unaligned block with a q_offset), f32 and bf16, replays bit-identical; timed beside
+        the prelude, the plain version, SDPA on the float inputs (a yardstick) and the bound;
+     b. the three encoder fusions (K9) against their plain versions at m = 1500 and 30,000
+        rows (bf16) and 1500 (f32) on one full-width layer: codes >= 99.9 % equal, every
+        output within its bound, replays bit-identical; timed beside the composed torch
+        form of the same stage (fused_stages=()), the plain version and the bound;
+     c. the 30 s clip at full width with the LM quantized on the card to int8 and the
+        encoder by quantize_encoder_params, a8_prefill and a8_attention on both towers:
+        generate() three times, 60 K8 launches each, identical ids, the prefill logits within
+        JAX's a8 band of the w8a16 model's, every K8 launch replayed against the plain
+        version; user TTFT beside phases 4 and 7;
+     d. the 10-minute file on the fused layout (fused_stages all three, K2 attention) with
+        the a8 prefill and K8 at 16,384 tokens, twice: 96 K9 and 28 K8 launches per
+        generate, identical ids; user TTFT beside phase 5's, kernel times beside bounds;
+     e. f32 card against CPU, full width, 2 + 2 layers, plain and fused encoder layouts:
+        the weight codes equal, the prefill logits within JAX's a8 band, the ids logged.
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -507,6 +528,7 @@ def ten_minute_phase(model, fa, lm) -> dict:
         f"{warm['e2e']:.3f} s, user TTFT {warm['proc'] + warm['ttft']:.3f} s, of which processor {warm['proc']:.3f} s "
         f"(K1 {warm['k1_ms']:.3f} ms), K2 {warm['k2_ms'] / 1e3:.3f} s, rest of the prefill "
         f"{warm['ttft'] - warm['k2_ms'] / 1e3:.3f} s")
+    warm["wav"] = wav      # phase 10d answers the same file on the w8a8 path
     return warm
 
 
@@ -620,6 +642,21 @@ def suffix_bound_ms(first, second, m: int, dtype: str, gated: bool) -> tuple:
     (k1, d, g1), (_, n2, g2) = (k5_shape(p["w_p"], p["gscale"]) for p in (first, second))
     out2 = n2 // 2 if gated else n2
     return w4_bound_ms([(k1, d, g1), (d, n2, g2)], m, dtype, m * (k1 + 2 * d + out2) + d)
+
+
+def int8pack_call(x, w_q, scale):
+    """One torch._weight_int8pack_mm call on an int8 [K, N] head's codes, laid out [N, K]
+    with bf16 scales (the library's layout), as the yardstick of K4 (w8a16). Returns
+    (call, None) or (None, the reason it is refused)."""
+    try:
+        w = w_q.t().contiguous()
+        s = scale.to(x.dtype)
+        call = lambda: torch._weight_int8pack_mm(x, w, s)
+        call()
+        torch.cuda.synchronize()
+        return call, None
+    except (RuntimeError, TypeError, AttributeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
 
 
 def int4pack_call(x, w_p, gscale):
@@ -856,9 +893,13 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
     h = torch.randn((1, lm_cfg.hidden_size), device="cuda").bfloat16()
     unembed_ms = time_ms(lambda: qwen2.unembed(qlm, h))
     convert_ms = time_ms(lambda: qlm.lm_head["w_q"].to(torch.bfloat16))
+    lib, why = int8pack_call(h, qlm.lm_head["w_q"], qlm.lm_head["scale"])
+    lib_ms = f"{time_ms(lib):.4f} ms" if lib else f"none ({why})"
+    del lib
     log(f"int8 head unembed [1,{lm_cfg.hidden_size}] x {list(qlm.lm_head['w_q'].shape)}: "
         f"{unembed_ms:.4f} ms per step, of which the int8 -> bf16 copy of the codes "
-        f"{convert_ms:.4f} ms; its bound {(nbytes['lm_head.w_q'] + nbytes['lm_head.scale']) / PEAK_BYTES * 1e3:.4f} ms")
+        f"{convert_ms:.4f} ms; its bound {(nbytes['lm_head.w_q'] + nbytes['lm_head.scale']) / PEAK_BYTES * 1e3:.4f} ms; "
+        f"torch._weight_int8pack_mm on the same codes (K4's library yardstick): {lib_ms}")
 
     # the path's own launches (the third run's), every one replayed on its captured inputs
     x0, w_p0, gscale0, layer0 = captured["K5"][0]
@@ -1987,6 +2028,547 @@ def f32_train_card_vs_cpu_phase(fa) -> None:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+# ------------------------------------------------------------------ 10. the w8a8 path
+K8_F32_TOL = 1e-5                    # f32 o: max|o - plain| <= 1e-5 max|plain| (sum order, exp)
+K8_BF16_TOL = (2.0 ** -7, 1e-3)      # bf16 o: |o - plain| <= 2^-7 |plain| + 1e-3 (one bf16 step)
+K9_NEAR = (2.0 ** -7, 1e-6)          # K9 y "near": |y - plain| <= 2^-7 |plain| + 1e-6 max|plain|
+K9_TOL = (2.0 ** -7, 2.0 ** -6)      # every y: |y - plain| <= 2^-7 |plain| + 2^-6 max|plain|
+K9_SHARE = 0.999                     # share of K9 outputs "near", and of equal int8 codes
+A8_BAND = 0.05                       # a8 vs w8a16 prefill logits, rel max (JAX's band)
+A8_F32_TOL = A8_BAND                 # 10e: card vs CPU prefill logits, rel max (see 10e)
+K8_NO_LIBRARY = ("none: SDPA computes float attention, not the int8-QK function; its time "
+                 "on the float inputs is logged as a yardstick")
+
+
+PEAK_INT8 = 1979e12                  # H100 SXM dense int8 tensor-core ops
+
+
+def k8_bound_ms(q_shape, k_shape, causal: bool, q_offset: int, out_dtype: str) -> tuple:
+    """Least time of K8's body: max(int8 QK^T ops at 1979 TOPS + bf16 P.V FLOPs at 989
+    TFLOP/s, 2 B H D per visible pair each, bytes at 3.35 TB/s); the bytes are the
+    prelude's outputs read once (int8 q and k, bf16 v, f32 rowc) and o written once."""
+    b, tq, h, d = q_shape
+    tk, hkv = k_shape[1], k_shape[2]
+    work = 2.0 * b * h * d * visible_pairs(tq, tk, causal, q_offset)
+    t_ops = work / PEAK_INT8 + work / PEAK_FLOPS["bfloat16"]
+    item = 4 if out_dtype == "float32" else 2
+    nbytes = b * tq * h * d * (1 + item) + b * tk * hkv * d * 3 + 4 * b * tq * h
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k9_bound_ms(kind: str, m: int, d: int, n: int, x_bytes: int) -> tuple:
+    """Least time of one K9 call: max(int8 ops at 1979 TOPS, bytes at 3.35 TB/s), each
+    input read once and each output written once (n: 3d for ln_qkv, the ffn for mlp;
+    x_bytes: the activations' element size)."""
+    if kind == "ln_qkv":
+        ops = 2.0 * m * d * n
+        nbytes = m * d * x_bytes + d * n + m * n * x_bytes + 4 * (2 * d + 2 * n)
+    elif kind == "out_ln":
+        ops = 2.0 * m * d * d
+        nbytes = 2 * m * d * x_bytes + d * d + m * d * (x_bytes + 1) + 4 * m + 16 * d
+    else:
+        ops = 4.0 * m * d * n
+        nbytes = m * d + 4 * m + 2 * d * n + 2 * m * d * x_bytes + 8 * (n + d)
+    t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k8_compare(fa8, pre) -> dict:
+    """One K8 launch against the plain version on the same prelude outputs, and a second
+    launch (a replay must be bit-identical)."""
+    o = fa8.flash_attention_a8_kernel(pre)
+    o2 = fa8.flash_attention_a8_kernel(pre)
+    ref = fa8.flash_attention_a8_reference(pre).float()
+    diff = (o.float() - ref).abs()
+    if pre.out_dtype == torch.float32:
+        ratio = diff.max().item() / (K8_F32_TOL * ref.abs().max().item())
+    else:
+        ratio = (diff / (K8_BF16_TOL[0] * ref.abs() + K8_BF16_TOL[1])).max().item()
+    return dict(err=diff.max().item(), ratio=ratio, replay=torch.equal(o, o2),
+                finite=bool(torch.isfinite(o).all()))
+
+
+def check_k8(name: str, r: dict) -> None:
+    check(r["finite"], f"K8 {name}: output not finite")
+    check(r["ratio"] <= 1.0, f"K8 {name}: |o - plain| at {r['ratio']:.3f} of its limit")
+    check(r["replay"], f"K8 {name}: two launches on the same inputs differ")
+
+
+def k8_phase(fa8) -> dict:
+    """10a. K8 against its plain version from the same prelude outputs, at the encoder's
+    shapes (30 s and 10 minutes, non-causal, scale 1, block_k 2048), the LM's prefill
+    (1024 and 16,384 tokens, causal over 4 KV heads) and an unaligned causal block with a
+    q_offset, in f32 and bf16; the kernel, the prelude, the plain version and SDPA on the
+    float inputs timed beside the bound."""
+    cases = [  # name, q shape, k shape, causal, scale, q_offset, block_k
+        ("encoder", (1, 1500, 20, 64), (1, 1500, 20, 64), False, 1.0, 0, 2048),
+        ("encoder_10min", (20, 1500, 20, 64), (20, 1500, 20, 64), False, 1.0, 0, 2048),
+        ("lm_prefill", (1, 1024, 28, 128), (1, 1024, 4, 128), True, None, 0, 1024),
+        ("lm_prefill_16k", (1, 16384, 28, 128), (1, 16384, 4, 128), True, None, 0, 1024),
+        ("ragged", (1, 100, 28, 128), (1, 300, 4, 128), True, None, 200, 1024),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    results = {}
+    for name, qs, ks, causal, scale, q_offset, block_k in cases:
+        d = qs[-1]
+        q_mul = 1.0 / (d ** 0.5 * (scale if scale is not None else d ** -0.5))
+        q32 = torch.randn(qs, generator=gen, device="cuda") * q_mul
+        k32 = torch.randn(ks, generator=gen, device="cuda") + 0.5   # a common-mode part
+        v32 = torch.randn(ks, generator=gen, device="cuda")
+        big = qs[0] * qs[1] > 10_000
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            kw = dict(causal=causal, scale=scale, q_offset=q_offset, block_q=512,
+                      block_k=block_k)
+            pre = fa8.prelude(q, k, v, **kw)
+            r = k8_compare(fa8, pre)
+            dn = str(dtype).split(".")[-1]
+            r["ms"] = time_ms(lambda: fa8.flash_attention_a8_kernel(pre), 3 if big else 10)
+            r["prelude_ms"] = time_ms(lambda: fa8.prelude(q, k, v, **kw), 3 if big else 10)
+            r["plain_ms"] = time_ms(lambda: fa8.flash_attention_a8_reference(pre), 1, 1)
+            r["sdpa_ms"] = (time_ms(sdpa_call(q, k, v, dict(causal=causal, scale=scale)),
+                                    3 if big else 10) if q_offset == 0 else None)
+            r["bound_ms"], r["bound_by"] = k8_bound_ms(qs, ks, causal, q_offset, dn)
+            sdpa = "n/a" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f}"
+            log(f"K8 {name:14s} {dn:8s} q{list(qs)} k{list(ks)} causal={causal} q_offset="
+                f"{q_offset} block_k={block_k}: max|o-plain|={r['err']:.3e} (at "
+                f"{r['ratio']:.3f} of its limit), replay bit-identical {r['replay']}; ms="
+                f"{r['ms']:.4f} prelude_ms={r['prelude_ms']:.4f} plain_ms={r['plain_ms']:.2f} "
+                f"SDPA (float, yardstick) ms={sdpa} bound_ms={r['bound_ms']:.5f} "
+                f"({r['bound_by']}); {r['bound_ms'] / r['ms'] * 100:.2f} % of the bound")
+            check_k8(f"{name} {dn}", r)
+            results[(name, dn)] = r
+            del pre
+        del q32, k32, v32, q, k, v
+        torch.cuda.empty_cache()
+    return results
+
+
+def k9_layer(d: int, f: int, seed: int):
+    """One encoder layer in the fused int8 layout (a 1-layer tree) at width d and ffn f,
+    quantized by the port's quantizer from random float weights of the encoder
+    init's scale, with unit-ish LayerNorms and small biases."""
+    from audio_flamingo_tpu_torch.ops.quant import quantize_encoder_params_fused
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def lin(n_in, n_out, bias=True):
+        w = (torch.rand((n_out, n_in), generator=gen, device="cuda") * 2 - 1) * n_in ** -0.5
+        out = {"weight": w}
+        if bias:
+            out["bias"] = 0.02 * torch.randn(n_out, generator=gen, device="cuda")
+        return out
+
+    state = {}
+    for name, (a, b, bias) in {"q_proj": (d, d, True), "k_proj": (d, d, False),
+                               "v_proj": (d, d, True), "out_proj": (d, d, True),
+                               "fc1": (d, f, True), "fc2": (f, d, True)}.items():
+        state.update({f"layers.0.{name}.{k}": v for k, v in lin(a, b, bias).items()})
+    for norm in ("self_attn_layer_norm", "final_layer_norm"):
+        state[f"layers.0.{norm}.weight"] = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        state[f"layers.0.{norm}.bias"] = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    return quantize_encoder_params_fused(state, head_dim=64)
+
+
+def k9_compare(y, ref) -> dict:
+    y, ref = y.float(), ref.float()
+    diff = (y - ref).abs()
+    mx = ref.abs().max().item()
+    near = (diff <= K9_NEAR[0] * ref.abs() + K9_NEAR[1] * mx).float().mean().item()
+    ratio = (diff / (K9_TOL[0] * ref.abs() + K9_TOL[1] * mx)).max().item()
+    return dict(err=diff.max().item(), near=near, ratio=ratio, finite=bool(torch.isfinite(y).all()))
+
+
+def check_k9(name: str, r: dict) -> None:
+    check(r["finite"], f"K9 {name}: output not finite")
+    check(r["near"] >= K9_SHARE, f"K9 {name}: {r['near']:.6f} of outputs within one step")
+    check(r["ratio"] <= 1.0, f"K9 {name}: |y - plain| at {r['ratio']:.3f} of its limit")
+
+
+def k9_phase(ef, wenc) -> dict:
+    """10b. K9's three kernels against their plain versions at m = 1500 and 30,000 rows
+    (the 30 s and 10-minute encoder calls) in bf16, and at m = 1500 in f32, on one full-
+    width layer in the fused layout; codes of enc_out_ln held to a share, every output to
+    a bound; two launches bit-identical; each kernel timed beside its bound, its plain
+    version and the composed torch form of the same stage (what fused_stages=() runs)."""
+    from audio_flamingo_tpu_torch.models.qwen2 import TensorTree, cast_quantized
+
+    d, f = 1280, 5120
+    tree = k9_layer(d, f, seed=11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    results = {}
+    for m, dtype in ((1500, torch.bfloat16), (30_000, torch.bfloat16), (1500, torch.float32)):
+        lp = TensorTree(cast_quantized(tree, dtype, "cuda"))
+        dn = str(dtype).split(".")[-1]
+        xb = dtype.itemsize
+        x = torch.randn((m, d), generator=gen, device="cuda").to(dtype)
+        attn = (0.5 * torch.randn((m, d), generator=gen, device="cuda")).to(dtype)
+        qkv, o, f1, f2 = (lp[n] for n in ("qkv", "o", "fc1", "fc2"))
+        args = {
+            "enc_ln_qkv": (x, lp["ln1_w"][0], lp["ln1_b"][0], qkv["w_q"][0], qkv["scale"][0],
+                           qkv["b"][0]),
+            "enc_out_ln": (attn, x, o["w_q"][0], o["scale"][0], o["b"][0], lp["ln2_w"][0],
+                           lp["ln2_b"][0]),
+        }
+        x2, hq, hs = ef.enc_out_ln_reference(*args["enc_out_ln"])
+        args["enc_mlp"] = (hq, hs, f1["w_q"][0], f1["scale"][0], f1["b"][0], f2["w_q"][0],
+                           f2["scale"][0], f2["b"][0], x2)
+        composed = {"enc_ln_qkv": lambda: wenc.stage_qkv(x, lp, 0, False),
+                    "enc_out_ln": lambda: wenc.stage_out(attn, x, lp, 0, False),
+                    "enc_mlp": lambda: wenc.stage_mlp(hq, hs, x2, lp, 0, f, False)}
+        bounds = {"enc_ln_qkv": k9_bound_ms("ln_qkv", m, d, 3 * d, xb),
+                  "enc_out_ln": k9_bound_ms("out_ln", m, d, d, xb),
+                  "enc_mlp": k9_bound_ms("mlp", m, d, f, xb)}
+        for name in ("enc_ln_qkv", "enc_out_ln", "enc_mlp"):
+            kernel, plain = getattr(ef, name), getattr(ef, name + "_reference")
+            y, y2, ref = kernel(*args[name]), kernel(*args[name]), plain(*args[name])
+            if name == "enc_out_ln":
+                r = k9_compare(y[0], ref[0])
+                r["codes"] = (y[1] == ref[1]).float().mean().item()
+                r["scale_rel"] = ((y[2] - ref[2]).abs() / ref[2]).max().item()
+                r["replay"] = all(torch.equal(a, b) for a, b in zip(y, y2))
+            else:
+                r = k9_compare(y, ref)
+                r["replay"] = torch.equal(y, y2)
+            big = m > 10_000
+            r["ms"] = time_ms(lambda: kernel(*args[name]), 5 if big else 10)
+            r["plain_ms"] = time_ms(lambda: plain(*args[name]), 2, 1)
+            r["composed_ms"] = time_ms(composed[name], 5 if big else 10)
+            r["bound_ms"], r["bound_by"] = bounds[name]
+            codes = ("" if name != "enc_out_ln" else
+                     f" codes equal {r['codes']:.6f} scales rel {r['scale_rel']:.2e};")
+            log(f"K9 {name:10s} m={m:6d} {dn:8s}: max|y-plain|={r['err']:.3e} (at "
+                f"{r['ratio']:.3f} of its limit), {r['near']:.6f} within one step;{codes} "
+                f"replay bit-identical {r['replay']}; ms={r['ms']:.4f} composed_ms="
+                f"{r['composed_ms']:.4f} plain_ms={r['plain_ms']:.2f} bound_ms="
+                f"{r['bound_ms']:.5f} ({r['bound_by']}); {r['bound_ms'] / r['ms'] * 100:.2f} % "
+                f"of the bound")
+            check_k9(f"{name} m={m} {dn}", r)
+            check(r["replay"], f"K9 {name} m={m} {dn}: two launches differ")
+            if name == "enc_out_ln":
+                check(r["codes"] >= K9_SHARE, f"K9 enc_out_ln codes equal {r['codes']}")
+            results[(name, m, dn)] = r
+        del lp, x, attn, x2, hq, hs, args, composed
+        torch.cuda.empty_cache()
+    return results
+
+
+def a8_models(cfg, seed: int = 0):
+    """The bf16 model at full width with its LM quantized on the card to int8 as
+    load(quantize_lm=True) does (the float LM freed): returns (the w8a16 model, its float
+    encoder) for the a8 variants to take their encoders from."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.models import af3, qwen2
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+
+    t0 = time.perf_counter()
+    base = AudioFlamingo.from_random(cfg, seed=seed, compute_dtype=torch.bfloat16, device="cuda")
+    qlm = qwen2.quantized_lm(quantize_lm_params(base.model.lm.state_dict()), torch.bfloat16,
+                             "cuda")
+    w8 = dataclasses.replace(base, model=af3.AF3Model(base.model.encoder, base.model.adaptor,
+                                                      qlm))
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"a8 models: bf16 AF3 at full width made and its LM quantized to int8 on the card in "
+        f"{time.perf_counter() - t0:.1f}s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    return w8
+
+
+def a8_variant(w8, enc, enc_flags: dict, lm_flags: dict):
+    """w8 with the encoder ``enc`` and the config switches of the two flag dicts."""
+    from audio_flamingo_tpu_torch.models import af3
+
+    cfg = w8.cfg
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, **enc_flags),
+                              lm=dataclasses.replace(cfg.lm, **lm_flags))
+    return dataclasses.replace(w8, cfg=cfg, model=af3.AF3Model(enc, w8.model.adaptor,
+                                                             w8.model.lm),
+                               history=[], last_output=None, last_processor_s=None)
+
+
+def k8_replay(fa8, captured: list) -> dict:
+    """The path's own K8 launches replayed on their captured prelude outputs: each held to
+    the plain version, and the kernel and the plain version timed (median of 3 after one
+    warm-up), summed with the per-launch bounds."""
+    tot = dict(err=0.0, ratio=0.0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    by = set()
+    for i, (pre,) in enumerate(captured):
+        r = k8_compare(fa8, pre)
+        check_k8(f"path launch {i}", r)
+        tot["err"], tot["ratio"] = max(tot["err"], r["err"]), max(tot["ratio"], r["ratio"])
+        tot["kernel_ms"] += time_ms(lambda: fa8.flash_attention_a8_kernel(pre), 3, 1)
+        tot["plain_ms"] += time_ms(lambda: fa8.flash_attention_a8_reference(pre), 3, 1)
+        qs = (pre.batch, pre.tq, pre.heads, pre.q_i8.shape[-1])
+        ks = (pre.batch, pre.kv_len, pre.kv_heads, pre.q_i8.shape[-1])
+        b_ms, b_by = k8_bound_ms(qs, ks, pre.causal, pre.q_offset,
+                                  str(pre.out_dtype).split(".")[-1])
+        tot["bound_ms"] += b_ms
+        by.add(b_by)
+    tot["bound_by"] = "operations" if by == {"operations"} else "bytes"
+    return tot
+
+
+def a8_clip_phase(w8, fa, fa8, wav, ref_ttft: dict) -> dict:
+    """10c. The 30 s clip on the a8 path at full width: the w8a16 model's encoder
+    quantized by quantize_encoder_params (what load(a8_encoder=True) runs), a8_prefill,
+    a8_attention on both towers, flash on; generate() three times, greedy, 16 tokens: 60
+    K8 launches (32 encoder + 28 LM) and no K2 per generate, identical ids, finite logits;
+    the warm (second) run's prefill logits against the same int8 LM with a8 off and the
+    float encoder (load(quantize_lm=True)); every K8 launch of the third run replayed
+    against the plain version. The warm run's user TTFT beside phases 4 and 7, K8's time
+    in it, peak memory."""
+    from audio_flamingo_tpu_torch.models import whisper_encoder
+
+    enc8 = whisper_encoder.quantize(w8.model.encoder, w8.cfg.encoder)
+    a8 = a8_variant(w8, enc8, dict(a8_attention=True), dict(a8_prefill=True, a8_attention=True))
+    runs = []
+    for i in range(3):
+        for c in (fa.LAUNCHES, fa8.LAUNCHES):
+            c.reset()
+        fa8.LAUNCHES.timing, fa8.LAUNCHES.capture = True, i == 2
+        torch.cuda.reset_peak_memory_stats()
+        text, _, split = timed_generate(a8, sound=wav, prompt="What do you hear?",
+                                        max_new_tokens=16)
+        out = a8.last_output
+        run = dict(ids=out.tokens[0, : int(out.lengths[0])].tolist(), proc=a8.last_processor_s,
+                   ttft=out.ttft_s, first_logits=out.first_logits, k8=fa8.LAUNCHES.count,
+                   k8_shapes=dict(fa8.LAUNCHES.shapes), k8_ms=fa8.LAUNCHES.device_ms(),
+                   k2=fa.LAUNCHES.count, peak=torch.cuda.max_memory_allocated() / 2**30)
+        captured = list(fa8.LAUNCHES.inputs)
+        fa8.LAUNCHES.timing = fa8.LAUNCHES.capture = False
+        fa8.LAUNCHES.reset()
+        log(f"a8 generate #{i + 1}: ids={run['ids']} text={text!r} {split}; K8 launches "
+            f"{run['k8']} ({run['k8_ms']:.3f} ms in the path), K2 {run['k2']}; peak GPU memory "
+            f"{run['peak']:.2f} GiB")
+        runs.append(run)
+    expected = {((1, 1500, 20, 64), (1, 1500, 20, 64), False): 32,
+                ((1, 1024, 28, 128), (1, 1024, 4, 128), True): 28}
+    for run in runs:
+        check(run["k8"] == 60 and run["k8_shapes"] == expected,
+              f"K8 launches per a8 generate {run['k8_shapes']} != {expected}")
+        check(run["k2"] == 0, f"the a8 path launched K2 {run['k2']} times")
+        check(bool(torch.isfinite(run["first_logits"]).all()), "a8 prefill logits not finite")
+    check(all(r["ids"] == runs[0]["ids"] for r in runs),
+          f"a8 greedy ids differ: {[r['ids'] for r in runs]}")
+    rep = k8_replay(fa8, captured)
+    del captured
+    log(f"a8 path's 60 K8 launches replayed: max|o-plain|={rep['err']:.3e} (at "
+        f"{rep['ratio']:.3f} of its limit); summed kernel {rep['kernel_ms']:.3f} ms (in the "
+        f"path {runs[2]['k8_ms']:.3f} ms), plain {rep['plain_ms']:.2f} ms, bound "
+        f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+    fa8.LAUNCHES.reset()
+    _, _, split = timed_generate(w8, sound=wav, prompt="What do you hear?", max_new_tokens=1)
+    check(fa8.LAUNCHES.count == 0, "the w8a16 path launched K8")
+    a, b = runs[1]["first_logits"].double(), w8.last_output.first_logits.double()
+    cos = F.cosine_similarity(a, b, dim=-1).min().item()
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    warm = runs[1]
+    log(f"a8 vs w8a16 prefill logits (same int8 LM; float encoder, no a8): cosine {cos:.6f}, "
+        f"max|diff| / max|logit| {rel:.4f} (JAX's band: < {A8_BAND}), argmax {int(a.argmax())} "
+        f"vs {int(b.argmax())}; w8a16 {split}")
+    log(f"a8 warm run: user TTFT {(warm['proc'] + warm['ttft']) * 1e3:.1f} ms (processor "
+        f"{warm['proc'] * 1e3:.1f} + ttft {warm['ttft'] * 1e3:.1f}) against bf16 (phase 4) "
+        f"{ref_ttft['bf16'] * 1e3:.1f} ms and int4 (phase 7) {ref_ttft['int4'] * 1e3:.1f} ms; "
+        f"K8 {warm['k8_ms']:.3f} ms in the path; peak {warm['peak']:.2f} GiB")
+    check(rel < A8_BAND, f"a8 prefill logits {rel} off the w8a16 ones (band {A8_BAND})")
+    del a8, enc8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(warm=warm, replay=rep)
+
+
+def a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav, ref: dict) -> dict:
+    """10d. The 10-minute file on the fused a8 path (the reference's ttft_10min_a8f_s
+    pipeline with a8_attention): phase 5's 600 s input through K1, the encoder in the
+    fused layout with fused_stages ("qkv", "out", "mlp") and K2 for its attention, the a8
+    prefill with K8 at 16,384 tokens, 4 greedy tokens, twice: 96 K9 and 28 K8 launches per
+    generate, identical ids. User TTFT beside phase 5's; K9's, K8's and K2's time in the
+    path beside their summed bounds; peak memory."""
+    from audio_flamingo_tpu_torch.audio.mel import WhisperMelFrontend
+    from audio_flamingo_tpu_torch.config import MelConfig
+    from audio_flamingo_tpu_torch.models import whisper_encoder
+    from audio_flamingo_tpu_torch.runtime.processor import AF3Processor
+
+    encf = whisper_encoder.quantize(w8.model.encoder, w8.cfg.encoder, fused=True)
+    a8f = a8_variant(w8, encf, dict(fused_stages=("qkv", "out", "mlp")),
+                     dict(a8_prefill=True, a8_attention=True))
+    frontend = WhisperMelFrontend(MelConfig(num_mel_bins=a8f.cfg.encoder.num_mel_bins),
+                                  use_pallas=True)
+    a8f = dataclasses.replace(a8f, processor=AF3Processor(
+        tokenizer=a8f.processor.tokenizer, cfg=a8f.cfg, frontend=frontend))
+    counters = {"K9 ln_qkv": ef.LN_QKV_LAUNCHES, "K9 out_ln": ef.OUT_LN_LAUNCHES,
+                "K9 mlp": ef.MLP_LAUNCHES, "K8": fa8.LAUNCHES, "K2": fa.LAUNCHES,
+                "K1": lm.LAUNCHES}
+    runs = []
+    for i in range(2):
+        for c in counters.values():
+            c.reset()
+            c.timing = True
+        torch.cuda.reset_peak_memory_stats()
+        _, e2e, split = timed_generate(a8f, sound=wav, prompt="What do you hear?",
+                                       max_new_tokens=4)
+        out = a8f.last_output
+        run = dict(ids=out.tokens[0, : int(out.lengths[0])].tolist(), proc=a8f.last_processor_s,
+                   ttft=out.ttft_s, e2e=e2e, finite=bool(torch.isfinite(out.first_logits).all()),
+                   peak=torch.cuda.max_memory_allocated() / 2**30,
+                   **{n: (c.count, dict(c.shapes), c.device_ms()) for n, c in counters.items()})
+        for c in counters.values():
+            c.timing = False
+            c.reset()
+        log(f"a8 10-minute generate #{i + 1}: ids={run['ids']} {split}; "
+            + ", ".join(f"{n} {run[n][0]} ({run[n][2]:.1f} ms)" for n in counters)
+            + f"; peak GPU memory {run['peak']:.2f} GiB")
+        runs.append(run)
+    for run in runs:
+        for name in ("K9 ln_qkv", "K9 out_ln", "K9 mlp"):
+            check(run[name][0] == 32, f"{name} launches per 10-minute a8 generate "
+                                      f"{run[name][0]} != 32")
+        check(run["K8"][0] == 28 and run["K8"][1] == {
+            ((1, 16384, 28, 128), (1, 16384, 4, 128), True): 28},
+            f"K8 launches per 10-minute a8 generate {run['K8'][1]}")
+        check(run["K2"][0] == 32, f"K2 launches {run['K2'][0]} != 32 (the encoder's)")
+        check(run["K1"][0] == 2, f"K1 launches {run['K1'][0]} != 2")
+        check(run["finite"], "10-minute a8 prefill logits not finite")
+    check(runs[0]["ids"] == runs[1]["ids"], f"10-minute a8 greedy ids differ: "
+                                            f"{runs[0]['ids']} vs {runs[1]['ids']}")
+    warm = runs[1]
+    k9_ms = sum(warm[n][2] for n in ("K9 ln_qkv", "K9 out_ln", "K9 mlp"))
+    m = 20 * 1500
+    bounds = {"K9": 32 * sum(k9_bound_ms(kind, m, 1280, n, 2)[0] for kind, n in
+                             (("ln_qkv", 3840), ("out_ln", 1280), ("mlp", 5120))),
+              "K8": 28 * k8_bound_ms((1, 16384, 28, 128), (1, 16384, 4, 128), True, 0,
+                                      "bfloat16")[0],
+              "K2": 32 * attention_bound_ms((20, 1500, 20, 64), (20, 1500, 20, 64), False, 0,
+                                            "bfloat16")[0]}
+    log(f"a8 10-minute warm run: user TTFT {warm['proc'] + warm['ttft']:.3f} s (processor "
+        f"{warm['proc']:.3f} + ttft {warm['ttft']:.3f}) against phase 5's "
+        f"{ref['proc'] + ref['ttft']:.3f} s; "
+        f"in the path K9 {k9_ms:.1f} ms (bound {bounds['K9']:.2f} ms), K8 {warm['K8'][2]:.1f} ms "
+        f"(bound {bounds['K8']:.2f} ms), K2 {warm['K2'][2]:.1f} ms (bound {bounds['K2']:.2f} "
+        f"ms); peak {warm['peak']:.2f} GiB")
+    del a8f, encf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(warm=warm, bounds=bounds)
+
+
+def a8_f32_card_vs_cpu_phase(fa8, ef) -> None:
+    """10e. f32 card against CPU at full width, 2 + 2 layers, weights made on the CPU from a
+    seed: the LM quantized to int8 and the encoder in the plain int8 layout (a8_attention)
+    and then in the fused layout (every stage fused), each quantized on its own side, with
+    a8_prefill and a8_attention in the LM. The card runs K8 and K9, the CPU their plain
+    versions. Held: the weight codes quantized on the two sides equal, the first layer's
+    enc_out_ln codes on the same inputs at >= 99.9 % equal, the prefill logits of a 30 s
+    clip within JAX's a8 band (5e-2 of max|logit|); the greedy ids (8 tokens) logged.
+    Activation codes flip wherever the two sides' floats differ in the last bit, and the
+    a8 model amplifies a flip: as a yardstick, the CPU's own logits are logged under a
+    1e-7 relative perturbation of the mels."""
+    import copy
+
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.models import af3, qwen2, whisper_encoder
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+    from audio_flamingo_tpu_torch.runtime.processor import AF3Processor
+
+    full = AF3Config()
+    cfg = with_flash(dataclasses.replace(
+        full, encoder=dataclasses.replace(full.encoder, num_layers=2),
+        lm=dataclasses.replace(full.lm, num_layers=2, a8_prefill=True, a8_attention=True)),
+        True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # the conv stem in full f32 (README)
+    try:
+        t0 = time.perf_counter()
+        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        cfg = cpu.cfg
+        float_enc = {"cpu": cpu.model.encoder,
+                     "cuda": copy.deepcopy(cpu.model.encoder).to("cuda")}
+        lms = {dev: qwen2.quantized_lm(quantize_lm_params(
+            {k: v.to(dev) for k, v in cpu.model.lm.state_dict().items()}), torch.float32, dev)
+            for dev in ("cpu", "cuda")}
+        adaptors = {"cpu": cpu.model.adaptor, "cuda": copy.deepcopy(cpu.model.adaptor).to("cuda")}
+        same = [torch.equal(a.cpu(), b) for a, b in zip(lms["cuda"].state_dict().values(),
+                                                         lms["cpu"].state_dict().values())]
+        log(f"a8 f32 card vs CPU: 2 + 2 layers at full width, built in "
+            f"{time.perf_counter() - t0:.1f}s; int8 LM quantized on each side: "
+            f"{sum(same)}/{len(same)} tensors equal")
+        check(all(same), "the LM's int8 codes or scales differ card vs CPU")
+        rng = np.random.default_rng(0)
+        t = np.arange(30 * 16000) / 16000.0
+        wav = (0.3 * np.sin(2 * np.pi * 440.0 * t)
+               + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+        for layout, enc_flags in (("plain", dict(a8_attention=True)),
+                                  ("fused", dict(fused_stages=("qkv", "out", "mlp")))):
+            ecfg = dataclasses.replace(cfg.encoder, **enc_flags)
+            mcfg = dataclasses.replace(cfg, encoder=ecfg)
+            models = {}
+            for dev in ("cpu", "cuda"):
+                enc = whisper_encoder.quantize(float_enc[dev], ecfg, fused=layout == "fused")
+                models[dev] = dataclasses.replace(
+                    cpu, cfg=mcfg, model=af3.AF3Model(enc, adaptors[dev], lms[dev]), history=[],
+                    last_output=None, last_processor_s=None)
+                if dev == "cuda":
+                    models[dev] = dataclasses.replace(models[dev], processor=AF3Processor(
+                        tokenizer=cpu.processor.tokenizer, cfg=mcfg, device="cuda"))
+            codes = [torch.equal(a.cpu(), b) for a, b in zip(
+                models["cuda"].model.encoder.layers.state_dict().values(),
+                models["cpu"].model.encoder.layers.state_dict().values())]
+            check(all(codes), f"{layout} encoder's int8 layers differ card vs CPU")
+            for c in (fa8.LAUNCHES, ef.OUT_LN_LAUNCHES):
+                c.reset()
+            ef.OUT_LN_LAUNCHES.capture = True
+            out = {}
+            for dev, model in models.items():
+                t0 = time.perf_counter()
+                model.generate(sound=wav, prompt="What do you hear?", max_new_tokens=8)
+                o = model.last_output
+                out[dev] = dict(ids=o.tokens[0, : int(o.lengths[0])].tolist(),
+                                logits=o.first_logits.double().cpu(), s=time.perf_counter() - t0)
+            ef.OUT_LN_LAUNCHES.capture = False
+            captured = list(ef.OUT_LN_LAUNCHES.inputs)
+            k8, k9 = fa8.LAUNCHES.count, ef.OUT_LN_LAUNCHES.count   # the two generates' own
+            share = None
+            if captured:   # layer 0's enc_out_ln on the card's inputs: kernel vs CPU plain
+                args = captured[0]
+                got = ef.enc_out_ln(*args[:7], eps=args[7])[1].cpu()
+                want = ef.enc_out_ln_reference(*(a.cpu() for a in args[:7]), eps=args[7])[1]
+                share = (got == want).float().mean().item()
+            a, b = out["cuda"]["logits"], out["cpu"]["logits"]
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            if layout == "plain":
+                cpu_model = models["cpu"]
+                batch = cpu_model.processor(
+                    messages=[{"role": "user", "content": "<sound>What do you hear?"}],
+                    audios=[wav])
+                ids = torch.as_tensor(batch["ids"]).long()
+                noise = torch.randn(batch["mels"].shape, generator=torch.Generator().manual_seed(5))
+                l0, l1 = (af3.logits(cpu_model.model, mcfg, ids, mels)[0, -1].double()
+                          for mels in (batch["mels"], batch["mels"] * (1 + 1e-7 * noise)))
+                log(f"a8 f32 plain encoder, yardstick: the CPU's own last-position logits "
+                    f"move by {((l1 - l0).abs().max() / l0.abs().max()).item():.3e} of "
+                    f"max|logit| under a 1e-7 relative perturbation of the mels")
+            ef.OUT_LN_LAUNCHES.reset()
+            same_ids = "equal" if out["cpu"]["ids"] == out["cuda"]["ids"] else "DIFFER"
+            log(f"a8 f32 {layout} encoder: prefill logits max|card - CPU| / max|logit| "
+                f"{rel:.3e} (limit {A8_F32_TOL}); greedy ids CPU {out['cpu']['ids']} card "
+                f"{out['cuda']['ids']} ({same_ids}); "
+                f"layer-0 enc_out_ln codes equal card vs CPU on the card's inputs: "
+                f"{'n/a' if share is None else f'{share:.6f}'}; card launches K8 {k8}, "
+                f"enc_out_ln {k9}; CPU {out['cpu']['s']:.1f}s, card {out['cuda']['s']:.2f}s")
+            check(rel <= A8_F32_TOL, f"a8 f32 {layout} logits card vs CPU {rel} > {A8_F32_TOL}")
+            check(k8 == (4 if layout == "plain" else 2), f"a8 f32 {layout}: {k8} K8 launches")
+            check(layout == "plain" or (k9 == 2 and share is not None and share >= K9_SHARE),
+                  f"a8 f32 fused: {k9} enc_out_ln launches, codes card vs CPU {share}")
+            del models
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def timed_generate(model, **kw) -> tuple:
     """One AudioFlamingo.generate call timed from its start: (text, wall seconds, and a
     line splitting it into the processor's share, ttft_s, their sum (the TTFT a user
@@ -2014,8 +2596,11 @@ def main() -> int:
     from audio_flamingo_tpu_torch.api import AudioFlamingo
     from audio_flamingo_tpu_torch.audio.mel import WhisperMelFrontend
     from audio_flamingo_tpu_torch.config import AF3Config, MelConfig
+    from audio_flamingo_tpu_torch.models import whisper_encoder as wenc
     from audio_flamingo_tpu_torch.ops.kernels import _build
+    from audio_flamingo_tpu_torch.ops.kernels import enc_fused as ef
     from audio_flamingo_tpu_torch.ops.kernels import flash_attention as fa
+    from audio_flamingo_tpu_torch.ops.kernels import flash_attention_a8 as fa8
     from audio_flamingo_tpu_torch.ops.kernels import log_mel as lm
     from audio_flamingo_tpu_torch.ops.kernels import paged_attention as pa
     from audio_flamingo_tpu_torch.ops.kernels import w4_suffix as k6
@@ -2074,6 +2659,7 @@ def main() -> int:
             f"path {kernel_ms:.3f} ms")
         runs.append((ids, out, launches, shapes, kernel_ms))
         if i == 1:
+            bf16_ttft = model.last_processor_s + out.ttft_s     # the warm run's, for phase 10
             log(f"peak GPU memory through two generates: "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     fa.LAUNCHES.reset()
@@ -2118,6 +2704,7 @@ def main() -> int:
 
     # 5. a 10-minute file, in to answer out
     warm = ten_minute_phase(model, fa, lm)
+    wav10 = warm.pop("wav")
 
     # 7a, 7b. the int4 LM: kernels at the 7B shapes, then the 30 s path through K5 and K6
     w4 = int4_path_phase(model, fa, k5, k6, wav, runs[0][1].first_logits)
@@ -2146,6 +2733,18 @@ def main() -> int:
     k7_res = k7_phase(fa)
     stage2 = stage2_phase(fa)
     f32_train_card_vs_cpu_phase(fa)
+    # 10a-10e. the w8a8 TTFT path: K8 and K9 alone, the 30 s clip, the 10-minute file on
+    # the fused layout, f32 card against CPU
+    k8_res = k8_phase(fa8)
+    k9_res = k9_phase(ef, wenc)
+    w8 = a8_models(with_flash(AF3Config(), True))
+    a8_clip = a8_clip_phase(w8, fa, fa8, wav, {"bf16": bf16_ttft,
+                                               "int4": w4["warm"]["proc"] + w4["warm"]["ttft"]})
+    a8_10min = a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav10, warm)
+    del w8, wav10
+    gc.collect()
+    torch.cuda.empty_cache()
+    a8_f32_card_vs_cpu_phase(fa8, ef)
 
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
@@ -2245,6 +2844,39 @@ def main() -> int:
         "bound_by": rep7["bound_by"],
         "library_ms": rep7["library_ms"],
     })
+    rep8, clip8 = a8_clip["replay"], a8_clip["warm"]
+    kernels.append({
+        "name": "flash_attention_a8",
+        "route": "cuda",
+        "source": "audio_flamingo_tpu_torch/csrc/flash_attention_a8.cu",
+        "replaces": "audio_flamingo_tpu/ops/pallas/flash_attention_a8.py:133",
+        "launches": clip8["k8"],
+        "max_abs_err": max([r["err"] for r in k8_res.values()] + [rep8["err"]]),
+        "ms": clip8["k8_ms"],
+        "plain_ms": rep8["plain_ms"],
+        "bound_ms": rep8["bound_ms"],
+        "bound_by": rep8["bound_by"],
+        "library_ms": None,
+    })
+    warm10 = a8_10min["warm"]
+    for name, key, kind, n, line in (("enc_ln_qkv", "K9 ln_qkv", "ln_qkv", 3840, 103),
+                                     ("enc_out_ln", "K9 out_ln", "out_ln", 1280, 151),
+                                     ("enc_mlp", "K9 mlp", "mlp", 5120, 218)):
+        launches = warm10[key][0]
+        per = k9_res[(name, 30_000, "bfloat16")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "audio_flamingo_tpu_torch/csrc/enc_fused.cu",
+            "replaces": f"audio_flamingo_tpu/ops/pallas/enc_fused.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(r["err"] for (k, _, _), r in k9_res.items() if k == name),
+            "ms": warm10[key][2],
+            "plain_ms": launches * per["plain_ms"],
+            "bound_ms": launches * k9_bound_ms(kind, 30_000, 1280, n, 2)[0],
+            "bound_by": per["bound_by"],
+            "library_ms": None,
+        })
     for name, p in paged.items():
         r, f = p["run"], p["full"]
         log(f"paged engine, {name} pool: {p['tps']:.1f} tok/s, TTFT median "
@@ -2274,7 +2906,18 @@ def main() -> int:
         "its steps; ms = their device time in the path per step; plain_ms, library_ms (SDPA's "
         "backward on a retained graph) and bound_ms summed over the 60 launches of one more "
         "step, each replayed on its captured inputs; max_abs_err = the largest |d - plain| "
-        "of phase 9a and those replays.")
+        "of phase 9a and those replays. flash_attention_a8 (K8) per warm a8 30 s generate "
+        "(10c): launches and ms = its 60 launches' count and device time inside it; plain_ms "
+        "and bound_ms = the plain version timed on each launch's captured prelude outputs, "
+        "and the per-launch bounds (int8 QK^T at 1979 TOPS + bf16 P.V at 989 TFLOP/s, or "
+        "bytes), summed; max_abs_err = the largest |o - plain| of 10a and those replays; "
+        "library_ms null: " + K8_NO_LIBRARY + ". enc_ln_qkv, enc_out_ln, enc_mlp (K9) per "
+        "warm a8 10-minute generate on the fused layout (10d): launches and ms = each "
+        "kernel's 32 launches' count and device time inside it; plain_ms and bound_ms = 32 x "
+        "the plain version's time and the bound (int8 ops at 1979 TOPS, or bytes) at the "
+        "path's shape [30000, 1280] bf16 (10b); max_abs_err = the largest |y - plain| of 10b "
+        "(x2 for enc_out_ln); library_ms null: no single PyTorch call computes a fused "
+        "stage (10b times each against its composed torch form).")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from audio_flamingo_tpu.api import AudioFlamingo as JAudioFlamingo
 from audio_flamingo_tpu.models import af3 as jaf3
+from audio_flamingo_tpu.ops import quant as jquant
 from audio_flamingo_tpu.ops import sampling as js
 from audio_flamingo_tpu.runtime import generate as jgen
 from audio_flamingo_tpu.train.data import bucket_tokens as j_bucket_tokens
@@ -20,7 +21,7 @@ from audio_flamingo_tpu_torch import config as C
 from audio_flamingo_tpu_torch import api
 from audio_flamingo_tpu_torch.api import AudioFlamingo
 from audio_flamingo_tpu_torch.io.convert import params_from_jax
-from audio_flamingo_tpu_torch.models import af3
+from audio_flamingo_tpu_torch.models import af3, whisper_encoder
 from audio_flamingo_tpu_torch.ops import sampling as ts
 from audio_flamingo_tpu_torch.runtime.tokenizer import BBPETokenizer
 
@@ -198,9 +199,21 @@ def test_jax_api_arguments_run_at_default_and_raise_otherwise(models, tmp_path):
     out = tm.last_output.tokens[0, : int(tm.last_output.lengths[0])].tolist()
     prompt_ids = tm.processor(messages=[{"role": "user", "content": "x"}])["ids"][0].tolist()
     assert len(set(out)) == len(out) and not set(out) & set(prompt_ids)
-    for kw in (dict(a8_prefill=True), dict(a8_encoder=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.load(str(tmp_path), device="cpu", **kw)
+    # the w8a8 options work: a8_prefill without the int8 LM raises, as JAX's assert does;
+    # the int8 encoder that a8_encoder loads (JAX's quantize_encoder_params, carried by
+    # params_from_jax) answers as JAX's does on the same tree, token for token
+    with pytest.raises(ValueError, match="a8_prefill requires"):
+        api.load(str(tmp_path), device="cpu", a8_prefill=True)
+    jm, _ = models
+    jparams = {**jm.params, "encoder": jquant.quantize_encoder_params(jm.params["encoder"])}
+    jm8 = dataclasses.replace(jm, params=jparams, history=[])
+    tm8 = AudioFlamingo.from_state_dict(
+        tm.cfg, params_from_jax(jax.tree.map(np.asarray, jparams), tm.cfg),
+        tm.processor.tokenizer, compute_dtype=torch.float32, device="cpu")
+    assert isinstance(tm8.model.encoder, whisper_encoder.QuantWhisperEncoder)
+    tm8.generate(sound=TONE, prompt="x", max_new_tokens=4)
+    got = tm8.last_output.tokens[0, : int(tm8.last_output.lengths[0])].tolist()
+    assert got == _jax_ids(jm8, "x", TONE, 4, js.SamplingParams())
 
 
 def test_generate_reports_processor_time(models):

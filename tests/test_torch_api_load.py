@@ -23,6 +23,7 @@ from audio_flamingo_tpu.train.data import bucket_tokens as j_bucket_tokens
 from audio_flamingo_tpu_torch import api
 from audio_flamingo_tpu_torch.io.convert import params_from_jax, state_dict_from_hf
 from audio_flamingo_tpu_torch.models import af3
+from audio_flamingo_tpu_torch.models.qwen2 import flatten
 
 jax.config.update("jax_default_matmul_precision", "highest")
 torch.set_num_threads(2)
@@ -101,9 +102,32 @@ def test_converters_agree(tied):
 
 
 def test_load_rejects_unported_options_and_missing_parts(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.load(str(tmp_path), quantize_lm=True, a8_prefill=True, device="cpu")
-    cfg, params, _ = _tiny()
+    """The w8a8 flags: load(quantize_lm=True, a8_prefill=True, a8_encoder=True) holds the
+    trees JAX's load holds (int8 LM and encoder, bit for bit) and answers with its greedy
+    ids; a8_prefill without the int8 LM raises, as JAX's assert does. A state dict that
+    lacks the tower or the projector is refused."""
+    cfg, params, tok = _tiny(tied=False)
+    params["adaptor"] = {"fc1": params["adaptor"]["fc1"]}   # the importer's projector
+    save_pretrained(str(tmp_path), params, cfg, tokenizer=tok)
+    flags = dict(quantize_lm=True, a8_prefill=True, a8_encoder=True)
+    jm = japi.load(str(tmp_path), compute_dtype=jnp.float32, **flags)
+    tm = api.load(str(tmp_path), compute_dtype=torch.float32, device="cpu", **flags)
+    assert tm.cfg.lm.a8_prefill and jm.cfg.lm.a8_prefill
+    for part in ("encoder", "lm"):
+        want = {k: np.asarray(v) for k, v in flatten(jm.params[part]["layers"]).items()}
+        got = {k: v.numpy() for k, v in getattr(tm.model, part).layers.state_dict().items()}
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{part}.{k}")
+    for sound in (None, TONE):
+        tm.generate(sound=sound, prompt=PROMPT, max_new_tokens=8)
+        out = tm.last_output
+        assert out.tokens[0, : int(out.lengths[0])].tolist() == _jax_ids(jm, sound)
+    for quantize_lm in (False, "int4"):
+        with pytest.raises(ValueError, match="a8_prefill requires"):
+            api.load(str(tmp_path), quantize_lm=quantize_lm, a8_prefill=True, device="cpu")
+        with pytest.raises(AssertionError, match="a8_prefill requires"):
+            japi.load(str(tmp_path), quantize_lm=quantize_lm, a8_prefill=True)
     sd = export_af3_state_dict(params, cfg)
     with pytest.raises(KeyError):
         state_dict_from_hf({k: v for k, v in sd.items() if "audio_tower" not in k}, cfg)
