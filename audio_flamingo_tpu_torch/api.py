@@ -58,8 +58,10 @@ class AudioFlamingo:
                  sampling: SamplingParams = SamplingParams(), seed: int = 0,
                  chat: bool = False, stream: bool = False, think: bool = False,
                  num_beams: int = 1, length_penalty: float = 1.0,
-                 early_stopping: bool | str = False) -> str:
-        """sound: mono 16 kHz float32 waveform(s). Returns the decoded answer.
+                 early_stopping: bool | str = False):
+        """sound: mono 16 kHz float32 waveform(s). Returns the decoded answer, or with
+        ``stream=True`` an iterator of token ids (``runtime/generate.generate_stream`` on
+        the exact prompt, as in JAX; it keeps no chat history and no ``last_output``).
 
         think=True asks the model to reason inside <think>...</think> first. The run's
         token ids, prefill logits and timings are kept in ``last_output``, and the
@@ -70,9 +72,6 @@ class AudioFlamingo:
         if num_beams > 1 or length_penalty != 1.0 or early_stopping is not False:
             raise NotImplementedError(NOT_PORTED.format(
                 "beam search (num_beams, length_penalty, early_stopping)", "runtime/beam.py"))
-        if stream:
-            raise NotImplementedError(NOT_PORTED.format(
-                "streaming", "generate features of runtime/generate.py"))
         audios = None
         text = prompt
         if sound is not None:
@@ -91,6 +90,11 @@ class AudioFlamingo:
         ids = torch.as_tensor(batch["ids"], dtype=torch.long, device=self.device)
         gen.sync(self.device)
         self.last_processor_s = time.perf_counter() - t0
+        if stream:
+            return gen.generate_stream(
+                self.model, self.cfg, ids, batch["mels"], max_new_tokens=max_new_tokens,
+                eos_token_id=self.eos_token_id, sampling=sampling,
+                generator=torch.Generator(device=self.device).manual_seed(seed))
 
         # right-pad the prompt with EOS to its token bucket: one prefill shape per bucket
         t = ids.shape[1]

@@ -15,8 +15,12 @@ sends that fresh prefill to the int8-QK kernel (K8) instead.
 activations, ``ops/quant.q_matmul_a8q``), as JAX does; decode (one token) and the
 helpers the engines call (``qkv_proj``, ``o_proj``, ``mlp_forward``) stay w8a16.
 
-Unlike the JAX cache, ``KVCache`` is updated in place: prefill and decode write their
-K/V into the preallocated tensors and advance ``index``, so no step copies the cache.
+Unlike the JAX caches, ``KVCache`` and the int8 ``Q8KVCache`` are updated in place:
+prefill and decode write their K/V (int8 codes and per-token scales for ``Q8KVCache``)
+into the preallocated tensors and advance ``index``, so no step copies the cache. Over a
+``Q8KVCache`` attention reads the codes with the scales folded in after the dots
+(``gqa_attention_q8``), except on a fresh flash prefill, which attends over the block's
+own float K/V as JAX does.
 
 Two weight layouts share ``forward``: ``Qwen2`` (float ``nn.Linear`` layers, torch
 layout) and ``QuantQwen2``, a quantized LM held in the JAX package's tree layout (layer
@@ -37,14 +41,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from audio_flamingo_tpu_torch.config import Qwen2Config
-from audio_flamingo_tpu_torch.ops.attention import gqa_attention
+from audio_flamingo_tpu_torch.ops.attention import gqa_attention, gqa_attention_q8
 from audio_flamingo_tpu_torch.ops.kernels.flash_attention import flash_attention
 from audio_flamingo_tpu_torch.ops.kernels.flash_attention_a8 import flash_attention_a8
 from audio_flamingo_tpu_torch.ops.kernels.w4_suffix import (suffix_supported, w4_suffix_a,
                                                             w4_suffix_b)
 from audio_flamingo_tpu_torch.ops.mlp import swiglu_mlp
 from audio_flamingo_tpu_torch.ops.norms import Norm, rms_norm
-from audio_flamingo_tpu_torch.ops.quant import mm_f32, q_matmul, q_matmul_a8q, quantize_act
+from audio_flamingo_tpu_torch.ops.quant import (div127, mm_f32, q_matmul, q_matmul_a8q,
+                                                quantize_act)
 from audio_flamingo_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_stacked
 from audio_flamingo_tpu_torch.ops.remat import remat_wrap
 from audio_flamingo_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -63,12 +68,29 @@ class KVCache:
         return self.k.shape[2]
 
 
+@dataclass
+class Q8KVCache:
+    """The dense int8 KV cache (JAX ``Q8KVCache``): k_q, v_q int8 [num_layers, batch,
+    capacity, num_kv_heads, head_dim] with per-(position, head) f32 scales k_scale,
+    v_scale [num_layers, batch, capacity, num_kv_heads]; index: filled slots."""
+
+    k_q: torch.Tensor
+    v_q: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    index: int = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.k_q.shape[2]
+
+
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., nkv, hd] -> (int8 codes, f32 scales [..., nkv]): per token and head, scale =
-    max(amax, 1e-6) / 127, codes round(x / scale) half to even, clipped to +-127 (the
-    JAX ``_quantize_kv`` :78 of the int8 KV caches)."""
+    max(amax, 1e-6) / 127 (a true division on every device), codes round(x / scale) half
+    to even, clipped to +-127 (the JAX ``_quantize_kv`` :78 of the int8 KV caches)."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1).clamp(min=1e-6) / 127.0
+    scale = div127(xf.abs().amax(dim=-1).clamp(min=1e-6))
     q = torch.round(xf / scale[..., None]).clamp(-127, 127)
     return q.to(torch.int8), scale
 
@@ -78,6 +100,16 @@ def init_cache(cfg: Qwen2Config, batch: int, capacity: int, dtype: torch.dtype,
     shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.resolved_head_dim())
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_cache_q8(cfg: Qwen2Config, batch: int, capacity: int,
+                  device: torch.device | str) -> Q8KVCache:
+    """Zero codes and unit scales, as JAX ``init_cache_q8``."""
+    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.resolved_head_dim())
+    return Q8KVCache(k_q=torch.zeros(shape, dtype=torch.int8, device=device),
+                     v_q=torch.zeros(shape, dtype=torch.int8, device=device),
+                     k_scale=torch.ones(shape[:-1], device=device),
+                     v_scale=torch.ones(shape[:-1], device=device))
 
 
 class DecoderLayer(nn.Module):
@@ -284,9 +316,10 @@ def unembed(lm, hidden: torch.Tensor) -> torch.Tensor:
     A bf16 head on the card is multiplied as it is, accumulating and writing f32, so no
     f32 copy of the [vocab, d] head is made per step. bf16 products are exact in f32, so
     this is the reference's upcast-then-multiply up to the order of the sums. An int8
-    head (or tied int8 embedding) goes through ``mm_f32`` the same way and is then
-    scaled; an int4 head through ``q4_matmul`` on the f32 hidden state, as in JAX. The
-    float and int8 heads pass gradients to ``hidden``."""
+    head (or the transposed view of a tied int8 embedding, not copied) goes through
+    ``q_matmul`` with f32 output (K4 at decode sizes): a bf16 hidden state widens exactly,
+    so this is JAX's f32 head. An int4 head goes through ``q4_matmul`` on the f32 hidden
+    state, as in JAX. The float and int8 heads pass gradients to ``hidden``."""
     if isinstance(lm, QuantQwen2):
         h = hidden.reshape(-1, hidden.shape[-1])
         tied = "lm_head" not in lm
@@ -294,20 +327,30 @@ def unembed(lm, hidden: torch.Tensor) -> torch.Tensor:
         if "w_p" in head:
             logits = q4_matmul(h.float(), head).float()
         else:
-            logits = mm_f32(h, head["w_q"].t() if tied else head["w_q"]) * head["scale"].float()
+            logits = q_matmul(h, {"w_q": head["w_q"].t() if tied else head["w_q"],
+                                  "scale": head["scale"]}, out_dtype=torch.float32)
         return logits.reshape(*hidden.shape[:-1], logits.shape[-1])
     head = lm.embed_tokens if lm.lm_head is None else lm.lm_head
     logits = mm_f32(hidden.reshape(-1, hidden.shape[-1]), head.t())
     return logits.reshape(*hidden.shape[:-1], head.shape[0])
 
 
-def _attend(q, k, v, cache: KVCache | None, layer_idx: int, mask, use_flash: bool,
-            a8_attention: bool = False):
-    """Write this step's K/V into the cache (if any) and attend: flash over the block's
-    own K/V on a fresh prefill (the int8-QK K8 with ``a8_attention``, at JAX's default
-    blocks), else plain attention over the whole cache."""
+def _attend(q, k, v, cache: KVCache | Q8KVCache | None, layer_idx: int, mask,
+            use_flash: bool, a8_attention: bool = False):
+    """Write this step's K/V into the cache (if any; quantized per token and head for a
+    ``Q8KVCache``) and attend: flash over the block's own K/V on a fresh prefill (the
+    int8-QK K8 with ``a8_attention``, at JAX's default blocks), else plain attention over
+    the whole cache (``gqa_attention_q8`` over the codes of a ``Q8KVCache``)."""
     s = q.shape[1]
-    if cache is not None:
+    if isinstance(cache, Q8KVCache):
+        slots = slice(cache.index, cache.index + s)
+        for codes, scales, x in ((cache.k_q, cache.k_scale, k), (cache.v_q, cache.v_scale, v)):
+            codes[layer_idx][:, slots], scales[layer_idx][:, slots] = quantize_kv(x)
+        if not use_flash:
+            return gqa_attention_q8(q, cache.k_q[layer_idx], cache.v_q[layer_idx],
+                                    cache.k_scale[layer_idx], cache.v_scale[layer_idx],
+                                    mask=mask)
+    elif cache is not None:
         ck, cv = cache.k[layer_idx], cache.v[layer_idx]
         ck[:, cache.index: cache.index + s] = k
         cv[:, cache.index: cache.index + s] = v
@@ -338,7 +381,7 @@ def _linear_a8(x: torch.Tensor, p: TensorTree, layer: int) -> torch.Tensor:
 
 
 def _layer_forward_a8(x, lm: QuantQwen2, i: int, cfg: Qwen2Config, cos, sin, mask,
-                      cache: KVCache | None, flash_ok: bool) -> torch.Tensor:
+                      cache: KVCache | Q8KVCache | None, flash_ok: bool) -> torch.Tensor:
     """A multi-token layer of an int8 LM under ``a8_prefill`` (JAX ``_layer_forward`` with
     a8): q/k/v share one activation quantization, gate/up another, o and down quantize
     their own input."""
@@ -365,8 +408,8 @@ def _layer_forward_a8(x, lm: QuantQwen2, i: int, cfg: Qwen2Config, cos, sin, mas
     return x + _linear_a8(act, mlp["down"], i)
 
 
-def _layer_forward(x, lm, i: int, cfg: Qwen2Config, cos, sin, mask, cache: KVCache | None,
-                   flash_ok: bool) -> torch.Tensor:
+def _layer_forward(x, lm, i: int, cfg: Qwen2Config, cos, sin, mask,
+                   cache: KVCache | Q8KVCache | None, flash_ok: bool) -> torch.Tensor:
     b, s, _ = x.shape
     if cfg.a8_prefill and s > 1 and isinstance(lm, QuantQwen2):
         return _layer_forward_a8(x, lm, i, cfg, cos, sin, mask, cache, flash_ok)
@@ -409,10 +452,10 @@ def w4_suffix_layer_step(h, y, lm: QuantQwen2, idx: int, *, cfg: Qwen2Config, st
     return h2.reshape(b, s, d), y_next[:, None, :]
 
 
-def _forward_w4_suffix(lm: QuantQwen2, cfg: Qwen2Config, x, cache: KVCache, mask, cos, sin,
-                       stacked: dict):
+def _forward_w4_suffix(lm: QuantQwen2, cfg: Qwen2Config, x, cache: KVCache | Q8KVCache,
+                       mask, cos, sin, stacked: dict):
     """Decode forward of a fused w4 tree at two suffix calls per layer, plus one K5 call
-    for layer 0's qkv. Attention stays the plain ``gqa_attention`` over the cache."""
+    for layer 0's qkv. Attention stays plain, over the cache of either kind (``_attend``)."""
     y = w4_suffix_seed(lm, cfg, stacked, x)
     for i in range(cfg.num_layers):
         x, y = w4_suffix_layer_step(
@@ -423,13 +466,14 @@ def _forward_w4_suffix(lm: QuantQwen2, cfg: Qwen2Config, x, cache: KVCache, mask
 
 
 def forward(lm: Qwen2 | QuantQwen2, cfg: Qwen2Config, embeds: torch.Tensor,
-            positions: torch.Tensor, cache: KVCache | None = None,
+            positions: torch.Tensor, cache: KVCache | Q8KVCache | None = None,
             extra_mask: torch.Tensor | None = None,
-            is_prefill: bool = False) -> tuple[torch.Tensor, KVCache | None]:
+            is_prefill: bool = False) -> tuple[torch.Tensor, KVCache | Q8KVCache | None]:
     """Run the decoder stack on input embeddings [b, s, d] at absolute positions [b, s].
 
-    With a cache, this step's K/V is written at ``cache.index`` and attention spans the
-    cache (causal by absolute position); the cache is advanced by s and returned.
+    With a cache (bf16/f32 ``KVCache`` or int8 ``Q8KVCache``), this step's K/V is written
+    at ``cache.index`` and attention spans the cache (causal by absolute position); the
+    cache is advanced by s and returned.
     ``extra_mask`` [b, 1, s, kv_len] is AND-ed onto the causal mask. ``is_prefill``
     certifies cache.index == 0, which lets the flash kernel attend over the block's own
     K/V. A fused w4 LM decodes through the suffix kernels where JAX does. Returns

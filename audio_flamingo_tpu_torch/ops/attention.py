@@ -4,6 +4,12 @@ The same function as ``audio_flamingo_tpu/ops/attention.gqa_attention``: scores 
 accumulate in f32 (bf16 inputs are widened, which is exact), the softmax runs in f32 and
 the probabilities are rounded to q.dtype before P.V; KV heads are grouped by reshaping q,
 never repeated. Decode attention and every non-flash path use it.
+
+``gqa_attention_q8`` is JAX's attention over the dense int8 KV cache, in JAX's order of
+operations: the codes are widened to q's dtype (exact for bf16) and multiplied with f32
+accumulation and output (no f32 copy of a bf16 step's cache), each score column is scaled
+by its token's k scale and then by the softmax scale, masked, softmaxed in f32, each
+probability multiplied by its token's v scale and rounded to q's dtype before P.V.
 """
 
 from __future__ import annotations
@@ -36,6 +42,49 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores.masked_fill(~m, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.reshape(b, q_len, nh, hd).to(q.dtype)
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a @ b -> f32 with f32 accumulation: bf16 operands on the card as they are
+    (f32 output), anything else in f32."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def gqa_attention_q8(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
+                     k_scale: torch.Tensor, v_scale: torch.Tensor,
+                     mask: torch.Tensor | None = None, scale: float | None = None) -> torch.Tensor:
+    """q [b, q_len, nh, hd] over int8 k_q / v_q [b, kv_len, nkv, hd] with f32 per-token
+    scales k_scale / v_scale [b, kv_len, nkv]; mask as ``gqa_attention``. Returns
+    [b, q_len, nh, hd] in q.dtype."""
+    b, q_len, nh, hd = q.shape
+    kv_len, nkv = k_q.shape[1], k_q.shape[2]
+    if nh % nkv:
+        raise ValueError(f"num_heads {nh} is not a multiple of num_kv_heads {nkv}")
+    group = nh // nkv
+    if scale is None:
+        scale = hd ** -0.5
+    # [b * nkv, group * q_len, hd] queries against [b * nkv, kv_len, hd] widened codes
+    qg = q.reshape(b, q_len, nkv, group, hd).permute(0, 2, 3, 1, 4).reshape(
+        b * nkv, group * q_len, hd)
+    k, v = (c.permute(0, 2, 1, 3).to(q.dtype, memory_format=torch.contiguous_format)
+            .view(b * nkv, kv_len, hd) for c in (k_q, v_q))
+    scores = bmm_f32(qg, k.transpose(1, 2)).view(b, nkv, group, q_len, kv_len)
+    scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :] * scale
+    if mask is not None:
+        if mask.ndim != 4:
+            raise ValueError(f"mask must be rank-4, got {tuple(mask.shape)}")
+        if mask.shape[1] == 1:
+            m = mask[:, :, None]
+        else:
+            m = mask.reshape(b, nkv, group, q_len, kv_len)
+        scores = scores.masked_fill(~m, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    probs = (probs * v_scale.transpose(1, 2)[:, :, None, None, :]).to(q.dtype)
+    out = bmm_f32(probs.view(b * nkv, group * q_len, kv_len), v)
+    out = out.view(b, nkv, group, q_len, hd).permute(0, 3, 1, 2, 4)
     return out.reshape(b, q_len, nh, hd).to(q.dtype)
 
 

@@ -102,6 +102,9 @@ def load_library() -> ctypes.CDLL:
         fn = lib.af_w4a16_matmul
         fn.restype = i32
         fn.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        fn = lib.af_w8a16_matmul
+        fn.restype = i32
+        fn.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         fn = lib.af_paged_attention
         fn.restype = i32
         fn.argtypes = [ptr] * 11 + [i32] * 11 + [ctypes.c_float, ptr]

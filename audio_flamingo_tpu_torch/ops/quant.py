@@ -2,16 +2,20 @@
 
 Per-output-channel scales; activations stay in the compute dtype. The codes and scales are
 bit-identical to the JAX package's (run eagerly): the same f32 amax, ``max(amax, 1e-8) /
-127`` as a true division on every device (``div127``) and a half-to-even
+127`` as a true division on every device (``true_div``) and a half-to-even
 ``round(w / scale)``.
 
-``q_matmul`` is a plain product, as the JAX package leaves it to XLA (its Pallas kernel,
-K4, is reached by no caller there). On the card a bf16 x is multiplied with the int8 codes
-converted to bf16, accumulating and writing f32, then scaled: int8 values and bf16 inputs
-are exact in bf16, so this is JAX's f32-accumulated dot up to the order of the sums, and
-no f32 copy of the weight is made. The bf16 copy of the codes is made on every call.
-``mm_f32`` and ``q_matmul`` are differentiable in their input, with the codes frozen:
-the gradient is ``g @ (w_q * scale)^T``, as JAX's autodiff of its dot gives it.
+``q_matmul`` picks its route by the number of rows, never by a failure. Up to
+``KERNEL_MAX_ROWS`` rows (every decode batch, the head of a decode step) it is the
+w8a16 kernel, K4 (``ops/kernels/w8a16_matmul.py``): the codes are streamed once as int8,
+widened exactly, accumulated in f32 and scaled, as JAX's Pallas ``w8a16_matmul``. Above
+the limit (prefill, training batches) it is the library product, as JAX's default
+``q_matmul`` is an XLA dot: on the card a bf16 x is multiplied with the int8 codes
+converted to bf16, accumulating and writing f32, then scaled (int8 values and bf16
+inputs are exact in bf16, so this is JAX's f32-accumulated dot up to the order of the
+sums; the bf16 copy of the codes is made on every call). Both routes are differentiable
+in their input with the codes frozen: the gradient is ``g @ (w_q * scale)^T``, as JAX's
+autodiff of its dot gives it.
 
 w8a8 (the TTFT path: ``a8_prefill``, ``a8_encoder``): ``quantize_act`` gives per-token
 int8 codes and f32 scales, ``q_matmul_a8q`` multiplies them with int8 weights into an
@@ -28,11 +32,21 @@ from __future__ import annotations
 
 import torch
 
+from audio_flamingo_tpu_torch.ops.kernels import w8a16_matmul as k4
+
+# rows up to which q_matmul takes K4: on the H100 it beats the library route at every
+# 7B shape up to 32 rows and loses above (PERF.md, K4 row; chip_smoke.py phase 11a)
+KERNEL_MAX_ROWS = 32
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d as a true division on every device: on the card, torch divides by a Python
+    number through its reciprocal, which can move a scale by an ulp and flip codes."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
 
 def div127(x: torch.Tensor) -> torch.Tensor:
-    """x / 127 as a true division on every device: on the card, torch divides by a Python
-    number through its reciprocal, which can move a scale by an ulp and flip codes."""
-    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+    return true_div(x, 127.0)
 
 
 def quantize_linear(w: torch.Tensor) -> dict:
@@ -64,10 +78,34 @@ class _MatmulF32Out(torch.autograd.Function):
         a, b = ctx.saved_tensors
         ga = gb = None
         if ctx.needs_input_grad[0]:
-            ga = _split_mm(g, b.to(torch.bfloat16).t()).to(a.dtype)
+            ga = _input_grad(g, b, a.dtype)
         if ctx.needs_input_grad[1]:
             gb = _split_mm(a.t(), g).to(b.dtype)
         return ga, gb
+
+
+def _input_grad(g: torch.Tensor, b: torch.Tensor, a_dtype: torch.dtype) -> torch.Tensor:
+    """The input gradient ``g @ b^T`` of ``mm_f32(a, b)`` for an f32 cotangent g, in a's
+    dtype: against bf16 (or int8) b on the card through ``_split_mm``, else in f32."""
+    if g.is_cuda and a_dtype == torch.bfloat16 and b.dtype in (torch.bfloat16, torch.int8):
+        return _split_mm(g, b.to(torch.bfloat16).t()).to(a_dtype)
+    return (g.float() @ b.float().t()).to(a_dtype)
+
+
+class _W8A16(torch.autograd.Function):
+    """K4's route with a gradient for x: the backward is the library route's,
+    ``(g * scale) @ w_q^T`` (stage 2's frozen int8 LM passes gradients through it)."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, scale, out_dtype):
+        ctx.save_for_backward(w_q, scale)
+        ctx.x_dtype = x.dtype
+        return k4.w8a16_matmul(x, w_q, scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, scale = ctx.saved_tensors
+        return _input_grad(g.float() * scale.float(), w_q, ctx.x_dtype), None, None, None
 
 
 def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -93,10 +131,18 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def q_matmul(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """[..., in] @ int8 [in, out] * scale -> [..., out] in x.dtype."""
-    y = mm_f32(x.reshape(-1, x.shape[-1]), p["w_q"]) * p["scale"].float()
-    return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
+def q_matmul(x: torch.Tensor, p: dict, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """[..., in] @ int8 [in, out] * scale -> [..., out] in ``out_dtype`` (default x.dtype).
+    ``p["w_q"]`` may be a layer's view of a stacked tensor or the transposed view of a tied
+    embedding; neither is copied on K4's route (see the module for the routes)."""
+    out_dtype = out_dtype or x.dtype
+    x2 = x.reshape(-1, x.shape[-1])
+    w_q, scale = p["w_q"], p["scale"]
+    if x2.shape[0] > KERNEL_MAX_ROWS:
+        y = (mm_f32(x2, w_q) * scale.float()).to(out_dtype)
+    else:
+        y = _W8A16.apply(x2, w_q, scale, out_dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

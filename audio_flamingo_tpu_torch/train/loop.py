@@ -46,7 +46,7 @@ def run(cfg: AF3Config, model: af3.AF3Model, sampler: MixtureSampler, builder: B
     record holds step, loss, grad_norm and s_per_step (wall seconds per step since the
     start or the resume, to the logged step's loss on the host)."""
     if mesh is not None:
-        raise NotImplementedError(NOT_PORTED.format("a device mesh", "11, parallelism"))
+        raise NotImplementedError(NOT_PORTED.format("a device mesh", "9, parallelism"))
     device = resolve_device(device)
     model = model.to(device)
     stage: Stage = AF3_STAGES[run_cfg.stage]

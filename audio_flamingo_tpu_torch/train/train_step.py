@@ -104,11 +104,11 @@ def make_optimizer(stage: Stage, model: af3.AF3Model, *, weight_decay: float = 0
     over the hot ones. A hot quantized LM (int8 or int4 codes) or int8 encoder raises."""
     if lora_only:
         raise NotImplementedError(NOT_PORTED.format("lora_only (LoRA / QLoRA)",
-                                                    "10, training"))
+                                                    "8, training"))
     if stage.train_lm and isinstance(model.lm, qwen2.QuantQwen2):
         raise NotImplementedError(
             f"stage {stage.name!r} trains the LM, whose weights are quantized codes; "
-            + NOT_PORTED.format("training a quantized LM (QLoRA)", "10, training"))
+            + NOT_PORTED.format("training a quantized LM (QLoRA)", "8, training"))
     if stage.train_encoder and isinstance(model.encoder, whisper_encoder.QuantWhisperEncoder):
         raise ValueError(f"stage {stage.name!r} trains the encoder, whose layers are int8 "
                          "codes (a8_encoder); train the float encoder")
@@ -218,7 +218,7 @@ def train_step(state: TrainState, batch: dict, *, cfg: AF3Config, opt: AdamW,
     the hot weights' dtype; another ``compute_dtype`` raises, as does ``sp_mesh``."""
     if sp_mesh is not None:
         raise NotImplementedError(NOT_PORTED.format("sequence parallelism (sp_mesh)",
-                                                    "11, parallelism"))
+                                                    "9, parallelism"))
     dtype = _hot_dtype(state.model, opt)
     if compute_dtype is not None and compute_dtype != dtype:
         raise NotImplementedError(

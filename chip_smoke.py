@@ -37,14 +37,16 @@ Phases, each line stamped with elapsed seconds:
         shape; K6 A and B at m 1 and 8; timed beside the plain version, the int4pack
         library call (K5) and the bound;
      b. the 30 s path with phase 4's bf16 model's LM quantized on the card (encoder
-        shared): generate() three times, greedy, 32 tokens; identical ids, 56 K6 launches
-        and 1 K5 launch per decode step (none in the 1024-row prefill), K2 still 60, the
+        shared): generate() three times, greedy, 32 tokens; identical ids, 56 K6 launches,
+        1 K5 and 1 K4 (the int8 head) per decode step (no K5 in the 1024-row prefill, one
+        K4 for its head), K2 still 60, the
         kernels' device time in the warm run, TTFT split, decode rate against the
         weight-streaming bound, the int8 head's per-step cost, and every one of the path's
         own K5 and K6 launches replayed against (and timed beside) the plain versions;
      c. (after phase 6) f32 int4 card against CPU: full width, 2 + 2 layers, the int4 LM
-        quantized on the CPU and moved to the card; logits within 1e-4, greedy ids
-        token-exact and not all one token, through K2, K5 and K6;
+        quantized on the CPU and moved to the card (and quantized on the card as well:
+        every code and scale equal); logits within 1e-4, greedy ids token-exact and not
+        all one token, through K2, K5 and K6;
   8. the paged serving engine (runtime/paged_engine.PagedEngine), run after phase 7b on
      the same bf16 model:
      a. paged-attention decode (K3) against its plain version at the 7B shapes (q
@@ -63,10 +65,11 @@ Phases, each line stamped with elapsed seconds:
      c. prefix caching: two requests with one system prompt and clip; the second hits the
         shared pages and skips the encoder; both TTFTs;
      d. the int4 LM (quantized on the card as in 7b) with an int8 pool, 2 requests, twice:
-        per decode step 28 K3, 1 K5 and 28 + 28 K6 launches, identical ids;
+        per decode step 28 K3, 1 K5, 28 + 28 K6 and 1 K4 launches, identical ids;
      e. (after 7c) f32 card against CPU, full width, 2 + 2 layers: three requests through
         PagedEngine on both with f32 and int8 pools; ids token-exact and not all one
-        token, first-token logits within 1e-4, and on the card the ids of generate().
+        token, first-token logits within 1e-4, and on the card the ids of generate();
+        quantize_kv's codes equal card vs CPU.
   9. training (after every earlier phase's model is freed):
      a. the flash-attention backward (K7) against its plain version at AF3 stage 2's
         shapes ([4,1500,20,64] non-causal at scale 1, [4,1024,28,128] causal over 4 KV
@@ -106,6 +109,28 @@ Phases, each line stamped with elapsed seconds:
         generate, identical ids; user TTFT beside phase 5's, kernel times beside bounds;
      e. f32 card against CPU, full width, 2 + 2 layers, plain and fused encoder layouts:
         the weight codes equal, the prefill logits within JAX's a8 band, the ids logged.
+ 11. the int8 LM's decode (load(quantize_lm=True)), after phase 10's models are freed:
+     a. the w8a16 matmul (K4) against its plain version on the 7B int8 LM's codes
+        (random_quantized_lm, made on the card): q, k, v, o, gate, up, down at layers 0
+        and 27 (read in place from the stacks) and the head at m 1, 8, 32, bf16 x to
+        bf16 and to f32 and f32 x to f32, the tied layout (the embedding through its
+        transposed view), replays bit-identical; timed beside the plain version, the
+        library route (the per-call bf16 copy into cuBLAS), torch._weight_int8pack_mm
+        and the bound; K4 against the library route at m 64-1024 (KERNEL_MAX_ROWS);
+     b. bench.py's bench_decode: that LM on a bf16 KVCache, batch 1, capacity 1024, 64
+        greedy steps (a warm run and 3 timed), 197 K4 launches per step, identical ids,
+        ms per step and K4's device time beside the weight-streaming bound;
+     c. bench_decode_matrix's b8 c8192 on the dense int8 cache (init_cache_q8, 32 steps),
+        and bench_decode_w4's b1 c1024 on it with the fused int4 LM: per step 1 K5, 28 +
+        28 K6 and 1 K4 (the int8 head);
+     d. the 30 s clip on the int8 LM (the bf16 model's LM quantized on the card): generate()
+        twice, 32 greedy tokens, identical ids, 197 K4 launches per decode step plus the
+        prefill's head; generate(stream=True) gives generate's ids; one step's K4 launches
+        replayed against the plain version;
+     e. f32 card against CPU, full width, 2 LM layers: the int8 LM prefills through flash
+        into a Q8KVCache and decodes 8 greedy steps; logits within 1e-4 of max|logit|,
+        ids token-exact; quantize_kv's codes and the int4 group scales equal card vs CPU
+        (checked in 7c and 8e as well).
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -833,15 +858,17 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
     int4 = dataclasses.replace(model, model=af3.AF3Model(model.model.encoder, model.model.adaptor,
                                                          qlm),
                                history=[], last_output=None, last_processor_s=None)
+    from audio_flamingo_tpu_torch.ops.kernels import w8a16_matmul as k4
+
     counters = {"K2": fa.LAUNCHES, "K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A,
-                "K6B": k6.LAUNCHES_B}
+                "K6B": k6.LAUNCHES_B, "K4": k4.LAUNCHES}
     n_layers = lm_cfg.num_layers
     runs = []
     for i in range(3):
         for name, c in counters.items():
             c.reset()
             c.timing = True
-            c.capture = i == 2 and name != "K2"
+            c.capture = i == 2 and name not in ("K2", "K4")
         torch.cuda.reset_peak_memory_stats()
         text, wall, split = timed_generate(int4, sound=wav, prompt="What do you hear?",
                                            max_new_tokens=32)
@@ -860,7 +887,8 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
             f"decode {run['tps']:.1f} tok/s ({steps} steps); launches K2 {run['K2'][0]} "
             f"({run['K2'][2]:.3f} ms), K5 {run['K5'][0]} ({run['K5'][2]:.3f} ms), K6 A "
             f"{run['K6A'][0]} ({run['K6A'][2]:.3f} ms), K6 B {run['K6B'][0]} "
-            f"({run['K6B'][2]:.3f} ms); peak GPU memory {run['peak']:.2f} GiB")
+            f"({run['K6B'][2]:.3f} ms), K4 (the int8 head) {run['K4'][0]} "
+            f"({run['K4'][2]:.3f} ms); peak GPU memory {run['peak']:.2f} GiB")
         check(steps >= 1, "the int4 generate made no decode step")
         k2_expected = model.cfg.encoder.num_layers + n_layers   # one window + the prefill
         check(run["K2"][0] == k2_expected,
@@ -871,6 +899,9 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
         check(run["K6A"][0] == n_layers * steps and run["K6B"][0] == n_layers * steps,
               f"int4 path: K6 launches A {run['K6A'][0]}, B {run['K6B'][0]} != "
               f"{n_layers} each per decode step x {steps}")
+        check(run["K4"][0] == steps + 1,
+              f"int4 path: K4 launches {run['K4'][0]} != one int8 head per decode step and "
+              f"the prefill's")
         check(bool(torch.isfinite(out.first_logits).all()), "int4 prefill logits not finite")
         check(all(0 <= t < lm_cfg.vocab_size for t in run["ids"]), "int4 ids out of vocab")
         runs.append(run)
@@ -886,20 +917,24 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
         f"({step_bytes / 1e9:.3f} GB at {PEAK_BYTES / 1e12:.2f} TB/s, "
         f"{PEAK_BYTES / step_bytes:.0f} tok/s); kernels per decode step K5 "
         f"{warm['K5'][2] / warm['steps']:.3f} ms, K6 A {warm['K6A'][2] / warm['steps']:.3f} ms, "
-        f"K6 B {warm['K6B'][2] / warm['steps']:.3f} ms; int4 vs bf16 prefill logits "
+        f"K6 B {warm['K6B'][2] / warm['steps']:.3f} ms, K4 (the int8 head) "
+        f"{warm['K4'][2] / (warm['steps'] + 1):.3f} ms; int4 vs bf16 prefill logits "
         f"cosine {cos:.4f} (not gated: quantization error on random weights)")
 
-    # the int8 head's per-step cost: its bf16 conversion is made on every call
+    # the int8 head's per-step cost: K4, against the library route's bf16 copy + cuBLAS
     h = torch.randn((1, lm_cfg.hidden_size), device="cuda").bfloat16()
     unembed_ms = time_ms(lambda: qwen2.unembed(qlm, h))
+    route_ms = time_ms(library_route_call(h, qlm.lm_head["w_q"], qlm.lm_head["scale"],
+                                          torch.float32))
     convert_ms = time_ms(lambda: qlm.lm_head["w_q"].to(torch.bfloat16))
     lib, why = int8pack_call(h, qlm.lm_head["w_q"], qlm.lm_head["scale"])
     lib_ms = f"{time_ms(lib):.4f} ms" if lib else f"none ({why})"
     del lib
-    log(f"int8 head unembed [1,{lm_cfg.hidden_size}] x {list(qlm.lm_head['w_q'].shape)}: "
-        f"{unembed_ms:.4f} ms per step, of which the int8 -> bf16 copy of the codes "
-        f"{convert_ms:.4f} ms; its bound {(nbytes['lm_head.w_q'] + nbytes['lm_head.scale']) / PEAK_BYTES * 1e3:.4f} ms; "
-        f"torch._weight_int8pack_mm on the same codes (K4's library yardstick): {lib_ms}")
+    log(f"int8 head unembed [1,{lm_cfg.hidden_size}] x {list(qlm.lm_head['w_q'].shape)} on K4: "
+        f"{unembed_ms:.4f} ms per step; the library route {route_ms:.4f} ms, of which the "
+        f"int8 -> bf16 copy of the codes {convert_ms:.4f} ms; its bound "
+        f"{(nbytes['lm_head.w_q'] + nbytes['lm_head.scale']) / PEAK_BYTES * 1e3:.4f} ms; "
+        f"torch._weight_int8pack_mm on the same codes: {lib_ms}")
 
     # the path's own launches (the third run's), every one replayed on its captured inputs
     x0, w_p0, gscale0, layer0 = captured["K5"][0]
@@ -968,6 +1003,17 @@ def f32_int4_card_vs_cpu_phase(fa, k5, k6) -> None:
         t0 = time.perf_counter()
         cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
         tree = quantize_lm_params_w4(cpu.model.lm.state_dict())
+        # Queue 3 item 8: the same tree quantized on the card, codes and group scales equal
+        lm_state = {k: v.cuda() for k, v in cpu.model.lm.state_dict().items()}
+        card_tree = qwen2.flatten(quantize_lm_params_w4(lm_state))
+        del lm_state
+        flips = {k: int((v.cpu() != card_tree[k].cpu()).sum())
+                 for k, v in qwen2.flatten(tree).items()}
+        del card_tree
+        log(f"7c: quantize_lm_params_w4 on the card vs the CPU: {sum(flips.values())} values "
+            f"differ over {len(flips)} tensors")
+        check(not any(flips.values()), f"7c: int4 codes or scales differ card vs CPU: "
+                                       f"{ {k: v for k, v in flips.items() if v} }")
         cpu = dataclasses.replace(cpu, model=af3.AF3Model(
             cpu.model.encoder, cpu.model.adaptor, qwen2.quantized_lm(tree, torch.float32, "cpu")))
         state = {k: v for k, v in cpu.model.state_dict().items() if not k.startswith("lm.")}
@@ -1492,7 +1538,8 @@ def prefix_phase(model, probe) -> None:
 def int4_engine_phase(model, fa, pa, k5, k6, probe) -> None:
     """8d. The same engine over the bf16 model's LM quantized to int4 on the card
     (quantize_lm_params_w4, as phase 7b) with an int8 pool: 2 requests of 500 ids, 16
-    tokens each, twice; per decode step 28 K3, 1 K5 (layer 0's qkv) and 28 + 28 K6."""
+    tokens each, twice; per decode step 28 K3, 1 K5 (layer 0's qkv), 28 + 28 K6 and 1 K4
+    (the int8 head, which also runs once per prefill)."""
     from audio_flamingo_tpu_torch.models import af3, qwen2
     from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
     from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
@@ -1503,8 +1550,10 @@ def int4_engine_phase(model, fa, pa, k5, k6, probe) -> None:
     rng = np.random.default_rng(2)
     specs = [(f"q{i}", rng.integers(0, 150_000, (1, 500)).astype(np.int32), None)
              for i in range(2)]
+    from audio_flamingo_tpu_torch.ops.kernels import w8a16_matmul as k4
+
     counters = {"K3": pa.LAUNCHES, "K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A,
-                "K6B": k6.LAUNCHES_B}
+                "K6B": k6.LAUNCHES_B, "K4": k4.LAUNCHES}
     runs = []
     for _ in range(2):
         for c in counters.values():
@@ -1516,10 +1565,11 @@ def int4_engine_phase(model, fa, pa, k5, k6, probe) -> None:
         steps = probe.steps
         log(f"int4 LM + int8 pool: {sum(len(v) for v in results.values())} tokens in "
             f"{wall:.3f} s, {steps} decode steps; launches K3 {counts['K3']}, K5 "
-            f"{counts['K5']}, K6 A {counts['K6A']}, K6 B {counts['K6B']}")
+            f"{counts['K5']}, K6 A {counts['K6A']}, K6 B {counts['K6B']}, K4 {counts['K4']}")
         n_layers = model.cfg.lm.num_layers
+        # K4: the int8 head of every decode step and of each request's prefill
         want = {"K3": n_layers * steps, "K5": steps, "K6A": n_layers * steps,
-                "K6B": n_layers * steps}
+                "K6B": n_layers * steps, "K4": steps + len(specs)}
         check(steps > 0 and counts == want, f"int4 engine launches {counts} != {want}")
         check(len(eng.allocator.free) == eng.num_blocks - 1, "int4 engine: pool not released")
         runs.append(results)
@@ -1540,6 +1590,7 @@ def f32_engine_card_vs_cpu_phase(pa) -> None:
     from audio_flamingo_tpu_torch.runtime import generate as gen
     from audio_flamingo_tpu_torch.runtime import paged_engine as pe
 
+    codes_card_vs_cpu("8e")     # the int8 pool's quantizer, Queue 3 item 8
     full = AF3Config()
     cfg = with_flash(dataclasses.replace(
         full, encoder=dataclasses.replace(full.encoder, num_layers=2),
@@ -2569,6 +2620,388 @@ def a8_f32_card_vs_cpu_phase(fa8, ef) -> None:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+# ------------------------------------------------------------------ 11. the int8 LM's decode
+K4_ROUTE_ROWS = (64, 128, 256, 1024)   # 11a: K4 against the library route, to set the limit
+
+
+def k4_bound_ms(m: int, k: int, n: int, x_dtype, out_dtype) -> tuple:
+    """Least time of one w8a16 product: its codes (K N bytes), f32 scales, x and y each moved
+    once, against 2 m K N operations at x's dtype's peak."""
+    xb, ob = (torch.tensor([], dtype=d).element_size() for d in (x_dtype, out_dtype))
+    nbytes = k * n + 4 * n + m * k * xb + m * n * ob
+    t_ops = 2.0 * m * k * n / PEAK_FLOPS[str(x_dtype).split(".")[-1]]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_route_call(x, w_q, scale, out_dtype):
+    """The product q_matmul takes above KERNEL_MAX_ROWS rows (and every w8a16 product took
+    before K4): the codes copied to bf16 on each call, cuBLAS with f32 output, the scale."""
+    from audio_flamingo_tpu_torch.ops.quant import mm_f32
+
+    return lambda: (mm_f32(x, w_q) * scale).to(out_dtype)
+
+
+def k4_case(k4, x, w_q, scale, out_dtype, timed: bool) -> dict:
+    """One K4 call against its plain version (K5's tolerances), replayed bit-identical;
+    with ``timed`` also the kernel's time (CUDA events around the call, and its device
+    time alone from a CUDA graph replay), the plain version's, the library route's and
+    torch._weight_int8pack_mm's (bf16 x) beside the bound."""
+    y = k4.w8a16_matmul(x, w_q, scale, out_dtype)
+    r = w4_compare(y, k4.w8a16_matmul_reference(x, w_q, scale, out_dtype))
+    r["replay_equal"] = torch.equal(y, k4.w8a16_matmul(x, w_q, scale, out_dtype))
+    if timed:
+        r["ms"] = time_ms(lambda: k4.w8a16_matmul(x, w_q, scale, out_dtype))
+        r["graph_ms"] = graph_ms(lambda: k4.w8a16_matmul(x, w_q, scale, out_dtype))
+        r["plain_ms"] = time_ms(lambda: k4.w8a16_matmul_reference(x, w_q, scale, out_dtype), 5, 1)
+        r["route_ms"] = time_ms(library_route_call(x, w_q, scale, out_dtype), 5, 1)
+        lib, r["library_why"] = (int8pack_call(x, w_q, scale) if x.dtype == torch.bfloat16
+                                 else (None, "the library call takes bf16 x"))
+        r["library_ms"] = time_ms(lib, 5, 1) if lib else None
+        del lib
+        r["bound_ms"], r["bound_by"] = k4_bound_ms(x.shape[0], *w_q.shape, x.dtype, out_dtype)
+    return r
+
+
+def k4_phase(k4, qlm) -> dict:
+    """11a. K4 against its plain version at the 7B shapes, on the int8 LM's own codes
+    (random_quantized_lm, made on the card) and normal x: the seven layer products (q, k,
+    v, o, gate, up, down; layers 0 and 27, read in place from the stacks) and the head
+    [3584, 152064] at m 1, 8, 32, bf16 x to bf16 and to f32 and f32 x to f32; the tied
+    layout (the embedding [152064, 3584] read through its transposed view) at the same m;
+    every call replayed bit-identical. The bf16-x cases (the paths' own) timed at layer 0
+    (median of 15 after 3) beside the plain version, the library route (bf16 copy +
+    cuBLAS), _weight_int8pack_mm and the bound; then K4 against the library route at m 64-1024 on [3584, 18944], the rows that
+    set KERNEL_MAX_ROWS."""
+    from audio_flamingo_tpu_torch.ops.quant import KERNEL_MAX_ROWS
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    layers = qlm.layers
+    last = layers["ln1_w"].shape[0] - 1
+    mats = {n: layers[n] for n in ("q", "k", "v", "o")}
+    mats.update({n: layers["mlp"][n] for n in ("gate", "up", "down")})
+    precisions = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                  (torch.float32, torch.float32))
+    res = {}
+
+    def run(name, w_q, scale, m, layer=None):
+        x32 = torch.randn((m, w_q.shape[0]), generator=gen, device="cuda")
+        for xd, od in precisions:
+            if name == "tied" and od != torch.float32:
+                continue       # the tied head only ever writes f32 logits
+            r = k4_case(k4, x32.to(xd), w_q, scale, od,
+                        timed=layer in (None, 0) and xd == torch.bfloat16)
+            tag = f"{str(xd).split('.')[-1]}->{str(od).split('.')[-1]}"
+            check(r["finite"] and r["ratio"] <= 1.0 and r["replay_equal"],
+                  f"K4 {name} m={m} {tag} layer {layer}: |y - plain| at {r['ratio']:.3f} of its "
+                  f"limit, replay equal {r['replay_equal']}")
+            res[(name, m, tag, layer)] = r
+            if "ms" in r:
+                lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
+                       else f"null ({r['library_why']})")
+                log(f"K4 {name:5s} [{m},{w_q.shape[0]}]x[{w_q.shape[0]},{w_q.shape[1]}] {tag:17s}: "
+                    f"max|y-plain|={r['err']:.3e} (at {r['ratio']:.3f} of the limit) ms="
+                    f"{r['ms']:.4f} (device {r['graph_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
+                    f"library route {r['route_ms']:.4f} "
+                    f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); the "
+                    f"device time at {r['bound_ms'] / r['graph_ms'] * 100:.1f} % of the bound")
+
+    for m in (1, 8, 32):
+        for name, p in mats.items():
+            for layer in (0, last):
+                run(name, p["w_q"][layer], p["scale"][layer], m, layer)
+        run("head", qlm.lm_head["w_q"], qlm.lm_head["scale"], m)
+        run("tied", qlm.embed["w_q"].t(), qlm.embed["scale"], m)
+    w, sc = layers["mlp"]["up"]["w_q"][0], layers["mlp"]["up"]["scale"][0]
+    route = {}
+    for m in K4_ROUTE_ROWS:
+        x = torch.randn((m, w.shape[0]), generator=gen, device="cuda").bfloat16()
+        route[m] = (time_ms(lambda: k4.w8a16_matmul(x, w, sc)),
+                    time_ms(library_route_call(x, w, sc, torch.bfloat16)))
+    at32 = res[("up", 32, "bfloat16->bfloat16", 0)]
+    log(f"K4 against the library route at [m,3584]x[3584,18944] bf16: m=32 {at32['ms']:.4f} / "
+        f"{at32['route_ms']:.4f} ms; " + "; ".join(f"m={m} {a:.4f} / {b:.4f} ms"
+                                               for m, (a, b) in route.items())
+        + f"; KERNEL_MAX_ROWS = {KERNEL_MAX_ROWS}")
+    # one bf16 decode step's 197 launches at m = 1, by their device times alone
+    per = {n: res[(n, 1, "bfloat16->bfloat16", 0)]["graph_ms"] for n in mats}
+    step = last + 1
+    step_ms = step * sum(per.values()) + res[("head", 1, "bfloat16->float32", None)]["graph_ms"]
+    log(f"K4 device time of one 7B decode step from the graph replays at m = 1: "
+        f"{step_ms:.3f} ms = {step} x (" + " + ".join(f"{n} {v * 1e3:.1f}" for n, v in per.items())
+        + f" us) + the head {res[('head', 1, 'bfloat16->float32', None)]['graph_ms']:.4f} ms")
+    return dict(cases=res, route=route, step_ms=step_ms)
+
+
+def decode_loop_run(lm, cfg, cache, steps: int, batch: int) -> tuple:
+    """bench.py's decode body, eagerly: embed -> forward -> unembed -> argmax, ``steps``
+    times from a zero token; (ids [steps, batch], seconds, device-synchronized)."""
+    from audio_flamingo_tpu_torch.models import qwen2
+
+    token = torch.zeros((batch,), dtype=torch.long, device="cuda")
+    ids = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(steps):
+            x = qwen2.embed(lm, token[:, None])
+            pos = torch.full((batch, 1), cache.index, dtype=torch.long, device="cuda")
+            h, cache = qwen2.forward(lm, cfg, x, pos, cache=cache)
+            token = qwen2.unembed(lm, h[:, 0]).argmax(-1)
+            ids.append(token)
+    torch.cuda.synchronize()
+    return torch.stack(ids).cpu(), time.perf_counter() - t0
+
+
+def timed_decode(name, lm, cfg, make_cache, steps: int, batch: int, counters: dict,
+                 step_bytes: int, runs: int = 3) -> dict:
+    """One warm run, ``runs`` timed runs (fresh caches) with identical ids, then one run
+    with the counters' CUDA events on: ms per step, tok/s, launches and device ms per step
+    of each counter, against the bytes-per-step bound."""
+    decode_loop_run(lm, cfg, make_cache(), steps, batch)
+    ids, times = None, []
+    for _ in range(runs):
+        for c in counters.values():
+            c.reset()
+        got, sec = decode_loop_run(lm, cfg, make_cache(), steps, batch)
+        check(ids is None or torch.equal(got, ids), f"{name}: greedy ids differ between runs")
+        ids = got
+        times.append(sec)
+    counts = {n: c.count for n, c in counters.items()}
+    for c in counters.values():
+        c.reset()
+        c.timing = True
+    decode_loop_run(lm, cfg, make_cache(), steps, batch)
+    dev = {n: c.device_ms() / steps for n, c in counters.items()}
+    for c in counters.values():
+        c.timing = False
+        c.reset()
+    ms = statistics.median(times) / steps * 1e3
+    bound = step_bytes / PEAK_BYTES * 1e3
+    check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"{name}: ids out of vocab")
+    log(f"{name}: {ms:.3f} ms per step = {batch * 1e3 / ms:.1f} tok/s (median of {runs} runs of "
+        f"{steps} steps, batch {batch}) against a bound of {bound:.3f} ms per step "
+        f"({step_bytes / 1e9:.3f} GB at {PEAK_BYTES / 1e12:.2f} TB/s, {batch * 1e3 / bound:.0f} "
+        f"tok/s); launches per step " + ", ".join(
+            f"{n} {counts[n] / steps:g} ({dev[n]:.3f} ms device)" for n in counters)
+        + f"; ids {ids[:6, 0].tolist()}...")
+    return dict(ms=ms, tps=batch * 1e3 / ms, bound_ms=bound, counts=counts, dev=dev,
+                steps=steps, ids=ids)
+
+
+def lm_step_bytes(lm) -> int:
+    """Bytes a decode step reads of the LM: every tensor but the gathered embedding."""
+    return sum(v.numel() * v.element_size() for k, v in lm.state_dict().items()
+               if not k.startswith("embed."))
+
+
+def int8_decode_phase(k4, k5, k6, qlm, cfg) -> dict:
+    """11b, 11c. bench.py's decode points on the int8 7B LM: bench_decode (bf16 KVCache,
+    batch 1, capacity 1024, 64 greedy steps) with 28 x 7 + 1 = 197 K4 launches per step;
+    bench_decode_matrix's b8 c8192 on the dense int8 cache (init_cache_q8, 32 steps); and
+    bench_decode_w4's b1 c1024 on the q8 cache with the fused int4 LM
+    (random_quantized_lm_w4): per step 1 K5, 28 + 28 K6 and 1 K4 (the int8 head)."""
+    from audio_flamingo_tpu_torch.models import qwen2
+    from audio_flamingo_tpu_torch.ops.quant4 import random_quantized_lm_w4
+
+    n_layers = cfg.num_layers
+    weights = lm_step_bytes(qlm)
+    res = {}
+    res["b1"] = timed_decode(
+        "11b int8 7B decode, bf16 cache c1024", qlm, cfg,
+        lambda: qwen2.init_cache(cfg, 1, 1024, torch.bfloat16, "cuda"), 64, 1,
+        {"K4": k4.LAUNCHES}, weights)
+    check(res["b1"]["counts"]["K4"] == (7 * n_layers + 1) * 64,
+          f"11b: K4 launches {res['b1']['counts']['K4']} != {7 * n_layers + 1} per step")
+    hd = cfg.resolved_head_dim()
+    q8_bytes = 2 * n_layers * 8 * 8192 * cfg.num_kv_heads * (hd + 4)
+    res["b8"] = timed_decode(
+        "11c int8 7B decode, q8 cache b8 c8192", qlm, cfg,
+        lambda: qwen2.init_cache_q8(cfg, 8, 8192, "cuda"), 32, 8, {"K4": k4.LAUNCHES},
+        weights + q8_bytes, runs=2)
+    check(res["b8"]["counts"]["K4"] == (7 * n_layers + 1) * 32,
+          f"11c: K4 launches {res['b8']['counts']['K4']} != {7 * n_layers + 1} per step")
+    log(f"11c: the q8 cache holds {q8_bytes / 1e9:.3f} GB of codes and scales, read every step")
+    w4 = qwen2.quantized_lm(random_quantized_lm_w4(torch.Generator(device="cuda").manual_seed(0),
+                                                   cfg, "cuda"), torch.bfloat16, "cuda")
+    counters = {"K4": k4.LAUNCHES, "K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A,
+                "K6B": k6.LAUNCHES_B}
+    res["w4"] = timed_decode(
+        "11c int4 7B decode, q8 cache b1 c1024", w4, cfg,
+        lambda: qwen2.init_cache_q8(cfg, 1, 1024, "cuda"), 32, 1, counters,
+        lm_step_bytes(w4) + 2 * n_layers * 1024 * cfg.num_kv_heads * (hd + 4), runs=2)
+    want = {"K4": 32, "K5": 32, "K6A": n_layers * 32, "K6B": n_layers * 32}
+    check(res["w4"]["counts"] == want, f"11c w4: launches {res['w4']['counts']} != {want}")
+    del w4
+    return res
+
+
+def int8_clip_phase(k4, wav) -> dict:
+    """11d. The 30 s clip on the int8 LM: the bf16 AF3 at full width with its LM quantized
+    on the card as load(quantize_lm=True) does; generate() twice, greedy, 32 tokens:
+    identical ids, 197 K4 launches per decode step plus the prefill's head, decode tok/s
+    (the first run, uninstrumented) and K4's time in the second (events around each launch); generate(stream=True) yields the ids that
+    runtime/generate.generate gives on the same (unpadded) prompt; one decode step's K4
+    launches and the prefill's head replayed against the plain version, each shape timed
+    with its plain version, library call and bound."""
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
+    w8 = a8_models(with_flash(AF3Config(), True))
+    n_layers = w8.cfg.lm.num_layers
+    runs = []
+    for i in range(2):
+        k4.LAUNCHES.reset()
+        k4.LAUNCHES.timing, k4.LAUNCHES.capture = i == 1, i == 1
+        text, _, split = timed_generate(w8, sound=wav, prompt="What do you hear?",
+                                        max_new_tokens=32)
+        out = w8.last_output
+        run = dict(ids=out.tokens[0, : int(out.lengths[0])].tolist(), steps=out.decode_steps,
+                   tps=out.decode_steps / out.decode_s, ttft=out.ttft_s,
+                   proc=w8.last_processor_s, k4=k4.LAUNCHES.count,
+                   k4_shapes=dict(k4.LAUNCHES.shapes), k4_ms=k4.LAUNCHES.device_ms())
+        captured = list(k4.LAUNCHES.inputs)
+        k4.LAUNCHES.timing = k4.LAUNCHES.capture = False
+        k4.LAUNCHES.reset()
+        log(f"int8 LM generate #{i + 1}: ids={run['ids'][:8]}... ({len(run['ids'])}) {split}; "
+            f"decode {run['tps']:.1f} tok/s ({run['steps']} steps); K4 launches {run['k4']}"
+            + (f" ({run['k4_ms']:.3f} ms device in the path; this run brackets every K4 launch "
+               f"with CUDA events and keeps its inputs)" if i == 1 else ""))
+        check(run["k4"] == (7 * n_layers + 1) * run["steps"] + 1,
+              f"int8 LM generate: K4 launches {run['k4']} != {7 * n_layers + 1} per decode step "
+              f"x {run['steps']} + 1 (the prefill's head)")
+        check(bool(torch.isfinite(out.first_logits).all()), "int8 LM prefill logits not finite")
+        runs.append(run)
+    check(runs[0]["ids"] == runs[1]["ids"], f"int8 LM greedy ids differ: {[r['ids'] for r in runs]}")
+    streamed = list(w8.generate(sound=wav, prompt="What do you hear?", max_new_tokens=32,
+                                stream=True))
+    batch = w8.processor(messages=[{"role": "user", "content": "<sound>What do you hear?"}],
+                         audios=[wav])
+    ref = gen.generate(w8.model, w8.cfg, torch.as_tensor(batch["ids"], device="cuda").long(),
+                       batch["mels"], max_new_tokens=32, eos_token_id=w8.eos_token_id)
+    ref_ids = ref.tokens[0, : int(ref.lengths[0])].tolist()
+    log(f"int8 LM generate(stream=True): {len(streamed)} ids {streamed[:8]}...; runtime "
+        f"generate on the same unpadded prompt {'equal' if streamed == ref_ids else ref_ids}; "
+        f"against the bucket-padded generate: {'equal' if streamed == runs[0]['ids'] else 'differs'}")
+    check(streamed == ref_ids, "generate(stream=True) ids differ from generate's")
+    warm = runs[1]
+    # the prefill's head and the first decode step's 197 launches, replayed; per shape
+    # the plain version, the library call and the bound, weighted by the launches
+    head_key = next(k for k in warm["k4_shapes"] if k[2] == w8.cfg.lm.vocab_size)
+    tot = dict(err=0.0, ratio=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    by = set()
+    for x, w_q, scale, od in captured[: 7 * n_layers + 2]:
+        r = w4_compare(k4.w8a16_matmul(x, w_q, scale, od),
+                       k4.w8a16_matmul_reference(x, w_q, scale, od))
+        check(r["ratio"] <= 1.0, f"main-path K4 launch: |y - plain| at {r['ratio']:.3f}")
+        tot["err"], tot["ratio"] = max(tot["err"], r["err"]), max(tot["ratio"], r["ratio"])
+    seen = set()
+    for x, w_q, scale, od in captured:
+        key = (x.shape[0], *w_q.shape, int(not w_q.is_contiguous()))
+        if key in seen:
+            continue
+        seen.add(key)
+        n = warm["k4_shapes"][key]
+        tot["plain_ms"] += n * time_ms(lambda: k4.w8a16_matmul_reference(x, w_q, scale, od), 5, 1)
+        lib, _ = int8pack_call(x, w_q, scale)
+        tot["library_ms"] = (None if lib is None or tot["library_ms"] is None
+                             else tot["library_ms"] + n * time_ms(lib, 5, 1))
+        del lib
+        b_ms, b_by = k4_bound_ms(x.shape[0], *w_q.shape, x.dtype, od)
+        tot["bound_ms"] += n * b_ms
+        by.add(b_by)
+    tot["bound_by"] = "operations" if by == {"operations"} else "bytes"
+    log(f"int8 LM warm generate: {warm['k4']} K4 launches ({len(seen)} shapes; the head "
+        f"{warm['k4_shapes'][head_key]}), {warm['k4_ms']:.3f} ms device, {warm['k4_ms'] / warm['k4'] * 1e3:.1f} us "
+        f"per launch; replayed (the prefill's head and one decode step): max|y-plain|="
+        f"{tot['err']:.3e} (at {tot['ratio']:.3f} of the limit); over every launch: plain "
+        f"{tot['plain_ms']:.2f} ms, library "
+        f"{'null' if tot['library_ms'] is None else f'{tot['library_ms']:.3f} ms'}, bound "
+        f"{tot['bound_ms']:.3f} ms ({tot['bound_by']}); user TTFT "
+        f"{(warm['proc'] + warm['ttft']) * 1e3:.1f} ms")
+    del w8, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(warm=warm, path=tot)
+
+
+def codes_card_vs_cpu(tag: str) -> None:
+    """ROADMAP Queue 3 item 8: quantize_kv's codes and scales, and the int4 group scales
+    and packed codes, equal on the card and on the CPU for the same f32 inputs (both
+    divide by a 0-dim tensor: a true division, where a Python divisor on the card goes
+    through its reciprocal)."""
+    from audio_flamingo_tpu_torch.models.qwen2 import quantize_kv
+    from audio_flamingo_tpu_torch.ops.quant4 import quantize_linear_w4
+
+    rng = np.random.default_rng(8)
+    kv = torch.from_numpy((rng.standard_normal((4, 64, 4, 128))
+                           * rng.uniform(0.01, 8.0, (4, 64, 4, 1))).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((1024, 512)) * 0.05).astype(np.float32))
+    pairs = list(zip(quantize_kv(kv), quantize_kv(kv.cuda())))
+    pairs += list(zip(quantize_linear_w4(w).values(), quantize_linear_w4(w.cuda()).values()))
+    flips = [int((a != b.cpu()).sum()) for a, b in pairs]
+    log(f"{tag}: quantize_kv codes/scales and int4 codes/group scales card vs CPU: "
+        f"{flips} values differ (of {[a.numel() for a, _ in pairs]})")
+    check(not any(flips), f"{tag}: quantized codes or scales differ card vs CPU: {flips}")
+
+
+def f32_q8_card_vs_cpu_phase(fa, k4) -> None:
+    """11e. f32, full width, 2 LM layers: the same int8 LM (quantized on the CPU, moved to
+    the card) prefills 300 random ids through flash (K2 on the card) into a Q8KVCache and
+    decodes 8 greedy steps on both; logits within 1e-4 of max|logit| at every step, ids
+    token-exact, K4 on every card step; and item 8's codes card vs CPU."""
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.models import qwen2
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+
+    codes_card_vs_cpu("11e")
+    full = AF3Config().lm
+    cfg = dataclasses.replace(full, num_layers=2, use_flash=True)
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        flm = qwen2.Qwen2(cfg, dtype=torch.float32)
+    flm = flm.to_empty(device="cpu")
+    qwen2.init_(flm, torch.Generator().manual_seed(0))
+    tree = quantize_lm_params(flm.state_dict())
+    del flm
+    lms = {"cpu": qwen2.quantized_lm(tree, torch.float32, "cpu"),
+           "card": qwen2.quantized_lm(tree, torch.float32, "cuda")}
+    del tree
+    log(f"11e: f32 int8 LM, 2 layers at full width, quantized on the CPU and moved in "
+        f"{time.perf_counter() - t0:.1f}s")
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, 150_000, (1, 300))).long()
+    caches = {w: qwen2.init_cache_q8(cfg, 1, 320, w if w == "cpu" else "cuda") for w in lms}
+    tok = {w: ids if w == "cpu" else ids.cuda() for w in lms}
+    out = {w: [] for w in lms}
+    errs = []
+    fa.LAUNCHES.reset()
+    k4.LAUNCHES.reset()
+    with torch.inference_mode():
+        for step in range(9):     # the flash prefill, then 8 decode steps
+            logits = {}
+            for w, lm in lms.items():
+                dev = tok[w].device
+                start = caches[w].index
+                s = tok[w].shape[1]
+                pos = torch.arange(start, start + s, device=dev)[None]
+                h, caches[w] = qwen2.forward(lm, cfg, qwen2.embed(lm, tok[w]), pos,
+                                             cache=caches[w], is_prefill=step == 0)
+                logits[w] = qwen2.unembed(lm, h[:, -1]).cpu()
+                out[w].append(int(logits[w].argmax()))
+                tok[w] = logits[w].argmax(-1, keepdim=True).to(dev)
+            errs.append(((logits["card"] - logits["cpu"]).abs().max()
+                         / logits["cpu"].abs().max()).item())
+    log(f"11e: f32 int8 LM on Q8KVCache card vs CPU: ids card {out['card']} CPU {out['cpu']}; "
+        f"max|card - CPU| / max|logit| per step {[f'{e:.1e}' for e in errs]} (limit "
+        f"{LOGITS_TOL}); K2 launches {fa.LAUNCHES.count}, K4 {k4.LAUNCHES.count}")
+    check(out["card"] == out["cpu"], "11e: greedy ids differ card vs CPU")
+    check(len(set(out["card"])) > 1, f"11e: greedy ids are all one token: {out['card']}")
+    check(max(errs) <= LOGITS_TOL, f"11e: logits card vs CPU {max(errs)} > {LOGITS_TOL}")
+    check(fa.LAUNCHES.count == cfg.num_layers and k4.LAUNCHES.count == 9 + 8 * 7 * cfg.num_layers,
+          f"11e: launches K2 {fa.LAUNCHES.count}, K4 {k4.LAUNCHES.count}")
+    del lms, caches
+
+
 def timed_generate(model, **kw) -> tuple:
     """One AudioFlamingo.generate call timed from its start: (text, wall seconds, and a
     line splitting it into the processor's share, ttft_s, their sum (the TTFT a user
@@ -2605,6 +3038,7 @@ def main() -> int:
     from audio_flamingo_tpu_torch.ops.kernels import paged_attention as pa
     from audio_flamingo_tpu_torch.ops.kernels import w4_suffix as k6
     from audio_flamingo_tpu_torch.ops.kernels import w4a16_matmul as k5
+    from audio_flamingo_tpu_torch.ops.kernels import w8a16_matmul as k4
 
     # 1. card
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2745,6 +3179,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     a8_f32_card_vs_cpu_phase(fa8, ef)
+    # 11a-11e. the int8 LM's decode: K4 alone on the 7B int8 LM's codes, bench.py's decode
+    # points (bf16 cache, the q8 cache, the int4 LM on the q8 cache), the 30 s clip on the
+    # int8 LM, f32 card against CPU on the q8 cache
+    from audio_flamingo_tpu_torch.ops.quant import random_quantized_lm
+
+    lm7b = AF3Config().lm
+    qlm8 = qwen2_mod.quantized_lm(random_quantized_lm(
+        torch.Generator(device="cuda").manual_seed(0), lm7b, "cuda"), torch.bfloat16, "cuda")
+    k4_res = k4_phase(k4, qlm8)
+    int8_decode_phase(k4, k5, k6, qlm8, lm7b)
+    del qlm8
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_clip = int8_clip_phase(k4, wav)
+    f32_q8_card_vs_cpu_phase(fa, k4)
 
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
@@ -2877,6 +3326,20 @@ def main() -> int:
             "bound_by": per["bound_by"],
             "library_ms": None,
         })
+    k4_path = int8_clip["path"]
+    kernels.append({
+        "name": "w8a16_matmul",
+        "route": "cuda",
+        "source": "audio_flamingo_tpu_torch/csrc/w8a16_matmul.cu",
+        "replaces": "audio_flamingo_tpu/ops/pallas/quant_matmul.py:44",
+        "launches": int8_clip["warm"]["k4"],
+        "max_abs_err": max([r["err"] for r in k4_res["cases"].values()] + [k4_path["err"]]),
+        "ms": int8_clip["warm"]["k4_ms"],
+        "plain_ms": k4_path["plain_ms"],
+        "bound_ms": k4_path["bound_ms"],
+        "bound_by": k4_path["bound_by"],
+        "library_ms": k4_path["library_ms"],
+    })
     for name, p in paged.items():
         r, f = p["run"], p["full"]
         log(f"paged engine, {name} pool: {p['tps']:.1f} tok/s, TTFT median "
@@ -2917,7 +3380,13 @@ def main() -> int:
         "the plain version's time and the bound (int8 ops at 1979 TOPS, or bytes) at the "
         "path's shape [30000, 1280] bf16 (10b); max_abs_err = the largest |y - plain| of 10b "
         "(x2 for enc_out_ln); library_ms null: no single PyTorch call computes a fused "
-        "stage (10b times each against its composed torch form).")
+        "stage (10b times each against its composed torch form). w8a16_matmul (K4) per warm "
+        "int8-LM 30 s generate (11d, 32 tokens): launches and ms = its launches' count and "
+        "device time inside it; plain_ms, library_ms (torch._weight_int8pack_mm on the same "
+        "codes, laid out [N, K]) and bound_ms = each launch shape's plain time, library time "
+        "(one captured launch each) and bound, times that shape's launches, summed; "
+        "max_abs_err = the largest |y - plain| of 11a and of the prefill's head and one "
+        "decode step's launches, replayed.")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")
