@@ -1,12 +1,15 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
 Every ``csrc/*.cu`` file is compiled together by one nvcc call into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds). Host-only C++
-(the audio decoders, ``audio/io.py``) goes through ``compile_library`` with g++ the same
-way. Libraries land in ``audio_flamingo_tpu_torch/_build/`` (ignored by git) under a name
-keyed by a hash of the sources and flags, so an unchanged tree does not rebuild. A build
-writes a temporary name and renames it into place, so concurrent builders never load a
-half-written file. A failed build raises with the compiler's stderr.
+with a plain C interface (no PyTorch headers, so the build takes seconds); the headers
+they share (``csrc/*.cuh``) come in through them. Host-only C++ (the audio decoders,
+``audio/io.py``) goes through ``compile_library`` with g++ the same way. Libraries land in
+``audio_flamingo_tpu_torch/_build/`` (ignored by git) under a name keyed by a hash of the
+sources, the headers beside them and the flags, so an unchanged tree does not rebuild and
+a changed header does. The compiler's stderr (nvcc's ptxas report of registers, stack and
+spills) is kept beside each library as ``<name>.log``, so a cached library still has its
+report. A build writes temporary names and renames them into place, so concurrent builders
+never load a half-written file. A failed build raises with the compiler's stderr.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of this process's nvcc run, if any
-build_log: str = ""                  # nvcc's stderr (ptxas register/smem report)
+build_log: str = ""                  # nvcc's stderr of the library (ptxas register/smem report)
 
 
 def find_nvcc() -> str:
@@ -43,20 +46,26 @@ def sources() -> list[str]:
 
 
 def library_path(stem: str, srcs: list[str], flags) -> str:
+    """The library's path, keyed by the flags, ``srcs`` and every header beside them."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in srcs:
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    headers = sorted({hdr for src in srcs
+                      for hdr in glob.glob(os.path.join(os.path.dirname(src), "*.cuh"))})
+    for path in [*srcs, *headers]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
 def compile_library(compiler: str, flags, srcs: list[str], stem: str):
-    """Compile ``srcs`` into ``_build/<stem>-<hash>.so`` unless it exists.
+    """Compile ``srcs`` into ``_build/<stem>-<hash>.so`` unless it and its log exist.
 
-    Returns (path, seconds of this call's compile or None, compiler stderr)."""
+    Returns (path, seconds of this call's compile or None, the compiler's stderr of the
+    build that made the library)."""
     out = library_path(stem, srcs, flags)
-    if os.path.exists(out):
-        return out, None, ""
+    log_path = f"{out}.log"
+    if os.path.exists(out) and os.path.exists(log_path):
+        with open(log_path) as f:
+            return out, None, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     cmd = [compiler, *flags, "-o", tmp, *srcs]
@@ -66,6 +75,9 @@ def compile_library(compiler: str, flags, srcs: list[str], stem: str):
     if proc.returncode != 0:
         raise RuntimeError(f"{os.path.basename(compiler)} failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{proc.stderr}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(proc.stderr)
+    os.replace(f"{tmp}.log", log_path)
     os.replace(tmp, out)
     return out, seconds, proc.stderr
 
@@ -73,17 +85,20 @@ def compile_library(compiler: str, flags, srcs: list[str], stem: str):
 def build() -> str:
     """Compile csrc/*.cu into the hashed kernel library unless it exists; return its path."""
     global build_seconds, build_log
-    out, seconds, log = compile_library(find_nvcc(), NVCC_FLAGS, sources(), "libaf_kernels")
+    out, seconds, build_log = compile_library(find_nvcc(), NVCC_FLAGS, sources(),
+                                              "libaf_kernels")
     if seconds is not None:
-        build_seconds, build_log = seconds, log
+        build_seconds = seconds
     return out
 
 
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once, and declare every entry point's C signature."""
+def load_library(path: str | None = None) -> ctypes.CDLL:
+    """Load the kernel library once (built if needed) and declare every entry point's C
+    signature. ``path`` loads another build of the same sources in its place (one made
+    with other flags by ``compile_library``)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
+    if _lib is None or path is not None:
+        lib = ctypes.CDLL(path or build())
         i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
         fn = lib.af_flash_attention_fwd
         fn.restype = i32
@@ -93,6 +108,9 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i32
         fn.argtypes = ([ptr] * 9 + [i32] * 7 + [i64] * 21
                        + [ctypes.c_float, i32, i32, ptr])
+        fn = lib.af_flash_scores
+        fn.restype = i32
+        fn.argtypes = [ptr] * 4 + [i32] * 6 + [i64] * 6 + [ptr]
         fn = lib.af_log_mel_power
         fn.restype = i32
         fn.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]

@@ -5,14 +5,21 @@ Replaces the Pallas TPU kernels of ``audio_flamingo_tpu/ops/pallas/flash_attenti
 the forward ``_flash_forward`` :258 (kernel ``_flash_kernel`` :63) and the backward
 ``_flash_backward`` :431 (kernels ``_flash_bwd_dkv_kernel`` :343, ``_flash_bwd_dq_kernel``
 :390), reached from ``flash_attention`` and ``flash_attention_lse``. The CUDA sources are
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``; their headers state each
-kernel's design, what bounds it on the H100 and what the simple design leaves undone.
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (building blocks shared in
+``csrc/flash_mma.cuh``); their headers state each kernel's design, what bounds it on the
+H100 and what the design leaves for later.
+
+Each source has two routes, chosen by dtype: bf16 runs on the tensor cores (mma.sync
+m16n8k16 with f32 accumulation, K/V or Q/dO tiles through a cp.async ring), f32 on the
+CUDA cores (f32 FMAs). f32 stays off the tensor cores because TF32 would round q, k and p
+to 10 mantissa bits, and the 2e-5 agreement of every f32 card-vs-CPU check rests on full
+f32 products.
 
 Both public functions are differentiable (a ``torch.autograd.Function``, as JAX's
 ``custom_vjp``): ``flash_attention`` in o, ``flash_attention_lse`` in o and the LSE.
 Dispatch is by the tensors' device: a CPU tensor goes to the plain versions
 (``flash_attention_reference``, ``flash_attention_backward_reference``); a CUDA tensor
-launches the kernel or raises. There is no fallback between the two.
+launches the kernel of its dtype or raises. There is no fallback between them.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from audio_flamingo_tpu_torch.ops.kernels.launches import LaunchCounter
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
-KV_TILE = 64   # keys per K/V tile of the online softmax (csrc/flash_attention.cu kBK)
+KV_TILE = 64   # keys per K/V tile of the online softmax (csrc/flash_attention.cu
+               # kMmaKeys in bf16, kBK in f32)
 
 
 LAUNCHES = LaunchCounter()       # K2; key: (q shape, k shape, causal); inputs: (q, k, v, kwargs)
@@ -70,15 +78,31 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output for such a row depends on its tiling. Code that merges or differentiates by
     the LSE (ring attention, the backward kernel) must treat -inf as "no keys".
     """
-    b, tq, h, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
     if scale is None:
-        scale = d ** -0.5
+        scale = q.shape[-1] ** -0.5
+    return reference_from_scores(reference_scores(q, k) * scale, v, causal=causal,
+                                 q_offset=q_offset, dtype=q.dtype)
+
+
+def reference_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The plain version's f32 scores q . k before the scale, [B, Hkv, H/Hkv, Tq, Tk]
+    (q head h = Hkv index * H/Hkv + group index)."""
+    b, tq, h, d = q.shape
+    hkv = k.shape[2]
     qg = q.float().reshape(b, tq, hkv, h // hkv, d)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    return torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+
+
+def reference_from_scores(s: torch.Tensor, v: torch.Tensor, *, causal: bool, q_offset: int,
+                          dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_reference``'s steps after its score product, on the scaled f32
+    scores s [B, Hkv, H/Hkv, Tq, Tk]: (o [B,Tq,H,D] in ``dtype``, lse [B,Tq,H] f32)."""
+    b, hkv, g, tq, tk = s.shape
+    d = v.shape[-1]
+    h = hkv * g
     if causal:
-        rows = torch.arange(tq, device=q.device)[:, None] + q_offset
-        s = s.masked_fill(torch.arange(tk, device=q.device)[None, :] > rows, float("-inf"))
+        rows = torch.arange(tq, device=s.device)[:, None] + q_offset
+        s = s.masked_fill(torch.arange(tk, device=s.device)[None, :] > rows, float("-inf"))
     n_tiles = -(-tk // KV_TILE)
     s = F.pad(s, (0, n_tiles * KV_TILE - tk), value=float("-inf"))
     s = s.reshape(*s.shape[:-1], n_tiles, KV_TILE)
@@ -89,13 +113,13 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m_run = torch.where(torch.isneginf(m_run), torch.zeros_like(m_run), m_run)
     p = torch.exp(s - m_run[..., None])                       # against the running max
     l = (p * rescale).sum(dim=(-2, -1))[..., None]            # [b, kv, g, q, 1]
-    p = (p.to(q.dtype).float() * rescale).flatten(-2)[..., :tk]
+    p = (p.to(dtype).float() * rescale).flatten(-2)[..., :tk]
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     l_q = l.permute(0, 3, 1, 2, 4)                            # [b, q, kv, g, 1]
     o = torch.where(l_q > 0, o / l_q, torch.zeros_like(o))
     lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
     lse = lse[..., 0].permute(0, 3, 1, 2).reshape(b, tq, h)
-    return o.reshape(b, tq, h, d).to(q.dtype), lse
+    return o.reshape(b, tq, h, d).to(dtype), lse
 
 
 def flash_attention_backward_reference(
@@ -122,7 +146,7 @@ def flash_attention_backward_reference(
         delta = delta - g_lse.float()
     qg = q.float().reshape(b, tq, hkv, g, d)
     dog = do.float().reshape(b, tq, hkv, g, d)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    s = reference_scores(q, k) * scale
     if causal:
         rows = torch.arange(tq, device=q.device)[:, None] + q_offset
         s = s.masked_fill(torch.arange(tk, device=q.device)[None, :] > rows, float("-inf"))
@@ -146,6 +170,49 @@ def _device_check(q: torch.Tensor, name: str) -> None:
                          f"{q.shape[-1]}")
 
 
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Every row starts 16-byte aligned, as the bf16 kernels' cp.async copies need."""
+    return x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3])
+
+
+def score_sums(q: torch.Tensor, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 forward's two score sums of every (q row, key) pair, before the scale:
+    (s_mma, s_seq), [B, H, Tq, Tk] f32 each, laid out as ``reference_scores``' [B, Hkv,
+    H/Hkv, Tq, Tk]. s_mma is the tensor-core product K2 forms for every score; s_seq the
+    sum by one fmaf per element in order d = 0 .. D - 1 by which it recomputes the scores
+    that set the running max or sit near a rounding edge of p. Not on any path: K2's bf16
+    tolerance rests on s_seq equal to the plain version's scores and s_mma within its
+    err_bound of them, and this lets a check on the card hold both. bf16 q [B,Tq,H,D] and
+    k [B,Tk,Hkv,D] with rows 16-byte aligned, on the card; on a CPU tensor both are the
+    plain sequential sum (a bf16 product is exact in f32, so it is the fmaf chain)."""
+    _check(q, k, k)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"score_sums takes bfloat16 q/k, got {q.dtype}")
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    if q.device.type == "cpu":
+        qh = q.float().permute(0, 2, 1, 3)                                    # [B, H, Tq, D]
+        kh = k.float().repeat_interleave(h // hkv, dim=2).permute(0, 2, 1, 3)
+        s = torch.zeros((b, h, tq, tk))
+        for i in range(d):
+            s = s + qh[..., i:i + 1] * kh[..., None, :, i]
+        return s, s.clone()
+    _device_check(q, "score_sums")
+    if not (_rows_aligned(q) and _rows_aligned(k)) or q.stride(-1) != 1 or k.stride(-1) != 1:
+        raise ValueError("q/k rows must be contiguous and start 16-byte aligned")
+    lib = _build.load_library()
+    s_mma = torch.empty((b, h, tq, tk), dtype=torch.float32, device=q.device)
+    s_seq = torch.empty_like(s_mma)
+    with torch.cuda.device(q.device):
+        err = lib.af_flash_scores(q.data_ptr(), k.data_ptr(), s_mma.data_ptr(),
+                                  s_seq.data_ptr(), b, tq, tk, h, hkv, d,
+                                  *q.stride()[:3], *k.stride()[:3],
+                                  torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash score-sums kernel launch failed with CUDA error {err}")
+    return s_mma, s_seq
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float,
              q_offset: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K2 on a CUDA tensor, the plain version on a CPU one."""
@@ -157,6 +224,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sc
     tk, hkv = k.shape[1], k.shape[2]
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q/k/v must be contiguous in the head dim")
+    if q.dtype == torch.bfloat16 and not all(map(_rows_aligned, (q, k, v))):
+        raise ValueError("bf16 q/k/v rows must start 16-byte aligned")
     lib = _build.load_library()   # builds csrc/*.cu on first use
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
@@ -195,10 +264,13 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     do = do.to(q.dtype)
-    if do.stride(-1) != 1:       # an expanded cotangent (the grad of a sum) has stride 0
-        do = do.contiguous()
+    # an expanded cotangent (the grad of a sum) has stride 0
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not _rows_aligned(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q/k/v must be contiguous in the head dim")
+    if q.dtype == torch.bfloat16 and not all(map(_rows_aligned, (q, k, v))):
+        raise ValueError("bf16 q/k/v rows must start 16-byte aligned")
     delta = (do.float() * o.float()).sum(dim=-1)
     if g_lse is not None:
         delta = delta - g_lse.float()

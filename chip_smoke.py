@@ -5,12 +5,19 @@
 
 Phases, each line stamped with elapsed seconds:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: every csrc/*.cu in one nvcc call (seconds, ptxas report);
+  2. build: every csrc/*.cu in one nvcc call (seconds; ptxas's registers, spilled bytes
+     and static shared memory of every kernel, the bf16 flash kernels required);
   3. kernels against their plain PyTorch versions, with their time (CUDA events, median),
      the plain version's time, one PyTorch library call's time as a yardstick where one
      computes the same function, and the bound:
-     a. flash attention (K2) at the 30 s main path's shapes, f32 and bf16, scores drawn
-        broad (std 1) and peaked (std 3-4);
+     a. flash attention (K2) at the 30 s main path's shapes, f32 (CUDA cores) and bf16
+        (tensor cores), scores drawn broad (std 1) and peaked (std 3-4), and at shapes
+        either route must take: D = 64 causal with a q_offset, D = 128 non-causal with
+        Tk != Tq, a negative q_offset (rows with no key: o = 0, lse = -inf); two launches
+        on the same inputs bit-identical; before each bf16 case's output, the two facts
+        its tolerance rests on: the plain version's f32 scores equal the sequential fmaf
+        sum K2 recomputes some scores by, and K2's tensor-core scores lie within its
+        err_bound of them;
      b. the fused log-mel (K1) at [1, 480000] and [20, 480000], on a tone plus noise and
         on normal x 0.1;
      c. K2 at the 10-minute path's shapes, [20,1500,20,64] and causal [1,16384,28,128],
@@ -73,9 +80,10 @@ Phases, each line stamped with elapsed seconds:
   9. training (after every earlier phase's model is freed):
      a. the flash-attention backward (K7) against its plain version at AF3 stage 2's
         shapes ([4,1500,20,64] non-causal at scale 1, [4,1024,28,128] causal over 4 KV
-        heads), an unaligned causal case with a q_offset and a case with an LSE
-        cotangent, f32 and bf16; two launches on the same inputs bit-identical; timed
-        beside the plain version, SDPA's backward and the bound;
+        heads), an unaligned causal case with a q_offset, a case with an LSE cotangent
+        and a negative q_offset (zero, finite gradients for rows with no key), f32 and
+        bf16; two launches on the same inputs bit-identical; timed beside the plain
+        version, SDPA's backward and the bound;
      b. AF3 stage 2 at full width through train/loop.run: bf16 encoder and adaptor hot,
         the 7B LM frozen in int8 (quantize_lm_params on the card), remat="full" and flash
         on both towers, ce_chunk 256, batch 4 of one 30 s clip and ~64 answer tokens
@@ -160,6 +168,46 @@ BF16_ULP_TOL = (2.0 ** -7, 1e-3)                       # bf16 o: |o - o_plain| <
 LSE_TOL = 1e-4                                         # f32 LSE in both dtypes (values up to ~40)
 MEL_TOL = (5e-4, 1e-4)                                 # K1: |x - plain| <= 5e-4 + 1e-4 |plain|
 LOGITS_TOL = 1e-4                                      # f32 af3.logits, card vs CPU
+# K2 and K7 route by dtype; the main paths run bf16
+FLASH_ROUTES = {"bfloat16": "bf16 mma.sync", "float32": "f32 CUDA cores"}
+
+
+def ptxas_report(build_log: str) -> list:
+    """One record per compiled kernel from nvcc's ``-Xptxas -v`` report: its name with its
+    integer template arguments, registers, stack frame, spill stores + loads and static
+    shared memory (dynamic shared memory is set at launch). A cached library keeps the
+    report of the build that made it."""
+    import re
+
+    out, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN([^']+)'", line)
+        if m:
+            mangled, pos, name = m.group(1), 0, None
+            while name is None and (n := re.match(r"\d+", mangled[pos:])):
+                pos += n.end() + int(n.group())          # <length><identifier> ...
+                ident = mangled[pos - int(n.group()):pos]
+                if ident.endswith("kernel"):
+                    args = mangled[pos:].split("EE", 1)[0] + "E" if mangled[pos] == "I" else ""
+                    vals = re.findall(r"Li(-?\d+)E", args)
+                    name = f"{ident}<{','.join(vals)}>" if vals else ident
+            cur = dict(kernel=name or m.group(1), registers=None, stack_bytes=0, spill_bytes=0,
+                       smem_bytes=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            cur["stack_bytes"] = int(m.group(1))
+            cur["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(s.group(1)) if s else 0
+    return out
 
 
 def log(msg: str) -> None:
@@ -233,8 +281,36 @@ def check_compare(name: str, r: dict) -> None:
     check(r["lse_err"] <= LSE_TOL, f"{name} {dn}: max|lse - plain| {r['lse_err']} > {LSE_TOL}")
 
 
+def score_sums_check(fa, name: str, q, k, scale) -> str:
+    """The two measured facts that K2's bf16 tolerance rests on, held on one case's inputs
+    before its output is: the plain version's f32 scores (its own einsum) equal bit for bit
+    the sequential fmaf sum by which K2 recomputes the scores that set the running max or
+    sit near a rounding edge of p (cuBLAS's summation order, which no document fixes), and
+    K2's tensor-core scores lie within its err_bound, (|x| + 1) 2^-16 after the scale."""
+    s_mma, s_seq = fa.score_sums(q, k)
+    s_plain = fa.reference_scores(q, k).flatten(1, 2)
+    differ = int((s_plain != s_seq).sum().item())
+    check(differ == 0,
+          f"flash {name} bfloat16: the plain version's f32 scores differ from the sequential "
+          f"fmaf sum at {differ} of {s_plain.numel()} pairs; K2's bf16 route recomputes "
+          f"scores in that order, so its tolerance no longer holds: the f32 product's "
+          f"summation order changed")
+    sc = scale if scale is not None else q.shape[-1] ** -0.5
+    x_plain = s_plain * sc
+    ratio = ((s_mma * sc - x_plain).abs() / ((x_plain.abs() + 1) * 2.0 ** -16)).max().item()
+    check(ratio <= 1.0,
+          f"flash {name} bfloat16: K2's tensor-core scores at {ratio:.3f} of its err_bound "
+          f"(|x| + 1) 2^-16 from the plain ones; its recompute masks assume <= 1")
+    return (f"flash {name:14s} bfloat16 scores: plain == sequential fmaf sum at all "
+            f"{s_plain.numel()} pairs; tensor-core scores within {ratio:.3f} of err_bound")
+
+
 def kernel_phase(fa) -> dict:
-    """Flash kernel vs its plain version at the encoder, LM-prefill and a ragged shape.
+    """Flash kernel vs its plain version at the encoder, LM-prefill and a ragged shape, and
+    at shapes no path gives but either route must take: D = 64 causal with a q_offset,
+    D = 128 non-causal with Tk != Tq, and a negative q_offset whose first rows see no key
+    (o = 0, lse = -inf). Every case runs twice on the same inputs: bit-identical. Each bf16
+    case first holds the facts its tolerance rests on (score_sums_check).
 
     q is drawn so that the scores q.k * scale have the stated standard deviation: 1 gives
     a broad softmax, 4 a peaked one whose running max moves, exercising the rescale."""
@@ -244,6 +320,9 @@ def kernel_phase(fa) -> dict:
         ("ragged", (1, 100, 28, 128), (1, 300, 4, 128), True, None, 200, 3.0, True),
         ("encoder_peaked", (1, 1500, 20, 64), (1, 1500, 20, 64), False, 1.0, 0, 4.0, False),
         ("lm_peaked", (1, 1024, 28, 128), (1, 1024, 4, 128), True, None, 0, 4.0, False),
+        ("d64_offset", (2, 333, 8, 64), (2, 500, 2, 64), True, None, 150, 3.0, False),
+        ("d128_tk_ne_tq", (2, 200, 8, 128), (2, 461, 4, 128), False, None, 0, 3.0, False),
+        ("no_key_rows", (1, 230, 8, 64), (1, 300, 4, 64), True, None, -90, 1.0, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
@@ -256,11 +335,22 @@ def kernel_phase(fa) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
             kw = dict(causal=causal, scale=scale, q_offset=q_offset)
+            if dtype == torch.bfloat16:
+                log(score_sums_check(fa, name, q, k, scale))
             r = compare(fa, q, k, v, kw)
             dn = r["dtype"]
+            (o1, lse1), (o2, lse2) = (fa.flash_attention_lse(q, k, v, **kw) for _ in range(2))
+            check(torch.equal(o1, o2) and torch.equal(lse1, lse2),
+                  f"flash {name} {dn}: two launches on the same inputs differ")
+            if q_offset < 0:     # rows i < -q_offset see no key
+                check(bool((o1[:, :-q_offset] == 0).all())
+                      and bool(torch.isneginf(lse1[:, :-q_offset]).all())
+                      and bool(torch.isfinite(lse1[:, -q_offset:]).all()),
+                      f"flash {name} {dn}: rows without a visible key are not o = 0, lse = -inf")
             msg = (f"flash {name:14s} {dn:8s} q{list(qs)} k{list(ks)} causal={causal} "
                    f"q_offset={q_offset} score_std={score_std}: max|o-plain|={r['err']:.3e} "
-                   f"(at {r['ratio']:.3f} of its limit) max|lse-plain|={r['lse_err']:.3e}")
+                   f"(at {r['ratio']:.3f} of its limit) max|lse-plain|={r['lse_err']:.3e}, "
+                   f"replay bit-identical")
             if timed:
                 r["ms"] = time_ms(lambda: fa.flash_attention_lse(q, k, v, **kw))
                 r["plain_ms"] = time_ms(
@@ -1716,14 +1806,16 @@ def sdpa_backward_call(q, k, v, do, kw):
 
 def k7_phase(fa) -> dict:
     """9a. K7 against its plain backward at AF3 stage 2's shapes (encoder non-causal at
-    scale 1, LM causal GQA), an unaligned causal case with a q_offset and a case with an
-    LSE cotangent, in f32 and bf16; two launches on the same inputs bit-identical; the
-    first two timed beside the plain version, SDPA's backward and the bound."""
+    scale 1, LM causal GQA), an unaligned causal case with a q_offset, a case with an LSE
+    cotangent and a negative q_offset whose first rows see no key (zero, finite
+    gradients), in f32 and bf16; two launches on the same inputs bit-identical; the first
+    two timed beside the plain version, SDPA's backward and the bound."""
     cases = [  # name, q shape, k shape, causal, scale, q_offset, with g_lse, timed
         ("encoder", (4, 1500, 20, 64), (4, 1500, 20, 64), False, 1.0, 0, False, True),
         ("lm", (4, 1024, 28, 128), (4, 1024, 4, 128), True, None, 0, False, True),
         ("unaligned", (2, 300, 28, 128), (2, 700, 4, 128), True, None, 400, False, False),
         ("g_lse", (2, 512, 28, 128), (2, 512, 4, 128), True, None, 0, True, False),
+        ("no_key_rows", (2, 230, 8, 64), (2, 300, 4, 64), True, None, -90, False, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(9)
     results = {}
@@ -1750,6 +1842,9 @@ def k7_phase(fa) -> dict:
             out, again = k7(), k7()
             check(all(torch.equal(a, b) for a, b in zip(out, again)),
                   f"K7 {name} {dn}: two launches on the same inputs differ")
+            if q_offset < 0:     # rows i < -q_offset see no key: zero gradient
+                check(bool((out[0][:, :-q_offset] == 0).all()),
+                      f"K7 {name} {dn}: dq of rows without a visible key is not 0")
             r = k7_compare(out, plain())
             msg = (f"K7 {name:9s} {dn:8s} q{list(qs)} k{list(ks)} causal={causal} "
                    f"q_offset={q_offset} g_lse={with_glse}: max|d-plain|={r['err']:.3e} (at "
@@ -2719,9 +2814,13 @@ def k4_phase(k4, qlm) -> dict:
         route[m] = (time_ms(lambda: k4.w8a16_matmul(x, w, sc)),
                     time_ms(library_route_call(x, w, sc, torch.bfloat16)))
     at32 = res[("up", 32, "bfloat16->bfloat16", 0)]
-    log(f"K4 against the library route at [m,3584]x[3584,18944] bf16: m=32 {at32['ms']:.4f} / "
-        f"{at32['route_ms']:.4f} ms; " + "; ".join(f"m={m} {a:.4f} / {b:.4f} ms"
-                                               for m, (a, b) in route.items())
+
+    def bound(m):
+        b_ms, b_by = k4_bound_ms(m, *w.shape, torch.bfloat16, torch.bfloat16)
+        return f"bound {b_ms:.5f} ({b_by})"
+    log(f"K4 against the library route at [m,3584]x[3584,18944] bf16 (kernel / route ms, "
+        f"bound ms): m=32 {at32['ms']:.4f} / {at32['route_ms']:.4f}, {bound(32)}; "
+        + "; ".join(f"m={m} {a:.4f} / {b:.4f}, {bound(m)}" for m, (a, b) in route.items())
         + f"; KERNEL_MAX_ROWS = {KERNEL_MAX_ROWS}")
     # one bf16 decode step's 197 launches at m = 1, by their device times alone
     per = {n: res[(n, 1, "bfloat16->bfloat16", 0)]["graph_ms"] for n in mats}
@@ -3051,10 +3150,19 @@ def main() -> int:
     # 2. build
     path = _build.build()
     _build.load_library()
-    log(f"build: {path} in {_build.build_seconds or 0.0:.1f}s (one nvcc call)")
-    for line in _build.build_log.splitlines():
-        if "entry function" in line or "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    if _build.build_seconds is None:
+        log(f"build: {path} was already built; ptxas's report below is that build's")
+    else:
+        log(f"build: {path} in {_build.build_seconds:.1f}s (one nvcc call)")
+    ptxas = ptxas_report(_build.build_log)
+    for r in ptxas:
+        log(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack_bytes']} bytes of "
+            f"stack, {r['spill_bytes']} bytes spilled, {r['smem_bytes']} bytes static shared "
+            f"memory")
+    flash_ptxas = [r for r in ptxas if r["kernel"].startswith("flash_")]
+    check({"flash_fwd_mma_kernel<64>", "flash_fwd_mma_kernel<128>",
+                        "flash_bwd_dkv_mma_kernel<128>", "flash_bwd_dq_mma_kernel<128>"}
+          <= {r["kernel"] for r in flash_ptxas}, "the bf16 flash kernels were not compiled")
 
     # 3. kernels against their plain versions
     res = kernel_phase(fa)
@@ -3208,6 +3316,8 @@ def main() -> int:
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
+        "path_route": FLASH_ROUTES["bfloat16"],
+        "routes": FLASH_ROUTES,
         "source": "audio_flamingo_tpu_torch/csrc/flash_attention.cu",
         "replaces": "audio_flamingo_tpu/ops/pallas/flash_attention.py:258",
         "launches": runs[1][2],
@@ -3218,6 +3328,7 @@ def main() -> int:
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
+        "ptxas": [r for r in flash_ptxas if r["kernel"].startswith("flash_fwd")],
     }, {
         "name": "log_mel",
         "route": "cuda",
@@ -3283,6 +3394,8 @@ def main() -> int:
     kernels.append({
         "name": "flash_attention_bwd",
         "route": "cuda",
+        "path_route": FLASH_ROUTES["bfloat16"],
+        "routes": FLASH_ROUTES,
         "source": "audio_flamingo_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "audio_flamingo_tpu/ops/pallas/flash_attention.py:431",
         "launches": run7["k7"] // stage2["steps"],
@@ -3292,6 +3405,7 @@ def main() -> int:
         "bound_ms": rep7["bound_ms"],
         "bound_by": rep7["bound_by"],
         "library_ms": rep7["library_ms"],
+        "ptxas": [r for r in flash_ptxas if r["kernel"].startswith("flash_bwd")],
     })
     rep8, clip8 = a8_clip["replay"], a8_clip["warm"]
     kernels.append({
@@ -3364,7 +3478,9 @@ def main() -> int:
         "bf16-pool mixed-workload run: launches = their count, ms = their device time in the "
         "path, plain_ms = the plain version timed on each launch's captured inputs, summed, "
         "bound_ms = summed per-launch bounds (keys below each row's length); max_abs_err = the largest |o/l - plain| of phase 8a and the "
-        "replays; library_ms null: " + PAGED_NO_LIBRARY + " flash_attention_bwd per AF3 "
+        "replays; library_ms null: " + PAGED_NO_LIBRARY + " flash_attention_fwd and _bwd: "
+        "path_route = the route of the path's bf16 launches (routes: by dtype), "
+        "ptxas = nvcc's report for each of the source's kernels. flash_attention_bwd per AF3 "
         "stage-2 train step (batch 4, bucket 1024): launches = the first run's K7 count over "
         "its steps; ms = their device time in the path per step; plain_ms, library_ms (SDPA's "
         "backward on a retained graph) and bound_ms summed over the 60 launches of one more "

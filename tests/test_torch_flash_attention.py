@@ -97,7 +97,7 @@ def test_reference_matches_jax_flash_bf16(tq, tk, h, hkv, d, causal, q_offset, s
     q, k, v = _inputs(5, 1, tq, tk, h, hkv, d)
     jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
     jo, jlse = _jax_flash(jq, jk, jv, causal=causal, scale=scale, q_offset=q_offset,
-                          block_q=128, block_k=64)
+                          block_q=128, block_k=tfa.KV_TILE)
     to, tlse = tfa.flash_attention_lse(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
                                        causal=causal, scale=scale, q_offset=q_offset)
     assert to.dtype == torch.bfloat16
