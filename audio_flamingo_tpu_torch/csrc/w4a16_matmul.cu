@@ -11,40 +11,66 @@
 // same call on one layer: the caller passes that layer's weight and scale pointers (an
 // offset into the stacked buffers), so no slice is copied and no layer id is read here.
 //
-// Design: a weight-streaming GEMV. 128 threads per block, each owning 4 adjacent columns
-// (one aligned 32-bit load of packed codes per packed row), so a block covers 512
-// columns and a warp reads 128 contiguous bytes per row. The block's x rows of one group
-// (low and high half, converted to f32) are staged in shared memory and read as
-// broadcasts. Up to MT = 8 rows of x are held per block (MT = 1, 2, 4 or 8 by m); larger
-// m is tiled over grid.z, each tile re-reading the weights. The N = 3584 products (o,
-// down) have only 7 column blocks, so K is split over grid.y in whole groups until the
-// grid has ~8 blocks per SM (the wrapper's TARGET_BLOCKS) to keep enough loads in
-// flight; each split writes its f32 partial sums to a workspace and a
-// second kernel adds the splits in a fixed order (no float atomics, so the result does
-// not change from run to run) and rounds to the output dtype. With one split the first
-// kernel writes the output itself.
+// Bound on the H100: bytes at decode. The packed codes and the f32 scales are read once:
+// the fused qkv of one 7B layer [1792, 4608] is 8.77 MB = 2.6 us at 3.35 TB/s, the int4
+// head [1792, 152064] 289.5 MB = 86.4 us. What the PR 7 kernel measured (a CUDA graph
+// replayed, H100 80GB HBM3 at 700 W): 0.037 ms at the o and qkv shapes whatever their
+// size, so latency and not bytes held it: one 4-byte load per packed row per thread, two
+// barriers per group, an I2F per code.
 //
-// Bound on the H100: bytes. The packed codes and the f32 scales are read once, x and y
-// are small at decode: the fused qkv of one 7B layer [1792, 4608] is 8.77 MB = 2.6 us at
-// 3.35 TB/s; the int4 head [1792, 152064] 289.5 MB = 86.4 us. Nibbles are unpacked with
-// shifts and converted with I2F on the CUDA cores, two f32 FMAs per packed byte and row
-// of x; what the simple design leaves: 16-byte loads with several rows in flight per
-// thread, a conversion trick in place of I2F, and tensor-core tiles for m >= 16.
+// Design: a weight-streaming product over tiles of 128 columns. A block (4 warps) walks
+// the packed rows of its K range through a cp.async ring in shared memory (4 stages of
+// 32 packed rows x 128 columns, 16-byte copies, one barrier a stage), each
+// stage carrying the matching entries of the block's rows of x beside the codes, so a
+// block keeps 12-30 KB of loads in flight and nothing is staged behind a per-group
+// barrier. K is split over grid.y in whole groups (the wrapper's rule fills the card with
+// about four blocks per SM); each split writes f32 partial sums and a second kernel adds
+// the splits in a fixed order (no float atomics, so two launches agree bit for bit) and
+// rounds to the output dtype. With one split and an output the first kernel writes it.
+// N must be a multiple of 16 and G of 32 (the wrapper refuses other shapes).
+//
+// bf16 x: tensor cores (w4_mma_kernel). The product is taken as y^T = W^T x^T with
+//   mma.sync m16n8k16 (bf16 in, f32 accumulate): W^T is the A operand (16 output columns
+//   per tile), x^T the B operand (8 rows of x per tile; m <= 8 pads to 8). The MMA sums
+//   over its 16 k-slots in any order, so the slots are mapped to packed rows such that
+//   ldmatrix.trans of a [16 packed rows x 16 columns] byte tile hands each thread the
+//   bytes of its fragment: a 32-bit register holds columns (2g, 2g + 1) of packed rows
+//   (2t, 2t + 1), so output row g of the tile is column 2g and row g + 8 is column
+//   2g + 1. One register gives two bf16 pairs of low codes and two of high codes: a
+//   nibble n goes into the mantissa of 128.0 as n ^ 8 with one lop3, and one bf16x2
+//   subtraction of 136.0 leaves the code, exactly (no I2F). The low and high codes feed
+//   two MMAs into two fresh f32 accumulators per group, each multiplied by its column's
+//   group scale as it joins the output accumulator. 8, 16 or 32 rows of x per block (m >
+//   32 tiles over grid.z: the weights are read once per 32 rows).
+// f32 x: CUDA cores (w4_fma_kernel; TF32 would break the f32 tolerance). One thread per
+//   column; a code becomes f32 through the mantissa of 2^23 (lop3, then one FSUB of
+//   2^23 + 8); x is read as float4 broadcasts; 1, 2, 4, 8 or 32 rows of x per block, the
+//   group's partial sums in registers, in row order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_mma.cuh"   // mma_bf16, ldmatrix_x4(_trans), cp_async16, cp_async_commit/wait
+
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kCols = 4;                 // columns per thread
-constexpr int kBN = kThreads * kCols;    // columns per block (BLOCK_N in the wrapper)
+constexpr int kThreads = 128;            // 4 warps; one column per thread on the CUDA cores
 constexpr int kMaxGroup = 512;           // MAX_GROUP in the wrapper
+constexpr int kBN = 128;                 // columns per block (BLOCK_N in the wrapper)
+constexpr int kRows = 32;                // packed rows per ring stage (STAGE_ROWS)
+constexpr int kStages = 4;
+constexpr int kWStride = 144;            // bytes per ring row of codes (128 + 16: the 8
+                                         // rows of an ldmatrix phase hit 8 bank groups)
+constexpr int kStageW = kRows * kWStride;
 constexpr int kReduceThreads = 256;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// bytes per ring row of x: kRows low and kRows high entries, + 16
+template <typename T> constexpr int kXStride = 2 * kRows * (int)sizeof(T) + 16;
+template <typename T, int BM> constexpr int kStage = kStageW + BM * kXStride<T>;
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -52,104 +78,277 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-// grid (ceil(n / kBN), splits, ceil(m / MT)); dynamic shared memory MT * 2 * group floats.
-template <typename T, int MT>
-__global__ void __launch_bounds__(kThreads)
-w4_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_p,
-               const float* __restrict__ gscale, T* __restrict__ out,
-               float* __restrict__ partials, int m, int kp, int n, int group,
-               int groups_per_split) {
-  extern __shared__ float xs[];   // [MT][2][group]: x's low- and high-half entries of a group
-  const int ng = kp / group;      // groups per half
-  const int k = 2 * kp;
-  const int col0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
-  const int row0 = blockIdx.z * MT;
-  const int g_begin = blockIdx.y * groups_per_split;
-  const int g_end = min(ng, g_begin + groups_per_split);
-  const bool vec = (n % kCols) == 0;   // then every 4-column load is 4-byte aligned
-  const int span = 2 * group;
+// The signed nibble at bit `shift` of w as an exact f32: (n ^ 8) in the mantissa of 2^23
+// is 2^23 + n + 8.
+__device__ __forceinline__ float nibble_f32(uint32_t w, int shift) {
+  return __uint_as_float(((w >> shift) & 0xFu) ^ 0x4B000008u) - 8388616.0f;
+}
 
-  float acc[MT][kCols];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+// The signed nibbles at bits 0-3 and 16-19 of w as a bf16 pair (low half first): each
+// (n ^ 8) in the mantissa of 128.0 is 128 + n + 8; minus 136.0 leaves n exactly.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t w) {
+  uint32_t v = (w & 0x000F000Fu) ^ 0x43084308u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v), __float2bfloat162_rn(136.f));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
 
-  for (int gi = g_begin; gi < g_end; ++gi) {
-    __syncthreads();   // every thread is done with the previous group's x
-    for (int i = threadIdx.x; i < MT * span; i += kThreads) {
-      const int r = i / span, rem = i - r * span;
-      const int half = rem / group, t = rem - half * group;
-      const int row = row0 + r;
-      xs[i] = row < m ? to_f32(x[(size_t)row * k + (size_t)half * kp + (size_t)gi * group + t])
-                      : 0.f;
-    }
-    __syncthreads();
-    if (col0 >= n) continue;
+// The block's K range and ring position, shared by both routes.
+struct Walk {
+  int ng, g_begin, per_group, nchunks, p_begin;
+  __device__ Walk(int kp, int group, int groups_per_split) {
+    ng = kp / group;
+    g_begin = blockIdx.y * groups_per_split;
+    const int g_end = min(ng, g_begin + groups_per_split);
+    per_group = group / kRows;
+    nchunks = max(0, g_end - g_begin) * per_group;
+    p_begin = g_begin * group;
+  }
+};
 
-    float plo[MT][kCols], phi[MT][kCols];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) plo[i][c] = phi[i][c] = 0.f;
+// This thread's 16-byte copies of every ring stage, addressed once: kW chunks of packed
+// rows (rows t/8 + 16 j, bytes (t % 8) * 16 of the block's 128 columns), then up to kX
+// chunks of the block's rows of x (kRows low entries, then kRows high ones); stage c adds
+// c kRows rows (codes) or entries (x). Columns past n and rows past m are zero-filled.
+template <typename T, int BM>
+struct Copies {
+  static constexpr int kW = kRows * 8 / kThreads;
+  static constexpr int kXc = 2 * kRows * (int)sizeof(T) / 16;   // chunks per x row
+  static constexpr int kX = (BM * kXc + kThreads - 1) / kThreads;
+  const int8_t* w_src[kW];
+  const T* x_src[kX];
+  int w_dst[kW], x_dst[kX];
+  bool w_in, x_use[kX], x_in[kX];
+  size_t w_step;
 
-    const int8_t* wrow = w_p + (size_t)gi * group * n + col0;
-#pragma unroll 8
-    for (int t = 0; t < group; ++t) {
-      float lo[kCols], hi[kCols];
-      if (vec) {
-        const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(wrow + (size_t)t * n));
+  __device__ Copies(const int8_t* w_p, const T* x, int p_begin, int col_base, int row0, int m,
+                    int kp, int n) {
+    const int t = threadIdx.x, ch = t & 7;
+    w_in = col_base + ch * 16 < n;
+    w_step = (size_t)kRows * n;
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          lo[c] = (float)((int)(w << (28 - 8 * c)) >> 28);
-          hi[c] = (float)((int)(w << (24 - 8 * c)) >> 28);
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int b = col0 + c < n ? (int)__ldg(wrow + (size_t)t * n + c) : 0;
-          lo[c] = (float)((b << 28) >> 28);
-          hi[c] = (float)((b << 24) >> 28);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const float xl = xs[i * span + t];
-        const float xh = xs[i * span + group + t];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          plo[i][c] = fmaf(xl, lo[c], plo[i][c]);
-          phi[i][c] = fmaf(xh, hi[c], phi[i][c]);
-        }
-      }
-    }
-    float slo[kCols], shi[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const bool in = col0 + c < n;
-      slo[c] = in ? __ldg(gscale + (size_t)gi * n + col0 + c) : 0.f;
-      shi[c] = in ? __ldg(gscale + (size_t)(ng + gi) * n + col0 + c) : 0.f;
+    for (int j = 0; j < kW; ++j) {
+      const int r = (t >> 3) + j * (kThreads / 8);
+      w_src[j] = w_in ? w_p + (size_t)(p_begin + r) * n + col_base + ch * 16 : w_p;
+      w_dst[j] = r * kWStride + ch * 16;
     }
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] += plo[i][c] * slo[c] + phi[i][c] * shi[c];
+    for (int j = 0; j < kX; ++j) {
+      const int i = t + j * kThreads, r = i / kXc, c = i % kXc;
+      const int half = c / (kXc / 2), e0 = (c % (kXc / 2)) * (16 / (int)sizeof(T));
+      x_use[j] = i < BM * kXc;
+      x_in[j] = x_use[j] && row0 + r < m;
+      x_src[j] = x_in[j] ? x + (size_t)(row0 + r) * 2 * kp + (size_t)half * kp + p_begin + e0 : x;
+      x_dst[j] = kStageW + r * kXStride<T> + c * 16;
+    }
   }
 
-  if (col0 >= n) return;
+  __device__ __forceinline__ void issue(uint8_t* st, int c) const {
+    const size_t wo = w_in ? c * w_step : 0;
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+    for (int j = 0; j < kW; ++j) cp_async16(st + w_dst[j], w_src[j] + wo, w_in);
+    const int xo = c * kRows;
+#pragma unroll
+    for (int j = 0; j < kX; ++j)
+      if (x_use[j]) cp_async16(st + x_dst[j], x_src[j] + (x_in[j] ? xo : 0), x_in[j]);
+  }
+};
+
+// ---------------------------------------------------------------- bf16: tensor cores
+
+// grid (ceil(n / 128), splits, ceil(m / (8 NT))); dynamic shared memory
+// kStages * kStage<bf16, 8 NT> bytes.
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+w4_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w_p,
+              const float* __restrict__ gscale, __nv_bfloat16* __restrict__ out,
+              float* __restrict__ partials, int m, int kp, int n, int group,
+              int groups_per_split) {
+  using T = __nv_bfloat16;
+  constexpr int BM = 8 * NT;
+  constexpr int kStg = kStage<T, BM>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, q = lane >> 3, r8 = lane & 7;
+  const int col_base = blockIdx.x * kBN, row0 = blockIdx.z * BM;
+  const Walk wk(kp, group, groups_per_split);
+  const Copies<T, BM> cp(w_p, x, wk.p_begin, col_base, row0, m, kp, n);
+  auto load = [&](int c) { cp.issue(smem + (c % kStages) * kStg, c); };
+
+  float acc[2][NT][4], glo[2][NT][4], ghi[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = glo[mt][j][e] = ghi[mt][j][e] = 0.f;
+
+  // this thread's output columns: tile mt's row g is col_m[mt], its row g + 8 col_m[mt] + 1
+  int col_m[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) col_m[mt] = col_base + warp * 32 + mt * 16 + 2 * g;
+  float2 s_lo[2], s_hi[2];
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < wk.nchunks) load(s);
+    cp_async_commit();
+  }
+  for (int c = 0; c < wk.nchunks; ++c) {
+    if (c % wk.per_group == 0) {   // the group's scales, needed at its end
+      const int gi = wk.g_begin + c / wk.per_group;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const bool in = col_m[mt] < n;
+        const float* lo = gscale + (size_t)gi * n + col_m[mt];
+        const float* hi = gscale + (size_t)(wk.ng + gi) * n + col_m[mt];
+        s_lo[mt] = in ? __ldg(reinterpret_cast<const float2*>(lo)) : make_float2(0.f, 0.f);
+        s_hi[mt] = in ? __ldg(reinterpret_cast<const float2*>(hi)) : make_float2(0.f, 0.f);
+      }
+    }
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage c has landed for every thread; stage c - 1 is consumed
+    if (c + kStages - 1 < wk.nchunks) load(c + kStages - 1);
+    cp_async_commit();
+    const uint8_t* st = smem + (c % kStages) * kStg;
+#pragma unroll
+    for (int ks = 0; ks < kRows / 16; ++ks) {
+      // matrices: packed rows 16 ks + 0..7 | 8..15 of columns warp*32 + 0..15 | 16..31
+      uint32_t d[4];
+      ldmatrix_x4_trans(d, st + (ks * 16 + (q & 1) * 8 + r8) * kWStride + warp * 32 +
+                               (q >> 1) * 16);
+      uint32_t alo[2][4], ahi[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint32_t e = d[2 * mt], o = d[2 * mt + 1];
+        alo[mt][0] = nibbles_bf16x2(e);       ahi[mt][0] = nibbles_bf16x2(e >> 4);
+        alo[mt][1] = nibbles_bf16x2(e >> 8);  ahi[mt][1] = nibbles_bf16x2(e >> 12);
+        alo[mt][2] = nibbles_bf16x2(o);       ahi[mt][2] = nibbles_bf16x2(o >> 4);
+        alo[mt][3] = nibbles_bf16x2(o >> 8);  ahi[mt][3] = nibbles_bf16x2(o >> 12);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        // x rows 8 j + 0..7; matrices: low k 0..7 | 8..15, high k 0..7 | 8..15
+        uint32_t b[4];
+        ldmatrix_x4(b, st + kStageW + (j * 8 + r8) * kXStride<T> + (q >> 1) * kRows * 2 +
+                           ks * 32 + (q & 1) * 16);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(glo[mt][j], alo[mt], b[0], b[1]);
+          mma_bf16(ghi[mt][j], ahi[mt], b[2], b[3]);
+        }
+      }
+    }
+    if ((c + 1) % wk.per_group == 0) {   // the group's sums times its scales
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float sl = e < 2 ? s_lo[mt].x : s_lo[mt].y;
+            const float sh = e < 2 ? s_hi[mt].x : s_hi[mt].y;
+            acc[mt][j][e] += glo[mt][j][e] * sl + ghi[mt][j][e] * sh;
+            glo[mt][j][e] = ghi[mt][j][e] = 0.f;
+          }
+    }
+  }
+
+  // c0, c2 = columns (col, col + 1) of x row 8 j + 2 t; c1, c3 the same of row 8 j + 2 t + 1
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int col = col_m[mt];
+    if (col >= n) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + j * 8 + 2 * t + h;
+        if (row >= m) continue;
+        const float v0 = acc[mt][j][h], v1 = acc[mt][j][2 + h];
+        if (partials != nullptr)
+          *reinterpret_cast<float2*>(partials + ((size_t)blockIdx.y * m + row) * n + col) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * n + col) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+  }
+}
+
+// ---------------------------------------------------------------- f32: CUDA cores
+
+// grid (ceil(n / 128), splits, ceil(m / BM)); dynamic shared memory
+// kStages * kStage<float, BM> bytes.
+template <int BM>
+__global__ void __launch_bounds__(kThreads)
+w4_fma_kernel(const float* __restrict__ x, const int8_t* __restrict__ w_p,
+              const float* __restrict__ gscale, float* __restrict__ out,
+              float* __restrict__ partials, int m, int kp, int n, int group,
+              int groups_per_split) {
+  constexpr int kStg = kStage<float, BM>;
+  constexpr int kXf = kXStride<float> / 4;   // x row stride in floats
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int col_base = blockIdx.x * kBN, row0 = blockIdx.z * BM;
+  const int col = col_base + threadIdx.x;
+  const Walk wk(kp, group, groups_per_split);
+  const Copies<float, BM> cp(w_p, x, wk.p_begin, col_base, row0, m, kp, n);
+  auto load = [&](int c) { cp.issue(smem + (c % kStages) * kStg, c); };
+  float acc[BM], plo[BM], phi[BM];
+#pragma unroll
+  for (int i = 0; i < BM; ++i) acc[i] = plo[i] = phi[i] = 0.f;
+  float s_lo = 0.f, s_hi = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < wk.nchunks) load(s);
+    cp_async_commit();
+  }
+  for (int c = 0; c < wk.nchunks; ++c) {
+    if (c % wk.per_group == 0 && col < n) {
+      const int gi = wk.g_begin + c / wk.per_group;
+      s_lo = __ldg(gscale + (size_t)gi * n + col);
+      s_hi = __ldg(gscale + (size_t)(wk.ng + gi) * n + col);
+    }
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (c + kStages - 1 < wk.nchunks) load(c + kStages - 1);
+    cp_async_commit();
+    const uint8_t* wst = smem + (c % kStages) * kStg + threadIdx.x;
+    const float* xst = reinterpret_cast<const float*>(smem + (c % kStages) * kStg + kStageW);
+#pragma unroll
+    for (int r4 = 0; r4 < kRows; r4 += 4) {
+      float lo[4], hi[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t b = wst[(r4 + u) * kWStride];
+        lo[u] = nibble_f32(b, 0);
+        hi[u] = nibble_f32(b, 4);
+      }
+#pragma unroll
+      for (int i = 0; i < BM; ++i) {
+        const float4 xl = *reinterpret_cast<const float4*>(xst + i * kXf + r4);
+        const float4 xh = *reinterpret_cast<const float4*>(xst + i * kXf + kRows + r4);
+        plo[i] = fmaf(xl.w, lo[3], fmaf(xl.z, lo[2], fmaf(xl.y, lo[1], fmaf(xl.x, lo[0], plo[i]))));
+        phi[i] = fmaf(xh.w, hi[3], fmaf(xh.z, hi[2], fmaf(xh.y, hi[1], fmaf(xh.x, hi[0], phi[i]))));
+      }
+    }
+    if ((c + 1) % wk.per_group == 0) {
+#pragma unroll
+      for (int i = 0; i < BM; ++i) {
+        acc[i] += plo[i] * s_lo + phi[i] * s_hi;
+        plo[i] = phi[i] = 0.f;
+      }
+    }
+  }
+  if (col >= n) return;
+#pragma unroll
+  for (int i = 0; i < BM; ++i) {
     const int row = row0 + i;
     if (row >= m) break;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = col0 + c;
-      if (col >= n) break;
-      if (partials != nullptr)
-        partials[((size_t)blockIdx.y * m + row) * n + col] = acc[i][c];
-      else
-        out[(size_t)row * n + col] = from_f32<T>(acc[i][c]);
-    }
+    if (partials != nullptr)
+      partials[((size_t)blockIdx.y * m + row) * n + col] = acc[i];
+    else
+      out[(size_t)row * n + col] = acc[i];
   }
 }
 
@@ -165,41 +364,51 @@ w4_reduce_kernel(const float* __restrict__ partials, T* __restrict__ out, int sp
   out[i] = from_f32<T>(s);
 }
 
-template <typename T, int MT>
-cudaError_t launch_gemv(const void* x, const void* w_p, const void* gscale, void* out,
-                        float* partials, int m, int kp, int n, int group, int splits,
-                        cudaStream_t stream) {
-  const int ng = kp / group;
-  const int per = (ng + splits - 1) / splits;
-  const dim3 grid((n + kBN - 1) / kBN, splits, (m + MT - 1) / MT);
-  const size_t smem = (size_t)MT * 2 * group * sizeof(float);
-  w4_gemv_kernel<T, MT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w_p),
-      static_cast<const float*>(gscale), static_cast<T*>(out), partials, m, kp, n, group,
-      per);
+template <typename T, typename K>
+cudaError_t launch(K kernel, int bm, size_t stage, const T* x, const int8_t* w_p,
+                   const float* gscale, T* out, float* partials, int m, int kp, int n,
+                   int group, int splits, cudaStream_t stream) {
+  const int per = (kp / group + splits - 1) / splits;
+  const dim3 grid((n + kBN - 1) / kBN, splits, (m + bm - 1) / bm);
+  const size_t smem = (size_t)kStages * stage;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(x, w_p, gscale, out, partials, m, kp, n, group, per);
   return cudaGetLastError();
 }
 
+bool aligned(const void* p, uintptr_t a) { return reinterpret_cast<uintptr_t>(p) % a == 0; }
+
 template <typename T>
-cudaError_t run(const void* x, const void* w_p, const void* gscale, void* out,
-                float* partials, int m, int kp, int n, int group, int splits,
-                cudaStream_t stream) {
-  // one split with an output: the gemv writes it; otherwise partial sums (+ reduce)
+cudaError_t run(const void* xv, const void* wv, const void* sv, void* ov, float* partials,
+                int m, int kp, int n, int group, int splits, cudaStream_t stream) {
+  if (n % 16 != 0 || group % kRows != 0) return cudaErrorInvalidValue;   // supported()
+  if (!aligned(xv, 16) || !aligned(wv, 16) || !aligned(sv, 8)) return cudaErrorMisalignedAddress;
+  const T* x = static_cast<const T*>(xv);
+  const int8_t* w_p = static_cast<const int8_t*>(wv);
+  const float* gscale = static_cast<const float*>(sv);
+  T* out = static_cast<T*>(ov);
+  // one split with an output: the product kernel writes it; otherwise partial sums (+ reduce)
   float* dst = (splits == 1 && out != nullptr) ? nullptr : partials;
   cudaError_t err;
-  if (m <= 1)
-    err = launch_gemv<T, 1>(x, w_p, gscale, out, dst, m, kp, n, group, splits, stream);
-  else if (m <= 2)
-    err = launch_gemv<T, 2>(x, w_p, gscale, out, dst, m, kp, n, group, splits, stream);
-  else if (m <= 4)
-    err = launch_gemv<T, 4>(x, w_p, gscale, out, dst, m, kp, n, group, splits, stream);
-  else
-    err = launch_gemv<T, 8>(x, w_p, gscale, out, dst, m, kp, n, group, splits, stream);
+#define AF_W4(K, BM) \
+  launch<T>(K, BM, kStage<T, BM>, x, w_p, gscale, out, dst, m, kp, n, group, splits, stream)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {   // rows_per_block in the wrapper
+    err = m <= 8 ? AF_W4(w4_mma_kernel<1>, 8) : m <= 16 ? AF_W4(w4_mma_kernel<2>, 16)
+                                              : AF_W4(w4_mma_kernel<4>, 32);
+  } else {
+    err = m <= 1   ? AF_W4(w4_fma_kernel<1>, 1)
+          : m <= 2 ? AF_W4(w4_fma_kernel<2>, 2)
+          : m <= 4 ? AF_W4(w4_fma_kernel<4>, 4)
+          : m <= 8 ? AF_W4(w4_fma_kernel<8>, 8)
+                   : AF_W4(w4_fma_kernel<32>, 32);
+  }
+#undef AF_W4
   if (err != cudaSuccess || dst == nullptr || out == nullptr) return err;
   const int64_t count = (int64_t)m * n;
   w4_reduce_kernel<T><<<(unsigned)((count + kReduceThreads - 1) / kReduceThreads),
-                        kReduceThreads, 0, stream>>>(partials, static_cast<T*>(out), splits,
-                                                     count);
+                        kReduceThreads, 0, stream>>>(partials, out, splits, count);
   return cudaGetLastError();
 }
 
@@ -208,7 +417,9 @@ cudaError_t run(const void* x, const void* w_p, const void* gscale, void* out,
 // x [m, 2 kp] (dtype 0 = f32, 1 = bf16), w_p [kp, n] int8, gscale [2 kp / group, n] f32,
 // all contiguous. With out != null: out [m, n] in the dtype of x (partials, [splits, m, n]
 // f32, is needed when splits > 1). With out == null: only the partial sums of the splits
-// into partials (the suffix kernels of csrc/w4_suffix.cu reduce them themselves).
+// into partials (the suffix kernels of csrc/w4_suffix.cu reduce them themselves). n must
+// be a multiple of 16 and group of 32 (cudaErrorInvalidValue otherwise), x and w_p
+// 16-byte aligned and gscale 8-byte aligned (cudaErrorMisalignedAddress otherwise).
 extern "C" int af_w4a16_matmul(const void* x, const void* w_p, const void* gscale, void* out,
                                void* partials, int dtype, int m, int kp, int n, int group,
                                int splits, void* stream) {

@@ -24,7 +24,9 @@ dtype), in one of JAX's two layouts (``ops/quant.py``):
   ``a8_attention`` are set, else as in the float layer;
 - fused (``quantize_encoder_params_fused``, a ``qkv`` node): each of the stages "qkv",
   "out" and "mlp" runs its K9 kernel (``ops/kernels/enc_fused.py``) when it is in
-  ``cfg.fused_stages`` and its composed torch form otherwise; attention goes to K2.
+  ``cfg.fused_stages`` and its composed torch form otherwise; attention goes to K2. On
+  the card the fc1 and fc2 nodes also hold K-major copies of their codes (``w_t``, not in
+  ``state_dict``), which ``enc_mlp``'s kernel reads.
 """
 
 from __future__ import annotations
@@ -124,6 +126,8 @@ def quantized_encoder(cfg: WhisperEncoderConfig, float_state: dict, tree: dict,
     enc = enc.to_empty(device=device)
     enc.load_state_dict(float_state)
     enc.layers = TensorTree(cast_quantized(tree, compute_dtype, device))
+    if enc.fused and torch.device(device).type == "cuda":
+        enc_fused.attach_mlp_kmajor(enc.layers)   # K9 enc_mlp's weight copies, made once
     return enc.eval().requires_grad_(False)
 
 
@@ -231,9 +235,11 @@ def stage_mlp(hq: torch.Tensor, hs: torch.Tensor, x2: torch.Tensor, lp: TensorTr
     tile), or its composed torch form (per row, exact GELU)."""
     p1, p2 = lp["fc1"], lp["fc2"]
     if fused:
+        kmajor = (p1["w_t"][i], p2["w_t"][i]) if "w_t" in p1 else None
         return enc_fused.enc_mlp(hq, hs, p1["w_q"][i], p1["scale"][i], p1["b"][i],
                                  p2["w_q"][i], p2["scale"][i], p2["b"][i], x2,
-                                 f_tile=largest_divisor_tile(ffn_dim, enc_fused.MLP_F_TILE))
+                                 f_tile=largest_divisor_tile(ffn_dim, enc_fused.MLP_F_TILE),
+                                 kmajor=kmajor)
     g = quant.q_matmul_a8q(hq, hs, _lin(p1, i), out_dtype=x2.dtype) + _bias(p1, i, x2.dtype)
     gq, gs = quant.quantize_act(F.gelu(g.float()).to(x2.dtype))
     return (x2 + quant.q_matmul_a8q(gq, gs, _lin(p2, i), out_dtype=x2.dtype)

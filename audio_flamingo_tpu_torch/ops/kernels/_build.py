@@ -137,7 +137,7 @@ def load_library(path: str | None = None) -> ctypes.CDLL:
         fn.argtypes = [ptr] * 10 + [i32] * 3 + [ctypes.c_float, ptr]
         fn = lib.af_enc_mlp
         fn.restype = i32
-        fn.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+        fn.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
         for name in ("af_w4_suffix_a", "af_w4_suffix_b"):
             fn = getattr(lib, name)
             fn.restype = i32

@@ -14,7 +14,9 @@ Replaces the Pallas TPU kernels of ``audio_flamingo_tpu/ops/pallas/enc_fused.py`
 - ``enc_mlp``: (h_q, h_scale) -> per f tile of ``f_tile`` columns: fc1 product, scale,
   bias, the polynomial-erf GELU, re-quantization per (row, tile), fc2 product times the
   tile's row scale added to an f32 accumulator, tile after tile in order; then
-  acc * s2 + b2 + x2, in x2.dtype.
+  acc * s2 + b2 + x2, in x2.dtype. The kernel reads K-major copies of the two weights
+  (``mlp_kmajor``; the encoder makes them once, where its fused tree reaches the card,
+  ``attach_mlp_kmajor``); the plain version reads the JAX layout.
 
 The int8 products are exact (int32), so the kernels and the plain versions differ only
 where a sum of floats is taken in another order (a LayerNorm's statistics) and in the
@@ -28,10 +30,12 @@ import torch
 
 from audio_flamingo_tpu_torch.ops.kernels import _build
 from audio_flamingo_tpu_torch.ops.kernels.launches import LaunchCounter
+from audio_flamingo_tpu_torch.ops.kernels.w4a16_matmul import aligned
 from audio_flamingo_tpu_torch.ops.quant import quantize_act as quant_rows
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MLP_F_TILE = 2560          # the JAX ENC_MLP_F_TILE
+MLP_BLOCK_N = 256          # enc_mlp's kernel: output columns a pass (csrc kMlpNC)
 
 LN_QKV_LAUNCHES = LaunchCounter()   # key: (m, d, N); inputs: the wrapper's arguments
 OUT_LN_LAUNCHES = LaunchCounter()   # key: (m, d)
@@ -168,28 +172,57 @@ def enc_out_ln(attn, x, w_q, w_scale, bias, ln_w, ln_b, eps: float = 1e-5):
     return x2, hq, hs
 
 
+def mlp_supported(d: int, f_tile: int) -> bool:
+    """The shapes enc_mlp's kernel takes: d and the f tile in whole 256-column passes."""
+    return d % MLP_BLOCK_N == 0 and f_tile % MLP_BLOCK_N == 0
+
+
+def mlp_kmajor(w1_q: torch.Tensor, w2_q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K-major int8 copies enc_mlp's kernel reads: w1 [.., d, f] -> [.., f, d] and w2
+    [.., f, d] -> [.., d, f] (the last two axes transposed, contiguous; stacked or not)."""
+    return (w1_q.transpose(-2, -1).contiguous(), w2_q.transpose(-2, -1).contiguous())
+
+
+def attach_mlp_kmajor(layers) -> None:
+    """Give a fused encoder tree's fc1 and fc2 nodes (qwen2.TensorTree) their K-major copies
+    as ``w_t``: non-persistent buffers, so they move with ``.to()`` and stay out of
+    ``state_dict()``; the JAX-layout ``w_q`` stays the one source of the codes."""
+    w1_t, w2_t = mlp_kmajor(layers["fc1"]["w_q"], layers["fc2"]["w_q"])
+    layers["fc1"].register_buffer("w_t", w1_t, persistent=False)
+    layers["fc2"].register_buffer("w_t", w2_t, persistent=False)
+
+
 def enc_mlp(h_q, h_scale, w1_q, w1_scale, b1, w2_q, w2_scale, b2, x2,
-            f_tile: int = MLP_F_TILE):
+            f_tile: int = MLP_F_TILE, kmajor: tuple | None = None):
     """x2 + fc2(quant(gelu(fc1(h_q)))) with re-quantization per (row, f tile): h_q int8
     [m, d] and h_scale f32 [m, 1] (from enc_out_ln), w1_q [d, f], w2_q [f, d] -> [m, d]
-    in x2.dtype."""
+    in x2.dtype. ``kmajor``: the kernel's (w1 [f, d], w2 [d, f]) copies, made here when
+    not given (``mlp_kmajor``: 2 d f bytes moved per call)."""
     if h_q.device.type == "cpu":
         return enc_mlp_reference(h_q, h_scale, w1_q, w1_scale, b1, w2_q, w2_scale, b2, x2,
                                  f_tile)
     _cuda_check("enc_mlp", h_q, w1_q, w2_q)
-    h_q, x2 = h_q.contiguous(), x2.contiguous()
     m, d = h_q.shape
     f = w1_q.shape[1]
     ft = min(f_tile, f)
     if f % ft:
         raise ValueError(f"ffn {f} is not a multiple of f_tile {ft}")
+    if not mlp_supported(d, ft):
+        raise ValueError(f"enc_mlp's kernel takes d and f_tile multiples of {MLP_BLOCK_N}; "
+                         f"got d = {d}, f_tile = {ft}")
+    w1_t, w2_t = kmajor if kmajor is not None else mlp_kmajor(w1_q, w2_q)
+    _cuda_check("enc_mlp", h_q, w1_t, w2_t)
+    if (w1_t.shape, w2_t.shape) != ((f, d), (d, f)) or {w1_t.dtype, w2_t.dtype} != {torch.int8}:
+        raise ValueError(f"enc_mlp: K-major copies {tuple(w1_t.shape)} {w1_t.dtype}, "
+                         f"{tuple(w2_t.shape)} {w2_t.dtype} are not int8 [{f}, {d}], [{d}, {f}]")
+    h_q, x2 = aligned(h_q.contiguous()), x2.contiguous()
     out = torch.empty_like(x2)
+    y = torch.empty((f // ft, m, d), dtype=torch.float32, device=x2.device)   # per-tile fc2
     hs = _vec(h_scale)
     vecs = [_vec(t) for t in (w1_scale, b1, w2_scale, b2)]
     _launch(MLP_LAUNCHES, (m, d, f, ft), h_q.device, "af_enc_mlp",
-            (h_q.data_ptr(), hs.data_ptr(), w1_q.data_ptr(), vecs[0].data_ptr(),
-             vecs[1].data_ptr(), w2_q.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
-             x2.data_ptr(), out.data_ptr(), _DTYPE_CODES[x2.dtype], m, d, f, ft),
+            (h_q.data_ptr(), hs.data_ptr(), w1_t.data_ptr(), vecs[0].data_ptr(),
+             vecs[1].data_ptr(), w2_t.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
+             x2.data_ptr(), out.data_ptr(), y.data_ptr(), _DTYPE_CODES[x2.dtype], m, d, f, ft),
             (h_q, h_scale, w1_q, w1_scale, b1, w2_q, w2_scale, b2, x2, f_tile))
     return out
-

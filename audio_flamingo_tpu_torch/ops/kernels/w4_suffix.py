@@ -106,10 +106,11 @@ def _prepare(x, groups, products):
     """Shared CUDA set-up: library, splits per product, scratch (hn, partials)."""
     if x.device.type != "cuda":
         raise ValueError(f"w4 suffixes run on cuda (kernels) or cpu (reference), not {x.device}")
-    if max(groups) > k5.MAX_GROUP:
-        raise ValueError(f"the CUDA kernels take groups up to {k5.MAX_GROUP}, got {groups}")
+    if not all(k5.supported(n, g) for (_, n), g in zip(products, groups)):
+        raise ValueError(f"the CUDA kernels take N a multiple of 16 and groups a multiple of "
+                         f"{k5.STAGE_ROWS} up to {k5.MAX_GROUP}; got {products}, {groups}")
     m = x.shape[0]
-    splits = [k5.split_k(n, kp // g) for (kp, n), g in zip(products, groups)]
+    splits = [k5.plan(m, kp, n, g, x.dtype) for (kp, n), g in zip(products, groups)]
     scratch = max(s * m * n for s, (_, n) in zip(splits, products))
     return (_build.load_library(), splits,
             torch.empty(scratch, dtype=torch.float32, device=x.device))
@@ -127,7 +128,7 @@ def w4_suffix_a(attn2d: torch.Tensor, h_res: torch.Tensor, ln2_w: torch.Tensor, 
     d = h_res.shape[1]
     n_gu = gu_p["w_p"].shape[2]
     lib, (s_o, s_g), partials = _prepare(attn2d, (g_o, g_g), ((k_o // 2, d), (d // 2, n_gu)))
-    attn2d, h_res = attn2d.contiguous(), h_res.contiguous()
+    attn2d, h_res = k5.aligned(attn2d.contiguous()), h_res.contiguous()
     act = torch.empty((m, n_gu // 2), dtype=attn2d.dtype, device=attn2d.device)
     h_out = torch.empty_like(h_res)
     hn = torch.empty_like(h_res)
@@ -159,7 +160,7 @@ def w4_suffix_b(act: torch.Tensor, h: torch.Tensor, ln1_next: torch.Tensor, down
     d = h.shape[1]
     n_qkv = qkv_p["w_p"].shape[2]
     lib, (s_d, s_q), partials = _prepare(act, (g_d, g_q), ((f // 2, d), (d // 2, n_qkv)))
-    act, h = act.contiguous(), h.contiguous()
+    act, h = k5.aligned(act.contiguous()), h.contiguous()
     h_out = torch.empty_like(h)
     hn = torch.empty_like(h)
     qkv = torch.empty((m, n_qkv), dtype=act.dtype, device=act.device)

@@ -7,7 +7,10 @@ its low nibble and row r + K/2 in its high nibble) and f32 group scales ``gscale
 [K/G, N]`` (low-half groups first) applied to the f32 partial product of each group. One
 CUDA kernel (``csrc/w4a16_matmul.cu``) serves both forms: the stacked form passes the
 layer's weights and scales as pointer offsets into the stacked buffers, so no slice is
-copied. Its header states the design and what bounds it on the H100 (the weight bytes).
+copied. Its header states the design and what bounds it on the H100 (the weight bytes):
+bf16 x goes to the tensor cores (mma.sync on codes converted exactly to bf16), f32 x to
+the CUDA cores. ``plan`` is the split rule the wrapper and the suffix kernels (K6) share;
+``supported`` the shapes the kernels take (a CUDA call outside them raises).
 
 Dispatch is by the tensors' device: a CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises. There is no fallback between the two.
@@ -21,9 +24,10 @@ from audio_flamingo_tpu_torch.ops.kernels import _build
 from audio_flamingo_tpu_torch.ops.kernels.launches import LaunchCounter
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_N = 512          # columns per block (csrc/w4a16_matmul.cu kBN)
-MAX_GROUP = 512        # largest group the kernel stages in shared memory
-TARGET_BLOCKS = 1056   # split K until the grid has about eight blocks per SM (132 SMs)
+MAX_GROUP = 512        # largest group the kernels take
+BLOCK_N = 128          # columns per block (csrc/w4a16_matmul.cu kBN)
+STAGE_ROWS = 32        # packed rows per ring stage (kRows): a group is whole stages
+TARGET_BLOCKS = 528    # split K until the grid has about four blocks per SM (132 SMs)
 
 LAUNCHES = LaunchCounter()   # key: (m, K, N, stacked); inputs: (x, w_p, gscale, layer or None)
 
@@ -85,13 +89,33 @@ def check_operands(x: torch.Tensor, w_p: torch.Tensor, gscale: torch.Tensor) -> 
     return kp // (gscale.shape[0] // 2)
 
 
-def split_k(n: int, groups_per_half: int, m_tiles: int = 1) -> int:
+def supported(n: int, group: int) -> bool:
+    """The CUDA kernels take N in 16-byte rows and a group in whole ring stages."""
+    return n % 16 == 0 and group % STAGE_ROWS == 0 and group <= MAX_GROUP
+
+
+def rows_per_block(m: int, dtype: torch.dtype) -> int:
+    """Rows of x one block holds (more rows tile over grid.z): bf16 on the tensor cores 8,
+    16 or 32; f32 on the CUDA cores 1, 2, 4, 8 or 32."""
+    if dtype == torch.bfloat16:
+        return 8 if m <= 8 else 16 if m <= 16 else 32
+    return next(r for r in (1, 2, 4, 8, 32) if m <= r or r == 32)
+
+
+def plan(m: int, kp: int, n: int, group: int, dtype: torch.dtype) -> int:
     """Splits of the K loop: enough blocks to fill the card, each split a whole number of
     groups, the splits of nearly equal size (the last may be shorter)."""
-    col_blocks = -(-n // BLOCK_N) * m_tiles
-    want = min(groups_per_half, max(1, -(-TARGET_BLOCKS // col_blocks)))
-    per = -(-groups_per_half // want)
-    return -(-groups_per_half // per)
+    groups = kp // group
+    blocks = -(-n // BLOCK_N) * -(-m // rows_per_block(m, dtype))
+    want = min(groups, max(1, -(-TARGET_BLOCKS // blocks)))
+    per = -(-groups // want)
+    return -(-groups // per)
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself if its data starts 16-byte aligned (the kernels copy x by 16 bytes), else
+    a fresh copy, which is."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(x: torch.Tensor, w_p: torch.Tensor, gscale: torch.Tensor, layer: int | None,
@@ -99,16 +123,17 @@ def _launch(x: torch.Tensor, w_p: torch.Tensor, gscale: torch.Tensor, layer: int
     if x.device.type != "cuda":
         raise ValueError(f"w4a16_matmul runs on cuda (kernel) or cpu (reference), "
                          f"not {x.device}")
-    if group > MAX_GROUP:
-        raise ValueError(f"the CUDA kernel takes groups up to {MAX_GROUP} rows, got {group}")
-    x = x.contiguous()
+    if not supported(n, group):
+        raise ValueError(f"the CUDA kernel takes N a multiple of 16 and groups a multiple of "
+                         f"{STAGE_ROWS} up to {MAX_GROUP} rows; got N = {n}, group {group}")
+    x = aligned(x.contiguous())
     m = x.shape[0]
     w_off = s_off = 0
     if layer is not None:   # the layer's weights and scales in place in the stacks
         w_off = layer * w_p.stride(0) * w_p.element_size()
         s_off = layer * gscale.stride(0) * gscale.element_size()
     lib = _build.load_library()   # builds csrc/*.cu on first use
-    splits = split_k(n, kp // group, -(-m // 8))
+    splits = plan(m, kp, n, group, x.dtype)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -50,8 +50,8 @@ def unpack_w4(w_p: torch.Tensor) -> torch.Tensor:
 
 def quantize_linear_w4(w: torch.Tensor, group_size: int = DEFAULT_GROUP) -> dict:
     """[K, N] (or stacked [L, K, N]) float -> {'w_p': int8 [.., K/2, N],
-    'gscale': f32 [.., K/G, N]}: s = max|w_group| / 7 (a true division on every device),
-    w_q = round(w / s) in [-7, 7]."""
+    'gscale': f32 [.., K/G, N]}, both contiguous: s = max|w_group| / 7 (a true division on
+    every device), w_q = round(w / s) in [-7, 7]."""
     k, n = w.shape[-2], w.shape[-1]
     if not supports_w4(k, group_size):
         raise ValueError(f"K = {k} does not split into whole groups of {group_size} per half")
@@ -59,7 +59,10 @@ def quantize_linear_w4(w: torch.Tensor, group_size: int = DEFAULT_GROUP) -> dict
     wf = w.float().reshape(*lead, k // group_size, group_size, n)
     gscale = quant.true_div(torch.clamp(wf.abs().amax(dim=-2), min=1e-8), 7.0)
     w_q = torch.clamp(torch.round(wf / gscale.unsqueeze(-2)), -7, 7)
-    return {"w_p": pack_w4(w_q.reshape(*lead, k, n).to(torch.int8)), "gscale": gscale}
+    # contiguous whatever w's strides (a transposed Linear weight keeps them through the
+    # elementwise steps): K5 reads the codes row-major and would copy them on every call
+    return {"w_p": pack_w4(w_q.reshape(*lead, k, n).to(torch.int8)).contiguous(),
+            "gscale": gscale.contiguous()}
 
 
 def dequantize_w4(p: dict, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:

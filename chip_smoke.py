@@ -6,7 +6,8 @@
 Phases, each line stamped with elapsed seconds:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every csrc/*.cu in one nvcc call (seconds; ptxas's registers, spilled bytes
-     and static shared memory of every kernel, the bf16 flash kernels required);
+     and static shared memory of every kernel, the bf16 flash kernels and the w4a16 and
+     enc_mlp routes' kernels required);
   3. kernels against their plain PyTorch versions, with their time (CUDA events, median),
      the plain version's time, one PyTorch library call's time as a yardstick where one
      computes the same function, and the bound:
@@ -42,7 +43,9 @@ Phases, each line stamped with elapsed seconds:
         versions at the 7B shapes in f32 and bf16, on the quantized LM's own codes: K5 at
         m 1, 8, 256 for qkv, o, gate|up and down at layers 0 and 27 and at the int4 head's
         shape; K6 A and B at m 1 and 8; timed beside the plain version, the int4pack
-        library call (K5) and the bound;
+        library call (K5) and the bound, with the wrapper and as device times (CUDA
+        graphs: K5 and the library call repeated on layer 0, K5 on every layer in turn,
+        K6 repeated and one decode step's 28 A + 28 B);
      b. the 30 s path with phase 4's bf16 model's LM quantized on the card (encoder
         shared): generate() three times, greedy, 32 tokens; identical ids, 56 K6 launches,
         1 K5 and 1 K4 (the int8 head) per decode step (no K5 in the 1024-row prefill, one
@@ -104,9 +107,10 @@ Phases, each line stamped with elapsed seconds:
         unaligned block with a q_offset), f32 and bf16, replays bit-identical; timed beside
         the prelude, the plain version, SDPA on the float inputs (a yardstick) and the bound;
      b. the three encoder fusions (K9) against their plain versions at m = 1500 and 30,000
-        rows (bf16) and 1500 (f32) on one full-width layer: codes >= 99.9 % equal, every
-        output within its bound, replays bit-identical; timed beside the composed torch
-        form of the same stage (fused_stages=()), the plain version and the bound;
+        rows, bf16 and f32, on one full-width layer: codes >= 99.9 % equal, every output
+        within its bound, replays bit-identical; timed beside the composed torch form of
+        the same stage (fused_stages=()), the plain version and the bound; enc_mlp and its
+        composed form also as device times (CUDA graphs);
      c. the 30 s clip at full width with the LM quantized on the card to int8 and the
         encoder by quantize_encoder_params, a8_prefill and a8_attention on both towers:
         generate() three times, 60 K8 launches each, identical ids, the prefill logits within
@@ -115,6 +119,7 @@ Phases, each line stamped with elapsed seconds:
      d. the 10-minute file on the fused layout (fused_stages all three, K2 attention) with
         the a8 prefill and K8 at 16,384 tokens, twice: 96 K9 and 28 K8 launches per
         generate, identical ids; user TTFT beside phase 5's, kernel times beside bounds;
+        then twice with fused_stages ("qkv", "out") (the MLP composed): its warm TTFT;
      e. f32 card against CPU, full width, 2 + 2 layers, plain and fused encoder layouts:
         the weight codes equal, the prefill logits within JAX's a8 band, the ids logged.
  11. the int8 LM's decode (load(quantize_lm=True)), after phase 10's models are freed:
@@ -805,7 +810,11 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
     bf16: K5 stacked at m 1, 8, 256 for qkv, o, gate|up and down at layers 0 and L-1; K5
     unstacked at the int4 head's shape; K6 A and B at m 1 and 8, layers 0 and L-1 (B of
     the last layer computes the discarded qkv of that layer). Timed at layer 0 (median
-    of 15 after 3): kernel, plain version, the int4pack library call (K5, bf16)."""
+    of 15 after 3, wrapper included): kernel, plain version, the int4pack library call
+    (K5, bf16); and as device times (graph_ms): K5 and the library call L times on layer 0
+    in one graph (small weights then sit in L2), K5 once on every layer in turn (the
+    weights stream from memory, as in a decode step), K6 8 times on layer 0 and one decode
+    step's L A + L B."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     layers = qlm.layers
     n_layers = layers["ln1_w"].shape[0]
@@ -829,10 +838,19 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
                     res[("k5", name, m, dn, layer)] = r
                 r = res[("k5", name, m, dn, 0)]
                 w_p, gs = p["w_p"][0], p["gscale"][0]
-                r["ms"] = time_ms(lambda: k5.w4a16_matmul_stacked(x, p["w_p"], p["gscale"], 0))
+                call = lambda: k5.w4a16_matmul_stacked(x, p["w_p"], p["gscale"], 0)
+                r["ms"] = time_ms(call)
+                r["dev_ms"] = graph_ms(call, 10, n_layers)
+
+                def every_layer():
+                    for i in range(n_layers):
+                        k5.w4a16_matmul_stacked(x, p["w_p"], p["gscale"], i)
+
+                r["cold_ms"] = graph_ms(every_layer, 10) / n_layers
                 r["plain_ms"] = time_ms(lambda: k5.w4a16_matmul_reference(x, w_p, gs), 5, 1)
                 lib, why = int4pack_call(x, w_p, gs)
                 r["library_ms"] = time_ms(lib) if lib else None
+                r["library_dev_ms"] = graph_ms(lib, 10, n_layers) if lib else None
                 r["bound_ms"], r["bound_by"] = w4_bound_ms([k5_shape(w_p, gs)], m, dn)
                 log(f"K5 {name:6s} [{m},{k}]x[{k // 2},{w_p.shape[1]}] {dn:8s}: max|y-plain| "
                     f"layer 0 {r['err']:.3e} / layer {n_layers - 1} "
@@ -840,8 +858,11 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
                     f"{max(r['ratio'], res[('k5', name, m, dn, n_layers - 1)]['ratio']):.3f} of "
                     f"the limit); ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
                     f"{'null (' + why + ')' if lib is None else f'{r['library_ms']:.4f}'} "
-                    f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); "
-                    f"{r['bound_ms'] / r['ms'] * 100:.1f} % of the bound")
+                    f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); device: layer 0 "
+                    f"{r['dev_ms']:.4f} ms, library "
+                    f"{'null' if lib is None else f'{r['library_dev_ms']:.4f}'} ms, every layer "
+                    f"in turn {r['cold_ms']:.4f} ms = {r['bound_ms'] / r['cold_ms'] * 100:.1f} % "
+                    f"of the bound")
                 del lib
     k = 2 * head_w4["w_p"].shape[0]
     for m in (1, 8):
@@ -852,11 +873,14 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
             r = w4_compare(y, k5.w4a16_matmul_reference(x, head_w4["w_p"], head_w4["gscale"]))
             check(r["finite"] and r["ratio"] <= 1.0,
                   f"K5 head m={m} {dn}: |y - plain| at {r['ratio']:.3f} of its limit")
-            r["ms"] = time_ms(lambda: k5.w4a16_matmul(x, head_w4["w_p"], head_w4["gscale"]))
+            call = lambda: k5.w4a16_matmul(x, head_w4["w_p"], head_w4["gscale"])
+            r["ms"] = time_ms(call)
+            r["dev_ms"] = r["cold_ms"] = graph_ms(call, 10, 4)   # 290 MB: never in L2
             r["plain_ms"] = time_ms(lambda: k5.w4a16_matmul_reference(
                 x, head_w4["w_p"], head_w4["gscale"]), 5, 1)
             lib, why = int4pack_call(x, head_w4["w_p"], head_w4["gscale"])
             r["library_ms"] = time_ms(lib) if lib else None
+            r["library_dev_ms"] = graph_ms(lib, 10, 4) if lib else None
             del lib
             r["bound_ms"], r["bound_by"] = w4_bound_ms(
                 [k5_shape(head_w4["w_p"], head_w4["gscale"])], m, dn)
@@ -864,8 +888,9 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
                 f"max|y-plain|={r['err']:.3e} (at {r['ratio']:.3f} of the limit) ms="
                 f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
                 f"{'null (' + why + ')' if r['library_ms'] is None else f'{r['library_ms']:.4f}'} "
-                f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); "
-                f"{r['bound_ms'] / r['ms'] * 100:.1f} % of the bound")
+                f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); device {r['dev_ms']:.4f} ms, "
+                f"library {'null' if r['library_dev_ms'] is None else f'{r['library_dev_ms']:.4f}'}"
+                f" ms = {r['bound_ms'] / r['dev_ms'] * 100:.1f} % of the bound")
             res[("k5", "head", m, dn, 0)] = r
     d = layers["ln1_w"].shape[1]
     k_o = 2 * layers["o"]["w_p"].shape[1]
@@ -901,6 +926,15 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
                                 for n in ("h2", "qkv")))
             a = k6.w4_suffix_a(attn, h, ln, o, gu, 0)
             ra["ms"] = time_ms(lambda: k6.w4_suffix_a(attn, h, ln, o, gu, 0))
+            ra["dev_ms"] = graph_ms(lambda: k6.w4_suffix_a(attn, h, ln, o, gu, 0), 10, 8)
+            rb["dev_ms"] = graph_ms(lambda: k6.w4_suffix_b(a[0], a[1], ln, down, qkv, 0, 1), 10, 8)
+
+            def step():   # one decode step's suffixes, layer after layer
+                for i in range(n_layers):
+                    k6.w4_suffix_a(attn, h, ln, o, gu, i)
+                    k6.w4_suffix_b(a[0], a[1], ln, down, qkv, i, min(i + 1, n_layers - 1))
+
+            ra["step_dev_ms"] = graph_ms(step, 10)
             ra["plain_ms"] = time_ms(lambda: k6.w4_suffix_a_reference(attn, h, ln, o, gu, 0), 5, 1)
             rb["ms"] = time_ms(lambda: k6.w4_suffix_b(a[0], a[1], ln, down, qkv, 0, 1))
             rb["plain_ms"] = time_ms(
@@ -912,8 +946,11 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
                     f"{r['ratio']:.3f} of the limit, layers 0 and {n_layers - 1}) ms="
                     f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=null (no single "
                     f"PyTorch call computes the fused suffix) bound_ms={r['bound_ms']:.5f} "
-                    f"({r['bound_by']}); {r['bound_ms'] / r['ms'] * 100:.1f} % of the bound")
+                    f"({r['bound_by']}); device {r['dev_ms']:.4f} ms = "
+                    f"{r['bound_ms'] / r['dev_ms'] * 100:.1f} % of the bound")
                 res[("k6" + name, m, dn)] = r
+            log(f"K6 per decode step m={m} {dn:8s} ({n_layers} A + {n_layers} B, layer after "
+                f"layer): device {ra['step_dev_ms']:.3f} ms")
     return res
 
 
@@ -1158,15 +1195,17 @@ ENGINE = dict(num_rows=4, num_blocks=88, block_size=128, max_blocks_per_seq=32, 
               eos_token_id=151_645)    # bench.py:486-488, the JAX mixed-workload engine
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device time of fn alone: fn captured once in a CUDA graph, the replay timed with CUDA
-    events (median), so the host's launch overhead is left out."""
+def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
+    """Device time of fn alone: fn captured ``calls`` times in one CUDA graph, the replay
+    timed with CUDA events (median) and divided by ``calls``, so the host's launch overhead
+    is left out (and, over many calls, the graph's own launch too)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return time_ms(graph.replay, reps, 3)
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps, 3) / calls
 
 
 def paged_bound_ms(lengths, block: int, max_pages: int, q_shape, q_dtype, kv_dtype) -> tuple:
@@ -2334,17 +2373,20 @@ def check_k9(name: str, r: dict) -> None:
 
 def k9_phase(ef, wenc) -> dict:
     """10b. K9's three kernels against their plain versions at m = 1500 and 30,000 rows
-    (the 30 s and 10-minute encoder calls) in bf16, and at m = 1500 in f32, on one full-
+    (the 30 s and 10-minute encoder calls) in bf16 and f32, on one full-
     width layer in the fused layout; codes of enc_out_ln held to a share, every output to
     a bound; two launches bit-identical; each kernel timed beside its bound, its plain
-    version and the composed torch form of the same stage (what fused_stages=() runs)."""
+    version and the composed torch form of the same stage (what fused_stages=() runs);
+    enc_mlp (reading the K-major weight copies the encoder holds) and its composed form
+    also as device times (graph_ms)."""
     from audio_flamingo_tpu_torch.models.qwen2 import TensorTree, cast_quantized
 
     d, f = 1280, 5120
     tree = k9_layer(d, f, seed=11)
     gen = torch.Generator(device="cuda").manual_seed(12)
     results = {}
-    for m, dtype in ((1500, torch.bfloat16), (30_000, torch.bfloat16), (1500, torch.float32)):
+    for m, dtype in ((1500, torch.bfloat16), (30_000, torch.bfloat16), (1500, torch.float32),
+                     (30_000, torch.float32)):
         lp = TensorTree(cast_quantized(tree, dtype, "cuda"))
         dn = str(dtype).split(".")[-1]
         xb = dtype.itemsize
@@ -2360,6 +2402,7 @@ def k9_phase(ef, wenc) -> dict:
         x2, hq, hs = ef.enc_out_ln_reference(*args["enc_out_ln"])
         args["enc_mlp"] = (hq, hs, f1["w_q"][0], f1["scale"][0], f1["b"][0], f2["w_q"][0],
                            f2["scale"][0], f2["b"][0], x2)
+        kmajor = ef.mlp_kmajor(f1["w_q"][0], f2["w_q"][0])   # as the encoder holds them
         composed = {"enc_ln_qkv": lambda: wenc.stage_qkv(x, lp, 0, False),
                     "enc_out_ln": lambda: wenc.stage_out(attn, x, lp, 0, False),
                     "enc_mlp": lambda: wenc.stage_mlp(hq, hs, x2, lp, 0, f, False)}
@@ -2368,6 +2411,8 @@ def k9_phase(ef, wenc) -> dict:
                   "enc_mlp": k9_bound_ms("mlp", m, d, f, xb)}
         for name in ("enc_ln_qkv", "enc_out_ln", "enc_mlp"):
             kernel, plain = getattr(ef, name), getattr(ef, name + "_reference")
+            if name == "enc_mlp":
+                kernel = lambda *a: ef.enc_mlp(*a, kmajor=kmajor)
             y, y2, ref = kernel(*args[name]), kernel(*args[name]), plain(*args[name])
             if name == "enc_out_ln":
                 r = k9_compare(y[0], ref[0])
@@ -2381,21 +2426,28 @@ def k9_phase(ef, wenc) -> dict:
             r["ms"] = time_ms(lambda: kernel(*args[name]), 5 if big else 10)
             r["plain_ms"] = time_ms(lambda: plain(*args[name]), 2, 1)
             r["composed_ms"] = time_ms(composed[name], 5 if big else 10)
+            if name == "enc_mlp":   # device times of the kernel and its composed form
+                r["dev_ms"] = graph_ms(lambda: kernel(*args[name]), 5 if big else 10)
+                r["composed_dev_ms"] = graph_ms(composed[name], 5 if big else 10)
             r["bound_ms"], r["bound_by"] = bounds[name]
             codes = ("" if name != "enc_out_ln" else
                      f" codes equal {r['codes']:.6f} scales rel {r['scale_rel']:.2e};")
+            dev = ("" if name != "enc_mlp" else
+                   f"; device {r['dev_ms']:.4f} ms against the composed form's "
+                   f"{r['composed_dev_ms']:.4f} ms = {r['bound_ms'] / r['dev_ms'] * 100:.2f} % "
+                   f"of the bound")
             log(f"K9 {name:10s} m={m:6d} {dn:8s}: max|y-plain|={r['err']:.3e} (at "
                 f"{r['ratio']:.3f} of its limit), {r['near']:.6f} within one step;{codes} "
                 f"replay bit-identical {r['replay']}; ms={r['ms']:.4f} composed_ms="
                 f"{r['composed_ms']:.4f} plain_ms={r['plain_ms']:.2f} bound_ms="
                 f"{r['bound_ms']:.5f} ({r['bound_by']}); {r['bound_ms'] / r['ms'] * 100:.2f} % "
-                f"of the bound")
+                f"of the bound{dev}")
             check_k9(f"{name} m={m} {dn}", r)
             check(r["replay"], f"K9 {name} m={m} {dn}: two launches differ")
             if name == "enc_out_ln":
                 check(r["codes"] >= K9_SHARE, f"K9 enc_out_ln codes equal {r['codes']}")
             results[(name, m, dn)] = r
-        del lp, x, attn, x2, hq, hs, args, composed
+        del lp, x, attn, x2, hq, hs, args, composed, kmajor
         torch.cuda.empty_cache()
     return results
 
@@ -2533,7 +2585,8 @@ def a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav, ref: dict) -> dict:
     fused layout with fused_stages ("qkv", "out", "mlp") and K2 for its attention, the a8
     prefill with K8 at 16,384 tokens, 4 greedy tokens, twice: 96 K9 and 28 K8 launches per
     generate, identical ids. User TTFT beside phase 5's; K9's, K8's and K2's time in the
-    path beside their summed bounds; peak memory."""
+    path beside their summed bounds; peak memory. Then the same file twice with
+    fused_stages ("qkv", "out") (the MLP composed, no enc_mlp launch): its warm TTFT."""
     from audio_flamingo_tpu_torch.audio.mel import WhisperMelFrontend
     from audio_flamingo_tpu_torch.config import MelConfig
     from audio_flamingo_tpu_torch.models import whisper_encoder
@@ -2590,6 +2643,28 @@ def a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav, ref: dict) -> dict:
                                       "bfloat16")[0],
               "K2": 32 * attention_bound_ms((20, 1500, 20, 64), (20, 1500, 20, 64), False, 0,
                                             "bfloat16")[0]}
+    # the same file with the MLP composed (fused_stages ("qkv", "out")): does K9's MLP pay?
+    a8q = a8_variant(w8, encf, dict(fused_stages=("qkv", "out")),
+                     dict(a8_prefill=True, a8_attention=True))
+    a8q = dataclasses.replace(a8q, processor=a8f.processor)
+    for i in range(2):
+        for c in counters.values():
+            c.reset()
+        _, _, split_q = timed_generate(a8q, sound=wav, prompt="What do you hear?",
+                                       max_new_tokens=4)
+        check(ef.MLP_LAUNCHES.count == 0 and ef.LN_QKV_LAUNCHES.count == 32
+              and ef.OUT_LN_LAUNCHES.count == 32,
+              f"fused_stages ('qkv', 'out'): K9 launches qkv {ef.LN_QKV_LAUNCHES.count}, out "
+              f"{ef.OUT_LN_LAUNCHES.count}, mlp {ef.MLP_LAUNCHES.count}")
+        check(bool(torch.isfinite(a8q.last_output.first_logits).all()),
+              "fused_stages ('qkv', 'out'): prefill logits not finite")
+    qo_ttft = a8q.last_processor_s + a8q.last_output.ttft_s
+    log(f"a8 10-minute warm run with fused_stages ('qkv', 'out') (the MLP composed): user "
+        f"TTFT {qo_ttft:.3f} s ({split_q}) against {warm['proc'] + warm['ttft']:.3f} s with all "
+        f"three fused stages")
+    for c in counters.values():
+        c.reset()
+    del a8q
     log(f"a8 10-minute warm run: user TTFT {warm['proc'] + warm['ttft']:.3f} s (processor "
         f"{warm['proc']:.3f} + ttft {warm['ttft']:.3f}) against phase 5's "
         f"{ref['proc'] + ref['ttft']:.3f} s; "
@@ -2599,7 +2674,7 @@ def a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav, ref: dict) -> dict:
     del a8f, encf
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(warm=warm, bounds=bounds)
+    return dict(warm=warm, bounds=bounds, qkv_out_ttft=qo_ttft)
 
 
 def a8_f32_card_vs_cpu_phase(fa8, ef) -> None:
@@ -3163,6 +3238,12 @@ def main() -> int:
     check({"flash_fwd_mma_kernel<64>", "flash_fwd_mma_kernel<128>",
                         "flash_bwd_dkv_mma_kernel<128>", "flash_bwd_dq_mma_kernel<128>"}
           <= {r["kernel"] for r in flash_ptxas}, "the bf16 flash kernels were not compiled")
+    w4_ptxas = [r for r in ptxas if r["kernel"].startswith(("w4_mma_", "w4_fma_", "w4_reduce"))]
+    mlp_ptxas = [r for r in ptxas if r["kernel"].startswith("mlp_")]
+    check({"w4_mma_kernel<1>", "w4_mma_kernel<2>", "w4_mma_kernel<4>", "w4_fma_kernel<1>",
+           "w4_fma_kernel<8>", "w4_fma_kernel<32>", "mlp_tile_kernel<1>", "mlp_tile_kernel<2>"}
+          <= {r["kernel"] for r in w4_ptxas + mlp_ptxas},
+          "the w4a16 and enc_mlp kernels were not compiled")
 
     # 3. kernels against their plain versions
     res = kernel_phase(fa)
@@ -3357,6 +3438,7 @@ def main() -> int:
         "bound_ms": k5_path["bound_ms"],
         "bound_by": k5_path["bound_by"],
         "library_ms": k5_path["library_ms"],
+        "ptxas": w4_ptxas,
     })
     for name, key, line in (("w4_suffix_a", "K6A", 225), ("w4_suffix_b", "K6B", 288)):
         k6_path = w4["k6"][key]
@@ -3439,6 +3521,7 @@ def main() -> int:
             "bound_ms": launches * k9_bound_ms(kind, 30_000, 1280, n, 2)[0],
             "bound_by": per["bound_by"],
             "library_ms": None,
+            **({"ptxas": mlp_ptxas} if name == "enc_mlp" else {}),
         })
     k4_path = int8_clip["path"]
     kernels.append({
@@ -3502,7 +3585,9 @@ def main() -> int:
         "codes, laid out [N, K]) and bound_ms = each launch shape's plain time, library time "
         "(one captured launch each) and bound, times that shape's launches, summed; "
         "max_abs_err = the largest |y - plain| of 11a and of the prefill's head and one "
-        "decode step's launches, replayed.")
+        "decode step's launches, replayed. ptxas (w4a16_matmul, enc_mlp): nvcc's report for "
+        "the kernels of the redesigned routes; their device times per shape are 7a's and "
+        "10b's log lines.")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")
