@@ -49,6 +49,7 @@ from audio_flamingo_tpu_torch.ops.kernels.w4_suffix import (suffix_supported, w4
 from audio_flamingo_tpu_torch.ops.mlp import swiglu_mlp
 from audio_flamingo_tpu_torch.ops.norms import Norm, rms_norm
 from audio_flamingo_tpu_torch.ops.quant import (div127, mm_f32, q_matmul, q_matmul_a8q,
+                                                q_matmul_group,
                                                 quantize_act)
 from audio_flamingo_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_stacked
 from audio_flamingo_tpu_torch.ops.remat import remat_wrap
@@ -251,6 +252,17 @@ def _qlinear(x: torch.Tensor, p: TensorTree, layer: int) -> torch.Tensor:
     return y + p["b"][layer].to(x.dtype) if "b" in p else y
 
 
+def _qlinears(x: torch.Tensor, ps: list, layer: int) -> list[torch.Tensor]:
+    """Layer ``layer`` of stacked int8 linears that share x (q|k|v, gate|up) through
+    ``q_matmul_group`` (one K4 launch at decode sizes), each bias added after."""
+    ys = q_matmul_group(x, [{"w_q": p["w_q"][layer], "scale": p["scale"][layer]} for p in ps])
+    return [y + p["b"][layer].to(x.dtype) if "b" in p else y for y, p in zip(ys, ps)]
+
+
+def _int8(*ps) -> bool:
+    return all("w_q" in p for p in ps)
+
+
 def layer_norm_weights(lm, i: int) -> tuple[torch.Tensor, torch.Tensor]:
     if isinstance(lm, QuantQwen2):
         return lm.layers["ln1_w"][i], lm.layers["ln2_w"][i]
@@ -271,6 +283,8 @@ def qkv_proj(hn: torch.Tensor, lm, cfg: Qwen2Config, i: int):
     elif "qkv" in lm.layers:
         y = _qlinear(hn, lm.layers["qkv"], i)
         q, k, v = y[..., : nh * hd], y[..., nh * hd: (nh + nkv) * hd], y[..., (nh + nkv) * hd:]
+    elif _int8(*(lm.layers[n] for n in ("q", "k", "v"))):
+        q, k, v = _qlinears(hn, [lm.layers[n] for n in ("q", "k", "v")], i)
     else:
         q, k, v = (_qlinear(hn, lm.layers[n], i) for n in ("q", "k", "v"))
     return q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd), v.reshape(b, s, nkv, hd)
@@ -293,6 +307,9 @@ def mlp_forward(hn: torch.Tensor, lm, cfg: Qwen2Config, i: int) -> torch.Tensor:
         f = cfg.intermediate_size
         gu = _qlinear(hn, mlp["gateup"], i)
         act = F.silu(gu[..., :f]) * gu[..., f:]
+    elif _int8(mlp["gate"], mlp["up"]):
+        gate, up = _qlinears(hn, [mlp["gate"], mlp["up"]], i)
+        act = F.silu(gate) * up
     else:
         act = F.silu(_qlinear(hn, mlp["gate"], i)) * _qlinear(hn, mlp["up"], i)
     return _qlinear(act, mlp["down"], i)

@@ -120,15 +120,21 @@ def load_library(path: str | None = None) -> ctypes.CDLL:
         fn = lib.af_w4a16_matmul
         fn.restype = i32
         fn.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
-        fn = lib.af_w8a16_matmul
+        fn = lib.af_w8a16_matmul_group
         fn.restype = i32
-        fn.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        fn.argtypes = [ptr, ptr, i32] + [ptr] * 3 + [i32] * 7 + [ptr]
+        fn = lib.af_w8a16_matmul_nk
+        fn.restype = i32
+        fn.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         fn = lib.af_paged_attention
         fn.restype = i32
         fn.argtypes = [ptr] * 11 + [i32] * 11 + [ctypes.c_float, ptr]
         fn = lib.af_flash_attention_a8
         fn.restype = i32
-        fn.argtypes = [ptr] * 5 + [i32] * 12 + [i64] * 3 + [ptr]
+        fn.argtypes = [ptr] * 5 + [i32] * 12 + [i64] * 6 + [ptr]
+        fn = lib.af_fa8_prelude
+        fn.restype = i32
+        fn.argtypes = [ptr] * 12 + [i32] * 10 + [i64] * 9 + [ctypes.c_float, ptr]
         fn = lib.af_enc_ln_qkv
         fn.restype = i32
         fn.argtypes = [ptr] * 7 + [i32] * 4 + [ctypes.c_float, ptr]

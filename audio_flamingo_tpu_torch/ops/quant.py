@@ -6,16 +6,19 @@ bit-identical to the JAX package's (run eagerly): the same f32 amax, ``max(amax,
 ``round(w / scale)``.
 
 ``q_matmul`` picks its route by the number of rows, never by a failure. Up to
-``KERNEL_MAX_ROWS`` rows (every decode batch, the head of a decode step) it is the
-w8a16 kernel, K4 (``ops/kernels/w8a16_matmul.py``): the codes are streamed once as int8,
-widened exactly, accumulated in f32 and scaled, as JAX's Pallas ``w8a16_matmul``. Above
-the limit (prefill, training batches) it is the library product, as JAX's default
-``q_matmul`` is an XLA dot: on the card a bf16 x is multiplied with the int8 codes
-converted to bf16, accumulating and writing f32, then scaled (int8 values and bf16
-inputs are exact in bf16, so this is JAX's f32-accumulated dot up to the order of the
-sums; the bf16 copy of the codes is made on every call). Both routes are differentiable
-in their input with the codes frozen: the gradient is ``g @ (w_q * scale)^T``, as JAX's
-autodiff of its dot gives it.
+``KERNEL_MAX_ROWS`` rows (every decode batch, the head of a decode step, prefill chunks
+of up to 256 tokens) it is the w8a16 kernel, K4 (``ops/kernels/w8a16_matmul.py``): the
+codes are streamed once as int8, widened exactly, accumulated in f32 and scaled, as JAX's
+Pallas ``w8a16_matmul``; ``q_matmul_group`` gives products that share x (the LM's q|k|v
+and gate|up) one K4 launch. The limit is where K4 stops beating the library route on the
+H100 (re-measured after K4's redesign: it wins up to 256 rows at [3584, 18944] and loses
+at 1024; the numbers are at ``KERNEL_MAX_ROWS``). Above the limit (long prefills,
+training batches) it is the library product, as JAX's default ``q_matmul`` is an XLA dot:
+on the card a bf16 x is multiplied with the int8 codes converted to bf16, accumulating
+and writing f32, then scaled (int8 values and bf16 inputs are exact in bf16, so this is
+JAX's f32-accumulated dot up to the order of the sums; the bf16 copy of the codes is made
+on every call). Both routes are differentiable in their input with the codes frozen: the
+gradient is ``g @ (w_q * scale)^T``, as JAX's autodiff of its dot gives it.
 
 w8a8 (the TTFT path: ``a8_prefill``, ``a8_encoder``): ``quantize_act`` gives per-token
 int8 codes and f32 scales, ``q_matmul_a8q`` multiplies them with int8 weights into an
@@ -34,9 +37,11 @@ import torch
 
 from audio_flamingo_tpu_torch.ops.kernels import w8a16_matmul as k4
 
-# rows up to which q_matmul takes K4: on the H100 it beats the library route at every
-# 7B shape up to 32 rows and loses above (PERF.md, K4 row; chip_smoke.py phase 11a)
-KERNEL_MAX_ROWS = 32
+# rows up to which q_matmul takes K4. On an H100 80GB HBM3 at 700 W, [m, 3584] x [3584,
+# 18944] bf16, device ms, K4 / the library route: m = 32 0.078 / 0.251, 64 0.104 / 0.253,
+# 128 0.167 / 0.259, 256 0.204 / 0.275, 1024 0.790 / 0.489 (scripts/torch_a8_w8_times.py;
+# PERF.md, K4 rows; chip_smoke.py phase 11a measures it again)
+KERNEL_MAX_ROWS = 256
 
 
 def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -108,6 +113,28 @@ class _W8A16(torch.autograd.Function):
         return _input_grad(g.float() * scale.float(), w_q, ctx.x_dtype), None, None, None
 
 
+class _W8A16Group(torch.autograd.Function):
+    """K4's grouped route (one launch for products that share x) with a gradient for x:
+    the sum of each product's library-route backward ``(g_i * scale_i) @ w_i^T``."""
+
+    @staticmethod
+    def forward(ctx, x, out_dtype, *ws):
+        ctx.save_for_backward(*ws)
+        ctx.x_dtype = x.dtype
+        products = [{"w_q": w, "scale": s} for w, s in zip(ws[::2], ws[1::2])]
+        return tuple(k4.w8a16_matmul_group(x, products, out_dtype))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ws = ctx.saved_tensors
+        gx = None
+        for g, w_q, scale in zip(gs, ws[::2], ws[1::2]):
+            if g is not None:
+                part = _input_grad(g.float() * scale.float(), w_q, ctx.x_dtype)
+                gx = part if gx is None else gx + part
+        return (gx, None) + (None,) * len(ws)
+
+
 def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b -> f32 where one operand is f32 and the other bf16: the f32 one is split
     into hi = bf16(x) and lo = bf16(x - hi), and both products accumulate in f32."""
@@ -143,6 +170,19 @@ def q_matmul(x: torch.Tensor, p: dict, out_dtype: torch.dtype | None = None) -> 
     else:
         y = _W8A16.apply(x2, w_q, scale, out_dtype)
     return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def q_matmul_group(x: torch.Tensor, ps: list, out_dtype: torch.dtype | None = None
+                   ) -> list[torch.Tensor]:
+    """``[q_matmul(x, p, out_dtype) for p in ps]`` for products that share x (q|k|v,
+    gate|up): up to ``KERNEL_MAX_ROWS`` rows one K4 launch computes them all (the codes
+    read in place, as ``q_matmul`` reads them), above it each takes the library route."""
+    out_dtype = out_dtype or x.dtype
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.shape[0] > KERNEL_MAX_ROWS:
+        return [q_matmul(x, p, out_dtype) for p in ps]
+    ys = _W8A16Group.apply(x2, out_dtype, *[t for p in ps for t in (p["w_q"], p["scale"])])
+    return [y.reshape(*x.shape[:-1], y.shape[-1]) for y in ys]
 
 
 def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -101,11 +101,14 @@ Phases, each line stamped with elapsed seconds:
         K2 and K7 on the card.
  10. the w8a8 TTFT path (load(quantize_lm=True, a8_prefill=True, a8_encoder=True) with
      a8_attention, and the fused encoder layout), after every earlier model is freed:
-     a. the int8-QK flash attention (K8) against its plain version from the same prelude
-        outputs at the encoder's shapes ([1,1500,20,64], [20,1500,20,64], non-causal,
-        block_k 2048) and the LM's ([1,1024,28,128], [1,16384,28,128] causal, and an
-        unaligned block with a q_offset), f32 and bf16, replays bit-identical; timed beside
-        the prelude, the plain version, SDPA on the float inputs (a yardstick) and the bound;
+     a. the int8-QK flash attention (K8) against its plain version from the same CUDA
+        prelude outputs at the encoder's shapes ([1,1500,20,64], [20,1500,20,64],
+        non-causal, block_k 2048) and the LM's ([1,1024,28,128], [1,16384,28,128] causal,
+        and an unaligned block with a q_offset), f32 and bf16, replays bit-identical; the
+        CUDA prelude against the torch prelude on the card (q codes and qs equal, k codes
+        >= 99.99 % equal and at most 1 apart, ks and rowc within 1e-6 relative); timed
+        beside both preludes, the plain version, SDPA on the float inputs (a yardstick)
+        and the bounds;
      b. the three encoder fusions (K9) against their plain versions at m = 1500 and 30,000
         rows, bf16 and f32, on one full-width layer: codes >= 99.9 % equal, every output
         within its bound, replays bit-identical; timed beside the composed torch form of
@@ -113,11 +116,12 @@ Phases, each line stamped with elapsed seconds:
         composed form also as device times (CUDA graphs);
      c. the 30 s clip at full width with the LM quantized on the card to int8 and the
         encoder by quantize_encoder_params, a8_prefill and a8_attention on both towers:
-        generate() three times, 60 K8 launches each, identical ids, the prefill logits within
-        JAX's a8 band of the w8a16 model's, every K8 launch replayed against the plain
-        version; user TTFT beside phases 4 and 7;
+        generate() three times, 60 K8 launches (and 60 CUDA preludes) each, identical
+        ids, the prefill logits within JAX's a8 band of the w8a16 model's, every K8
+        launch replayed against the plain version and every prelude held to the torch
+        prelude; user TTFT beside phases 4 and 7;
      d. the 10-minute file on the fused layout (fused_stages all three, K2 attention) with
-        the a8 prefill and K8 at 16,384 tokens, twice: 96 K9 and 28 K8 launches per
+        the a8 prefill and K8 at 16,384 tokens, twice: 96 K9 and 28 K8 (and prelude) per
         generate, identical ids; user TTFT beside phase 5's, kernel times beside bounds;
         then twice with fused_stages ("qkv", "out") (the MLP composed): its warm TTFT;
      e. f32 card against CPU, full width, 2 + 2 layers, plain and fused encoder layouts:
@@ -125,21 +129,25 @@ Phases, each line stamped with elapsed seconds:
  11. the int8 LM's decode (load(quantize_lm=True)), after phase 10's models are freed:
      a. the w8a16 matmul (K4) against its plain version on the 7B int8 LM's codes
         (random_quantized_lm, made on the card): q, k, v, o, gate, up, down at layers 0
-        and 27 (read in place from the stacks) and the head at m 1, 8, 32, bf16 x to
-        bf16 and to f32 and f32 x to f32, the tied layout (the embedding through its
+        and 27 (read in place from the stacks), the grouped launches q|k|v and gate|up
+        (each product against its own plain version) and the head at m 1, 8, 32, bf16 x
+        to bf16 and to f32 and f32 x to f32, the tied layout (the embedding through its
         transposed view), replays bit-identical; timed beside the plain version, the
         library route (the per-call bf16 copy into cuBLAS), torch._weight_int8pack_mm
-        and the bound; K4 against the library route at m 64-1024 (KERNEL_MAX_ROWS);
+        and the bound; the LM's launches with the codes streaming and one decode step's
+        113 launches in one graph (device times); K4 against the library route at m
+        32-1024 (KERNEL_MAX_ROWS);
      b. bench.py's bench_decode: that LM on a bf16 KVCache, batch 1, capacity 1024, 64
-        greedy steps (a warm run and 3 timed), 197 K4 launches per step, identical ids,
+        greedy steps (a warm run and 3 timed), 113 K4 launches per step, identical ids,
         ms per step and K4's device time beside the weight-streaming bound;
      c. bench_decode_matrix's b8 c8192 on the dense int8 cache (init_cache_q8, 32 steps),
         and bench_decode_w4's b1 c1024 on it with the fused int4 LM: per step 1 K5, 28 +
         28 K6 and 1 K4 (the int8 head);
      d. the 30 s clip on the int8 LM (the bf16 model's LM quantized on the card): generate()
-        twice, 32 greedy tokens, identical ids, 197 K4 launches per decode step plus the
-        prefill's head; generate(stream=True) gives generate's ids; one step's K4 launches
-        replayed against the plain version;
+        twice, 32 greedy tokens, identical ids, 113 K4 launches per decode step plus the
+        prefill's head (and its products where its rows are at most KERNEL_MAX_ROWS);
+        generate(stream=True) gives generate's ids; the prefill's and one step's K4
+        launches replayed against the plain version;
      e. f32 card against CPU, full width, 2 LM layers: the int8 LM prefills through flash
         into a Q8KVCache and decodes 8 greedy steps; logits within 1e-4 of max|logit|,
         ids token-exact; quantize_kv's codes and the int4 group scales equal card vs CPU
@@ -2221,6 +2229,8 @@ K9_TOL = (2.0 ** -7, 2.0 ** -6)      # every y: |y - plain| <= 2^-7 |plain| + 2^
 K9_SHARE = 0.999                     # share of K9 outputs "near", and of equal int8 codes
 A8_BAND = 0.05                       # a8 vs w8a16 prefill logits, rel max (JAX's band)
 A8_F32_TOL = A8_BAND                 # 10e: card vs CPU prefill logits, rel max (see 10e)
+K8_PRELUDE_SHARE = 0.9999           # CUDA prelude vs torch prelude: share of equal k codes
+K8_PRELUDE_REL = 1e-6                # and ks, rowc relative
 K8_NO_LIBRARY = ("none: SDPA computes float attention, not the int8-QK function; its time "
                  "on the float inputs is logged as a yardstick")
 
@@ -2280,12 +2290,45 @@ def check_k8(name: str, r: dict) -> None:
     check(r["replay"], f"K8 {name}: two launches on the same inputs differ")
 
 
+def k8_prelude_bound_ms(q_shape, k_shape, tq_pad: int, tk_pad: int, dtype: str) -> tuple:
+    """Least time of the CUDA prelude: bytes at 3.35 TB/s, q and k read once, the int8
+    codes and f32 rowc written once (an f32 v also read, and written once as bf16)."""
+    b, tq, h, d = q_shape
+    tk, hkv = k_shape[1], k_shape[2]
+    item = 4 if dtype == "float32" else 2
+    nbytes = (b * tq * h * d + b * tk * hkv * d) * item + b * h * tq_pad * (d + 4) \
+        + b * hkv * tk_pad * d
+    if dtype == "float32":
+        nbytes += b * tk * hkv * d * (4 + 2)
+    return nbytes / PEAK_BYTES * 1e3, "bytes"
+
+
+def k8_prelude_compare(fa8, ref, pre) -> dict:
+    """The CUDA prelude's outputs against the torch prelude's on the card: q codes and qs
+    equal, k codes equal in >= 99.99 % of entries and never more than 1 apart (the K mean
+    is summed in another order), ks and rowc within 1e-6 relative."""
+    kq = (pre.k_i8.int() - ref.k_i8.int()).abs()
+
+    def rel(a, b):
+        return ((a - b).abs() / b.abs()).max().item()
+
+    r = dict(q_equal=torch.equal(pre.q_i8, ref.q_i8), qs_equal=torch.equal(pre.qs, ref.qs),
+             k_share=(kq == 0).float().mean().item(), k_max=kq.max().item(),
+             ks_rel=rel(pre.ks, ref.ks), rowc_rel=rel(pre.rowc, ref.rowc))
+    r["ok"] = (r["q_equal"] and r["qs_equal"] and r["k_share"] >= K8_PRELUDE_SHARE
+               and r["k_max"] <= 1 and r["ks_rel"] <= K8_PRELUDE_REL
+               and r["rowc_rel"] <= K8_PRELUDE_REL)
+    r["err"] = max(float(r["k_max"]), (pre.rowc - ref.rowc).abs().max().item())
+    return r
+
+
 def k8_phase(fa8) -> dict:
-    """10a. K8 against its plain version from the same prelude outputs, at the encoder's
-    shapes (30 s and 10 minutes, non-causal, scale 1, block_k 2048), the LM's prefill
-    (1024 and 16,384 tokens, causal over 4 KV heads) and an unaligned causal block with a
-    q_offset, in f32 and bf16; the kernel, the prelude, the plain version and SDPA on the
-    float inputs timed beside the bound."""
+    """10a. K8 against its plain version from the same (CUDA) prelude outputs, at the
+    encoder's shapes (30 s and 10 minutes, non-causal, scale 1, block_k 2048), the LM's
+    prefill (1024 and 16,384 tokens, causal over 4 KV heads) and an unaligned causal block
+    with a q_offset, in f32 and bf16; the CUDA prelude against the torch prelude on the
+    card; the kernel, both preludes, the plain version and SDPA on the float inputs timed
+    beside the bounds."""
     cases = [  # name, q shape, k shape, causal, scale, q_offset, block_k
         ("encoder", (1, 1500, 20, 64), (1, 1500, 20, 64), False, 1.0, 0, 2048),
         ("encoder_10min", (20, 1500, 20, 64), (20, 1500, 20, 64), False, 1.0, 0, 2048),
@@ -2306,25 +2349,37 @@ def k8_phase(fa8) -> dict:
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
             kw = dict(causal=causal, scale=scale, q_offset=q_offset, block_q=512,
                       block_k=block_k)
-            pre = fa8.prelude(q, k, v, **kw)
-            r = k8_compare(fa8, pre)
             dn = str(dtype).split(".")[-1]
+            ref_pre = fa8.prelude(q, k, v, **kw)
+            pre = fa8.prelude_kernel(q, k, v, **kw)
+            pc = k8_prelude_compare(fa8, ref_pre, pre)
+            check(pc["ok"], f"K8 prelude {name} {dn}: {pc}")
+            r = k8_compare(fa8, pre)
+            r["prelude"] = pc
             r["ms"] = time_ms(lambda: fa8.flash_attention_a8_kernel(pre), 3 if big else 10)
-            r["prelude_ms"] = time_ms(lambda: fa8.prelude(q, k, v, **kw), 3 if big else 10)
+            r["prelude_ms"] = time_ms(lambda: fa8.prelude_kernel(q, k, v, **kw), 3 if big else 10)
+            r["torch_prelude_ms"] = time_ms(lambda: fa8.prelude(q, k, v, **kw), 3 if big else 10)
             r["plain_ms"] = time_ms(lambda: fa8.flash_attention_a8_reference(pre), 1, 1)
             r["sdpa_ms"] = (time_ms(sdpa_call(q, k, v, dict(causal=causal, scale=scale)),
                                     3 if big else 10) if q_offset == 0 else None)
             r["bound_ms"], r["bound_by"] = k8_bound_ms(qs, ks, causal, q_offset, dn)
+            r["prelude_bound_ms"], _ = k8_prelude_bound_ms(qs, ks, ref_pre.q_i8.shape[1],
+                                                           ref_pre.k_i8.shape[1], dn)
             sdpa = "n/a" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f}"
             log(f"K8 {name:14s} {dn:8s} q{list(qs)} k{list(ks)} causal={causal} q_offset="
                 f"{q_offset} block_k={block_k}: max|o-plain|={r['err']:.3e} (at "
                 f"{r['ratio']:.3f} of its limit), replay bit-identical {r['replay']}; ms="
-                f"{r['ms']:.4f} prelude_ms={r['prelude_ms']:.4f} plain_ms={r['plain_ms']:.2f} "
-                f"SDPA (float, yardstick) ms={sdpa} bound_ms={r['bound_ms']:.5f} "
-                f"({r['bound_by']}); {r['bound_ms'] / r['ms'] * 100:.2f} % of the bound")
+                f"{r['ms']:.4f} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}), "
+                f"{r['bound_ms'] / r['ms'] * 100:.2f} % of the bound; prelude: CUDA "
+                f"{r['prelude_ms']:.4f} ms (bound {r['prelude_bound_ms']:.5f}, bytes; "
+                f"{r['prelude_bound_ms'] / r['prelude_ms'] * 100:.1f} %), torch "
+                f"{r['torch_prelude_ms']:.4f} ms; q codes equal {pc['q_equal']}, qs equal "
+                f"{pc['qs_equal']}, k codes equal {pc['k_share']:.6f} (max diff {pc['k_max']}), "
+                f"ks rel {pc['ks_rel']:.1e}, rowc rel {pc['rowc_rel']:.1e}; plain_ms="
+                f"{r['plain_ms']:.2f} SDPA (float, yardstick) ms={sdpa}")
             check_k8(f"{name} {dn}", r)
             results[(name, dn)] = r
-            del pre
+            del pre, ref_pre
         del q32, k32, v32, q, k, v
         torch.cuda.empty_cache()
     return results
@@ -2510,6 +2565,23 @@ def k8_replay(fa8, captured: list) -> dict:
     return tot
 
 
+def k8_prelude_replay(fa8, captured: list) -> dict:
+    """The path's own CUDA prelude launches replayed on their captured inputs: each held to
+    the torch prelude on the card, the torch prelude timed (median of 3 after one warm-up)
+    and summed with the per-launch byte bounds."""
+    tot = dict(err=0.0, plain_ms=0.0, bound_ms=0.0)
+    for i, (q, k, v, kw) in enumerate(captured):
+        ref = fa8.prelude(q, k, v, **kw)
+        pc = k8_prelude_compare(fa8, ref, fa8.prelude_kernel(q, k, v, **kw))
+        check(pc["ok"], f"K8 prelude path launch {i}: {pc}")
+        tot["err"] = max(tot["err"], pc["err"])
+        tot["plain_ms"] += time_ms(lambda: fa8.prelude(q, k, v, **kw), 3, 1)
+        tot["bound_ms"] += k8_prelude_bound_ms(tuple(q.shape), tuple(k.shape),
+                                               ref.q_i8.shape[1], ref.k_i8.shape[1],
+                                               str(q.dtype).split(".")[-1])[0]
+    return tot
+
+
 def a8_clip_phase(w8, fa, fa8, wav, ref_ttft: dict) -> dict:
     """10c. The 30 s clip on the a8 path at full width: the w8a16 model's encoder
     quantized by quantize_encoder_params (what load(a8_encoder=True) runs), a8_prefill,
@@ -2524,10 +2596,12 @@ def a8_clip_phase(w8, fa, fa8, wav, ref_ttft: dict) -> dict:
     enc8 = whisper_encoder.quantize(w8.model.encoder, w8.cfg.encoder)
     a8 = a8_variant(w8, enc8, dict(a8_attention=True), dict(a8_prefill=True, a8_attention=True))
     runs = []
+    pl8 = fa8.PRELUDE_LAUNCHES
     for i in range(3):
-        for c in (fa.LAUNCHES, fa8.LAUNCHES):
+        for c in (fa.LAUNCHES, fa8.LAUNCHES, pl8):
             c.reset()
         fa8.LAUNCHES.timing, fa8.LAUNCHES.capture = True, i == 2
+        pl8.timing, pl8.capture = True, i == 2
         torch.cuda.reset_peak_memory_stats()
         text, _, split = timed_generate(a8, sound=wav, prompt="What do you hear?",
                                         max_new_tokens=16)
@@ -2535,29 +2609,35 @@ def a8_clip_phase(w8, fa, fa8, wav, ref_ttft: dict) -> dict:
         run = dict(ids=out.tokens[0, : int(out.lengths[0])].tolist(), proc=a8.last_processor_s,
                    ttft=out.ttft_s, first_logits=out.first_logits, k8=fa8.LAUNCHES.count,
                    k8_shapes=dict(fa8.LAUNCHES.shapes), k8_ms=fa8.LAUNCHES.device_ms(),
+                   pre=pl8.count, pre_ms=pl8.device_ms(),
                    k2=fa.LAUNCHES.count, peak=torch.cuda.max_memory_allocated() / 2**30)
-        captured = list(fa8.LAUNCHES.inputs)
-        fa8.LAUNCHES.timing = fa8.LAUNCHES.capture = False
-        fa8.LAUNCHES.reset()
+        captured, captured_pre = list(fa8.LAUNCHES.inputs), list(pl8.inputs)
+        for c in (fa8.LAUNCHES, pl8):
+            c.timing = c.capture = False
+            c.reset()
         log(f"a8 generate #{i + 1}: ids={run['ids']} text={text!r} {split}; K8 launches "
-            f"{run['k8']} ({run['k8_ms']:.3f} ms in the path), K2 {run['k2']}; peak GPU memory "
-            f"{run['peak']:.2f} GiB")
+            f"{run['k8']} ({run['k8_ms']:.3f} ms in the path), its CUDA prelude {run['pre']} "
+            f"({run['pre_ms']:.3f} ms), K2 {run['k2']}; peak GPU memory {run['peak']:.2f} GiB")
         runs.append(run)
     expected = {((1, 1500, 20, 64), (1, 1500, 20, 64), False): 32,
                 ((1, 1024, 28, 128), (1, 1024, 4, 128), True): 28}
     for run in runs:
         check(run["k8"] == 60 and run["k8_shapes"] == expected,
               f"K8 launches per a8 generate {run['k8_shapes']} != {expected}")
+        check(run["pre"] == 60, f"K8 prelude launches per a8 generate {run['pre']} != 60")
         check(run["k2"] == 0, f"the a8 path launched K2 {run['k2']} times")
         check(bool(torch.isfinite(run["first_logits"]).all()), "a8 prefill logits not finite")
     check(all(r["ids"] == runs[0]["ids"] for r in runs),
           f"a8 greedy ids differ: {[r['ids'] for r in runs]}")
     rep = k8_replay(fa8, captured)
-    del captured
+    pre_rep = k8_prelude_replay(fa8, captured_pre)
+    del captured, captured_pre
     log(f"a8 path's 60 K8 launches replayed: max|o-plain|={rep['err']:.3e} (at "
         f"{rep['ratio']:.3f} of its limit); summed kernel {rep['kernel_ms']:.3f} ms (in the "
         f"path {runs[2]['k8_ms']:.3f} ms), plain {rep['plain_ms']:.2f} ms, bound "
-        f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+        f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}); the 60 CUDA preludes held to the torch "
+        f"prelude (max diff {pre_rep['err']:.3e}), {runs[2]['pre_ms']:.3f} ms in the path, "
+        f"the torch prelude {pre_rep['plain_ms']:.3f} ms, bound {pre_rep['bound_ms']:.4f} ms")
     fa8.LAUNCHES.reset()
     _, _, split = timed_generate(w8, sound=wav, prompt="What do you hear?", max_new_tokens=1)
     check(fa8.LAUNCHES.count == 0, "the w8a16 path launched K8")
@@ -2576,7 +2656,7 @@ def a8_clip_phase(w8, fa, fa8, wav, ref_ttft: dict) -> dict:
     del a8, enc8
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(warm=warm, replay=rep)
+    return dict(warm=warm, replay=rep, prelude=pre_rep)
 
 
 def a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav, ref: dict) -> dict:
@@ -2600,8 +2680,8 @@ def a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav, ref: dict) -> dict:
     a8f = dataclasses.replace(a8f, processor=AF3Processor(
         tokenizer=a8f.processor.tokenizer, cfg=a8f.cfg, frontend=frontend))
     counters = {"K9 ln_qkv": ef.LN_QKV_LAUNCHES, "K9 out_ln": ef.OUT_LN_LAUNCHES,
-                "K9 mlp": ef.MLP_LAUNCHES, "K8": fa8.LAUNCHES, "K2": fa.LAUNCHES,
-                "K1": lm.LAUNCHES}
+                "K9 mlp": ef.MLP_LAUNCHES, "K8": fa8.LAUNCHES,
+                "K8 prelude": fa8.PRELUDE_LAUNCHES, "K2": fa.LAUNCHES, "K1": lm.LAUNCHES}
     runs = []
     for i in range(2):
         for c in counters.values():
@@ -2629,6 +2709,8 @@ def a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav, ref: dict) -> dict:
         check(run["K8"][0] == 28 and run["K8"][1] == {
             ((1, 16384, 28, 128), (1, 16384, 4, 128), True): 28},
             f"K8 launches per 10-minute a8 generate {run['K8'][1]}")
+        check(run["K8 prelude"][0] == 28, f"K8 prelude launches per 10-minute a8 generate "
+                                          f"{run['K8 prelude'][0]} != 28")
         check(run["K2"][0] == 32, f"K2 launches {run['K2'][0]} != 32 (the encoder's)")
         check(run["K1"][0] == 2, f"K1 launches {run['K1'][0]} != 2")
         check(run["finite"], "10-minute a8 prefill logits not finite")
@@ -2641,6 +2723,8 @@ def a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav, ref: dict) -> dict:
                              (("ln_qkv", 3840), ("out_ln", 1280), ("mlp", 5120))),
               "K8": 28 * k8_bound_ms((1, 16384, 28, 128), (1, 16384, 4, 128), True, 0,
                                       "bfloat16")[0],
+              "K8 prelude": 28 * k8_prelude_bound_ms((1, 16384, 28, 128), (1, 16384, 4, 128),
+                                                     16384, 16384, "bfloat16")[0],
               "K2": 32 * attention_bound_ms((20, 1500, 20, 64), (20, 1500, 20, 64), False, 0,
                                             "bfloat16")[0]}
     # the same file with the MLP composed (fused_stages ("qkv", "out")): does K9's MLP pay?
@@ -2669,7 +2753,8 @@ def a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav, ref: dict) -> dict:
         f"{warm['proc']:.3f} + ttft {warm['ttft']:.3f}) against phase 5's "
         f"{ref['proc'] + ref['ttft']:.3f} s; "
         f"in the path K9 {k9_ms:.1f} ms (bound {bounds['K9']:.2f} ms), K8 {warm['K8'][2]:.1f} ms "
-        f"(bound {bounds['K8']:.2f} ms), K2 {warm['K2'][2]:.1f} ms (bound {bounds['K2']:.2f} "
+        f"(bound {bounds['K8']:.2f} ms), its CUDA prelude "
+        f"{warm['K8 prelude'][2]:.2f} ms (bound {bounds['K8 prelude']:.3f} ms), K2 {warm['K2'][2]:.1f} ms (bound {bounds['K2']:.2f} "
         f"ms); peak {warm['peak']:.2f} GiB")
     del a8f, encf
     gc.collect()
@@ -2794,6 +2879,11 @@ def a8_f32_card_vs_cpu_phase(fa8, ef) -> None:
 K4_ROUTE_ROWS = (64, 128, 256, 1024)   # 11a: K4 against the library route, to set the limit
 
 
+def k4_step_launches(n_layers: int) -> int:
+    """K4 launches in one int8 decode step: q|k|v, o, gate|up and down per layer, the head."""
+    return 4 * n_layers + 1
+
+
 def k4_bound_ms(m: int, k: int, n: int, x_dtype, out_dtype) -> tuple:
     """Least time of one w8a16 product: its codes (K N bytes), f32 scales, x and y each moved
     once, against 2 m K N operations at x's dtype's peak."""
@@ -2833,16 +2923,38 @@ def k4_case(k4, x, w_q, scale, out_dtype, timed: bool) -> dict:
     return r
 
 
+def k4_group_case(k4, x, prods, out_dtype, timed: bool) -> dict:
+    """One grouped K4 launch (products sharing x) against the plain version of each
+    product (K5's tolerances), replayed bit-identical; with ``timed`` the launch's time
+    with the wrapper and as a device time, and the bound of its products together."""
+    ys = k4.w8a16_matmul_group(x, prods, out_dtype)
+    ys2 = k4.w8a16_matmul_group(x, prods, out_dtype)
+    rs = [w4_compare(y, k4.w8a16_matmul_reference(x, p["w_q"], p["scale"], out_dtype))
+          for y, p in zip(ys, prods)]
+    r = dict(err=max(q["err"] for q in rs), ratio=max(q["ratio"] for q in rs),
+             finite=all(q["finite"] for q in rs),
+             replay_equal=all(torch.equal(a, b) for a, b in zip(ys, ys2)))
+    if timed:
+        r["ms"] = time_ms(lambda: k4.w8a16_matmul_group(x, prods, out_dtype))
+        r["graph_ms"] = graph_ms(lambda: k4.w8a16_matmul_group(x, prods, out_dtype))
+        n = sum(p["w_q"].shape[1] for p in prods)
+        r["bound_ms"], r["bound_by"] = k4_bound_ms(x.shape[0], x.shape[1], n, x.dtype, out_dtype)
+    return r
+
+
 def k4_phase(k4, qlm) -> dict:
     """11a. K4 against its plain version at the 7B shapes, on the int8 LM's own codes
     (random_quantized_lm, made on the card) and normal x: the seven layer products (q, k,
-    v, o, gate, up, down; layers 0 and 27, read in place from the stacks) and the head
-    [3584, 152064] at m 1, 8, 32, bf16 x to bf16 and to f32 and f32 x to f32; the tied
-    layout (the embedding [152064, 3584] read through its transposed view) at the same m;
-    every call replayed bit-identical. The bf16-x cases (the paths' own) timed at layer 0
-    (median of 15 after 3) beside the plain version, the library route (bf16 copy +
-    cuBLAS), _weight_int8pack_mm and the bound; then K4 against the library route at m 64-1024 on [3584, 18944], the rows that
-    set KERNEL_MAX_ROWS."""
+    v, o, gate, up, down; layers 0 and 27, read in place from the stacks), the grouped
+    launches the LM makes (q|k|v and gate|up, each product held to its own plain version)
+    and the head [3584, 152064] at m 1, 8, 32, bf16 x to bf16 and to f32 and f32 x to f32;
+    the tied layout (the embedding [152064, 3584] read through its transposed view) at the
+    same m; every call replayed bit-identical. The bf16-x cases (the paths' own) timed at
+    layer 0 (median of 15 after 3) beside the plain version, the library route (bf16 copy +
+    cuBLAS), _weight_int8pack_mm and the bound; the LM's launches also streaming (one call
+    per layer in turn in one graph, so the codes come from HBM as in a decode step), and
+    one decode step's 113 launches in one graph; then K4 against the library route at m
+    64-1024 on [3584, 18944] (device times), the rows that set KERNEL_MAX_ROWS."""
     from audio_flamingo_tpu_torch.ops.quant import KERNEL_MAX_ROWS
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -2850,9 +2962,24 @@ def k4_phase(k4, qlm) -> dict:
     last = layers["ln1_w"].shape[0] - 1
     mats = {n: layers[n] for n in ("q", "k", "v", "o")}
     mats.update({n: layers["mlp"][n] for n in ("gate", "up", "down")})
+    groups = {"q|k|v": ("q", "k", "v"), "gate|up": ("gate", "up")}
     precisions = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
                   (torch.float32, torch.float32))
     res = {}
+
+    def tag_of(xd, od):
+        return f"{str(xd).split('.')[-1]}->{str(od).split('.')[-1]}"
+
+    def report(name, shape, m, tag, r):
+        lib = (f"{r['library_ms']:.4f}" if r.get("library_ms") is not None
+               else f"null ({r.get('library_why', 'no single library call')})")
+        route = f" library route {r['route_ms']:.4f}" if "route_ms" in r else ""
+        plain = f" plain_ms={r['plain_ms']:.4f}" if "plain_ms" in r else ""
+        log(f"K4 {name:7s} [{m},{shape[0]}]x[{shape[0]},{shape[1]}] {tag:17s}: "
+            f"max|y-plain|={r['err']:.3e} (at {r['ratio']:.3f} of the limit) ms="
+            f"{r['ms']:.4f} (device {r['graph_ms']:.4f}){plain}{route} "
+            f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); the "
+            f"device time at {r['bound_ms'] / r['graph_ms'] * 100:.1f} % of the bound")
 
     def run(name, w_q, scale, m, layer=None):
         x32 = torch.randn((m, w_q.shape[0]), generator=gen, device="cuda")
@@ -2861,50 +2988,104 @@ def k4_phase(k4, qlm) -> dict:
                 continue       # the tied head only ever writes f32 logits
             r = k4_case(k4, x32.to(xd), w_q, scale, od,
                         timed=layer in (None, 0) and xd == torch.bfloat16)
-            tag = f"{str(xd).split('.')[-1]}->{str(od).split('.')[-1]}"
+            tag = tag_of(xd, od)
             check(r["finite"] and r["ratio"] <= 1.0 and r["replay_equal"],
                   f"K4 {name} m={m} {tag} layer {layer}: |y - plain| at {r['ratio']:.3f} of its "
                   f"limit, replay equal {r['replay_equal']}")
             res[(name, m, tag, layer)] = r
             if "ms" in r:
-                lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
-                       else f"null ({r['library_why']})")
-                log(f"K4 {name:5s} [{m},{w_q.shape[0]}]x[{w_q.shape[0]},{w_q.shape[1]}] {tag:17s}: "
-                    f"max|y-plain|={r['err']:.3e} (at {r['ratio']:.3f} of the limit) ms="
-                    f"{r['ms']:.4f} (device {r['graph_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
-                    f"library route {r['route_ms']:.4f} "
-                    f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); the "
-                    f"device time at {r['bound_ms'] / r['graph_ms'] * 100:.1f} % of the bound")
+                report(name, tuple(w_q.shape), m, tag, r)
+
+    def run_group(name, m, layer):
+        prods = [{"w_q": mats[n]["w_q"][layer], "scale": mats[n]["scale"][layer]}
+                 for n in groups[name]]
+        x32 = torch.randn((m, prods[0]["w_q"].shape[0]), generator=gen, device="cuda")
+        for xd, od in precisions:
+            r = k4_group_case(k4, x32.to(xd), prods, od,
+                              timed=layer == 0 and xd == torch.bfloat16)
+            tag = tag_of(xd, od)
+            check(r["finite"] and r["ratio"] <= 1.0 and r["replay_equal"],
+                  f"K4 {name} m={m} {tag} layer {layer}: |y - plain| at {r['ratio']:.3f} of "
+                  f"its limit, replay equal {r['replay_equal']}")
+            res[(name, m, tag, layer)] = r
+            if "ms" in r:
+                n = sum(p["w_q"].shape[1] for p in prods)
+                report(name, (prods[0]["w_q"].shape[0], n), m, tag, r)
 
     for m in (1, 8, 32):
         for name, p in mats.items():
             for layer in (0, last):
                 run(name, p["w_q"][layer], p["scale"][layer], m, layer)
+        for name in groups:
+            for layer in (0, last):
+                run_group(name, m, layer)
         run("head", qlm.lm_head["w_q"], qlm.lm_head["scale"], m)
         run("tied", qlm.embed["w_q"].t(), qlm.embed["scale"], m)
+    # the LM's launches with the codes streaming from HBM, and one decode step's launches
+    stream = {}
+    n_layers = last + 1
+    for m in (1, 8, 32):
+        xs = {k: torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+              for k in (3584, 18944)}
+        for name in ("q|k|v", "o", "gate|up", "down"):
+            names = groups.get(name, (name,))
+
+            def every_layer(names=names):
+                x = xs[mats[names[0]]["w_q"].shape[1]]
+                for i in range(n_layers):
+                    k4.w8a16_matmul_group(x, [{"w_q": mats[n]["w_q"][i],
+                                               "scale": mats[n]["scale"][i]} for n in names])
+
+            n = sum(mats[nm]["w_q"].shape[2] for nm in names)
+            k = mats[names[0]]["w_q"].shape[1]
+            t = graph_ms(every_layer, 10) / n_layers
+            b_ms, _ = k4_bound_ms(m, k, n, torch.bfloat16, torch.bfloat16)
+            stream[(name, m)] = (t, b_ms)
+        x = xs[3584]
+
+        def step():
+            for i in range(n_layers):
+                p = {nm: {"w_q": mats[nm]["w_q"][i], "scale": mats[nm]["scale"][i]} for nm in mats}
+                k4.w8a16_matmul_group(x, [p["q"], p["k"], p["v"]])
+                k4.w8a16_matmul(x, p["o"]["w_q"], p["o"]["scale"])
+                k4.w8a16_matmul_group(x, [p["gate"], p["up"]])
+                k4.w8a16_matmul(xs[18944], p["down"]["w_q"], p["down"]["scale"])
+            k4.w8a16_matmul(x, qlm.lm_head["w_q"], qlm.lm_head["scale"], torch.float32)
+
+        step_bounds = n_layers * sum(b for (nm, mm), (_, b) in stream.items() if mm == m) \
+            + k4_bound_ms(m, 3584, 152064, torch.bfloat16, torch.float32)[0]
+        stream[("step", m)] = (graph_ms(step, 5), step_bounds)
+        log(f"K4 bf16 m={m}, the codes streaming (one launch per layer in turn, device ms per "
+            f"launch, its bound, the share): "
+            + "; ".join(f"{nm} {stream[(nm, m)][0]:.4f} (bound {stream[(nm, m)][1]:.5f}, "
+                        f"{stream[(nm, m)][1] / stream[(nm, m)][0] * 100:.1f} %)"
+                        for nm in ("q|k|v", "o", "gate|up", "down"))
+            + f"; one decode step's {4 * n_layers + 1} launches in one graph "
+              f"{stream[('step', m)][0]:.3f} ms (bound {step_bounds:.3f} ms, "
+              f"{step_bounds / stream[('step', m)][0] * 100:.1f} %)")
     w, sc = layers["mlp"]["up"]["w_q"][0], layers["mlp"]["up"]["scale"][0]
     route = {}
-    for m in K4_ROUTE_ROWS:
+    for m in (32,) + K4_ROUTE_ROWS:
         x = torch.randn((m, w.shape[0]), generator=gen, device="cuda").bfloat16()
-        route[m] = (time_ms(lambda: k4.w8a16_matmul(x, w, sc)),
-                    time_ms(library_route_call(x, w, sc, torch.bfloat16)))
-    at32 = res[("up", 32, "bfloat16->bfloat16", 0)]
+        route[m] = (graph_ms(lambda: k4.w8a16_matmul(x, w, sc), 10),
+                    graph_ms(library_route_call(x, w, sc, torch.bfloat16), 10))
 
     def bound(m):
         b_ms, b_by = k4_bound_ms(m, *w.shape, torch.bfloat16, torch.bfloat16)
         return f"bound {b_ms:.5f} ({b_by})"
-    log(f"K4 against the library route at [m,3584]x[3584,18944] bf16 (kernel / route ms, "
-        f"bound ms): m=32 {at32['ms']:.4f} / {at32['route_ms']:.4f}, {bound(32)}; "
-        + "; ".join(f"m={m} {a:.4f} / {b:.4f}, {bound(m)}" for m, (a, b) in route.items())
+    log(f"K4 against the library route at [m,3584]x[3584,18944] bf16 (device ms, kernel / "
+        f"route, bound): " + "; ".join(f"m={m} {a:.4f} / {b:.4f}, {bound(m)}"
+                                       for m, (a, b) in route.items())
         + f"; KERNEL_MAX_ROWS = {KERNEL_MAX_ROWS}")
-    # one bf16 decode step's 197 launches at m = 1, by their device times alone
-    per = {n: res[(n, 1, "bfloat16->bfloat16", 0)]["graph_ms"] for n in mats}
-    step = last + 1
-    step_ms = step * sum(per.values()) + res[("head", 1, "bfloat16->float32", None)]["graph_ms"]
-    log(f"K4 device time of one 7B decode step from the graph replays at m = 1: "
-        f"{step_ms:.3f} ms = {step} x (" + " + ".join(f"{n} {v * 1e3:.1f}" for n, v in per.items())
-        + f" us) + the head {res[('head', 1, 'bfloat16->float32', None)]['graph_ms']:.4f} ms")
-    return dict(cases=res, route=route, step_ms=step_ms)
+    # one bf16 decode step at m = 1 from the single launches' graph replays (layer 0)
+    per = {n: res[(n, 1, "bfloat16->bfloat16", 0)]["graph_ms"] for n in ("q|k|v", "o",
+                                                                          "gate|up", "down")}
+    head_ms = res[("head", 1, "bfloat16->float32", None)]["graph_ms"]
+    log(f"K4 device time of one 7B decode step at m = 1: {stream[('step', 1)][0]:.3f} ms in one "
+        f"graph of its {4 * n_layers + 1} launches; from layer 0's replays {n_layers} x ("
+        + " + ".join(f"{n} {v * 1e3:.1f}" for n, v in per.items())
+        + f" us) + the head {head_ms:.4f} ms = {n_layers * sum(per.values()) + head_ms:.3f} ms")
+    return dict(cases=res, route=route, stream=stream, step_ms=stream[("step", 1)][0])
 
 
 def decode_loop_run(lm, cfg, cache, steps: int, batch: int) -> tuple:
@@ -2971,7 +3152,8 @@ def lm_step_bytes(lm) -> int:
 
 def int8_decode_phase(k4, k5, k6, qlm, cfg) -> dict:
     """11b, 11c. bench.py's decode points on the int8 7B LM: bench_decode (bf16 KVCache,
-    batch 1, capacity 1024, 64 greedy steps) with 28 x 7 + 1 = 197 K4 launches per step;
+    batch 1, capacity 1024, 64 greedy steps) with 28 x 4 + 1 = 113 K4 launches per step
+    (q|k|v and gate|up one launch each);
     bench_decode_matrix's b8 c8192 on the dense int8 cache (init_cache_q8, 32 steps); and
     bench_decode_w4's b1 c1024 on the q8 cache with the fused int4 LM
     (random_quantized_lm_w4): per step 1 K5, 28 + 28 K6 and 1 K4 (the int8 head)."""
@@ -2985,16 +3167,16 @@ def int8_decode_phase(k4, k5, k6, qlm, cfg) -> dict:
         "11b int8 7B decode, bf16 cache c1024", qlm, cfg,
         lambda: qwen2.init_cache(cfg, 1, 1024, torch.bfloat16, "cuda"), 64, 1,
         {"K4": k4.LAUNCHES}, weights)
-    check(res["b1"]["counts"]["K4"] == (7 * n_layers + 1) * 64,
-          f"11b: K4 launches {res['b1']['counts']['K4']} != {7 * n_layers + 1} per step")
+    check(res["b1"]["counts"]["K4"] == k4_step_launches(n_layers) * 64,
+          f"11b: K4 launches {res['b1']['counts']['K4']} != {k4_step_launches(n_layers)} per step")
     hd = cfg.resolved_head_dim()
     q8_bytes = 2 * n_layers * 8 * 8192 * cfg.num_kv_heads * (hd + 4)
     res["b8"] = timed_decode(
         "11c int8 7B decode, q8 cache b8 c8192", qlm, cfg,
         lambda: qwen2.init_cache_q8(cfg, 8, 8192, "cuda"), 32, 8, {"K4": k4.LAUNCHES},
         weights + q8_bytes, runs=2)
-    check(res["b8"]["counts"]["K4"] == (7 * n_layers + 1) * 32,
-          f"11c: K4 launches {res['b8']['counts']['K4']} != {7 * n_layers + 1} per step")
+    check(res["b8"]["counts"]["K4"] == k4_step_launches(n_layers) * 32,
+          f"11c: K4 launches {res['b8']['counts']['K4']} != {k4_step_launches(n_layers)} per step")
     log(f"11c: the q8 cache holds {q8_bytes / 1e9:.3f} GB of codes and scales, read every step")
     w4 = qwen2.quantized_lm(random_quantized_lm_w4(torch.Generator(device="cuda").manual_seed(0),
                                                    cfg, "cuda"), torch.bfloat16, "cuda")
@@ -3013,12 +3195,14 @@ def int8_decode_phase(k4, k5, k6, qlm, cfg) -> dict:
 def int8_clip_phase(k4, wav) -> dict:
     """11d. The 30 s clip on the int8 LM: the bf16 AF3 at full width with its LM quantized
     on the card as load(quantize_lm=True) does; generate() twice, greedy, 32 tokens:
-    identical ids, 197 K4 launches per decode step plus the prefill's head, decode tok/s
+    identical ids, 113 K4 launches per decode step plus the prefill's head (and its
+    products where its rows are at most KERNEL_MAX_ROWS), decode tok/s
     (the first run, uninstrumented) and K4's time in the second (events around each launch); generate(stream=True) yields the ids that
     runtime/generate.generate gives on the same (unpadded) prompt; one decode step's K4
     launches and the prefill's head replayed against the plain version, each shape timed
     with its plain version, library call and bound."""
     from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.ops.quant import KERNEL_MAX_ROWS
     from audio_flamingo_tpu_torch.runtime import generate as gen
 
     w8 = a8_models(with_flash(AF3Config(), True))
@@ -3041,9 +3225,12 @@ def int8_clip_phase(k4, wav) -> dict:
             f"decode {run['tps']:.1f} tok/s ({run['steps']} steps); K4 launches {run['k4']}"
             + (f" ({run['k4_ms']:.3f} ms device in the path; this run brackets every K4 launch "
                f"with CUDA events and keeps its inputs)" if i == 1 else ""))
-        check(run["k4"] == (7 * n_layers + 1) * run["steps"] + 1,
-              f"int8 LM generate: K4 launches {run['k4']} != {7 * n_layers + 1} per decode step "
-              f"x {run['steps']} + 1 (the prefill's head)")
+        rows = max(key[0] for key in run["k4_shapes"])   # the prefill's rows, if on K4
+        want = k4_step_launches(n_layers) * run["steps"] + 1 + (4 * n_layers if rows > 1 else 0)
+        check(run["k4"] == want and (rows == 1 or rows <= KERNEL_MAX_ROWS),
+              f"int8 LM generate: K4 launches {run['k4']} != {k4_step_launches(n_layers)} per "
+              f"decode step x {run['steps']} + 1 (the prefill's head)"
+              + (f" + {4 * n_layers} (its {rows}-row products)" if rows > 1 else ""))
         check(bool(torch.isfinite(out.first_logits).all()), "int8 LM prefill logits not finite")
         runs.append(run)
     check(runs[0]["ids"] == runs[1]["ids"], f"int8 LM greedy ids differ: {[r['ids'] for r in runs]}")
@@ -3059,35 +3246,42 @@ def int8_clip_phase(k4, wav) -> dict:
         f"against the bucket-padded generate: {'equal' if streamed == runs[0]['ids'] else 'differs'}")
     check(streamed == ref_ids, "generate(stream=True) ids differ from generate's")
     warm = runs[1]
-    # the prefill's head and the first decode step's 197 launches, replayed; per shape
-    # the plain version, the library call and the bound, weighted by the launches
-    head_key = next(k for k in warm["k4_shapes"] if k[2] == w8.cfg.lm.vocab_size)
+    # the prefill's launches and the first decode step's, replayed; per shape the plain
+    # version, the library call and the bound, weighted by the launches
+    head_key = next(k for k in warm["k4_shapes"] if k[2] == (w8.cfg.lm.vocab_size,))
     tot = dict(err=0.0, ratio=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     by = set()
-    for x, w_q, scale, od in captured[: 7 * n_layers + 2]:
-        r = w4_compare(k4.w8a16_matmul(x, w_q, scale, od),
-                       k4.w8a16_matmul_reference(x, w_q, scale, od))
-        check(r["ratio"] <= 1.0, f"main-path K4 launch: |y - plain| at {r['ratio']:.3f}")
-        tot["err"], tot["ratio"] = max(tot["err"], r["err"]), max(tot["ratio"], r["ratio"])
+    first = 1 + (4 * n_layers if max(key[0] for key in warm["k4_shapes"]) > 1 else 0)
+    for x, prods, od in captured[: first + k4_step_launches(n_layers)]:
+        ys = k4.w8a16_matmul_group(x, [{"w_q": w, "scale": sc} for w, sc in prods], od) \
+            if len(prods) > 1 else [k4.w8a16_matmul(x, *prods[0], od)]
+        for y, (w_q, scale) in zip(ys, prods):
+            r = w4_compare(y, k4.w8a16_matmul_reference(x, w_q, scale, od))
+            check(r["ratio"] <= 1.0, f"main-path K4 launch: |y - plain| at {r['ratio']:.3f}")
+            tot["err"], tot["ratio"] = max(tot["err"], r["err"]), max(tot["ratio"], r["ratio"])
     seen = set()
-    for x, w_q, scale, od in captured:
-        key = (x.shape[0], *w_q.shape, int(not w_q.is_contiguous()))
+    for x, prods, od in captured:
+        key = (x.shape[0], x.shape[1], tuple(w.shape[1] for w, _ in prods),
+               int(not prods[0][0].is_contiguous()))
         if key in seen:
             continue
         seen.add(key)
         n = warm["k4_shapes"][key]
-        tot["plain_ms"] += n * time_ms(lambda: k4.w8a16_matmul_reference(x, w_q, scale, od), 5, 1)
-        lib, _ = int8pack_call(x, w_q, scale)
-        tot["library_ms"] = (None if lib is None or tot["library_ms"] is None
-                             else tot["library_ms"] + n * time_ms(lib, 5, 1))
-        del lib
-        b_ms, b_by = k4_bound_ms(x.shape[0], *w_q.shape, x.dtype, od)
+        tot["plain_ms"] += n * sum(time_ms(lambda: k4.w8a16_matmul_reference(x, w_q, scale, od),
+                                           5, 1) for w_q, scale in prods)
+        for w_q, scale in prods:
+            lib, _ = int8pack_call(x, w_q, scale)
+            tot["library_ms"] = (None if lib is None or tot["library_ms"] is None
+                                 else tot["library_ms"] + n * time_ms(lib, 5, 1))
+            del lib
+        b_ms, b_by = k4_bound_ms(x.shape[0], x.shape[1], sum(w.shape[1] for w, _ in prods),
+                                 x.dtype, od)
         tot["bound_ms"] += n * b_ms
         by.add(b_by)
     tot["bound_by"] = "operations" if by == {"operations"} else "bytes"
     log(f"int8 LM warm generate: {warm['k4']} K4 launches ({len(seen)} shapes; the head "
         f"{warm['k4_shapes'][head_key]}), {warm['k4_ms']:.3f} ms device, {warm['k4_ms'] / warm['k4'] * 1e3:.1f} us "
-        f"per launch; replayed (the prefill's head and one decode step): max|y-plain|="
+        f"per launch; replayed (the prefill's launches and one decode step): max|y-plain|="
         f"{tot['err']:.3e} (at {tot['ratio']:.3f} of the limit); over every launch: plain "
         f"{tot['plain_ms']:.2f} ms, library "
         f"{'null' if tot['library_ms'] is None else f'{tot['library_ms']:.3f} ms'}, bound "
@@ -3126,7 +3320,7 @@ def f32_q8_card_vs_cpu_phase(fa, k4) -> None:
     token-exact, K4 on every card step; and item 8's codes card vs CPU."""
     from audio_flamingo_tpu_torch.config import AF3Config
     from audio_flamingo_tpu_torch.models import qwen2
-    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+    from audio_flamingo_tpu_torch.ops.quant import KERNEL_MAX_ROWS, quantize_lm_params
 
     codes_card_vs_cpu("11e")
     full = AF3Config().lm
@@ -3171,8 +3365,9 @@ def f32_q8_card_vs_cpu_phase(fa, k4) -> None:
     check(out["card"] == out["cpu"], "11e: greedy ids differ card vs CPU")
     check(len(set(out["card"])) > 1, f"11e: greedy ids are all one token: {out['card']}")
     check(max(errs) <= LOGITS_TOL, f"11e: logits card vs CPU {max(errs)} > {LOGITS_TOL}")
-    check(fa.LAUNCHES.count == cfg.num_layers and k4.LAUNCHES.count == 9 + 8 * 7 * cfg.num_layers,
-          f"11e: launches K2 {fa.LAUNCHES.count}, K4 {k4.LAUNCHES.count}")
+    want = 9 + 8 * 4 * cfg.num_layers + (4 * cfg.num_layers if 300 <= KERNEL_MAX_ROWS else 0)
+    check(fa.LAUNCHES.count == cfg.num_layers and k4.LAUNCHES.count == want,
+          f"11e: launches K2 {fa.LAUNCHES.count}, K4 {k4.LAUNCHES.count} (expected {want})")
     del lms, caches
 
 
@@ -3244,6 +3439,12 @@ def main() -> int:
            "w4_fma_kernel<8>", "w4_fma_kernel<32>", "mlp_tile_kernel<1>", "mlp_tile_kernel<2>"}
           <= {r["kernel"] for r in w4_ptxas + mlp_ptxas},
           "the w4a16 and enc_mlp kernels were not compiled")
+    k8_ptxas = [r for r in ptxas if r["kernel"].startswith("fa8_")]
+    k4_ptxas = [r for r in ptxas if r["kernel"].startswith(("w8_mma_", "w8_fma_"))]
+    check({"fa8_kernel<64>", "fa8_kernel<128>", "fa8_ksum_kernel<128>", "fa8_kmax_kernel<64>",
+           "fa8_codes_kernel<128>", "w8_mma_kernel<1>", "w8_mma_kernel<4>", "w8_fma_kernel<1>",
+           "w8_fma_kernel<8>"} <= {r["kernel"] for r in k8_ptxas + k4_ptxas},
+          "the redesigned K8 and K4 kernels were not compiled")
 
     # 3. kernels against their plain versions
     res = kernel_phase(fa)
@@ -3502,6 +3703,22 @@ def main() -> int:
         "bound_ms": rep8["bound_ms"],
         "bound_by": rep8["bound_by"],
         "library_ms": None,
+        "ptxas": [r for r in k8_ptxas if r["kernel"].startswith("fa8_kernel")],
+    })
+    pre8 = a8_clip["prelude"]
+    kernels.append({
+        "name": "flash_attention_a8_prelude",
+        "route": "cuda",
+        "source": "audio_flamingo_tpu_torch/csrc/flash_attention_a8.cu",
+        "replaces": "audio_flamingo_tpu/ops/pallas/flash_attention_a8.py:133",
+        "launches": clip8["pre"],
+        "max_abs_err": max([r["prelude"]["err"] for r in k8_res.values()] + [pre8["err"]]),
+        "ms": clip8["pre_ms"],
+        "plain_ms": pre8["plain_ms"],
+        "bound_ms": pre8["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ptxas": [r for r in k8_ptxas if not r["kernel"].startswith("fa8_kernel")],
     })
     warm10 = a8_10min["warm"]
     for name, key, kind, n, line in (("enc_ln_qkv", "K9 ln_qkv", "ln_qkv", 3840, 103),
@@ -3536,6 +3753,7 @@ def main() -> int:
         "bound_ms": k4_path["bound_ms"],
         "bound_by": k4_path["bound_by"],
         "library_ms": k4_path["library_ms"],
+        "ptxas": k4_ptxas,
     })
     for name, p in paged.items():
         r, f = p["run"], p["full"]
@@ -3573,7 +3791,13 @@ def main() -> int:
         "and bound_ms = the plain version timed on each launch's captured prelude outputs, "
         "and the per-launch bounds (int8 QK^T at 1979 TOPS + bf16 P.V at 989 TFLOP/s, or "
         "bytes), summed; max_abs_err = the largest |o - plain| of 10a and those replays; "
-        "library_ms null: " + K8_NO_LIBRARY + ". enc_ln_qkv, enc_out_ln, enc_mlp (K9) per "
+        "library_ms null: " + K8_NO_LIBRARY + ". flash_attention_a8_prelude (K8's CUDA "
+        "prelude, three kernels a call) per warm a8 30 s generate (10c): launches and ms = "
+        "its 60 calls' count and device time inside it; plain_ms = the torch prelude timed "
+        "on each call's captured inputs, summed; bound_ms = the per-call byte bounds (q, k "
+        "read once, codes and rowc written once), summed; max_abs_err = the largest "
+        "|k code - torch's| or |rowc - torch's| of 10a and those replays; library_ms null: "
+        "no single PyTorch call computes the prelude. enc_ln_qkv, enc_out_ln, enc_mlp (K9) per "
         "warm a8 10-minute generate on the fused layout (10d): launches and ms = each "
         "kernel's 32 launches' count and device time inside it; plain_ms and bound_ms = 32 x "
         "the plain version's time and the bound (int8 ops at 1979 TOPS, or bytes) at the "
@@ -3583,11 +3807,13 @@ def main() -> int:
         "int8-LM 30 s generate (11d, 32 tokens): launches and ms = its launches' count and "
         "device time inside it; plain_ms, library_ms (torch._weight_int8pack_mm on the same "
         "codes, laid out [N, K]) and bound_ms = each launch shape's plain time, library time "
-        "(one captured launch each) and bound, times that shape's launches, summed; "
-        "max_abs_err = the largest |y - plain| of 11a and of the prefill's head and one "
-        "decode step's launches, replayed. ptxas (w4a16_matmul, enc_mlp): nvcc's report for "
-        "the kernels of the redesigned routes; their device times per shape are 7a's and "
-        "10b's log lines.")
+        "(one captured launch each; a grouped launch: its products' summed) and bound, times "
+        "that shape's launches, summed; max_abs_err = the largest |y - plain| of 11a and of "
+        "the prefill's and one decode step's launches, replayed. ptxas (w4a16_matmul, "
+        "enc_mlp): nvcc's report for the kernels of the redesigned routes; their device "
+        "times per shape are 7a's and 10b's log lines. ptxas (flash_attention_a8, its prelude, w8a16_matmul): the same "
+        "for K8's body, the prelude's three kernels and K4's layout-0 kernels; 10a and 11a "
+        "log their times per shape.")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")

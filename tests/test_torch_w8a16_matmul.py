@@ -129,11 +129,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_split_k_covers_k_in_whole_units(k, n, m):
     rows = k4.split_k(k, n, m)
     splits = -(-k // rows)
-    assert rows % k4.SPLIT_UNIT == 0 and (splits - 1) * rows < k <= splits * rows
-    blocks = -(-n // k4.BLOCK_N) * -(-m // k4.ROW_TILE)
+    assert rows % k4.STAGE_ROWS == 0 and (splits - 1) * rows < k <= splits * rows
+    blocks = -(-n // k4.BLOCK_N) * -(-m // k4.rows_per_block(m, torch.bfloat16))
     # enough blocks for the card where K allows it (equal splits may round the count
     # down), and no split without need
-    assert 2 * blocks * splits >= min(k4.TARGET_BLOCKS, blocks * -(-k // k4.SPLIT_UNIT))
+    assert 2 * blocks * splits >= min(k4.TARGET_BLOCKS, blocks * -(-k // k4.STAGE_ROWS))
     assert splits == 1 or blocks * (splits - 1) < k4.TARGET_BLOCKS
 
 
