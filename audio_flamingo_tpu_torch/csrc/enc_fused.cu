@@ -12,27 +12,38 @@
 //     tile's row scale, added to an f32 accumulator tile after tile in order; then
 //     acc * s2 + b2 + x2 -> x2's dtype. The [m, ffn] activations never reach memory.
 //
-// Shared design: 256 threads (8 warps); products are mma.sync m16n8k32 s8.s8.s32, exact.
-// Every float step follows JAX's order with round-to-nearest intrinsics (no FMA
-// contraction); the LayerNorm sums are warp reductions, the one place whose order differs
-// from the plain version. No float atomics: a replay is bit-identical.
+// Shared design: products are mma.sync m16n8k32 s8.s8.s32, exact. Every float step
+// follows JAX's order with round-to-nearest intrinsics (no FMA contraction); the
+// LayerNorm sums are warp reductions (enc_out_ln's over 256-column shares added in
+// order), the one place whose order differs from the plain version. No float atomics: a
+// replay is bit-identical.
 //
-// enc_ln_qkv and enc_out_ln keep the activations' int8 codes of a block of rows in shared
-// memory (row stride K + 16 bytes, so fragment loads hit 32 banks) and read the weights
-// in the JAX layout [in, out], 64 input rows at a time, transposed on the way into shared
-// memory (4 x 4 byte tiles through __byte_perm) so that both mma operands are
-// K-contiguous. enc_ln_qkv takes 64 rows and a 640-column slice of the output per block
-// (LayerNorm recomputed per slice). enc_out_ln needs whole rows before its LayerNorm: a
-// block owns 32 rows and all d output columns, keeping x2 in f32 in shared memory (160 KB
-// at d = 1280). enc_mlp (redesigned; see its section) reads K-major copies of its weights
-// through a TMA ring, 64 rows per block and f tile.
+// All three stages read K-major int8 copies of their weights (W^T, made once where the
+// fused encoder reaches the card: ops/kernels/enc_fused.attach_kmajor) through one TMA
+// ring (`ring`: 2D boxes of 256 weight rows x 64 k, 64-byte swizzled, an mbarrier a
+// step, thread 0 issuing), 16 warps of 32 x 32 accumulators a block, one block an SM.
+//   enc_ln_qkv: a block takes 64 rows and walks 256-column passes of q|k|v; a cluster of
+//     C blocks (`ln_qkv_cluster`, from the card's SM count: 4 at m = 1500, 1 at
+//     m = 30,000 on 132 SMs, as measured) shares the row block, each block normalizing
+//     and quantizing 64 / C of the rows once (a row read once into registers by 16-byte
+//     loads) and copying the others' codes from their shared memory, then taking every
+//     C-th pass (6-slot ring). Shared memory at d = 1280: 182,528 bytes.
+//   Both stages take rows of at most 2048 elements (kRegD), held in registers.
+//   enc_out_ln: a cluster of ceil(d / 256) blocks (5 at d = 1280) shares 64 rows, each
+//     block one 256-column share of x2 kept in f32 (64 KB) and of w_o, so w_o is read once
+//     per 64 rows and no block holds whole rows; the LayerNorm's per-row partials (the
+//     sum, then the centred squares, then the |h| maxima) cross the cluster through
+//     distributed shared memory. 4-slot ring; 217,856 bytes at d = 1280.
+//   enc_mlp: see its section (64 rows a block and f tile, fc1 twice, fc2 into a scratch).
 //
 // Bound on the H100 (int8 ops at 1979 TOPS, or bytes at 3.35 TB/s, the larger) at
 // m = 30,000 rows (a 10-minute input): enc_ln_qkv 0.149 ms (ops), enc_out_ln 0.081 ms
-// (bytes), enc_mlp 0.397 ms (ops). enc_ln_qkv and enc_out_ln re-read each weight from L2
-// once per row block, load without a pipeline and use mma.sync, not wgmma; those are the
-// levers of a later pass. enc_mlp streams about 12 MB of weights through L2 per 64-row
-// block (fc1 twice, fc2 once) and evaluates its GELUs twice.
+// (bytes), enc_mlp 0.397 ms (ops). Measured there (scripts/torch_k3_k9_times.py, NVIDIA
+// H100 80GB HBM3 at 700 W): enc_ln_qkv 0.84 ms, enc_out_ln 0.82 ms (the previous design's stages,
+// which transposed the JAX-layout weights into shared memory on every block: 2.97 and
+// 2.70 ms), enc_mlp 3.35 ms. Left: wgmma (mma.sync's int8 rate is a fraction of
+// the card's), a producer warp and persistent blocks so that one row block's epilogue
+// and normalization overlap the next one's products, and, for enc_mlp, fc1 once.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -42,13 +53,14 @@
 #include <cuda.h>          // CUtensorMap (TMA), encoded through the runtime's driver entry point
 #include <cudaTypedefs.h>
 
+#include <cooperative_groups.h>
+
 #include "flash_mma.cuh"   // ldmatrix_x4
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 64;          // weight rows (input features) per shared-memory chunk
-constexpr int kWS = kBK + 16;    // transposed weight chunk row stride (bytes)
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
@@ -57,10 +69,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -107,89 +115,6 @@ __device__ __forceinline__ float gelu(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, erf));
 }
 
-// f32 LayerNorm of one row (the whole warp), its int8 codes into dst and its scale out.
-// src(c) gives element c as f32.
-template <typename F>
-__device__ __forceinline__ float ln_quant_row(F src, const float* w, const float* b, int d,
-                                              float eps, int lane, int8_t* dst) {
-  float sum = 0.f;
-  for (int c = lane; c < d; c += 32) sum += src(c);
-  const float mu = warp_sum(sum) / (float)d;
-  float sq = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float t = __fsub_rn(src(c), mu);
-    sq = __fadd_rn(sq, __fmul_rn(t, t));
-  }
-  const float rstd = __fdiv_rn(1.0f, sqrtf(__fadd_rn(warp_sum(sq) / (float)d, eps)));
-  float amax = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float h = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(src(c), mu), rstd), w[c]), b[c]);
-    amax = fmaxf(amax, fabsf(h));
-  }
-  const float s = row_scale(warp_max(amax));
-  for (int c = lane; c < d; c += 32) {
-    const float h = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(src(c), mu), rstd), w[c]), b[c]);
-    dst[c] = quant(h, s);
-  }
-  return s;
-}
-
-// Per-row quantization of one row (the whole warp) into dst; returns the scale.
-template <typename F>
-__device__ __forceinline__ float quant_row(F src, int d, int lane, int8_t* dst) {
-  float amax = 0.f;
-  for (int c = lane; c < d; c += 32) amax = fmaxf(amax, fabsf(src(c)));
-  const float s = row_scale(warp_max(amax));
-  for (int c = lane; c < d; c += 32) dst[c] = quant(src(c), s);
-  return s;
-}
-
-// Rows [k0, k0 + 64) x columns [n0, n0 + ncols) of W [K][N] (int8, row-major) into
-// sW[n][k] (row stride kWS): 4 x 4 byte tiles, transposed in registers.
-__device__ __forceinline__ void load_w_t(int8_t* sW, const int8_t* W, int N, int k0, int n0,
-                                         int ncols, int tid) {
-  const int nq = ncols / 4;
-  for (int i = tid; i < (kBK / 4) * nq; i += kThreads) {
-    const int kq = i / nq, cq = i % nq;
-    const int8_t* src = W + (int64_t)(k0 + 4 * kq) * N + n0 + 4 * cq;
-    const uint32_t r0 = ld32(src), r1 = ld32(src + N), r2 = ld32(src + 2 * N),
-                   r3 = ld32(src + 3 * N);
-    const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r0, r1, 0x7362);
-    const uint32_t t2 = __byte_perm(r2, r3, 0x5140), t3 = __byte_perm(r2, r3, 0x7362);
-    int8_t* dst = sW + 4 * cq * kWS + 4 * kq;
-    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t2, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + kWS) = __byte_perm(t0, t2, 0x7632);
-    *reinterpret_cast<uint32_t*>(dst + 2 * kWS) = __byte_perm(t1, t3, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + 3 * kWS) = __byte_perm(t1, t3, 0x7632);
-  }
-}
-
-// acc[mt][nt] += A[a_row0 + 16 mt .., a_k0 .. a_k0 + 64) x sW[w_n0 + 8 nt ..][0 .. 64)
-template <int MT, int NTL>
-__device__ __forceinline__ void mma_chunk(int (&acc)[MT][NTL][4], const int8_t* sA, int lda,
-                                          int a_row0, int a_k0, const int8_t* sW, int w_n0,
-                                          int gq, int tig) {
-#pragma unroll
-  for (int ks = 0; ks < kBK / 32; ++ks) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int8_t* p = sA + (a_row0 + 16 * mt + gq) * lda + a_k0 + 32 * ks + 4 * tig;
-      a[mt][0] = ld32(p);
-      a[mt][1] = ld32(p + 8 * lda);
-      a[mt][2] = ld32(p + 16);
-      a[mt][3] = ld32(p + 8 * lda + 16);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NTL; ++nt) {
-      const int8_t* p = sW + (w_n0 + 8 * nt + gq) * kWS + 32 * ks + 4 * tig;
-      const uint32_t b0 = ld32(p), b1 = ld32(p + 16);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][nt], a[mt], b0, b1);
-    }
-  }
-}
-
 template <int MT, int NTL>
 __device__ __forceinline__ void zero(int (&acc)[MT][NTL][4]) {
 #pragma unroll
@@ -197,147 +122,6 @@ __device__ __forceinline__ void zero(int (&acc)[MT][NTL][4]) {
 #pragma unroll
     for (int nt = 0; nt < NTL; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
         acc[mt][nt][3] = 0;
-}
-
-// ------------------------------------------------------------------------ enc_ln_qkv
-
-constexpr int kQkvRows = 64;     // rows per block: 2 warp rows x 2 m16 tiles
-constexpr int kQkvCols = 128;    // output columns per weight chunk: 4 warps x 32
-constexpr int kQkvSlice = 640;   // output columns per block (5 chunks); or 128
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ln_qkv_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
-              const float* __restrict__ lnb, const int8_t* __restrict__ W,
-              const float* __restrict__ wscale, const float* __restrict__ bias,
-              T* __restrict__ out, int m, int d, int N, int slice, float eps) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int lda = d + 16;
-  int8_t* sA = smem;                                   // [64][lda] codes
-  int8_t* sW = sA + kQkvRows * lda;                    // [128][kWS]
-  float* sHs = reinterpret_cast<float*>(sW + kQkvCols * kWS);   // [64]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tig = lane & 3;
-  const int row0 = blockIdx.y * kQkvRows;
-
-  for (int r = warp; r < kQkvRows; r += 8) {
-    const int row = row0 + r;
-    if (row >= m) {
-      for (int c = lane; c < d; c += 32) sA[r * lda + c] = 0;
-      if (lane == 0) sHs[r] = 0.f;
-      continue;
-    }
-    const T* xr = x + (int64_t)row * d;
-    const float s = ln_quant_row([&](int c) { return to_f32(xr[c]); }, lnw, lnb, d, eps,
-                                 lane, sA + r * lda);
-    if (lane == 0) sHs[r] = s;
-  }
-
-  const int wm = warp >> 2, wn = warp & 3;
-  for (int n0 = blockIdx.x * slice; n0 < (blockIdx.x + 1) * slice; n0 += kQkvCols) {
-    int acc[2][4][4];
-    zero(acc);
-    for (int k0 = 0; k0 < d; k0 += kBK) {
-      __syncthreads();
-      load_w_t(sW, W, N, k0, n0, kQkvCols, tid);
-      __syncthreads();
-      mma_chunk<2, 4>(acc, sA, lda, 32 * wm, k0, sW, 32 * wn, gq, tig);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = 32 * wm + 16 * mt + gq + 8 * half;
-        const int row = row0 + r;
-        if (row >= m) continue;
-        const float hs = sHs[r];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int c = n0 + 32 * wn + 8 * nt + 2 * tig;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float y = __fmul_rn(__fmul_rn((float)acc[mt][nt][2 * half + e], hs),
-                                      wscale[c + e]);
-            out[(int64_t)row * N + c + e] = from_f32<T>(__fadd_rn(y, bias[c + e]));
-          }
-        }
-      }
-  }
-}
-
-// ------------------------------------------------------------------------ enc_out_ln
-
-constexpr int kOutRows = 32;     // rows per block: 2 warp rows x 1 m16 tile
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-out_ln_kernel(const T* __restrict__ attn, const T* __restrict__ x, const int8_t* __restrict__ W,
-              const float* __restrict__ wscale, const float* __restrict__ bias,
-              const float* __restrict__ lnw, const float* __restrict__ lnb,
-              T* __restrict__ x2_out, int8_t* __restrict__ hq_out, float* __restrict__ hs_out,
-              int m, int d, float eps) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int lda = d + 16, ldx = d + 4;
-  int8_t* sA = smem;                                            // [32][lda] attn codes
-  float* sX2 = reinterpret_cast<float*>(sA + kOutRows * lda);   // [32][ldx] f32 x2
-  int8_t* sW = reinterpret_cast<int8_t*>(sX2 + kOutRows * ldx); // [128][kWS]
-  float* sAs = reinterpret_cast<float*>(sW + kQkvCols * kWS);   // [32]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tig = lane & 3;
-  const int row0 = blockIdx.x * kOutRows;
-
-  for (int r = warp; r < kOutRows; r += 8) {
-    const int row = row0 + r;
-    if (row >= m) {
-      for (int c = lane; c < d; c += 32) sA[r * lda + c] = 0;
-      if (lane == 0) sAs[r] = 0.f;
-      continue;
-    }
-    const T* ar = attn + (int64_t)row * d;
-    const float s = quant_row([&](int c) { return to_f32(ar[c]); }, d, lane, sA + r * lda);
-    if (lane == 0) sAs[r] = s;
-  }
-
-  const int wm = warp >> 2, wn = warp & 3;
-  for (int n0 = 0; n0 < d; n0 += kQkvCols) {
-    int acc[1][4][4];
-    zero(acc);
-    for (int k0 = 0; k0 < d; k0 += kBK) {
-      __syncthreads();
-      load_w_t(sW, W, d, k0, n0, kQkvCols, tid);
-      __syncthreads();
-      mma_chunk<1, 4>(acc, sA, lda, 16 * wm, k0, sW, 32 * wn, gq, tig);
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = 16 * wm + gq + 8 * half;
-      const int row = row0 + r;
-      if (row >= m) continue;
-      const float as = sAs[r];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = n0 + 32 * wn + 8 * nt + 2 * tig;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float y = __fmul_rn(__fmul_rn((float)acc[0][nt][2 * half + e], as),
-                                    wscale[c + e]);
-          const float v = __fadd_rn(__fadd_rn(to_f32(x[(int64_t)row * d + c + e]), y),
-                                    bias[c + e]);
-          sX2[r * ldx + c + e] = v;
-          x2_out[(int64_t)row * d + c + e] = from_f32<T>(v);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int r = warp; r < kOutRows; r += 8) {
-    const int row = row0 + r;
-    if (row >= m) continue;
-    const float* xr = sX2 + r * ldx;
-    const float s = ln_quant_row([&](int c) { return xr[c]; }, lnw, lnb, d, eps, lane,
-                                 hq_out + (int64_t)row * d);
-    if (lane == 0) hs_out[row] = s;
-  }
 }
 
 // ------------------------------------------------------------------------ enc_mlp
@@ -637,6 +421,450 @@ mlp_out_kernel(const float* __restrict__ y, int tiles, const float* __restrict__
   out[i] = from_f32<T>(__fadd_rn(to_f32(x2[i]), v));
 }
 
+// ------------------------------------------------------------- enc_ln_qkv, enc_out_ln
+//
+// Both stages share enc_mlp's TMA ring (`ring`, `mma_step`, 64-byte swizzled boxes of
+// 256 weight rows x 64 k on an mbarrier a step) over K-major copies of their weights
+// (W^T [N, d] int8, made once per encoder: ops/kernels/enc_fused.kmajor), 64 rows a
+// block in 16 warps (2 warp rows x 8 warp columns of 32 x 32), one block an SM. The A
+// operand is the rows' int8 codes, kept in shared memory (row stride d + 16, so an
+// ldmatrix phase's 8 rows hit distinct banks). A thread-block cluster of C blocks shares
+// one row block: block `rank` normalizes and quantizes rows rank, rank + C, .., and every
+// block copies the other rows' codes and scales from their owners' shared memory
+// (distributed shared memory), so each row is normalized and quantized once per row block.
+
+constexpr int kRows = 64;                        // rows a block
+constexpr int kRowThreads = 512;                 // 16 warps
+constexpr int kWBox = kMlpNC * kMlpKC;           // one weight box: 256 rows x 64 k
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync_all() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Rows are normalized and quantized from registers: the warp reads the row once with
+// 16-byte loads (lane l holds 16-byte vectors l, l + 32, ..) and every pass over it (sum,
+// centred squares, |h| maxima, codes) runs on those values. So enc_ln_qkv and enc_out_ln
+// take rows of at most kRegD elements (Whisper's widest encoder has 1280).
+constexpr int kRegD = 2048;
+constexpr int kRegN = kRegD / 32;   // floats a lane
+
+template <typename T>
+__device__ __forceinline__ void load_row(const T* src, float (&f)[kRegN], int d, int lane) {
+  constexpr int kE = 16 / (int)sizeof(T), kV = kRegN / kE;
+  const int vecs = d / kE;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int v = lane + 32 * i;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (v < vecs) u = *reinterpret_cast<const uint4*>(src + (int64_t)v * kE);
+    if (sizeof(T) == 4) {
+      f[i * kE] = __uint_as_float(u.x);
+      f[i * kE + 1] = __uint_as_float(u.y);
+      f[i * kE + 2] = __uint_as_float(u.z);
+      f[i * kE + 3] = __uint_as_float(u.w);
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(h[e]);
+        f[i * kE + 2 * e] = x.x;
+        f[i * kE + 2 * e + 1] = x.y;
+      }
+    }
+  }
+}
+
+// The codes of a row held by load_row<T> (h: its values), at scale s, into dst.
+template <typename T>
+__device__ __forceinline__ void store_codes(const float (&h)[kRegN], float s, int d, int lane,
+                                            int8_t* dst) {
+  constexpr int kE = 16 / (int)sizeof(T), kV = kRegN / kE;
+  const int vecs = d / kE;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int v = lane + 32 * i;
+    if (v >= vecs) continue;
+    uint32_t w[kE / 4];
+#pragma unroll
+    for (int q = 0; q < kE / 4; ++q) {
+      w[q] = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[q] |= (uint32_t)(uint8_t)quant(h[i * kE + 4 * q + e], s) << (8 * e);
+    }
+    if (kE == 8)
+      *reinterpret_cast<uint2*>(dst + kE * v) = make_uint2(w[0], w[kE / 4 - 1]);
+    else
+      *reinterpret_cast<uint32_t*>(dst + kE * v) = w[0];
+  }
+}
+
+// The f32 LayerNorm of a row held by load_row<T> (the whole warp), its int8 codes into
+// dst and its scale returned: mean, centred squares and |h| maxima each summed by a lane
+// over its own elements in order, then across the warp; every float step rounded as JAX
+// takes it (no contraction).
+template <typename T>
+__device__ __forceinline__ float ln_quant_regs(float (&f)[kRegN], const float* w, const float* b,
+                                               int d, float eps, int lane, int8_t* dst) {
+  constexpr int kE = 16 / (int)sizeof(T), kV = kRegN / kE;
+  const int vecs = d / kE;
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kV; ++i)
+    if (lane + 32 * i < vecs)
+#pragma unroll
+      for (int e = 0; e < kE; ++e) sum += f[i * kE + e];
+  const float mu = warp_sum(sum) / (float)d;
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < kV; ++i)
+    if (lane + 32 * i < vecs)
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const float t = __fsub_rn(f[i * kE + e], mu);
+        sq = __fadd_rn(sq, __fmul_rn(t, t));
+      }
+  const float rstd = __fdiv_rn(1.0f, sqrtf(__fadd_rn(warp_sum(sq) / (float)d, eps)));
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int c0 = kE * (lane + 32 * i);
+    if (c0 < d)
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const float h = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[i * kE + e], mu), rstd),
+                                            __ldg(w + c0 + e)),
+                                  __ldg(b + c0 + e));
+        f[i * kE + e] = h;
+        amax = fmaxf(amax, fabsf(h));
+      }
+  }
+  const float s = row_scale(warp_max(amax));
+  store_codes<T>(f, s, d, lane, dst);
+  return s;
+}
+
+// quant_row on a row in registers.
+template <typename T>
+__device__ __forceinline__ float quant_regs(const float (&f)[kRegN], int d, int lane,
+                                            int8_t* dst) {
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRegN; ++i) amax = fmaxf(amax, fabsf(f[i]));   // zeros past d
+  const float s = row_scale(warp_max(amax));
+  store_codes<T>(f, s, d, lane, dst);
+  return s;
+}
+
+// The rows of sA (codes, row stride lda) and sScale that other blocks of the cluster
+// own (row r belongs to rank r % C), copied from their shared memory. The caller has
+// synchronized the cluster after the owners wrote them.
+__device__ __forceinline__ void share_rows(cg::cluster_group& cluster, int8_t* sA, int lda,
+                                           float* sScale, int d, int C, int rank) {
+  if (C == 1) return;
+  const int vecs = d / 16;
+  for (int i = threadIdx.x; i < kRows * vecs; i += blockDim.x) {
+    const int r = i / vecs, v = i % vecs;
+    if (r % C == rank) continue;
+    int4* dst = reinterpret_cast<int4*>(sA + r * lda) + v;
+    *dst = *cluster.map_shared_rank(dst, r % C);
+  }
+  for (int r = threadIdx.x; r < kRows; r += blockDim.x)
+    if (r % C != rank) sScale[r] = *cluster.map_shared_rank(sScale + r, r % C);
+}
+
+// Warp-level ldmatrix row offsets of the A codes (row stride lda) and of a swizzled
+// weight box, at k-step ks (as mlp_tile_kernel computes them for fc2).
+__device__ __forceinline__ void row_offsets(int (&a_off)[kMlpK32][2], int (&b_off)[kMlpK32][2],
+                                            int lda, int wm, int wn, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < kMlpK32; ++ks) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      a_off[ks][mt] = (wm * 32 + mt * 16 + (lane & 15)) * lda + ks * 32 + (lane >> 4) * 16;
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      b_off[ks][p] = swz(wn * 32 + p * 16 + (lane >> 4) * 8 + (lane & 7),
+                         2 * ks + ((lane >> 3) & 1));
+  }
+}
+
+template <typename T> __device__ __forceinline__ float2 load2(const T* p);
+template <> __device__ __forceinline__ float2 load2<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <> __device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
+template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
+                                                                  float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(__float2bfloat16(a),
+                                                             __float2bfloat16(b));
+}
+
+// enc_ln_qkv: grid (C, ceil(m / 64)), cluster (C, 1, 1); block `rank` of a cluster takes
+// the 256-column passes rank, rank + C, .. of the N output columns. Shared memory:
+// 1024 (alignment) + 6 x 16 KB ring + 64 (d + 16) codes + 64 scales (231,680 bytes at
+// d = kRegD).
+constexpr int kQkvStages = 6;
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads, 1)
+ln_qkv_kernel(const __grid_constant__ CUtensorMap map_w, const T* __restrict__ x,
+              const float* __restrict__ lnw, const float* __restrict__ lnb,
+              const float* __restrict__ wscale, const float* __restrict__ bias,
+              T* __restrict__ out, int m, int d, int N, float eps) {
+  constexpr int S = kQkvStages;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar[S];
+  const int lda = d + 16;
+  int8_t* sRing = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  int8_t* sA = sRing + S * kWBox;                                  // [64][lda] codes
+  float* sHs = reinterpret_cast<float*>(sA + kRows * lda);         // [64] row scales
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 3, wn = warp & 7;
+  const int row0 = blockIdx.y * kRows;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // this block's rows: LayerNorm -> int8 codes and row scale (rows past m: zeros)
+  for (int r = rank + C * warp; r < kRows; r += C * (kRowThreads / 32)) {
+    const int row = row0 + r;
+    if (row >= m) {
+      for (int c = lane; c < d; c += 32) sA[r * lda + c] = 0;
+      if (lane == 0) sHs[r] = 0.f;
+      continue;
+    }
+    float f[kRegN];   // d <= kRegD
+    load_row<T>(x + (int64_t)row * d, f, d, lane);
+    const float s = ln_quant_regs<T>(f, lnw, lnb, d, eps, lane, sA + r * lda);
+    if (lane == 0) sHs[r] = s;
+  }
+  cluster_sync_all();
+  share_rows(cluster, sA, lda, sHs, d, C, rank);
+  cluster_arrive();   // done reading the others' rows (waited for before exit)
+  __syncthreads();
+
+  int a_off[kMlpK32][2], b_off[kMlpK32][2];
+  row_offsets(a_off, b_off, lda, wm, wn, lane);
+  const int passes = (N + kMlpNC - 1) / kMlpNC;
+  const int ncc = (passes - rank + C - 1) / C;
+  int acc[2][4][4];
+  zero(acc);
+  int step = 0, k0 = 0;
+  ring<S>(
+      ncc, d / kMlpKC, step, bar,
+      [&](int buf, int cc, int kc) {
+        mbar_expect(&bar[buf], kWBox);
+        tma_box(sRing + buf * kWBox, &map_w, kc * kMlpKC, (rank + cc * C) * kMlpNC, &bar[buf]);
+      },
+      [&](int buf) {
+        mma_step(acc, sA + k0, a_off, sRing + buf * kWBox, b_off);
+        k0 += kMlpKC;
+      },
+      [&](int cc) {
+        const int col0 = (rank + cc * C) * kMlpNC + wn * 32 + 2 * t;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = wm * 32 + mt * 16 + g + 8 * half;
+            const int row = row0 + r;
+            if (row >= m) continue;
+            const float hs = sHs[r];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int c = col0 + nt * 8;
+              if (c >= N) continue;
+              float y[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                y[e] = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[mt][nt][2 * half + e], hs),
+                                           wscale[c + e]),
+                                 bias[c + e]);
+              store2<T>(out + (int64_t)row * N + c, y[0], y[1]);
+            }
+          }
+        zero(acc);
+        k0 = 0;
+      });
+  cluster_wait();
+}
+
+// enc_out_ln: grid (C, ceil(m / 64)), cluster (C, 1, 1) with C = ceil(d / 256): block
+// `rank` owns output columns [256 rank, 256 rank + 256) of its 64 rows and keeps their
+// f32 x2 in shared memory; the LayerNorm's per-row partial sums (the mean's, then the
+// centred squares', then the |h| maxima) are exchanged through distributed shared memory
+// and added in rank order. Shared memory: 1024 + S x 16 KB + 64 (d + 16) + 64 x 260 x 4
+// + 7 x 64 x 4 (217,856 bytes at d = 1280).
+constexpr int kOutStages = 4;
+constexpr int kLdx = kMlpNC + 4;   // x2 row stride (floats)
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads, 1)
+out_ln_kernel(const __grid_constant__ CUtensorMap map_w, const T* __restrict__ attn,
+              const T* __restrict__ x, const float* __restrict__ wscale,
+              const float* __restrict__ bias, const float* __restrict__ lnw,
+              const float* __restrict__ lnb, T* __restrict__ x2_out, int8_t* __restrict__ hq_out,
+              float* __restrict__ hs_out, int m, int d, float eps) {
+  constexpr int S = kOutStages;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar[S];
+  const int lda = d + 16;
+  int8_t* sRing = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  int8_t* sA = sRing + S * kWBox;                                   // [64][lda] attn codes
+  float* sX2 = reinterpret_cast<float*>(sA + kRows * lda);          // [64][kLdx] f32 x2
+  float* sAs = sX2 + kRows * kLdx;                                  // [64] attn row scales
+  float* sPart = sAs + kRows;                                       // [3][64] partials
+  float* sStat = sPart + 3 * kRows;                                 // [3][64] mu, rstd, scale
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 3, wn = warp & 7;
+  const int row0 = blockIdx.y * kRows;
+  const int col0 = rank * kMlpNC, ncols = min(kMlpNC, d - col0);
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int r = rank + C * warp; r < kRows; r += C * (kRowThreads / 32)) {
+    const int row = row0 + r;
+    if (row >= m) {
+      for (int c = lane; c < d; c += 32) sA[r * lda + c] = 0;
+      if (lane == 0) sAs[r] = 0.f;
+      continue;
+    }
+    float f[kRegN];   // d <= kRegD
+    load_row<T>(attn + (int64_t)row * d, f, d, lane);
+    const float s = quant_regs<T>(f, d, lane, sA + r * lda);
+    if (lane == 0) sAs[r] = s;
+  }
+  cluster_sync_all();
+  share_rows(cluster, sA, lda, sAs, d, C, rank);
+  __syncthreads();
+
+  int a_off[kMlpK32][2], b_off[kMlpK32][2];
+  row_offsets(a_off, b_off, lda, wm, wn, lane);
+  int acc[2][4][4];
+  zero(acc);
+  int step = 0, k0 = 0;
+  ring<S>(
+      1, d / kMlpKC, step, bar,
+      [&](int buf, int, int kc) {
+        mbar_expect(&bar[buf], kWBox);
+        tma_box(sRing + buf * kWBox, &map_w, kc * kMlpKC, col0, &bar[buf]);
+      },
+      [&](int buf) {
+        mma_step(acc, sA + k0, a_off, sRing + buf * kWBox, b_off);
+        k0 += kMlpKC;
+      },
+      [&](int) {   // x2 = x + y + bias in f32: kept, and written in the dtype
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = wm * 32 + mt * 16 + g + 8 * half;
+            const int row = row0 + r;
+            if (row >= m) continue;
+            const float as = sAs[r];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int c = wn * 32 + nt * 8 + 2 * t;   // within the block's columns
+              if (c >= ncols) continue;
+              const float2 xv = load2<T>(x + (int64_t)row * d + col0 + c);
+              const float xe[2] = {xv.x, xv.y};
+              float v[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float y = __fmul_rn(__fmul_rn((float)acc[mt][nt][2 * half + e], as),
+                                          wscale[col0 + c + e]);
+                v[e] = __fadd_rn(__fadd_rn(xe[e], y), bias[col0 + c + e]);
+              }
+              *reinterpret_cast<float2*>(sX2 + r * kLdx + c) = make_float2(v[0], v[1]);
+              store2<T>(x2_out + (int64_t)row * d + col0 + c, v[0], v[1]);
+            }
+          }
+      });
+  __syncthreads();
+
+  // The LayerNorm of the f32 x2 rows over all d columns: each block's partial over its
+  // columns (a warp a row), exchanged and added in rank order; the float steps as
+  // ln_quant_regs takes them.
+  auto exchange = [&](int which, bool is_max) {
+    cluster_sync_all();   // every block's partials of `which` are written
+    if (tid < kRows) {
+      float v = 0.f;   // a sum, or a max of |h| >= 0
+      for (int k = 0; k < C; ++k) {
+        const float p = *cluster.map_shared_rank(sPart + which * kRows + tid, k);
+        v = is_max ? fmaxf(v, p) : v + p;
+      }
+      sStat[which * kRows + tid] = v;
+    }
+    __syncthreads();
+  };
+  for (int r = warp; r < kRows; r += kRowThreads / 32) {
+    float sum = 0.f;
+    for (int c = lane; c < ncols; c += 32) sum += sX2[r * kLdx + c];
+    sum = warp_sum(sum);
+    if (lane == 0) sPart[r] = sum;
+  }
+  exchange(0, false);
+  if (tid < kRows) sStat[tid] = sStat[tid] / (float)d;   // mu
+  __syncthreads();
+  for (int r = warp; r < kRows; r += kRowThreads / 32) {
+    const float mu = sStat[r];
+    float sq = 0.f;
+    for (int c = lane; c < ncols; c += 32) {
+      const float u = __fsub_rn(sX2[r * kLdx + c], mu);
+      sq = __fadd_rn(sq, __fmul_rn(u, u));
+    }
+    sq = warp_sum(sq);
+    if (lane == 0) sPart[kRows + r] = sq;
+  }
+  exchange(1, false);
+  if (tid < kRows)
+    sStat[kRows + tid] = __fdiv_rn(1.0f, sqrtf(__fadd_rn(sStat[kRows + tid] / (float)d, eps)));
+  __syncthreads();
+  auto h_of = [&](int r, int c) {
+    return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(sX2[r * kLdx + c], sStat[r]),
+                                         sStat[kRows + r]),
+                               lnw[col0 + c]),
+                     lnb[col0 + c]);
+  };
+  for (int r = warp; r < kRows; r += kRowThreads / 32) {
+    float amax = 0.f;
+    for (int c = lane; c < ncols; c += 32) amax = fmaxf(amax, fabsf(h_of(r, c)));
+    amax = warp_max(amax);
+    if (lane == 0) sPart[2 * kRows + r] = amax;
+  }
+  exchange(2, true);
+  for (int r = warp; r < kRows; r += kRowThreads / 32) {
+    const int row = row0 + r;
+    if (row >= m) continue;
+    const float s = row_scale(sStat[2 * kRows + r]);
+    for (int c = lane; c < ncols; c += 32) hq_out[(int64_t)row * d + col0 + c] = quant(h_of(r, c), s);
+    if (rank == 0 && lane == 0) hs_out[row] = s;
+  }
+  cluster_sync_all();   // no block leaves while another may still read its partials
+}
+
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -668,66 +896,128 @@ bool byte_map(CUtensorMap* map, const void* base, int cols, int rows, int box_ro
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A launch of `kernel` in clusters of (cluster, 1, 1) blocks.
+template <typename... P, typename... A>
+cudaError_t launch_clusters(void (*kernel)(P...), dim3 grid, int threads, size_t smem,
+                            int cluster, cudaStream_t stream, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The streaming multiprocessors of the current device.
+int device_sms() {
+  static int sms[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+// Blocks a cluster of enc_ln_qkv gives one 64-row block (each takes every C-th of the
+// ceil(n / 256) column passes; one block an SM): 1 while the row blocks alone fill the
+// card, else the largest power of two (at most 8 and the passes) whose clusters still run
+// in one wave. Measured on an H100 80GB HBM3 (scripts/torch_k3_k9_times.py --clusters):
+// C = 1 is fastest at m = 30,000 (each block's normalization and ring start cost more than
+// the tail they balance), C = 4 at m = 1500 (5-block clusters no longer fit one wave).
+int ln_qkv_cluster(int m, int n) {
+  const int passes = (n + kMlpNC - 1) / kMlpNC;
+  const long long row_blocks = (m + kRows - 1) / kRows;
+  const int cap = passes < 8 ? passes : 8;
+  int c = 1;
+  while (2 * c <= cap && 2 * c * row_blocks <= device_sms()) c *= 2;
+  return c;
+}
+
+template <typename T>
+int run_ln_qkv(const CUtensorMap& map, const void* x, const void* lnw, const void* lnb,
+               const void* wscale, const void* bias, void* out, int m, int d, int n,
+               int cluster, float eps, size_t smem, cudaStream_t s) {
+  int err = set_smem(ln_qkv_kernel<T>, smem);
+  if (err) return err;
+  return (int)launch_clusters(ln_qkv_kernel<T>, dim3(cluster, (m + kRows - 1) / kRows),
+                              kRowThreads, smem, cluster, s, map, static_cast<const T*>(x),
+                              static_cast<const float*>(lnw), static_cast<const float*>(lnb),
+                              static_cast<const float*>(wscale), static_cast<const float*>(bias),
+                              static_cast<T*>(out), m, d, n, eps);
+}
+
+template <typename T>
+int run_out_ln(const CUtensorMap& map, const void* attn, const void* x, const void* wscale,
+               const void* bias, const void* lnw, const void* lnb, void* x2, void* hq,
+               void* hs, int m, int d, float eps, size_t smem, cudaStream_t s) {
+  int err = set_smem(out_ln_kernel<T>, smem);
+  if (err) return err;
+  const int cluster = (d + kMlpNC - 1) / kMlpNC;
+  return (int)launch_clusters(out_ln_kernel<T>, dim3(cluster, (m + kRows - 1) / kRows),
+                              kRowThreads, smem, cluster, s, map, static_cast<const T*>(attn),
+                              static_cast<const T*>(x), static_cast<const float*>(wscale),
+                              static_cast<const float*>(bias), static_cast<const float*>(lnw),
+                              static_cast<const float*>(lnb), static_cast<T*>(x2),
+                              static_cast<int8_t*>(hq), static_cast<float*>(hs), m, d, eps);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and out). Returns a cudaError_t (0 on success);
+// dtype: 0 = float32, 1 = bfloat16 (x and out). wt: the K-major codes W^T [n, d] int8
+// (16-byte aligned), per-column f32 wscale, bias [n]; cluster: blocks sharing a 64-row
+// block (1 .. 8, at most ceil(n / 256)), or 0 for ln_qkv_cluster's choice. d % 64 == 0
+// and d <= 2048, n % 128 == 0. Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for a shape the kernel does not take.
-extern "C" int af_enc_ln_qkv(const void* x, const void* lnw, const void* lnb, const void* w,
+extern "C" int af_enc_ln_qkv(const void* x, const void* lnw, const void* lnb, const void* wt,
                              const void* wscale, const void* bias, void* out, int dtype,
-                             int m, int d, int n, float eps, void* stream) {
-  if (m <= 0 || d <= 0 || d % kBK != 0 || n % kQkvCols != 0) return (int)cudaErrorInvalidValue;
-  const int slice = n % kQkvSlice == 0 ? kQkvSlice : kQkvCols;
-  const size_t smem = (size_t)kQkvRows * (d + 16) + kQkvCols * kWS + kQkvRows * 4;
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / slice, (m + kQkvRows - 1) / kQkvRows);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-#define AF_LN_QKV(T)                                                                      \
-  err = set_smem(ln_qkv_kernel<T>, smem);                                                 \
-  if (err) return err;                                                                    \
-  ln_qkv_kernel<T><<<grid, kThreads, smem, s>>>(                                          \
-      static_cast<const T*>(x), static_cast<const float*>(lnw),                           \
-      static_cast<const float*>(lnb), static_cast<const int8_t*>(w),                      \
-      static_cast<const float*>(wscale), static_cast<const float*>(bias),                 \
-      static_cast<T*>(out), m, d, n, slice, eps);
-  if (dtype == 0) {
-    AF_LN_QKV(float)
-  } else if (dtype == 1) {
-    AF_LN_QKV(__nv_bfloat16)
-  } else {
+                             int m, int d, int n, int cluster, float eps, void* stream) {
+  if (m <= 0 || d <= 0 || d % kMlpKC != 0 || d > kRegD || n <= 0 || n % 128 != 0 ||
+      cluster < 0 || cluster > 8 || cluster > (n + kMlpNC - 1) / kMlpNC ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  }
-#undef AF_LN_QKV
+  if (reinterpret_cast<uintptr_t>(wt) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  if (cluster == 0) cluster = ln_qkv_cluster(m, n);
+  const size_t smem = 1024 + (size_t)kQkvStages * kWBox + (size_t)kRows * (d + 16) + kRows * 4;
+  static_assert(1024 + kQkvStages * kWBox + kRows * (kRegD + 16) + kRows * 4 + 64 <= kSmemLimit,
+                "enc_ln_qkv's ring, codes and scales fit at d = kRegD");
+  CUtensorMap map;
+  if (!byte_map(&map, wt, d, n, kMlpNC)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = dtype == 0
+      ? run_ln_qkv<float>(map, x, lnw, lnb, wscale, bias, out, m, d, n, cluster, eps, smem, s)
+      : run_ln_qkv<__nv_bfloat16>(map, x, lnw, lnb, wscale, bias, out, m, d, n, cluster, eps,
+                                  smem, s);
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 
-extern "C" int af_enc_out_ln(const void* attn, const void* x, const void* w,
+// attn, x, x2 [m, d] in the dtype; wt: W_o^T [d, d] int8 (16-byte aligned); hq [m, d]
+// int8, hs [m] f32. d % 128 == 0 and d <= 2048 (a cluster of ceil(d / 256) blocks).
+extern "C" int af_enc_out_ln(const void* attn, const void* x, const void* wt,
                              const void* wscale, const void* bias, const void* lnw,
                              const void* lnb, void* x2, void* hq, void* hs, int dtype, int m,
                              int d, float eps, void* stream) {
-  if (m <= 0 || d <= 0 || d % kQkvCols != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kOutRows * (d + 16) + (size_t)kOutRows * (d + 4) * 4 +
-                      kQkvCols * kWS + kOutRows * 4;
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  const dim3 grid((m + kOutRows - 1) / kOutRows);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-#define AF_OUT_LN(T)                                                                      \
-  err = set_smem(out_ln_kernel<T>, smem);                                                 \
-  if (err) return err;                                                                    \
-  out_ln_kernel<T><<<grid, kThreads, smem, s>>>(                                          \
-      static_cast<const T*>(attn), static_cast<const T*>(x), static_cast<const int8_t*>(w), \
-      static_cast<const float*>(wscale), static_cast<const float*>(bias),                 \
-      static_cast<const float*>(lnw), static_cast<const float*>(lnb), static_cast<T*>(x2), \
-      static_cast<int8_t*>(hq), static_cast<float*>(hs), m, d, eps);
-  if (dtype == 0) {
-    AF_OUT_LN(float)
-  } else if (dtype == 1) {
-    AF_OUT_LN(__nv_bfloat16)
-  } else {
+  static_assert(kRegD <= 8 * kMlpNC, "a row's column shares fit in one cluster");
+  if (m <= 0 || d <= 0 || d % 128 != 0 || d > kRegD || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  }
-#undef AF_OUT_LN
+  if (reinterpret_cast<uintptr_t>(wt) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const size_t smem = 1024 + (size_t)kOutStages * kWBox + (size_t)kRows * (d + 16) +
+                      (size_t)kRows * kLdx * 4 + 7 * kRows * 4;
+  if (smem + 64 > kSmemLimit) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!byte_map(&map, wt, d, d, kMlpNC)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = dtype == 0
+      ? run_out_ln<float>(map, attn, x, wscale, bias, lnw, lnb, x2, hq, hs, m, d, eps, smem, s)
+      : run_out_ln<__nv_bfloat16>(map, attn, x, wscale, bias, lnw, lnb, x2, hq, hs, m, d, eps,
+                                  smem, s);
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 
@@ -749,13 +1039,7 @@ extern "C" int af_enc_mlp(const void* hq, const void* hs, const void* w1t, const
   const int tiles = f / ft;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 64-row blocks, or 32-row blocks while 64-row ones would not fill the card once
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  const bool small = (int64_t)tiles * ((m + kMlpRows<2> - 1) / kMlpRows<2>) < sms;
+  const bool small = (int64_t)tiles * ((m + kMlpRows<2> - 1) / kMlpRows<2>) < device_sms();
   const size_t smem = small ? mlp_smem<1>(ft) : mlp_smem<2>(ft);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   CUtensorMap map_h, map_w1, map_w2;

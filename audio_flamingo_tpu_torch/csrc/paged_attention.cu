@@ -22,49 +22,81 @@
 // sum p (unrounded), and P.V takes p (times the value's scale for int8) rounded to q's
 // dtype, as the JAX kernel's `pv.astype(q_ref.dtype)`.
 //
-// Design: a block per (kv head, row, part), 256 threads, so the g query heads of a KV
-// head share every page it loads. The row's table entries are split into parts of
-// ceil(MP / parts) pages (the wrapper picks parts so that the grid gives every SM about
-// two blocks), in three launches:
-//   1. page_max_kernel: each part scores its pages and writes every page's max per head;
-//   2. paged_attention_kernel: each part starts from the running max of the pages before
-//      it (the max of pass 1's maxima) and runs the online softmax over its own pages, so
-//      p is rounded against exactly the running max the sequential walk would hold;
-//      it writes the part's (o, m, l);
-//   3. merge_parts_kernel: o = sum o_s exp(m_s - m), l likewise, m = max m_s.
-// With one part (a grid already large enough) only launch 2 runs, straight into the
-// output. In launches 1 and 2 a page's K (and V) rows of the head are staged in shared
-// memory (rows padded by 16 bytes) by 16-byte cp.async copies, all in flight before one
-// wait. Thread (sub, half) of 2 x 128 dots key sub with every query head over half of
-// the head dim (q broadcast from shared memory, no shuffles) and the halves are added;
-// one warp per query head takes the page max, p and l; for P.V thread (sub, half) owns
-// output column sub over every other key, with the f32 accumulators of all g heads in
-// registers, and the two halves are added at the end.
+// Design (two launches a call; the wrapper counts them as one launch of K3). Decode
+// attention at g = 7 does about 7 flops a byte: the bound is bytes, and at the engine's
+// rows a call is short enough that latency (the bytes each SM keeps in flight, dependent
+// loads, the launches' tails) and instructions are what the design works on.
+//   1. score_kernel, a block per (page, kv head, row), 256 threads: the page's K rows of
+//      the head come through a 3-slot cp.async ring of 64-key steps (at BS = 128 both
+//      halves of the page are in flight at once and the first is scored while the second
+//      lands). bf16 q over a bf16 pool: warps 0-3 each score 16 keys on the tensor cores
+//      (mma.sync m16n8k16, K rows by ldmatrix, q as B fragments held in registers, f32
+//      accumulators); other pairs: thread (key, quarter) dots its key with every query
+//      head over a quarter of the head dim on the CUDA cores (q in f32 in shared memory),
+//      the quarters meeting by shuffles. Every score goes to the f32 scratch [B, nkv, MP,
+//      ceil(BS/64), 64, g] (NEG_INF past len or past BS), and the page's max per head to
+//      [B, nkv, MP, g]. K is read once.
+//   2. attend_kernel, a block per (part, kv head, row), 256 threads, a part being
+//      `pages_per_part` consecutive table entries: it takes the prefix maxima of the page
+//      maxima (a warp scan), so p is rounded against exactly the running max the sequential walk holds
+//      after each page, and streams its pages' V rows with their scores (and int8 scales)
+//      through a 3-slot cp.async ring of 64-key steps (K is not read again). Thread (key,
+//      head quarter) forms p; P.V runs bf16 over bf16 on the tensor cores (warp w: output
+//      columns 16 w .. 16 w + 15 x 8 heads, V^T by ldmatrix.trans against p^T in bf16,
+//      which is p rounded to q's dtype exactly), other pairs on the CUDA cores (thread
+//      (column pair, key phase), f32 accumulators for 2 columns x 8 heads over every 4th
+//      key, the 4 phases added in order). A part's triple is (o, m, l) over its pages.
+//      With one live part the block writes the output; otherwise each part writes its
+//      triple to the scratch and the last part of the (row, kv head) to finish (an
+//      integer ticket per pair, reset by that block, as K4's split tiles do) merges all
+//      parts IN PART ORDER: m = max m_s, o = sum_s o_s exp(m_s - m), l likewise, each
+//      part's weight computed once. No float atomics, so a replay is bit-identical
+//      whichever block comes last. A row with len = 0 gets its empty triple from its
+//      part 0 block; parts past a row's pages return at once.
+// Shared memory a block: bf16 pool on the tensor cores, score_kernel 3 x 19,712 + 4,352 =
+// 63,488 bytes and attend_kernel 3 x 19,712 + 2,048 + 32 (pages_per_part + 1) + 256,
+// about 62 KB (3 blocks an SM); int8 pool 3 x 14,592 + .. (3-4 an SM); f32 pool 3 x
+// 39,168 + .. (1 an SM); 256 threads each. The wrapper's parts (ops/kernels/
+// paged_attention.kernel_parts) give a full table (B nkv MP entries) about as many blocks
+// an SM as attend_kernel's occupancy on the card (af_paged_attention_occupancy): at
+// B = 4, nkv 4, MP 32, bf16, 2 pages a part (16 parts), which measured faster than 8 or
+// 32.
 //
 // Bound on the H100 at the engine's mixed shape (B = 4, nkv 4, g 7, hd 128, BS 128, bf16
-// pool; rows of 548, 548, 3848, 3848 tokens): the mapped pages' bytes, 72 pages x 262 KB
-// = 18.9 MB per launch, 5.6 us at 3.35 TB/s; the operations are 4 B nkv g hd len = 38
-// MFLOP, negligible. The split reads K twice (1.5x the bound's bytes) and each block
-// still waits for a page before it computes on it. Left for a later PR: double buffering
-// of the next page (cp.async or TMA), a score pass without the re-read (keep pass 1's
-// scores), and tensor-core products for long rows.
+// pool; rows of 548, 548, 3848, 3848 tokens): the live keys' K and V, 18.1 MB, 5.40 us at
+// 3.35 TB/s; this design also writes and reads the scores (1.0 MB each way) and the
+// parts' triples. Measured (scripts/torch_k3_k9_times.py, NVIDIA H100 80GB HBM3 at
+// 700 W): 0.019 ms of device time there, 28 % of the bound (the previous three-launch
+// design: 0.049 ms); the int8 and f32 pools, on the CUDA cores, 0.036 / 0.041 ms.
+// Measured and not kept: launching pass 2 early beside pass 1 (programmatic dependent
+// launch; -0.7 us for bf16, +1.6-1.9 us for the CUDA-core pairs). Left: one launch when
+// parts = 1, a persistent grid, and a CUDA graph around the serving step (the engine
+// launches 28 calls a step from the host).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <float.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_mma.cuh"   // cp_async16, cp_async4, cp_async_commit, cp_async_wait
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kHD = 128;    // head dim the kernel takes (4 dims per lane)
-constexpr int kMaxG = 8;    // query heads per KV head
+constexpr int kHD = 128;      // head dim the kernel takes
+constexpr int kMaxG = 8;      // query heads per KV head
+constexpr int kC = 64;        // keys a ring step
+constexpr int kStages = 3;    // ring slots
+constexpr int kPad = 64;      // row padding: a row stride of 64 mod 128 bytes keeps the
+                              // 16-byte reads of (key, quarter) threads off each other's banks
 constexpr float kNegInf = -0.7f * FLT_MAX;
+constexpr size_t kSmemLimit = 232448;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 // p as P.V consumes it: rounded to the query dtype (exact for f32)
 template <typename TQ> __device__ __forceinline__ float round_q(float p);
@@ -73,25 +105,13 @@ template <> __device__ __forceinline__ float round_q<__nv_bfloat16>(float p) {
   return __bfloat162float(__float2bfloat16(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src)
-               : "memory");
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
-// 16 bytes of K or V -> floats
+// 16 bytes of K -> floats
 __device__ __forceinline__ void unpack16(const uint4& u, float* f, float) {
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
@@ -113,47 +133,50 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* f, int8_t) {
   for (int i = 0; i < 16; ++i) f[i] = (float)c[i];
 }
 
-// one staged row of K or V: the head's hd values plus 16 bytes of padding, so that the
-// 16-byte reads of 8 consecutive keys fall in different banks
-template <typename TKV>
-__host__ __device__ constexpr int row_bytes() { return kHD * (int)sizeof(TKV) + 16; }
-
-template <typename TKV>
-size_t smem_bytes(int BS) {
-  return 2 * (size_t)BS * row_bytes<TKV>()              // K and V rows of the page
-         + (2 * (size_t)kMaxG * BS + 2 * (size_t)BS     // scores / p, p rounded; scales
-            + 2 * (size_t)kMaxG * kHD                   // q in f32; the halves' exchange
-            + 3 * kMaxG) * sizeof(float);               // m, l, alpha
+// two neighbouring V values -> floats
+__device__ __forceinline__ float2 unpack2(const unsigned char* p, float) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 unpack2(const unsigned char* p, __nv_bfloat16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 unpack2(const unsigned char* p, int8_t) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
 }
 
-// The shared-memory carve-up of one block.
-template <typename TKV>
-struct Smem {
-  unsigned char* ks;   // [BS] rows of row_bytes
-  unsigned char* vs;
-  float* sc;           // [kMaxG][BS] scores
-  float* pr;           // [kMaxG][BS] p as P.V consumes it
-  float* ksc;          // [BS] int8 scales
-  float* vsc;
-  float* qs;           // [kMaxG][kHD] q in f32
-  float* xc;           // [kMaxG][kHD] the halves' exchange
-  float* st_m;         // [kMaxG] running max, sum, last rescale
-  float* st_l;
-  float* st_a;
-  __device__ Smem(unsigned char* base, int BS) {
-    ks = base;
-    vs = ks + (size_t)BS * row_bytes<TKV>();
-    sc = reinterpret_cast<float*>(vs + (size_t)BS * row_bytes<TKV>());
-    pr = sc + kMaxG * BS;
-    ksc = pr + kMaxG * BS;
-    vsc = ksc + BS;
-    qs = vsc + BS;
-    xc = qs + kMaxG * kHD;
-    st_m = xc + kMaxG * kHD;
-    st_l = st_m + kMaxG;
-    st_a = st_l + kMaxG;
-  }
-};
+// bf16 queries over a bf16 pool take both products on the tensor cores (mma.sync
+// m16n8k16, f32 accumulators); every other pair takes them on the CUDA cores.
+template <typename TQ, typename TKV>
+constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value &&
+                      std::is_same<TKV, __nv_bfloat16>::value;
+constexpr int kPT = kC + 8;   // p^T row stride (bf16): its B fragments hit 32 banks
+
+// A staged row: the head's hd values, then 16 bytes (ldmatrix: rows 16 mod 128 bytes
+// apart) or 64 (the CUDA cores' interleaved 16-byte reads: 64 mod 128) of padding.
+template <typename TQ, typename TKV> __host__ __device__ constexpr int row_bytes() {
+  return kHD * (int)sizeof(TKV) + (kMma<TQ, TKV> ? 16 : kPad);
+}
+
+// One ring slot: 64 rows of K (pass 1) or V (pass 2), then (pass 2) the step's scores
+// [64][g], then the step's int8 scales [64].
+template <typename TQ, typename TKV> __host__ __device__ constexpr int stage_bytes() {
+  return kC * row_bytes<TQ, TKV>() + kC * kMaxG * 4 + kC * 4;
+}
+template <typename TQ, typename TKV> __host__ __device__ constexpr int stage_scores() {
+  return kC * row_bytes<TQ, TKV>();
+}
+template <typename TQ, typename TKV> __host__ __device__ constexpr int stage_scales() {
+  return kC * row_bytes<TQ, TKV>() + kC * kMaxG * 4;
+}
+
+template <typename TQ, typename TKV> size_t score_smem() {
+  return (size_t)kStages * stage_bytes<TQ, TKV>() + (kMaxG * kHD + kWarps * kMaxG) * 4;
+}
+template <typename TQ, typename TKV> size_t attend_smem(int pages_per_part) {
+  return (size_t)kStages * stage_bytes<TQ, TKV>() + kC * kMaxG * 4 +
+         (size_t)(pages_per_part + 1) * kMaxG * 4 + kWarps * kMaxG * 4;
+}
 
 // One layer's operands as the kernels read them.
 template <typename TQ, typename TKV>
@@ -165,73 +188,162 @@ struct Layer {
   const float* vs;
   const int* tables;    // [B, MP]
   const int* lengths;   // [B]
-  int nkv, g, BS, MP;
+  int nkv, g, BS, MP, nc;   // nc: ring steps a page, ceil(BS / 64)
   float scale;
 };
 
-template <typename TQ, typename TKV>
-__device__ __forceinline__ void load_q(const Smem<TKV>& S, const Layer<TQ, TKV>& a, int b,
-                                       int kvh) {
-  const TQ* qb = a.q + ((size_t)b * a.nkv + kvh) * a.g * kHD;
-  for (int i = threadIdx.x; i < a.g * kHD; i += kThreads) S.qs[i] = to_f32(qb[i]);
+// The f32 scratch (float offsets), as ops/kernels/paged_attention.plan lays it out.
+struct Scratch {
+  float* scores;   // [B, nkv, MP, nc, 64, g]
+  float* pmax;     // [B, nkv, MP, g], rounded up to a multiple of 4 floats
+  float* o_part;   // [B, nkv, parts, g, hd]
+  float* m_part;   // [B, nkv, parts, g]
+  float* l_part;
+};
+
+__device__ __forceinline__ int row_pages(int len, int BS, int MP) {
+  return len > 0 ? min((len + BS - 1) / BS, MP) : 0;
 }
 
-// Page j of row b into shared memory: K rows (and V rows with kV) of head kvh by 16-byte
-// cp.async copies, all in flight before one wait, and the int8 scales.
-template <typename TQ, typename TKV, bool kQuant, bool kV>
-__device__ __forceinline__ void stage_page(const Smem<TKV>& S, const Layer<TQ, TKV>& a, int b,
-                                           int kvh, int j) {
-  constexpr int kRow = row_bytes<TKV>();
-  constexpr int kChunks = kHD * (int)sizeof(TKV) / 16;
-  int page = a.tables[(size_t)b * a.MP + j];
-  if (page < 0) page = 0;
-  const size_t row0 = (size_t)page * a.BS;
-  for (int i = threadIdx.x; i < a.BS * kChunks; i += kThreads) {
-    const int t = i / kChunks, c = i % kChunks;
-    const size_t src = ((row0 + t) * a.nkv + kvh) * kHD;
-    cp_async16(S.ks + (size_t)t * kRow + 16 * c, reinterpret_cast<const uint4*>(a.k + src) + c);
-    if (kV)
-      cp_async16(S.vs + (size_t)t * kRow + 16 * c, reinterpret_cast<const uint4*>(a.v + src) + c);
-  }
-  if (kQuant) {
-    for (int t = threadIdx.x; t < a.BS; t += kThreads) {
-      S.ksc[t] = a.ks[(row0 + t) * a.nkv + kvh];
-      if (kV) S.vsc[t] = a.vs[(row0 + t) * a.nkv + kvh];
-    }
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-}
-
-// The staged page's scores into S.sc: thread (sub, half) of 2 x 128 dots key sub with
-// every query head over half of the head dim (q broadcast from shared memory); the
-// halves meet through S.pr. Keys at or past len score kNegInf.
+// Step c (keys c * 64 ..) of page `page` of head kvh: its 64 rows of `pool` by 16-byte
+// cp.async copies (rows past BS zero-filled) and, with scales, the rows' int8 scales
+// (past BS: 0). All threads take part; the caller commits.
 template <typename TQ, typename TKV, bool kQuant>
-__device__ __forceinline__ void score_page(const Smem<TKV>& S, const Layer<TQ, TKV>& a, int j,
-                                           int len) {
-  constexpr int kRow = row_bytes<TKV>();
-  constexpr int kE = 16 / (int)sizeof(TKV);
-  constexpr int kChunks = kHD * (int)sizeof(TKV) / 16;
-  const int sub = threadIdx.x & (kHD - 1);
-  const int half = threadIdx.x / kHD;
-  for (int t0 = 0; t0 < a.BS; t0 += kHD) {
-    const int t = t0 + sub;
+__device__ __forceinline__ void stage_rows(unsigned char* slot, const TKV* pool,
+                                           const float* scales, int page, int c, int BS,
+                                           int nkv, int kvh) {
+  constexpr int kRow = row_bytes<TQ, TKV>();
+  constexpr int kCh = kHD * (int)sizeof(TKV) / 16;
+  const size_t row0 = (size_t)page * BS;
+  for (int i = threadIdx.x; i < kC * kCh; i += kThreads) {
+    const int t = i / kCh, ch = i % kCh;
+    const int kt = c * kC + t;
+    const bool in = kt < BS;
+    const size_t src = ((row0 + (in ? kt : 0)) * nkv + kvh) * kHD;
+    cp_async16(slot + t * kRow + 16 * ch, reinterpret_cast<const uint4*>(pool + src) + ch, in);
+  }
+  if (kQuant && threadIdx.x < kC) {
+    const int kt = c * kC + threadIdx.x;
+    float* dst = reinterpret_cast<float*>(slot + stage_scales<TQ, TKV>()) + threadIdx.x;
+    if (kt < BS)
+      cp_async4(dst, scales + (row0 + kt) * nkv + kvh, true);
+    else
+      *dst = 0.f;
+  }
+}
+
+// Pass 1: the scores of one page of one (row, kv head) and the page's max per head.
+template <typename TQ, typename TKV, bool kQuant>
+__global__ void __launch_bounds__(kThreads)
+score_kernel(Layer<TQ, TKV> a, Scratch sc) {
+  constexpr int kRow = row_bytes<TQ, TKV>();
+  constexpr int kE = 16 / (int)sizeof(TKV);                 // values in 16 bytes
+  constexpr int kN = kHD * (int)sizeof(TKV) / 16 / 4;       // 16-byte reads a quarter
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + kStages * stage_bytes<TQ, TKV>());   // [8][128]
+  float* red = qs + kMaxG * kHD;                                               // [8 warps][8]
+  const int j = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = a.lengths[b];
+  const int entry = a.tables[(size_t)b * a.MP + j];   // read beside the length
+  if (j >= row_pages(len, a.BS, a.MP)) return;
+  const int g = a.g, nc = a.nc;
+  const int page = max(entry, 0);
+  const size_t bk = (size_t)b * a.nkv + kvh;
+
+  auto fetch = [&](int c) {
+    stage_rows<TQ, TKV, kQuant>(smem + (c % kStages) * stage_bytes<TQ, TKV>(), a.k, a.ks, page, c,
+                            a.BS, a.nkv, kvh);
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < nc) fetch(i);
+    cp_async_commit();
+  }
+  const TQ* qb = a.q + bk * g * kHD;
+  // tensor cores: q as the B fragments of S = K q^T, 8 k-steps of 16 dims (head = lane / 4,
+  // zero past g); CUDA cores: q in f32 in shared memory
+  uint32_t qf[kHD / 16][2];
+  if constexpr (kMma<TQ, TKV>) {
+    const int gq = lane >> 2, tq = lane & 3;
+    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(qb + min(gq, g - 1) * kHD);
+#pragma unroll
+    for (int kk = 0; kk < kHD / 16; ++kk) {
+      qf[kk][0] = gq < g ? qrow[8 * kk + tq] : 0u;
+      qf[kk][1] = gq < g ? qrow[8 * kk + tq + 4] : 0u;
+    }
+  } else {
+    for (int i = tid; i < kMaxG * kHD; i += kThreads)
+      qs[i] = i < g * kHD ? to_f32(qb[i]) : 0.f;
+  }
+
+  const int t = tid >> 2, qd = tid & 3;
+  float pm = kNegInf;   // thread gi < g: the page's running max of head gi
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // step c has landed for every thread; step c - 1's slot is free
+    if (c + kStages - 1 < nc) fetch(c + kStages - 1);
+    cp_async_commit();
+    const unsigned char* slot = smem + (c % kStages) * stage_bytes<TQ, TKV>();
+    if constexpr (kMma<TQ, TKV>) {
+      // warp w < 4 scores keys 16 w .. 16 w + 15 of the step: C [16 keys x 8 heads]
+      if (warp < kC / 16) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        const unsigned char* arow = slot + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow
+                                    + (lane >> 4) * 16;
+#pragma unroll
+        for (int kk = 0; kk < kHD / 16; ++kk) {
+          uint32_t af[4];
+          ldmatrix_x4(af, arow + 32 * kk);
+          mma_bf16(acc, af, qf[kk][0], qf[kk][1]);
+        }
+        const int gq = lane >> 2, tq = lane & 3;
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int tk = 16 * warp + gq + 8 * half;
+          const int kt = c * kC + tk;
+          const bool live = kt < a.BS && j * a.BS + kt < len;
+          float* out = sc.scores + (((bk * a.MP + j) * nc + c) * kC + tk) * g;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float s = live ? acc[2 * half + e] * a.scale : kNegInf;
+            if (2 * tq + e < g) out[2 * tq + e] = s;
+            mx[e] = fmaxf(mx[e], s);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {   // over the warp's 16 keys
+          mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 4));
+          mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 8));
+          mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 16));
+          if (lane < 4) red[warp * kMaxG + 2 * tq + e] = mx[e];
+        }
+      }
+      __syncthreads();
+      if (tid < g) {
+#pragma unroll
+        for (int w = 0; w < kC / 16; ++w) pm = fmaxf(pm, red[w * kMaxG + tid]);
+      }
+      continue;
+    }
+    const int kt = c * kC + t;
     float part[kMaxG];
 #pragma unroll
     for (int gi = 0; gi < kMaxG; ++gi) part[gi] = 0.f;
-    if (t < a.BS) {
-      const unsigned char* row = S.ks + (size_t)t * kRow + half * (kRow - 16) / 2;
+    if (kt < a.BS) {
+      const unsigned char* row = slot + t * kRow;
 #pragma unroll
-      for (int c = 0; c < kChunks / 2; ++c) {
+      for (int i = 0; i < kN; ++i) {
+        const int ch = qd + 4 * i;   // interleaved 16-byte chunks of the row
         float kf[kE];
-        unpack16(*reinterpret_cast<const uint4*>(row + 16 * c), kf, TKV());
-        const int d0 = half * (kHD / 2) + c * kE;
+        unpack16(*reinterpret_cast<const uint4*>(row + 16 * ch), kf, TKV());
 #pragma unroll
         for (int gi = 0; gi < kMaxG; ++gi) {
-          if (gi < a.g) {
+          if (gi < g) {
 #pragma unroll
             for (int e = 0; e < kE; e += 4) {
-              const float4 qv = *reinterpret_cast<const float4*>(S.qs + gi * kHD + d0 + e);
+              const float4 qv = *reinterpret_cast<const float4*>(qs + gi * kHD + ch * kE + e);
               part[gi] = fmaf(qv.x, kf[e], part[gi]);
               part[gi] = fmaf(qv.y, kf[e + 1], part[gi]);
               part[gi] = fmaf(qv.z, kf[e + 2], part[gi]);
@@ -240,205 +352,364 @@ __device__ __forceinline__ void score_page(const Smem<TKV>& S, const Layer<TQ, T
           }
         }
       }
-      if (half == 1) {
+    }
+    const bool live = kt < a.BS && j * a.BS + kt < len;
+    const float ksc = kQuant ? reinterpret_cast<const float*>(slot + stage_scales<TQ, TKV>())[t] : 1.f;
+    float* out = sc.scores + (((bk * a.MP + j) * nc + c) * kC + t) * g;
 #pragma unroll
-        for (int gi = 0; gi < kMaxG; ++gi)
-          if (gi < a.g) S.pr[gi * a.BS + t] = part[gi];
+    for (int gi = 0; gi < kMaxG; ++gi) {
+      if (gi < g) {   // the quarters meet: (q0 + q1) + (q2 + q3) in every lane of the quad
+        float s = part[gi] + __shfl_xor_sync(0xffffffffu, part[gi], 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        s *= a.scale;
+        if (kQuant) s *= ksc;
+        part[gi] = live ? s : kNegInf;
+        if ((gi & 3) == qd) out[gi] = part[gi];
+      }
+    }
+    // the page max per head: over the warp's 8 keys, then (below) over the 8 warps
+#pragma unroll
+    for (int gi = 0; gi < kMaxG; ++gi) {
+      if (gi < g) {
+        float mx = part[gi];
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        if (lane == 0) red[warp * kMaxG + gi] = mx;
       }
     }
     __syncthreads();
-    if (t < a.BS && half == 0) {
-      const bool live = j * a.BS + t < len;
+    if (tid < g) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) pm = fmaxf(pm, red[w * kMaxG + tid]);
+    }
+  }
+  if (tid < g) sc.pmax[(bk * a.MP + j) * g + tid] = pm;
+}
+
+// Pass 2: the online softmax over one part's pages from the scores and V, then the
+// part's triple (or the output), and the merge of the parts by the last one to finish.
+template <typename TQ, typename TKV, bool kQuant>
+__global__ void __launch_bounds__(kThreads)
+attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict__ tickets,
+              float* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out) {
+  constexpr int kRow = row_bytes<TQ, TKV>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* pr = reinterpret_cast<float*>(smem + kStages * stage_bytes<TQ, TKV>());   // [64][8]
+  float* pm = pr + kC * kMaxG;                              // [pages_per_part + 1][8]
+  float* lred = pm + (pages_per_part + 1) * kMaxG;          // [8 warps][8]
+  const int part = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, parts = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = a.g, nc = a.nc;
+  const size_t bk = (size_t)b * a.nkv + kvh;
+  const int n_pages = row_pages(a.lengths[b], a.BS, a.MP);
+  const int live_parts = (n_pages + pages_per_part - 1) / pages_per_part;
+  if (n_pages == 0) {   // no key: o = 0, m = NEG_INF, l = 0
+    if (part == 0) {
+      for (int i = tid; i < g * kHD; i += kThreads) o[bk * g * kHD + i] = 0.f;
+      if (tid < g) {
+        m_out[bk * g + tid] = kNegInf;
+        l_out[bk * g + tid] = 0.f;
+      }
+    }
+    return;
+  }
+  if (part >= live_parts) return;
+  const int j0 = part * pages_per_part;
+  const int np = min(j0 + pages_per_part, n_pages) - j0;
+  const int* table = a.tables + (size_t)b * a.MP;
+
+  auto fetch = [&](int q) {   // ring step q: page j0 + q / nc, keys (q % nc) * 64 ..
+    unsigned char* slot = smem + (q % kStages) * stage_bytes<TQ, TKV>();
+    stage_rows<TQ, TKV, kQuant>(slot, a.v, a.vs, max(table[j0 + q / nc], 0), q % nc, a.BS,
+                                a.nkv, kvh);
+    const float* src = sc.scores + ((bk * a.MP + j0 + q / nc) * nc + q % nc) * kC * g;
+    for (int i = tid; i < kC * g / 4; i += kThreads)
+      cp_async16(slot + stage_scores<TQ, TKV>() + 16 * i, src + 4 * i, true);
+  };
+  const int n = np * nc;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n) fetch(i);
+    cp_async_commit();
+  }
+
+  // the running max after each page: pm[0] = max of the maxima before the part,
+  // pm[jj + 1] = max(pm[jj], page j0 + jj's max) (one warp a head, a scan over lanes)
+  for (int gi = warp; gi < g; gi += kWarps) {
+    const float* src = sc.pmax + bk * a.MP * g + gi;
+    float mx = kNegInf;
+    for (int j = lane; j < j0; j += 32) mx = fmaxf(mx, src[(size_t)j * g]);
+    mx = warp_max(mx);
+    if (lane == 0) pm[gi] = mx;
+    for (int base = 0; base < np; base += 32) {
+      const int jj = base + lane;
+      float v = jj < np ? src[(size_t)(j0 + jj) * g] : kNegInf;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v = fmaxf(v, u);
+      }
+      v = fmaxf(v, mx);
+      if (jj < np) pm[(jj + 1) * kMaxG + gi] = v;
+      mx = __shfl_sync(0xffffffffu, v, 31);
+    }
+  }
+  for (int i = tid; i < kC * kMaxG; i += kThreads) pr[i] = 0.f;   // heads past g stay 0
+  // tensor cores: p^T in bf16 [8 heads][kPT] in pr's place
+  __nv_bfloat16* pT = reinterpret_cast<__nv_bfloat16*>(pr);
+
+  const int t = tid >> 2, hq = tid & 3;          // p: key t, heads hq and hq + 4
+  const int cp = tid & 63, ph = tid >> 6;        // P.V: columns 2 cp, 2 cp + 1, keys ph + 4 i
+  float lp[2] = {0.f, 0.f};
+  float acc[kMaxG][2];
+#pragma unroll
+  for (int gi = 0; gi < kMaxG; ++gi) acc[gi][0] = acc[gi][1] = 0.f;
+
+  for (int q = 0; q < n; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // step q has landed; step q - 1's slot and p are free
+    if (q + kStages - 1 < n) fetch(q + kStages - 1);
+    cp_async_commit();
+    const unsigned char* slot = smem + (q % kStages) * stage_bytes<TQ, TKV>();
+    const int jj = q / nc;
+    const bool first = q % nc == 0;   // a page starts: rescale by exp(m_prev - m_new)
+    const float* s_in = reinterpret_cast<const float*>(slot + stage_scores<TQ, TKV>());
+    const float vsc = kQuant ? reinterpret_cast<const float*>(slot + stage_scales<TQ, TKV>())[t] : 1.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gi = hq + 4 * h;
+      if (gi < g) {
+        const float m_new = pm[(jj + 1) * kMaxG + gi];
+        if (first) lp[h] *= expf(pm[jj * kMaxG + gi] - m_new);
+        const float p = expf(s_in[t * g + gi] - m_new);
+        lp[h] += p;
+        if constexpr (kMma<TQ, TKV>)
+          pT[gi * kPT + t] = __float2bfloat16(p);
+        else
+          pr[t * kMaxG + gi] = round_q<TQ>(kQuant ? p * vsc : p);
+      }
+    }
+    __syncthreads();
+    if constexpr (kMma<TQ, TKV>) {
+      // warp w: output columns 16 w .. 16 w + 15 x 8 heads, C = V^T p over the step's
+      // 64 keys (4 k-steps; A by ldmatrix.trans from the V rows, B from p^T)
+      const int gq = lane >> 2, tq = lane & 3;
+      if (first) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int h = 2 * tq + e;
+          const float alpha = h < g ? expf(pm[jj * kMaxG + h] - pm[(jj + 1) * kMaxG + h]) : 1.f;
+          acc[0][e] *= alpha;
+          acc[1][e] *= alpha;
+        }
+      }
+      const unsigned char* vrow = slot + ((lane & 7) + ((lane >> 4) & 1) * 8) * kRow
+                                  + (16 * warp + ((lane >> 3) & 1) * 8) * 2;
+#pragma unroll
+      for (int kk = 0; kk < kC / 16; ++kk) {
+        uint32_t af[4];
+        ldmatrix_x4_trans(af, vrow + 16 * kk * kRow);
+        const __nv_bfloat16* pb = pT + gq * kPT + 16 * kk + 2 * tq;
+        float c4[4] = {acc[0][0], acc[0][1], acc[1][0], acc[1][1]};
+        mma_bf16(c4, af, *reinterpret_cast<const uint32_t*>(pb),
+                 *reinterpret_cast<const uint32_t*>(pb + 8));
+        acc[0][0] = c4[0];
+        acc[0][1] = c4[1];
+        acc[1][0] = c4[2];
+        acc[1][1] = c4[3];
+      }
+      continue;
+    }
+    if (first) {
 #pragma unroll
       for (int gi = 0; gi < kMaxG; ++gi) {
-        if (gi < a.g) {
-          float s = (part[gi] + S.pr[gi * a.BS + t]) * a.scale;
-          if (kQuant) s *= S.ksc[t];
-          S.sc[gi * a.BS + t] = live ? s : kNegInf;
+        if (gi < g) {
+          const float alpha = expf(pm[jj * kMaxG + gi] - pm[(jj + 1) * kMaxG + gi]);
+          acc[gi][0] *= alpha;
+          acc[gi][1] *= alpha;
         }
       }
     }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ float page_max(const float* sc_row, int BS) {
-  float mx = kNegInf;
-  for (int t = threadIdx.x & 31; t < BS; t += 32) mx = fmaxf(mx, sc_row[t]);
-  return warp_max(mx);
-}
-
-__device__ __forceinline__ int row_pages(int len, int BS, int MP) {
-  return len > 0 ? min((len + BS - 1) / BS, MP) : 0;
-}
-
-// Pass 1 of a split launch: the score max of every page of the block's range, so that
-// each part of pass 2 can start from the running max of the pages before it.
-template <typename TQ, typename TKV, bool kQuant>
-__global__ void __launch_bounds__(kThreads)
-page_max_kernel(Layer<TQ, TKV> a, int pages_per_part, float* __restrict__ pmax) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem<TKV> S(smem, a.BS);
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int len = a.lengths[b];
-  const int j0 = blockIdx.z * pages_per_part;
-  const int j1 = min(j0 + pages_per_part, row_pages(len, a.BS, a.MP));
-  if (j0 >= j1) return;
-  load_q(S, a, b, kvh);
-  for (int j = j0; j < j1; ++j) {
-    stage_page<TQ, TKV, kQuant, false>(S, a, b, kvh, j);
-    score_page<TQ, TKV, kQuant>(S, a, j, len);
-    for (int gi = threadIdx.x >> 5; gi < a.g; gi += kWarps) {
-      const float mx = page_max(S.sc + gi * a.BS, a.BS);
-      if ((threadIdx.x & 31) == 0) pmax[(((size_t)b * a.nkv + kvh) * a.g + gi) * a.MP + j] = mx;
-    }
-    __syncthreads();   // the next page overwrites the staged rows and scores
-  }
-}
-
-// Pass 2 (or the only pass): the online softmax over the block's pages, starting from
-// the running max of the pages before them (read from pass 1's maxima), written as the
-// part's (o, m, l) at [B, nkv, parts, g(, hd)]; with one part that is the output.
-template <typename TQ, typename TKV, bool kQuant>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(Layer<TQ, TKV> a, int pages_per_part, const float* __restrict__ pmax,
-                       float* __restrict__ o, float* __restrict__ m_out,
-                       float* __restrict__ l_out) {
-  constexpr int kRow = row_bytes<TKV>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem<TKV> S(smem, a.BS);
-  const int kvh = blockIdx.x, b = blockIdx.y, part = blockIdx.z, parts = gridDim.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int len = a.lengths[b];
-  const int n_pages = row_pages(len, a.BS, a.MP);
-  const int j0 = min(part * pages_per_part, n_pages);
-  const int j1 = min(j0 + pages_per_part, n_pages);
-
-  load_q(S, a, b, kvh);
-  if (tid < a.g) {
-    // a part with no page contributes nothing (m = kNegInf, o = l = 0)
-    float m0 = kNegInf;
-    if (j0 < j1)
-      for (int j = 0; j < j0; ++j)
-        m0 = fmaxf(m0, pmax[(((size_t)b * a.nkv + kvh) * a.g + tid) * a.MP + j]);
-    S.st_m[tid] = m0;
-    S.st_l[tid] = 0.f;
-  }
-  const int sub = tid & (kHD - 1);
-  const int half = tid / kHD;
-  float acc[kMaxG];
+    const unsigned char* vcol = slot + cp * 2 * (int)sizeof(TKV);
+#pragma unroll 4
+    for (int i = 0; i < kC / 4; ++i) {
+      const int tk = ph + 4 * i;
+      const float2 v = unpack2(vcol + tk * kRow, TKV());
+      const float4 p0 = *reinterpret_cast<const float4*>(pr + tk * kMaxG);
+      const float4 p1 = *reinterpret_cast<const float4*>(pr + tk * kMaxG + 4);
+      const float pv[kMaxG] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-  for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0.f;
-
-  for (int j = j0; j < j1; ++j) {
-    stage_page<TQ, TKV, kQuant, true>(S, a, b, kvh, j);
-    score_page<TQ, TKV, kQuant>(S, a, j, len);
-
-    // online softmax over the page: one warp per query head
-    for (int gi = warp; gi < a.g; gi += kWarps) {
-      const float mx = page_max(S.sc + gi * a.BS, a.BS);
-      const float m_prev = S.st_m[gi];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < a.BS; t += 32) {
-        const float p = expf(S.sc[gi * a.BS + t] - m_new);
-        sum += p;
-        S.pr[gi * a.BS + t] = round_q<TQ>(kQuant ? p * S.vsc[t] : p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        S.st_a[gi] = alpha;
-        S.st_l[gi] = S.st_l[gi] * alpha + sum;
-        S.st_m[gi] = m_new;
+      for (int gi = 0; gi < kMaxG; ++gi) {
+        acc[gi][0] = fmaf(pv[gi], v.x, acc[gi][0]);
+        acc[gi][1] = fmaf(pv[gi], v.y, acc[gi][1]);
       }
     }
-    __syncthreads();
-
-    // P.V: column sub over keys half, half + 2, ...
-#pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi)
-      if (gi < a.g) acc[gi] *= S.st_a[gi];
-    for (int t = half; t < a.BS; t += 2) {
-      const float v = to_f32(reinterpret_cast<const TKV*>(S.vs + (size_t)t * kRow)[sub]);
-#pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi)
-        if (gi < a.g) acc[gi] = fmaf(S.pr[gi * a.BS + t], v, acc[gi]);
-    }
-    __syncthreads();   // the next page overwrites the staged rows and p
   }
+  cp_async_wait<0>();
+  __syncthreads();   // every step consumed: the ring's slots take the phases' sums
 
-  // add the two halves' accumulators and write the part's triple
-  if (half == 1) {
+  // the 4 key phases' accumulators (CUDA cores), then l: the threads' partial sums over
+  // the warp's keys (shuffles), then over the warps in order
+  float* xc = reinterpret_cast<float*>(smem);   // [4][8][128]
+  if constexpr (!kMma<TQ, TKV>) {
 #pragma unroll
     for (int gi = 0; gi < kMaxG; ++gi)
-      if (gi < a.g) S.xc[gi * kHD + sub] = acc[gi];
+      if (gi < g)
+        *reinterpret_cast<float2*>(xc + (ph * kMaxG + gi) * kHD + 2 * cp) =
+            make_float2(acc[gi][0], acc[gi][1]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = lp[h];
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    s += __shfl_xor_sync(0xffffffffu, s, 8);
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    if (lane < 4 && hq + 4 * h < g) lred[warp * kMaxG + hq + 4 * h] = s;
   }
   __syncthreads();
-  const size_t ob = (((size_t)b * a.nkv + kvh) * parts + part) * a.g;
-  if (half == 0) {
+  const bool single = live_parts == 1;
+  float* o_dst = single ? o + bk * g * kHD : sc.o_part + (bk * parts + part) * g * kHD;
+  if constexpr (kMma<TQ, TKV>) {
+    const int gq = lane >> 2, tq = lane & 3;
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi)
-      if (gi < a.g) o[(ob + gi) * kHD + sub] = acc[gi] + S.xc[gi * kHD + sub];
+    for (int e = 0; e < 2; ++e) {
+      const int h = 2 * tq + e;
+      if (h < g) {
+        o_dst[h * kHD + 16 * warp + gq] = acc[0][e];
+        o_dst[h * kHD + 16 * warp + gq + 8] = acc[1][e];
+      }
+    }
+  } else {
+    for (int i = tid; i < g * kHD; i += kThreads) {
+      const int gi = i / kHD, col = i % kHD;
+      o_dst[i] = ((xc[(0 * kMaxG + gi) * kHD + col] + xc[(1 * kMaxG + gi) * kHD + col]) +
+                  xc[(2 * kMaxG + gi) * kHD + col]) + xc[(3 * kMaxG + gi) * kHD + col];
+    }
   }
-  if (tid < a.g) {
-    m_out[ob + tid] = j0 < j1 ? S.st_m[tid] : kNegInf;
-    l_out[ob + tid] = S.st_l[tid];
+  if (tid < g) {
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) l += lred[w * kMaxG + tid];
+    const float m = pm[np * kMaxG + tid];
+    if (single) {
+      m_out[bk * g + tid] = m;
+      l_out[bk * g + tid] = l;
+    } else {
+      sc.m_part[(bk * parts + part) * g + tid] = m;
+      sc.l_part[(bk * parts + part) * g + tid] = l;
+    }
+  }
+  if (single) return;
+
+  // the ticket: the last part of this (row, kv head) to get here merges all of them
+  __shared__ int last;
+  __threadfence();   // this part's triple is visible before it is counted
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(tickets + bk, 1) == live_parts - 1;
+    if (last) tickets[bk] = 0;   // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // each part's weight exp(m_s - m) once per head (a warp a head, a lane a part; in the
+  // ring's slots, free now), l over the parts in order, then o's columns by 16 bytes, every
+  // part's load in flight at once
+  float* wgt = reinterpret_cast<float*>(smem);   // [live_parts][8]
+  float* lsv = wgt + live_parts * kMaxG;          // [live_parts][8]
+  for (int gi = warp; gi < g; gi += kWarps) {
+    const float* mp = sc.m_part + bk * parts * g + gi;
+    float mx = kNegInf;
+    for (int s = lane; s < live_parts; s += 32) mx = fmaxf(mx, __ldcg(mp + s * g));
+    mx = warp_max(mx);
+    for (int s = lane; s < live_parts; s += 32) {
+      wgt[s * kMaxG + gi] = expf(__ldcg(mp + s * g) - mx);
+      lsv[s * kMaxG + gi] = __ldcg(sc.l_part + (bk * parts + s) * g + gi);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      float acc_l = 0.f;
+      for (int s = 0; s < live_parts; ++s) acc_l = fmaf(lsv[s * kMaxG + gi], wgt[s * kMaxG + gi], acc_l);
+      m_out[bk * g + gi] = mx;
+      l_out[bk * g + gi] = acc_l;
+    }
+  }
+  __syncthreads();
+  const float4* op = reinterpret_cast<const float4*>(sc.o_part + bk * parts * g * kHD);
+  float4* o4 = reinterpret_cast<float4*>(o + bk * g * kHD);
+  for (int i = tid; i < g * kHD / 4; i += kThreads) {
+    const int gi = 4 * i / kHD;
+    float4 acc_o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+    for (int s = 0; s < live_parts; ++s) {
+      const float4 v = __ldcg(op + (size_t)s * g * kHD / 4 + i);
+      const float w = wgt[s * kMaxG + gi];
+      acc_o.x = fmaf(v.x, w, acc_o.x);
+      acc_o.y = fmaf(v.y, w, acc_o.y);
+      acc_o.z = fmaf(v.z, w, acc_o.z);
+      acc_o.w = fmaf(v.w, w, acc_o.w);
+    }
+    o4[i] = acc_o;
   }
 }
 
-// Pass 3 of a split launch: the parts' triples into one, o = sum_s o_s exp(m_s - m),
-// l = sum_s l_s exp(m_s - m), m = max_s m_s (a row with no page keeps 0, kNegInf, 0).
-__global__ void __launch_bounds__(kHD)
-merge_parts_kernel(const float* __restrict__ o_part, const float* __restrict__ m_part,
-                   const float* __restrict__ l_part, float* __restrict__ o,
-                   float* __restrict__ m_out, float* __restrict__ l_out, int nkv, int g,
-                   int parts) {
-  const int kvh = blockIdx.x, b = blockIdx.y, col = threadIdx.x;
-  const size_t bk = (size_t)b * nkv + kvh;
-  for (int gi = 0; gi < g; ++gi) {
-    float mx = kNegInf;
-    for (int s = 0; s < parts; ++s) mx = fmaxf(mx, m_part[(bk * parts + s) * g + gi]);
-    float acc = 0.f, l = 0.f;
-    for (int s = 0; s < parts; ++s) {
-      const size_t ps = (bk * parts + s) * g + gi;
-      const float w = expf(m_part[ps] - mx);
-      acc = fmaf(o_part[ps * kHD + col], w, acc);
-      l = fmaf(l_part[ps], w, l);
-    }
-    o[(bk * g + gi) * kHD + col] = acc;
-    if (col == 0) {
-      m_out[bk * g + gi] = mx;
-      l_out[bk * g + gi] = l;
-    }
+template <typename K> cudaError_t raise_smem_limit(K kernel) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(kSmemLimit - attr.sharedSizeBytes));
+}
+
+// The shared-memory limit of a pair's two kernels, raised once per device to the card's
+// maximum (so that a launch captured in a CUDA graph makes no attribute call).
+template <typename TQ, typename TKV, bool kQuant>
+cudaError_t configure() {
+  static bool configured[64] = {false};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = raise_smem_limit(score_kernel<TQ, TKV, kQuant>);
+    if (err == cudaSuccess) err = raise_smem_limit(attend_kernel<TQ, TKV, kQuant>);
+    if (err != cudaSuccess) return err;
+    configured[dev] = true;
   }
+  return cudaSuccess;
+}
+
+// attend_kernel's blocks an SM for the pair, at MP table entries a part (its most shared
+// memory).
+template <typename TQ, typename TKV, bool kQuant>
+int attend_occupancy(int MP, int* blocks) {
+  const cudaError_t err = configure<TQ, TKV, kQuant>();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, attend_kernel<TQ, TKV, kQuant>, kThreads, attend_smem<TQ, TKV>(MP));
 }
 
 template <typename TQ, typename TKV, bool kQuant>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
            const void* v_scale, const void* tables, const void* lengths, void* o, void* m,
-           void* l, float* scratch, int B, int nkv, int g, int NB, int BS, int MP, int layer,
-           int parts, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<TKV>(BS);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto attend = paged_attention_kernel<TQ, TKV, kQuant>;
-  auto maxima = page_max_kernel<TQ, TKV, kQuant>;
-  // the shared-memory limit is set once per device and size (so that a launch captured
-  // in a CUDA graph makes no attribute call)
-  static int configured[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+           void* l, float* scratch, long long scratch_floats, int* tickets, int B, int nkv,
+           int g, int NB, int BS, int MP, int layer, int parts, float scale,
+           cudaStream_t stream) {
+  const int nc = (BS + kC - 1) / kC;
+  const int per_part = (MP + parts - 1) / parts;
+  const size_t smem1 = score_smem<TQ, TKV>(), smem2 = attend_smem<TQ, TKV>(per_part);
+  if (smem2 + 16 > kSmemLimit) return (int)cudaErrorInvalidValue;
+  static_assert(4 * kMaxG * kHD * 4 <= kStages * stage_bytes<TQ, TKV>(),
+                "the phases' sums fit in the ring");
+  if ((long long)parts * kMaxG * 8 > (long long)kStages * stage_bytes<TQ, TKV>())
+    return (int)cudaErrorInvalidValue;   // the merge's weights and l's live in the ring
+  const long long bkg = (long long)B * nkv * g;
+  const long long pmax_floats = (bkg * MP + 3) / 4 * 4;   // the parts' o stay 16-byte aligned
+  const long long need = bkg * MP * nc * kC + pmax_floats + bkg * parts * (kHD + 2);
+  if (scratch_floats < need) return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure<TQ, TKV, kQuant>();
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (configured[dev] < (int)smem) {
-    err = cudaFuncSetAttribute(attend, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(maxima, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = (int)smem;
-  }
   const size_t layer_scales = (size_t)layer * NB * BS * nkv;
   Layer<TQ, TKV> a;
   a.q = static_cast<const TQ*>(q);
@@ -452,25 +723,20 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
   a.g = g;
   a.BS = BS;
   a.MP = MP;
+  a.nc = nc;
   a.scale = scale;
-  float* of = static_cast<float*>(o);
-  float* mf = static_cast<float*>(m);
-  float* lf = static_cast<float*>(l);
-  const int per_part = (MP + parts - 1) / parts;
-  if (parts <= 1) {
-    attend<<<dim3(nkv, B, 1), kThreads, smem, stream>>>(a, MP, nullptr, of, mf, lf);
-    return (int)cudaGetLastError();
-  }
-  // scratch: page maxima [B, nkv, g, MP], then the parts' o, m, l
-  float* pmax = scratch;
-  float* o_part = pmax + (size_t)B * nkv * g * MP;
-  float* m_part = o_part + (size_t)B * nkv * parts * g * kHD;
-  float* l_part = m_part + (size_t)B * nkv * parts * g;
-  maxima<<<dim3(nkv, B, parts), kThreads, smem, stream>>>(a, per_part, pmax);
-  attend<<<dim3(nkv, B, parts), kThreads, smem, stream>>>(a, per_part, pmax, o_part, m_part,
-                                                          l_part);
-  merge_parts_kernel<<<dim3(nkv, B), kHD, 0, stream>>>(o_part, m_part, l_part, of, mf, lf, nkv,
-                                                       g, parts);
+  Scratch sc;
+  sc.scores = scratch;
+  sc.pmax = sc.scores + bkg * MP * nc * kC;
+  sc.o_part = sc.pmax + pmax_floats;
+  sc.m_part = sc.o_part + bkg * parts * kHD;
+  sc.l_part = sc.m_part + bkg * parts;
+  score_kernel<TQ, TKV, kQuant><<<dim3(MP, nkv, B), kThreads, smem1, stream>>>(a, sc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attend_kernel<TQ, TKV, kQuant><<<dim3(parts, nkv, B), kThreads, smem2, stream>>>(
+      a, sc, per_part, tickets, static_cast<float*>(o), static_cast<float*>(m),
+      static_cast<float*>(l));
   return (int)cudaGetLastError();
 }
 
@@ -478,21 +744,26 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
 
 // q_dtype: 0 = f32, 1 = bf16; kv_dtype: 0 = f32, 1 = bf16, 2 = int8 with f32 scales (a
 // bf16 pool may serve f32 queries). The pools hold L layers of NB pages; `layer` selects
-// one inside the kernels. parts > 1 splits each row's MP table entries over that many
-// blocks (three launches); scratch then holds B nkv g (MP + parts (hd + 2)) floats.
+// one inside the kernels. parts (1 .. MP) splits each row's MP table entries over that
+// many blocks of ceil(MP / parts) entries. scratch: scratch_floats f32, at least
+// B nkv g MP ceil(BS / 64) 64 + round_up(B nkv g MP, 4) + B nkv g parts (hd + 2) (16-byte
+// aligned); tickets: B nkv int32, zero, left zero. Two launches.
 extern "C" int af_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                   const void* k_scale, const void* v_scale,
                                   const void* tables, const void* lengths, void* o, void* m,
-                                  void* l, void* scratch, int q_dtype, int kv_dtype, int B,
-                                  int nkv, int g, int hd, int NB, int BS, int MP, int layer,
-                                  int parts, float scale, void* stream) {
+                                  void* l, void* scratch, void* tickets, int q_dtype,
+                                  int kv_dtype, int B, int nkv, int g, int hd, int NB, int BS,
+                                  int MP, int layer, int parts, long long scratch_floats,
+                                  float scale, void* stream) {
   if (B <= 0 || nkv <= 0 || g <= 0 || g > kMaxG || hd != kHD || NB <= 0 || BS <= 0 ||
-      MP <= 0 || layer < 0 || parts < 1 || parts > MP || (parts > 1 && scratch == nullptr))
+      MP <= 0 || layer < 0 || parts < 1 || parts > MP || scratch == nullptr ||
+      tickets == nullptr || (B > 65535) || (nkv > 65535) || (MP > 65535))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sf = static_cast<float*>(scratch);
-#define AF_PAGED_ARGS q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o, m, l, sf, B, nkv, \
-                      g, NB, BS, MP, layer, parts, scale, s
+  int* tk = static_cast<int*>(tickets);
+#define AF_PAGED_ARGS q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o, m, l, sf, \
+                      scratch_floats, tk, B, nkv, g, NB, BS, MP, layer, parts, scale, s
   if (q_dtype == 0 && kv_dtype == 0) return launch<float, float, false>(AF_PAGED_ARGS);
   if (q_dtype == 0 && kv_dtype == 1) return launch<float, __nv_bfloat16, false>(AF_PAGED_ARGS);
   if (q_dtype == 1 && kv_dtype == 1)
@@ -500,5 +771,22 @@ extern "C" int af_paged_attention(const void* q, const void* k_pool, const void*
   if (q_dtype == 0 && kv_dtype == 2) return launch<float, int8_t, true>(AF_PAGED_ARGS);
   if (q_dtype == 1 && kv_dtype == 2) return launch<__nv_bfloat16, int8_t, true>(AF_PAGED_ARGS);
 #undef AF_PAGED_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// blocks: how many attend_kernel blocks of the (q_dtype, kv_dtype) pair an SM of the
+// current device holds (its threads, registers and shared memory at MP entries a part,
+// the most a part can have): the occupancy the wrapper chooses its parts by
+// (ops/kernels/paged_attention.kernel_parts). Returns a cudaError_t.
+extern "C" int af_paged_attention_occupancy(int q_dtype, int kv_dtype, int MP, int* blocks) {
+  if (MP <= 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+  if (q_dtype == 0 && kv_dtype == 0) return attend_occupancy<float, float, false>(MP, blocks);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return attend_occupancy<float, __nv_bfloat16, false>(MP, blocks);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return attend_occupancy<__nv_bfloat16, __nv_bfloat16, false>(MP, blocks);
+  if (q_dtype == 0 && kv_dtype == 2) return attend_occupancy<float, int8_t, true>(MP, blocks);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return attend_occupancy<__nv_bfloat16, int8_t, true>(MP, blocks);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -13,3 +15,14 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
                                "the CPU explicitly")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (its current one when unindexed),
+    which the kernel wrappers size their grids by."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())

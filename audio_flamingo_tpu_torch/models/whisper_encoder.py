@@ -25,8 +25,8 @@ dtype), in one of JAX's two layouts (``ops/quant.py``):
 - fused (``quantize_encoder_params_fused``, a ``qkv`` node): each of the stages "qkv",
   "out" and "mlp" runs its K9 kernel (``ops/kernels/enc_fused.py``) when it is in
   ``cfg.fused_stages`` and its composed torch form otherwise; attention goes to K2. On
-  the card the fc1 and fc2 nodes also hold K-major copies of their codes (``w_t``, not in
-  ``state_dict``), which ``enc_mlp``'s kernel reads.
+  the card the qkv, o, fc1 and fc2 nodes also hold K-major copies of their codes (``w_t``,
+  not in ``state_dict``), which the K9 kernels read.
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ def quantized_encoder(cfg: WhisperEncoderConfig, float_state: dict, tree: dict,
     enc.load_state_dict(float_state)
     enc.layers = TensorTree(cast_quantized(tree, compute_dtype, device))
     if enc.fused and torch.device(device).type == "cuda":
-        enc_fused.attach_mlp_kmajor(enc.layers)   # K9 enc_mlp's weight copies, made once
+        enc_fused.attach_kmajor(enc.layers)   # K9's K-major weight copies, made once
     return enc.eval().requires_grad_(False)
 
 
@@ -212,7 +212,8 @@ def stage_qkv(xf: torch.Tensor, lp: TensorTree, i: int, fused: bool) -> torch.Te
     composed torch form."""
     ln_w, ln_b, p = lp["ln1_w"][i], lp["ln1_b"][i], lp["qkv"]
     if fused:
-        return enc_fused.enc_ln_qkv(xf, ln_w, ln_b, p["w_q"][i], p["scale"][i], p["b"][i])
+        return enc_fused.enc_ln_qkv(xf, ln_w, ln_b, p["w_q"][i], p["scale"][i], p["b"][i],
+                                    w_t=p["w_t"][i] if "w_t" in p else None)
     h = layer_norm(xf, ln_w, ln_b)
     return (quant.q_matmul_a8q(*quant.quantize_act(h), _lin(p, i), out_dtype=h.dtype)
             + _bias(p, i, h.dtype))
@@ -223,7 +224,8 @@ def stage_out(ao: torch.Tensor, xf: torch.Tensor, lp: TensorTree, i: int, fused:
     ``enc_out_ln``, or its composed torch form."""
     ln_w, ln_b, p = lp["ln2_w"][i], lp["ln2_b"][i], lp["o"]
     if fused:
-        return enc_fused.enc_out_ln(ao, xf, p["w_q"][i], p["scale"][i], p["b"][i], ln_w, ln_b)
+        return enc_fused.enc_out_ln(ao, xf, p["w_q"][i], p["scale"][i], p["b"][i], ln_w, ln_b,
+                                    w_t=p["w_t"][i] if "w_t" in p else None)
     x2 = (xf + quant.q_matmul_a8q(*quant.quantize_act(ao), _lin(p, i), out_dtype=ao.dtype)
           + _bias(p, i, ao.dtype))
     return (x2, *quant.quantize_act(layer_norm(x2, ln_w, ln_b)))

@@ -128,7 +128,10 @@ def load_library(path: str | None = None) -> ctypes.CDLL:
         fn.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         fn = lib.af_paged_attention
         fn.restype = i32
-        fn.argtypes = [ptr] * 11 + [i32] * 11 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 12 + [i32] * 11 + [i64, ctypes.c_float, ptr]
+        fn = lib.af_paged_attention_occupancy
+        fn.restype = i32
+        fn.argtypes = [i32] * 3 + [ptr]
         fn = lib.af_flash_attention_a8
         fn.restype = i32
         fn.argtypes = [ptr] * 5 + [i32] * 12 + [i64] * 6 + [ptr]
@@ -137,7 +140,7 @@ def load_library(path: str | None = None) -> ctypes.CDLL:
         fn.argtypes = [ptr] * 12 + [i32] * 10 + [i64] * 9 + [ctypes.c_float, ptr]
         fn = lib.af_enc_ln_qkv
         fn.restype = i32
-        fn.argtypes = [ptr] * 7 + [i32] * 4 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 7 + [i32] * 5 + [ctypes.c_float, ptr]
         fn = lib.af_enc_out_ln
         fn.restype = i32
         fn.argtypes = [ptr] * 10 + [i32] * 3 + [ctypes.c_float, ptr]

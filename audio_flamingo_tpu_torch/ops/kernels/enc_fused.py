@@ -14,9 +14,14 @@ Replaces the Pallas TPU kernels of ``audio_flamingo_tpu/ops/pallas/enc_fused.py`
 - ``enc_mlp``: (h_q, h_scale) -> per f tile of ``f_tile`` columns: fc1 product, scale,
   bias, the polynomial-erf GELU, re-quantization per (row, tile), fc2 product times the
   tile's row scale added to an f32 accumulator, tile after tile in order; then
-  acc * s2 + b2 + x2, in x2.dtype. The kernel reads K-major copies of the two weights
-  (``mlp_kmajor``; the encoder makes them once, where its fused tree reaches the card,
-  ``attach_mlp_kmajor``); the plain version reads the JAX layout.
+  acc * s2 + b2 + x2, in x2.dtype.
+
+The kernels read K-major copies of every weight (``kmajor``, ``mlp_kmajor``; the encoder
+makes them once, where its fused tree reaches the card, ``attach_kmajor``), or make them
+per call when not given; the plain versions read the JAX layout. ``enc_ln_qkv`` and
+``enc_out_ln`` hold a row in registers, so their kernels take rows of at most
+``MAX_WIDTH`` elements (``qkv_supported``, ``out_supported``); the CUDA side sizes their
+thread-block clusters from the card.
 
 The int8 products are exact (int32), so the kernels and the plain versions differ only
 where a sum of floats is taken in another order (a LayerNorm's statistics) and in the
@@ -35,7 +40,11 @@ from audio_flamingo_tpu_torch.ops.quant import quantize_act as quant_rows
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MLP_F_TILE = 2560          # the JAX ENC_MLP_F_TILE
-MLP_BLOCK_N = 256          # enc_mlp's kernel: output columns a pass (csrc kMlpNC)
+MLP_BLOCK_N = 256          # the kernels' output columns a pass (csrc kMlpNC)
+MAX_WIDTH = 2048           # enc_ln_qkv's and enc_out_ln's widest row (csrc kRegD)
+# blocks of a thread-block cluster sharing one of enc_ln_qkv's row blocks; 0: the CUDA
+# side's choice (csrc ln_qkv_cluster). scripts/torch_k3_k9_times.py --clusters sets it.
+LN_QKV_CLUSTER = 0
 
 LN_QKV_LAUNCHES = LaunchCounter()   # key: (m, d, N); inputs: the wrapper's arguments
 OUT_LN_LAUNCHES = LaunchCounter()   # key: (m, d)
@@ -131,41 +140,82 @@ def _launch(counter: LaunchCounter, key, device, fn, args, inputs) -> None:
     counter.record(key, device, start, inputs)
 
 
-def enc_ln_qkv(x, ln_w, ln_b, w_q, w_scale, bias, eps: float = 1e-5):
+def kmajor(w_q: torch.Tensor) -> torch.Tensor:
+    """The K-major int8 copy a kernel reads of a JAX-layout weight [.., in, out]: its last
+    two axes transposed, contiguous (stacked or not)."""
+    return w_q.transpose(-2, -1).contiguous()
+
+
+def _kmajor_for(name: str, w_q: torch.Tensor, w_t: torch.Tensor | None) -> torch.Tensor:
+    """The given copy, checked against the codes' shape, or one made now (in x out bytes
+    moved per call)."""
+    if w_t is None:
+        return kmajor(w_q)
+    want = (w_q.shape[1], w_q.shape[0])
+    if tuple(w_t.shape) != want or w_t.dtype != torch.int8:
+        raise ValueError(f"{name}: K-major copy {tuple(w_t.shape)} {w_t.dtype} is not int8 "
+                         f"{list(want)}")
+    return w_t
+
+
+def qkv_supported(d: int, n: int) -> bool:
+    """The shapes enc_ln_qkv's kernel takes: x [m, d] with d a multiple of 64 up to
+    ``MAX_WIDTH``, and N output columns a multiple of 128."""
+    return d % 64 == 0 and 0 < d <= MAX_WIDTH and n % 128 == 0 and n > 0
+
+
+def out_supported(d: int) -> bool:
+    """The widths enc_out_ln's kernel takes: multiples of 128 up to ``MAX_WIDTH``."""
+    return d % 128 == 0 and 0 < d <= MAX_WIDTH
+
+
+def enc_ln_qkv(x, ln_w, ln_b, w_q, w_scale, bias, eps: float = 1e-5, *, w_t=None):
     """x [m, d] -> LayerNorm -> quant -> x @ w_q [d, N] int8 -> [m, N] in x.dtype (the q
-    pre-scale is folded into w_scale and bias by the quantizer)."""
+    pre-scale is folded into w_scale and bias by the quantizer). ``w_t``: the kernel's
+    K-major copy [N, d] (``kmajor``), made here when not given."""
     if x.device.type == "cpu":
         return enc_ln_qkv_reference(x, ln_w, ln_b, w_q, w_scale, bias, eps)
     _cuda_check("enc_ln_qkv", x, w_q)
-    x = x.contiguous()
     m, d = x.shape
     n = w_q.shape[1]
+    if not qkv_supported(d, n):
+        raise ValueError(f"enc_ln_qkv's kernel takes d a multiple of 64 up to {MAX_WIDTH} "
+                         f"and N a multiple of 128; got d = {d}, N = {n}")
+    w_t = aligned(_kmajor_for("enc_ln_qkv", w_q, w_t))
+    _cuda_check("enc_ln_qkv", x, w_t)
+    x = aligned(x.contiguous())   # rows are read by 16 bytes
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     vecs = [_vec(t) for t in (ln_w, ln_b, w_scale, bias)]
     _launch(LN_QKV_LAUNCHES, (m, d, n), x.device, "af_enc_ln_qkv",
-            (x.data_ptr(), *(t.data_ptr() for t in vecs[:2]), w_q.data_ptr(),
+            (x.data_ptr(), *(t.data_ptr() for t in vecs[:2]), w_t.data_ptr(),
              *(t.data_ptr() for t in vecs[2:]), out.data_ptr(), _DTYPE_CODES[x.dtype],
-             m, d, n, float(eps)),
+             m, d, n, LN_QKV_CLUSTER, float(eps)),
             (x, ln_w, ln_b, w_q, w_scale, bias, eps))
     return out
 
 
-def enc_out_ln(attn, x, w_q, w_scale, bias, ln_w, ln_b, eps: float = 1e-5):
+def enc_out_ln(attn, x, w_q, w_scale, bias, ln_w, ln_b, eps: float = 1e-5, *, w_t=None):
     """attn, x [m, d] -> (x2 = x + attn @ w_o + b in attn.dtype, int8 codes [m, d] and f32
-    scales [m, 1] of the LayerNorm of the f32 x2)."""
+    scales [m, 1] of the LayerNorm of the f32 x2). ``w_t``: the kernel's K-major copy of
+    w_o (``kmajor``), made here when not given."""
     if attn.device.type == "cpu":
         return enc_out_ln_reference(attn, x, w_q, w_scale, bias, ln_w, ln_b, eps)
     _cuda_check("enc_out_ln", attn, w_q)
     if x.dtype != attn.dtype:
         raise TypeError(f"enc_out_ln kernel: x {x.dtype} and attn {attn.dtype} differ")
-    attn, x = attn.contiguous(), x.contiguous()
     m, d = attn.shape
+    if not out_supported(d):
+        raise ValueError(f"enc_out_ln's kernel takes d a multiple of 128 up to {MAX_WIDTH}; "
+                         f"got d = {d}")
+    w_t = aligned(_kmajor_for("enc_out_ln", w_q, w_t))
+    _cuda_check("enc_out_ln", attn, w_t)
+    attn, x = aligned(attn.contiguous()), x.contiguous()
     x2 = torch.empty_like(attn)
     hq = torch.empty((m, d), dtype=torch.int8, device=attn.device)
     hs = torch.empty((m, 1), dtype=torch.float32, device=attn.device)
     vecs = [_vec(t) for t in (w_scale, bias, ln_w, ln_b)]
     _launch(OUT_LN_LAUNCHES, (m, d), attn.device, "af_enc_out_ln",
-            (attn.data_ptr(), x.data_ptr(), w_q.data_ptr(), *(t.data_ptr() for t in vecs),
+            (attn.data_ptr(), x.data_ptr(), w_t.data_ptr(), *(t.data_ptr() for t in vecs),
              x2.data_ptr(), hq.data_ptr(), hs.data_ptr(), _DTYPE_CODES[attn.dtype], m, d,
              float(eps)),
             (attn, x, w_q, w_scale, bias, ln_w, ln_b, eps))
@@ -180,16 +230,27 @@ def mlp_supported(d: int, f_tile: int) -> bool:
 def mlp_kmajor(w1_q: torch.Tensor, w2_q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The K-major int8 copies enc_mlp's kernel reads: w1 [.., d, f] -> [.., f, d] and w2
     [.., f, d] -> [.., d, f] (the last two axes transposed, contiguous; stacked or not)."""
-    return (w1_q.transpose(-2, -1).contiguous(), w2_q.transpose(-2, -1).contiguous())
+    return kmajor(w1_q), kmajor(w2_q)
+
+
+def _attach(layers, names) -> None:
+    for name in names:
+        layers[name].register_buffer("w_t", kmajor(layers[name]["w_q"]), persistent=False)
+
+
+def attach_kmajor(layers) -> None:
+    """Give a fused encoder tree's qkv, o, fc1 and fc2 nodes (qwen2.TensorTree) their
+    K-major copies as ``w_t`` (6.6 MB a layer at d = 1280 for q|k|v and o, 13.1 MB for fc1
+    and fc2): non-persistent buffers, so they move with ``.to()`` and stay out of
+    ``state_dict()``; the JAX-layout ``w_q`` stays the one source of the codes. The
+    encoder calls this once where its tree reaches the card."""
+    _attach(layers, ("qkv", "o", "fc1", "fc2"))
 
 
 def attach_mlp_kmajor(layers) -> None:
-    """Give a fused encoder tree's fc1 and fc2 nodes (qwen2.TensorTree) their K-major copies
-    as ``w_t``: non-persistent buffers, so they move with ``.to()`` and stay out of
-    ``state_dict()``; the JAX-layout ``w_q`` stays the one source of the codes."""
-    w1_t, w2_t = mlp_kmajor(layers["fc1"]["w_q"], layers["fc2"]["w_q"])
-    layers["fc1"].register_buffer("w_t", w1_t, persistent=False)
-    layers["fc2"].register_buffer("w_t", w2_t, persistent=False)
+    """``attach_kmajor`` for fc1 and fc2 only. The package does not call it; it stays for
+    the tests that give a tree enc_mlp's copies alone."""
+    _attach(layers, ("fc1", "fc2"))
 
 
 def enc_mlp(h_q, h_scale, w1_q, w1_scale, b1, w2_q, w2_scale, b2, x2,

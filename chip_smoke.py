@@ -63,7 +63,8 @@ Phases, each line stamped with elapsed seconds:
         [4,4,7,128], stacked pools [28,88,128,4,128], tables shuffled over the pool, rows
         of 548, 3848, 1 and 0 tokens, a current token merged), q f32 over f32, bf16 and
         int8 pools and q bf16 over bf16 and int8 pools, timed with its plain version and
-        bound at those rows and at the engine's mixed rows;
+        bound at those rows and at the engine's mixed rows, with the wrapper and as device
+        time (10 calls in a CUDA graph, replayed) beside the bound;
      b. bench.py's mixed workload (3 x 500 and 3 x 3800 random ids, 48 greedy tokens
         each, plus a 30 s clip through the processor) on PagedEngine with its settings (4
         rows, 88 x 128-token pages, 32 pages per row, chunks of 16), with a bf16 and an
@@ -72,6 +73,9 @@ Phases, each line stamped with elapsed seconds:
         TTFT, K3 ms per step, pool bytes and peak memory; a second run gives the same ids,
         replays the first chunk's K3 launches against the plain version, runs one chunk
         under torch.cuda.set_sync_debug_mode("error") and bounds each chunk's temporaries;
+        a third keeps every K3 launch's inputs: their plain time and bounds summed, and all
+        of them replayed in one CUDA graph (K3's device time in the serving path, beside
+        the CUDA-events figure, which includes the host's gaps);
      c. prefix caching: two requests with one system prompt and clip; the second hits the
         shared pages and skips the encoder; both TTFTs;
      d. the int4 LM (quantized on the card as in 7b) with an int8 pool, 2 requests, twice:
@@ -112,8 +116,9 @@ Phases, each line stamped with elapsed seconds:
      b. the three encoder fusions (K9) against their plain versions at m = 1500 and 30,000
         rows, bf16 and f32, on one full-width layer: codes >= 99.9 % equal, every output
         within its bound, replays bit-identical; timed beside the composed torch form of
-        the same stage (fused_stages=()), the plain version and the bound; enc_mlp and its
-        composed form also as device times (CUDA graphs);
+        the same stage (fused_stages=()), the plain version and the bound; each kernel
+        (reading the K-major copies the encoder holds) also as device time (10 calls, 2 at
+        m = 30,000, in a CUDA graph), and enc_mlp's composed form;
      c. the 30 s clip at full width with the LM quantized on the card to int8 and the
         encoder by quantize_encoder_params, a8_prefill and a8_attention on both towers:
         generate() three times, 60 K8 launches (and 60 CUDA preludes) each, identical
@@ -1334,7 +1339,7 @@ def paged_kernel_phase(pa) -> dict:
             call = lambda: pa.paged_attention(*args[:6], k_scale=args[6], v_scale=args[7])
             plain = lambda: pa.paged_attention_plain(*args[:6], k_scale=args[6], v_scale=args[7])
             r = dict(worst, ms=time_ms(call), plain_ms=time_ms(plain, 3, 1), library_ms=None,
-                     graph_ms=graph_ms(call))
+                     graph_ms=graph_ms(call, calls=10))   # the graph's own launch shared by 10
             split = pa.kernel_parts      # the same launch without the page split, beside it
             pa.kernel_parts = lambda *a: 1
             try:
@@ -1343,13 +1348,16 @@ def paged_kernel_phase(pa) -> dict:
                 pa.kernel_parts = split
             r["bound_ms"], r["bound_by"] = paged_bound_ms(lens, block, mp, tuple(q.shape),
                                                           q_dtype, pools[0].dtype)
+            parts = pa.kernel_parts(len(lens), nkv, mp, q.device, q.dtype, pools[0].dtype)
             log(f"K3 q {qn:8s} pool {kv_name:8s} rows {lens}: max|o/l - plain| "
                 f"{r['err']:.3e} (at {r['ratio']:.3f} of its limit, merged rows included) "
-                f"ms={r['ms']:.4f} (the call; device alone, CUDA graph replay: "
+                f"{parts} parts (from the V pass's occupancy on this card) "
+                f"ms={r['ms']:.4f} (the call; device alone, 10 calls in a CUDA graph: "
                 f"{r['graph_ms']:.4f}; one part per row, no split: {r['one_part_ms']:.4f}) "
                 f"plain_ms={r['plain_ms']:.4f} library_ms={PAGED_NO_LIBRARY} "
                 f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); "
-                f"{r['bound_ms'] / r['ms'] * 100:.2f} % of the bound")
+                f"{r['bound_ms'] / r['ms'] * 100:.2f} % of the bound with the wrapper, "
+                f"{r['bound_ms'] / r['graph_ms'] * 100:.2f} % as device time")
             results[(qn, kv_name, name)] = r
         del pools
     del kf, vf, k8, v8, ks, vs
@@ -1437,6 +1445,16 @@ class ChunkProbe:
         tot.update(launch_sums(self.pa, launches))
         counter.timing = timing
         return tot
+
+
+def launches_graph_ms(pa, launches) -> float:
+    """Device time of a run's K3 launches: every kept launch replayed on its own inputs,
+    all of them captured in one CUDA graph (median of 3 replays)."""
+    def run():
+        for q, k, v, tables, lengths, layer, ks, vs, scale in launches:
+            pa.paged_attention(q, k, v, tables, lengths, layer, k_scale=ks, v_scale=vs,
+                               scale=scale)
+    return graph_ms(run, reps=3)
 
 
 def launch_sums(pa, launches) -> dict:
@@ -1609,14 +1627,18 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
     check(full["launches"] == lm_cfg.num_layers * full["steps"] == len(pa.LAUNCHES.inputs),
           f"paged {name}: third run {full['launches']} K3 launches for {full['steps']} steps")
     full.update(launch_sums(pa, pa.LAUNCHES.inputs))
+    full["graph_ms"] = launches_graph_ms(pa, pa.LAUNCHES.inputs)
     pa.LAUNCHES.reset()
     steps = full["steps"]
     log(f"paged {name}: third run identical ids; all {full['launches']} K3 launches "
         f"({steps} steps): in the path {full['ms']:.3f} ms = {full['ms'] / steps:.4f} ms per "
-        f"step, plain {full['plain_ms']:.3f} ms = {full['plain_ms'] / steps:.3f} ms per step "
+        f"step (CUDA events around each launch, the host's gaps included); replayed in one "
+        f"CUDA graph {full['graph_ms']:.3f} ms = {full['graph_ms'] / steps:.4f} ms per step "
+        f"(device time); plain {full['plain_ms']:.3f} ms = {full['plain_ms'] / steps:.3f} ms per step "
         f"(timed on each launch's inputs), bound {full['bound_ms']:.4f} ms = "
         f"{full['bound_ms'] / steps:.5f} ms per step ({full['bound_by']}); "
-        f"{full['bound_ms'] / full['ms'] * 100:.2f} % of the bound")
+        f"{full['bound_ms'] / full['ms'] * 100:.2f} % of the bound in the path, "
+        f"{full['bound_ms'] / full['graph_ms'] * 100:.2f} % as device time")
     del eng, eng2
     return dict(run=run, replay=rep, full=full, pool_bytes=pool_bytes,
                 tps=run["tokens"] / wall)
@@ -2457,7 +2479,9 @@ def k9_phase(ef, wenc) -> dict:
         x2, hq, hs = ef.enc_out_ln_reference(*args["enc_out_ln"])
         args["enc_mlp"] = (hq, hs, f1["w_q"][0], f1["scale"][0], f1["b"][0], f2["w_q"][0],
                            f2["scale"][0], f2["b"][0], x2)
-        kmajor = ef.mlp_kmajor(f1["w_q"][0], f2["w_q"][0])   # as the encoder holds them
+        # the K-major copies, as the encoder holds them
+        kmajor = ef.mlp_kmajor(f1["w_q"][0], f2["w_q"][0])
+        w_t = {"enc_ln_qkv": ef.kmajor(qkv["w_q"][0]), "enc_out_ln": ef.kmajor(o["w_q"][0])}
         composed = {"enc_ln_qkv": lambda: wenc.stage_qkv(x, lp, 0, False),
                     "enc_out_ln": lambda: wenc.stage_out(attn, x, lp, 0, False),
                     "enc_mlp": lambda: wenc.stage_mlp(hq, hs, x2, lp, 0, f, False)}
@@ -2468,6 +2492,8 @@ def k9_phase(ef, wenc) -> dict:
             kernel, plain = getattr(ef, name), getattr(ef, name + "_reference")
             if name == "enc_mlp":
                 kernel = lambda *a: ef.enc_mlp(*a, kmajor=kmajor)
+            else:
+                kernel = lambda *a, f=kernel, n=name: f(*a, w_t=w_t[n])
             y, y2, ref = kernel(*args[name]), kernel(*args[name]), plain(*args[name])
             if name == "enc_out_ln":
                 r = k9_compare(y[0], ref[0])
@@ -2481,16 +2507,17 @@ def k9_phase(ef, wenc) -> dict:
             r["ms"] = time_ms(lambda: kernel(*args[name]), 5 if big else 10)
             r["plain_ms"] = time_ms(lambda: plain(*args[name]), 2, 1)
             r["composed_ms"] = time_ms(composed[name], 5 if big else 10)
-            if name == "enc_mlp":   # device times of the kernel and its composed form
-                r["dev_ms"] = graph_ms(lambda: kernel(*args[name]), 5 if big else 10)
+            r["dev_ms"] = graph_ms(lambda: kernel(*args[name]), 5 if big else 10,
+                                   2 if big else 10)   # calls a graph
+            if name == "enc_mlp":   # and its composed form's
                 r["composed_dev_ms"] = graph_ms(composed[name], 5 if big else 10)
             r["bound_ms"], r["bound_by"] = bounds[name]
             codes = ("" if name != "enc_out_ln" else
                      f" codes equal {r['codes']:.6f} scales rel {r['scale_rel']:.2e};")
-            dev = ("" if name != "enc_mlp" else
-                   f"; device {r['dev_ms']:.4f} ms against the composed form's "
-                   f"{r['composed_dev_ms']:.4f} ms = {r['bound_ms'] / r['dev_ms'] * 100:.2f} % "
-                   f"of the bound")
+            dev = (f"; device {r['dev_ms']:.4f} ms = "
+                   f"{r['bound_ms'] / r['dev_ms'] * 100:.2f} % of the bound"
+                   + ("" if name != "enc_mlp" else
+                      f", the composed form's {r['composed_dev_ms']:.4f} ms"))
             log(f"K9 {name:10s} m={m:6d} {dn:8s}: max|y-plain|={r['err']:.3e} (at "
                 f"{r['ratio']:.3f} of its limit), {r['near']:.6f} within one step;{codes} "
                 f"replay bit-identical {r['replay']}; ms={r['ms']:.4f} composed_ms="
@@ -2502,7 +2529,7 @@ def k9_phase(ef, wenc) -> dict:
             if name == "enc_out_ln":
                 check(r["codes"] >= K9_SHARE, f"K9 enc_out_ln codes equal {r['codes']}")
             results[(name, m, dn)] = r
-        del lp, x, attn, x2, hq, hs, args, composed, kmajor
+        del lp, x, attn, x2, hq, hs, args, composed, kmajor, w_t
         torch.cuda.empty_cache()
     return results
 
@@ -3445,6 +3472,11 @@ def main() -> int:
            "fa8_codes_kernel<128>", "w8_mma_kernel<1>", "w8_mma_kernel<4>", "w8_fma_kernel<1>",
            "w8_fma_kernel<8>"} <= {r["kernel"] for r in k8_ptxas + k4_ptxas},
           "the redesigned K8 and K4 kernels were not compiled")
+    k3_ptxas = [r for r in ptxas if r["kernel"] in ("score_kernel", "attend_kernel")]
+    k9_ptxas = [r for r in ptxas if r["kernel"].startswith(("ln_qkv_kernel", "out_ln_kernel"))]
+    check({"score_kernel", "attend_kernel", "ln_qkv_kernel", "out_ln_kernel"}
+          <= {r["kernel"] for r in k3_ptxas + k9_ptxas},
+          "the redesigned K3 and K9 kernels were not compiled")
 
     # 3. kernels against their plain versions
     res = kernel_phase(fa)
@@ -3672,6 +3704,8 @@ def main() -> int:
         "bound_ms": full["bound_ms"],
         "bound_by": full["bound_by"],
         "library_ms": None,
+        "path_graph_ms": full["graph_ms"],
+        "ptxas": k3_ptxas,
     })
     rep7, run7 = stage2["replay"], stage2["run"]
     kernels.append({
@@ -3738,7 +3772,8 @@ def main() -> int:
             "bound_ms": launches * k9_bound_ms(kind, 30_000, 1280, n, 2)[0],
             "bound_by": per["bound_by"],
             "library_ms": None,
-            **({"ptxas": mlp_ptxas} if name == "enc_mlp" else {}),
+            "ptxas": (mlp_ptxas if name == "enc_mlp" else
+                      [r for r in k9_ptxas if r["kernel"].startswith(name[4:])]),
         })
     k4_path = int8_clip["path"]
     kernels.append({
@@ -3778,7 +3813,9 @@ def main() -> int:
         "call computes a fused suffix. paged_attention: over every K3 launch of the third "
         "bf16-pool mixed-workload run: launches = their count, ms = their device time in the "
         "path, plain_ms = the plain version timed on each launch's captured inputs, summed, "
-        "bound_ms = summed per-launch bounds (keys below each row's length); max_abs_err = the largest |o/l - plain| of phase 8a and the "
+        "bound_ms = summed per-launch bounds (keys below each row's length); path_graph_ms = "
+        "the same launches replayed in one CUDA graph (their device time without the host's "
+        "gaps); max_abs_err = the largest |o/l - plain| of phase 8a and the "
         "replays; library_ms null: " + PAGED_NO_LIBRARY + " flash_attention_fwd and _bwd: "
         "path_route = the route of the path's bf16 launches (routes: by dtype), "
         "ptxas = nvcc's report for each of the source's kernels. flash_attention_bwd per AF3 "
@@ -3810,8 +3847,9 @@ def main() -> int:
         "(one captured launch each; a grouped launch: its products' summed) and bound, times "
         "that shape's launches, summed; max_abs_err = the largest |y - plain| of 11a and of "
         "the prefill's and one decode step's launches, replayed. ptxas (w4a16_matmul, "
-        "enc_mlp): nvcc's report for the kernels of the redesigned routes; their device "
-        "times per shape are 7a's and 10b's log lines. ptxas (flash_attention_a8, its prelude, w8a16_matmul): the same "
+        "enc_mlp, paged_attention, enc_ln_qkv, enc_out_ln): nvcc's report for the kernels of "
+        "the redesigned routes; their device times per shape are 7a's, 8a's and 10b's log "
+        "lines. ptxas (flash_attention_a8, its prelude, w8a16_matmul): the same "
         "for K8's body, the prelude's three kernels and K4's layout-0 kernels; 10a and 11a "
         "log their times per shape.")
     log(f"card (again, for the record): {card}")
