@@ -15,7 +15,8 @@ import torch
 
 from audio_flamingo_tpu_torch.config import MelConfig
 from audio_flamingo_tpu_torch.device import resolve_device
-from audio_flamingo_tpu_torch.ops.kernels.log_mel import fused_log_mel, log_mel_reference
+from audio_flamingo_tpu_torch.ops.kernels.log_mel import (fused_log_mel, log_mel_reference,
+                                                          prepare_bases)
 
 
 def _hertz_to_mel(freq, mel_scale: str = "slaney"):
@@ -95,6 +96,14 @@ class WhisperMelFrontend:
         self.mel_weights = torch.tensor(mel, dtype=torch.float32, device=self.device)
         self.dft_cos = torch.tensor(c, dtype=torch.float32, device=self.device)
         self.dft_sin = torch.tensor(s, dtype=torch.float32, device=self.device)
+        self._kernel_bases = None   # the kernel's high/low split, made at the first call
+
+    @property
+    def kernel_bases(self):
+        """The bases split for the log-mel kernel (``prepare_bases``), made once."""
+        if self._kernel_bases is None:
+            self._kernel_bases = prepare_bases(self.dft_cos, self.dft_sin, self.mel_weights)
+        return self._kernel_bases
 
     def pad_or_trim(self, wav: np.ndarray, num_windows: int | None = None) -> np.ndarray:
         """Host-side: zero-pad (silence) or trim to a whole number of 30 s windows."""
@@ -120,6 +129,8 @@ class WhisperMelFrontend:
 
     def _window_mels(self, wins: torch.Tensor) -> torch.Tensor:
         """[N, window_samples] -> [N, 3000, n_mels] with per-window normalization."""
-        fn = fused_log_mel if self.use_pallas else log_mel_reference
-        return fn(wins, self.dft_cos, self.dft_sin, self.mel_weights, self.cfg.hop_length,
-                  self.frames_per_window)
+        args = (wins, self.dft_cos, self.dft_sin, self.mel_weights, self.cfg.hop_length,
+                self.frames_per_window)
+        if not self.use_pallas or wins.device.type == "cpu":
+            return (fused_log_mel if self.use_pallas else log_mel_reference)(*args)
+        return fused_log_mel(*args, bases=self.kernel_bases)

@@ -27,7 +27,9 @@
 // about four blocks per SM); each split writes f32 partial sums and a second kernel adds
 // the splits in a fixed order (no float atomics, so two launches agree bit for bit) and
 // rounds to the output dtype. With one split and an output the first kernel writes it.
-// N must be a multiple of 16 and G of 32 (the wrapper refuses other shapes).
+// N must be a multiple of 16 and G of 32 (the wrapper refuses other shapes). The ring's
+// geometry and what one stage does on either route live in csrc/w4_mma.cuh, which the
+// fused w4 suffixes (K6, csrc/w4_suffix.cu) include as well.
 //
 // bf16 x: tensor cores (w4_mma_kernel). The product is taken as y^T = W^T x^T with
 //   mma.sync m16n8k16 (bf16 in, f32 accumulate): W^T is the A operand (16 output columns
@@ -53,44 +55,12 @@
 
 #include <type_traits>
 
-#include "flash_mma.cuh"   // mma_bf16, ldmatrix_x4(_trans), cp_async16, cp_async_commit/wait
+#include "w4_mma.cuh"   // ring geometry, code conversions, one stage of either route
 
 
 namespace {
 
-constexpr int kThreads = 128;            // 4 warps; one column per thread on the CUDA cores
-constexpr int kMaxGroup = 512;           // MAX_GROUP in the wrapper
-constexpr int kBN = 128;                 // columns per block (BLOCK_N in the wrapper)
-constexpr int kRows = 32;                // packed rows per ring stage (STAGE_ROWS)
-constexpr int kStages = 4;
-constexpr int kWStride = 144;            // bytes per ring row of codes (128 + 16: the 8
-                                         // rows of an ldmatrix phase hit 8 bank groups)
-constexpr int kStageW = kRows * kWStride;
 constexpr int kReduceThreads = 256;
-
-// bytes per ring row of x: kRows low and kRows high entries, + 16
-template <typename T> constexpr int kXStride = 2 * kRows * (int)sizeof(T) + 16;
-template <typename T, int BM> constexpr int kStage = kStageW + BM * kXStride<T>;
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// The signed nibble at bit `shift` of w as an exact f32: (n ^ 8) in the mantissa of 2^23
-// is 2^23 + n + 8.
-__device__ __forceinline__ float nibble_f32(uint32_t w, int shift) {
-  return __uint_as_float(((w >> shift) & 0xFu) ^ 0x4B000008u) - 8388616.0f;
-}
-
-// The signed nibbles at bits 0-3 and 16-19 of w as a bf16 pair (low half first): each
-// (n ^ 8) in the mantissa of 128.0 is 128 + n + 8; minus 136.0 leaves n exactly.
-__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t w) {
-  uint32_t v = (w & 0x000F000Fu) ^ 0x43084308u;
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v), __float2bfloat162_rn(136.f));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
 
 // The block's K range and ring position, shared by both routes.
 struct Walk {
@@ -167,8 +137,7 @@ w4_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w_
   constexpr int BM = 8 * NT;
   constexpr int kStg = kStage<T, BM>;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, q = lane >> 3, r8 = lane & 7;
+  const int t = threadIdx.x & 3;
   const int col_base = blockIdx.x * kBN, row0 = blockIdx.z * BM;
   const Walk wk(kp, group, groups_per_split);
   const Copies<T, BM> cp(w_p, x, wk.p_begin, col_base, row0, m, kp, n);
@@ -182,10 +151,8 @@ w4_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w_
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = glo[mt][j][e] = ghi[mt][j][e] = 0.f;
 
-  // this thread's output columns: tile mt's row g is col_m[mt], its row g + 8 col_m[mt] + 1
   int col_m[2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) col_m[mt] = col_base + warp * 32 + mt * 16 + 2 * g;
+  mma_columns<NT>(col_m, col_base);
   float2 s_lo[2], s_hi[2];
 
 #pragma unroll
@@ -194,63 +161,15 @@ w4_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w_
     cp_async_commit();
   }
   for (int c = 0; c < wk.nchunks; ++c) {
-    if (c % wk.per_group == 0) {   // the group's scales, needed at its end
-      const int gi = wk.g_begin + c / wk.per_group;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bool in = col_m[mt] < n;
-        const float* lo = gscale + (size_t)gi * n + col_m[mt];
-        const float* hi = gscale + (size_t)(wk.ng + gi) * n + col_m[mt];
-        s_lo[mt] = in ? __ldg(reinterpret_cast<const float2*>(lo)) : make_float2(0.f, 0.f);
-        s_hi[mt] = in ? __ldg(reinterpret_cast<const float2*>(hi)) : make_float2(0.f, 0.f);
-      }
-    }
+    if (c % wk.per_group == 0)   // the group's scales, needed at its end
+      mma_scales(s_lo, s_hi, gscale, wk.g_begin + c / wk.per_group, wk.ng, n, n, col_m);
     cp_async_wait<kStages - 2>();
     __syncthreads();   // stage c has landed for every thread; stage c - 1 is consumed
     if (c + kStages - 1 < wk.nchunks) load(c + kStages - 1);
     cp_async_commit();
     const uint8_t* st = smem + (c % kStages) * kStg;
-#pragma unroll
-    for (int ks = 0; ks < kRows / 16; ++ks) {
-      // matrices: packed rows 16 ks + 0..7 | 8..15 of columns warp*32 + 0..15 | 16..31
-      uint32_t d[4];
-      ldmatrix_x4_trans(d, st + (ks * 16 + (q & 1) * 8 + r8) * kWStride + warp * 32 +
-                               (q >> 1) * 16);
-      uint32_t alo[2][4], ahi[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint32_t e = d[2 * mt], o = d[2 * mt + 1];
-        alo[mt][0] = nibbles_bf16x2(e);       ahi[mt][0] = nibbles_bf16x2(e >> 4);
-        alo[mt][1] = nibbles_bf16x2(e >> 8);  ahi[mt][1] = nibbles_bf16x2(e >> 12);
-        alo[mt][2] = nibbles_bf16x2(o);       ahi[mt][2] = nibbles_bf16x2(o >> 4);
-        alo[mt][3] = nibbles_bf16x2(o >> 8);  ahi[mt][3] = nibbles_bf16x2(o >> 12);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        // x rows 8 j + 0..7; matrices: low k 0..7 | 8..15, high k 0..7 | 8..15
-        uint32_t b[4];
-        ldmatrix_x4(b, st + kStageW + (j * 8 + r8) * kXStride<T> + (q >> 1) * kRows * 2 +
-                           ks * 32 + (q & 1) * 16);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(glo[mt][j], alo[mt], b[0], b[1]);
-          mma_bf16(ghi[mt][j], ahi[mt], b[2], b[3]);
-        }
-      }
-    }
-    if ((c + 1) % wk.per_group == 0) {   // the group's sums times its scales
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float sl = e < 2 ? s_lo[mt].x : s_lo[mt].y;
-            const float sh = e < 2 ? s_hi[mt].x : s_hi[mt].y;
-            acc[mt][j][e] += glo[mt][j][e] * sl + ghi[mt][j][e] * sh;
-            glo[mt][j][e] = ghi[mt][j][e] = 0.f;
-          }
-    }
+    mma_stage<NT>(glo, ghi, st, st + kStageW);
+    if ((c + 1) % wk.per_group == 0) mma_fold<NT>(acc, glo, ghi, s_lo, s_hi);
   }
 
   // c0, c2 = columns (col, col + 1) of x row 8 j + 2 t; c1, c3 the same of row 8 j + 2 t + 1
@@ -286,7 +205,6 @@ w4_fma_kernel(const float* __restrict__ x, const int8_t* __restrict__ w_p,
               float* __restrict__ partials, int m, int kp, int n, int group,
               int groups_per_split) {
   constexpr int kStg = kStage<float, BM>;
-  constexpr int kXf = kXStride<float> / 4;   // x row stride in floats
   extern __shared__ __align__(16) uint8_t smem[];
   const int col_base = blockIdx.x * kBN, row0 = blockIdx.z * BM;
   const int col = col_base + threadIdx.x;
@@ -313,32 +231,9 @@ w4_fma_kernel(const float* __restrict__ x, const int8_t* __restrict__ w_p,
     __syncthreads();
     if (c + kStages - 1 < wk.nchunks) load(c + kStages - 1);
     cp_async_commit();
-    const uint8_t* wst = smem + (c % kStages) * kStg + threadIdx.x;
-    const float* xst = reinterpret_cast<const float*>(smem + (c % kStages) * kStg + kStageW);
-#pragma unroll
-    for (int r4 = 0; r4 < kRows; r4 += 4) {
-      float lo[4], hi[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const uint32_t b = wst[(r4 + u) * kWStride];
-        lo[u] = nibble_f32(b, 0);
-        hi[u] = nibble_f32(b, 4);
-      }
-#pragma unroll
-      for (int i = 0; i < BM; ++i) {
-        const float4 xl = *reinterpret_cast<const float4*>(xst + i * kXf + r4);
-        const float4 xh = *reinterpret_cast<const float4*>(xst + i * kXf + kRows + r4);
-        plo[i] = fmaf(xl.w, lo[3], fmaf(xl.z, lo[2], fmaf(xl.y, lo[1], fmaf(xl.x, lo[0], plo[i]))));
-        phi[i] = fmaf(xh.w, hi[3], fmaf(xh.z, hi[2], fmaf(xh.y, hi[1], fmaf(xh.x, hi[0], phi[i]))));
-      }
-    }
-    if ((c + 1) % wk.per_group == 0) {
-#pragma unroll
-      for (int i = 0; i < BM; ++i) {
-        acc[i] += plo[i] * s_lo + phi[i] * s_hi;
-        plo[i] = phi[i] = 0.f;
-      }
-    }
+    const uint8_t* st = smem + (c % kStages) * kStg;
+    fma_stage<BM>(plo, phi, st + threadIdx.x, reinterpret_cast<const float*>(st + kStageW));
+    if ((c + 1) % wk.per_group == 0) fma_fold<BM>(acc, plo, phi, s_lo, s_hi);
   }
   if (col >= n) return;
 #pragma unroll

@@ -113,10 +113,10 @@ def load_library(path: str | None = None) -> ctypes.CDLL:
         fn.argtypes = [ptr] * 4 + [i32] * 6 + [i64] * 6 + [ptr]
         fn = lib.af_log_mel_power
         fn.restype = i32
-        fn.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+        fn.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
         fn = lib.af_log_mel_clamp
         fn.restype = i32
-        fn.argtypes = [ptr, i32, i64, ptr]
+        fn.argtypes = [ptr, ptr] + [i32] * 3 + [ptr]
         fn = lib.af_w4a16_matmul
         fn.restype = i32
         fn.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
@@ -150,6 +150,9 @@ def load_library(path: str | None = None) -> ctypes.CDLL:
         for name in ("af_w4_suffix_a", "af_w4_suffix_b"):
             fn = getattr(lib, name)
             fn.restype = i32
-            fn.argtypes = [ptr] * 11 + [i32] * 9 + [ctypes.c_float, ptr]
+            fn.argtypes = [ptr] * 11 + [i32] * 10 + [ctypes.c_float, ptr]
+        fn = lib.af_w4_suffix_blocks
+        fn.restype = i32
+        fn.argtypes = [i32] * 4 + [ptr]
         _lib = lib
     return _lib

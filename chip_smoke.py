@@ -6,8 +6,9 @@
 Phases, each line stamped with elapsed seconds:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every csrc/*.cu in one nvcc call (seconds; ptxas's registers, spilled bytes
-     and static shared memory of every kernel, the bf16 flash kernels and the w4a16 and
-     enc_mlp routes' kernels required);
+     and static shared memory of every kernel, the bf16 flash kernels, the w4a16 and
+     enc_mlp routes' kernels, the persistent w4 suffix kernel and the 3xTF32 log-mel
+     required);
   3. kernels against their plain PyTorch versions, with their time (CUDA events, median),
      the plain version's time, one PyTorch library call's time as a yardstick where one
      computes the same function, and the bound:
@@ -19,8 +20,10 @@ Phases, each line stamped with elapsed seconds:
         its tolerance rests on: the plain version's f32 scores equal the sequential fmaf
         sum K2 recomputes some scores by, and K2's tensor-core scores lie within its
         err_bound of them;
-     b. the fused log-mel (K1) at [1, 480000] and [20, 480000], on a tone plus noise and
-        on normal x 0.1;
+     b. the fused log-mel (K1, 3xTF32 on the tensor cores) at [1, 480000] and [20, 480000],
+        on a tone plus noise and on normal x 0.1, two launches bit-identical; its device
+        time (CUDA graph) beside the parent's figure (PERF.md) and both bounds (f32 on the
+        CUDA cores, 3xTF32 on the tensor cores);
      c. K2 at the 10-minute path's shapes, [20,1500,20,64] and causal [1,16384,28,128],
         f32 and bf16, the plain version evaluated over blocks of query rows;
   4. the 30 s main path: AudioFlamingo.from_random at full AF3 width (Whisper-large
@@ -42,10 +45,12 @@ Phases, each line stamped with elapsed seconds:
      a. the w4a16 matmul (K5) and the fused decode suffixes (K6) against their plain
         versions at the 7B shapes in f32 and bf16, on the quantized LM's own codes: K5 at
         m 1, 8, 256 for qkv, o, gate|up and down at layers 0 and 27 and at the int4 head's
-        shape; K6 A and B at m 1 and 8; timed beside the plain version, the int4pack
-        library call (K5) and the bound, with the wrapper and as device times (CUDA
-        graphs: K5 and the library call repeated on layer 0, K5 on every layer in turn,
-        K6 repeated and one decode step's 28 A + 28 B);
+        shape; K6 A and B at m 1, 3 and 8, two launches bit-identical, the kernels one
+        call launches counted by torch.profiler (one per suffix); timed beside the plain
+        version, the int4pack library call (K5), the bound and (K6) the parent's figure
+        from PERF.md, with the wrapper and as device times (CUDA graphs: K5 and the
+        library call repeated on layer 0, K5 on every layer in turn, K6 repeated and one
+        decode step's 28 A + 28 B);
      b. the 30 s path with phase 4's bf16 model's LM quantized on the card (encoder
         shared): generate() three times, greedy, 32 tokens; identical ids, 56 K6 launches,
         1 K5 and 1 K4 (the int8 head) per decode step (no K5 in the 1024-row prefill, one
@@ -185,6 +190,13 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}              # max |o - o_plain|: f32 
 BF16_ULP_TOL = (2.0 ** -7, 1e-3)                       # bf16 o: |o - o_plain| <= 2^-7 |o_plain| + 1e-3
 LSE_TOL = 1e-4                                         # f32 LSE in both dtypes (values up to ~40)
 MEL_TOL = (5e-4, 1e-4)                                 # K1: |x - plain| <= 5e-4 + 1e-4 |plain|
+PEAK_TF32 = 495e12                                     # H100 SXM dense TF32 (K1's 3xTF32 route)
+# the kernels before their Hopper redesign (PERF.md section 6, "before" of the rows that this
+# script's phases 3b and 7a read; H100 80GB HBM3 at 700 W): K1 at [20, 480000] with the
+# wrapper (ms), K6 device ms in 7a's eight-call graphs and one decode step's 56 calls
+K1_BEFORE_MS = {20: 1.2754}
+K6_BEFORE_MS = {("A", 1): 0.0566, ("A", 8): 0.0621, ("B", 1): 0.0453, ("B", 8): 0.0477,
+                ("step", 1): 2.841}
 LOGITS_TOL = 1e-4                                      # f32 af3.logits, card vs CPU
 # K2 and K7 route by dtype; the main paths run bf16
 FLASH_ROUTES = {"bfloat16": "bf16 mma.sync", "float32": "f32 CUDA cores"}
@@ -508,22 +520,27 @@ def long_attention_phase(fa) -> dict:
 
 
 def log_mel_bound_ms(n: int, fe) -> tuple:
-    """Least time for K1 on n windows: the f32 DFT and mel products on CUDA cores against
-    each input read once and the output written once."""
+    """Least time for K1 on n windows: each input read once and the output written once,
+    against the products' operations in 3xTF32 on the tensor cores (three passes at 495
+    TFLOP/s, the route the kernel takes) -> (ms, "operations" or "bytes", the f32 bound:
+    the same operations on the CUDA cores at 67 TFLOP/s, the route K1 took before)."""
     cfg = fe.cfg
     n_fft, n_bins, n_mels = cfg.n_fft, cfg.n_fft // 2 + 1, cfg.num_mel_bins
     frames = fe.frames_per_window
     flops = n * frames * (n_fft * 2 * n_bins * 2 + n_bins * n_mels * 2)
     nbytes = 4 * (n * fe.window_samples + 2 * n_fft * n_bins + n_bins * n_mels
                   + n * frames * n_mels)
-    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    t_ops, t_bytes = 3 * flops / PEAK_TF32, nbytes / PEAK_BYTES
+    f32_ms = max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), f32_ms
 
 
 def log_mel_phase(lm, fe) -> dict:
     """K1 against its plain version at [1, 480000] and [20, 480000], on a seeded tone plus
     noise and on normal x 0.1, held to |x - plain| <= 5e-4 + 1e-4 |plain| (the JAX
-    kernel's own test bound); kernel and plain version timed on the normal input."""
+    kernel's own test bound), two launches on the same inputs bit-identical; kernel and
+    plain version timed on the normal input, the kernel also as device time (a CUDA graph
+    of 4 or 2 calls) beside the parent's figure and both bounds."""
     rng = np.random.default_rng(3)
     t = np.arange(fe.window_samples) / 16000.0
     results = {}
@@ -537,7 +554,8 @@ def log_mel_phase(lm, fe) -> dict:
             wins = torch.tensor(w, dtype=torch.float32, device="cuda")
             args = (wins, fe.dft_cos, fe.dft_sin, fe.mel_weights, fe.cfg.hop_length,
                     fe.frames_per_window)
-            out = lm.fused_log_mel(*args)
+            call = lambda: lm.fused_log_mel(*args, bases=fe.kernel_bases)
+            out, again = call(), call()
             ref = lm.log_mel_reference(*args)
             diff = (out - ref).abs()
             atol, rtol = MEL_TOL
@@ -546,16 +564,23 @@ def log_mel_phase(lm, fe) -> dict:
             check(out.shape == (n, fe.frames_per_window, fe.cfg.num_mel_bins),
                   f"K1 output shape {tuple(out.shape)}")
             check(bool(torch.isfinite(out).all()), "K1 output not finite")
+            check(torch.equal(out, again), f"K1 [{n}] {kind}: two launches differ")
             msg = (f"log_mel [{n},{fe.window_samples}] {kind:6s}: max|x-plain|={r['err']:.3e} "
-                   f"(at {r['ratio']:.3f} of its limit)")
+                   f"(at {r['ratio']:.3f} of its limit), replay bit-identical")
             if kind == "normal":
-                r["ms"] = time_ms(lambda: lm.fused_log_mel(*args))
+                r["ms"] = time_ms(call)
+                r["dev_ms"] = graph_ms(call, 10, 4 if n == 1 else 2)
                 r["plain_ms"] = time_ms(lambda: lm.log_mel_reference(*args), 10, 2)
-                r["bound_ms"], r["bound_by"] = log_mel_bound_ms(n, fe)
-                msg += (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
-                        f"(no single PyTorch call computes this function) bound_ms="
-                        f"{r['bound_ms']:.4f} ({r['bound_by']}); "
-                        f"{r['bound_ms'] / r['ms'] * 100:.1f} % of the bound")
+                r["bound_ms"], r["bound_by"], r["bound_f32_ms"] = log_mel_bound_ms(n, fe)
+                before = K1_BEFORE_MS.get(n)
+                msg += (f" ms={r['ms']:.4f} (parent, PERF.md: "
+                        f"{'not listed' if before is None else f'{before:.4f}'}) device "
+                        f"{r['dev_ms']:.4f} ms; plain_ms={r['plain_ms']:.4f} library_ms=none "
+                        f"(no single PyTorch call computes this function); bound_ms="
+                        f"{r['bound_ms']:.4f} (3xTF32 on the tensor cores, {r['bound_by']}) = "
+                        f"{r['bound_ms'] / r['dev_ms'] * 100:.1f} % of the device time; the f32 "
+                        f"CUDA-core bound {r['bound_f32_ms']:.4f} ms = "
+                        f"{r['bound_f32_ms'] / r['dev_ms'] * 100:.1f} %")
             log(msg)
             check(r["ratio"] <= 1.0, f"K1 [{n}] {kind}: |x - plain| at {r['ratio']:.3f} "
                                      "of its limit")
@@ -908,7 +933,7 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
     d = layers["ln1_w"].shape[1]
     k_o = 2 * layers["o"]["w_p"].shape[1]
     o, gu, down, qkv = (mats[n] for n in ("o", "gateup", "down", "qkv"))
-    for m in (1, 8):
+    for m in (1, 3, 8):
         attn32 = torch.randn((m, k_o), generator=gen, device="cuda")
         h32 = torch.randn((m, d), generator=gen, device="cuda")
         ln32 = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
@@ -921,6 +946,10 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
                 a_ref = k6.w4_suffix_a_reference(attn, h, ln, o, gu, layer)
                 b = k6.w4_suffix_b(a[0], a[1], ln, down, qkv, layer, nxt)
                 b_ref = k6.w4_suffix_b_reference(a[0], a[1], ln, down, qkv, layer, nxt)
+                a2 = k6.w4_suffix_a(attn, h, ln, o, gu, layer)
+                b2 = k6.w4_suffix_b(a[0], a[1], ln, down, qkv, layer, nxt)
+                check(all(torch.equal(u, v) for u, v in zip((*a, *b), (*a2, *b2))),
+                      f"K6 m={m} {dn} layer {layer}: two launches differ")
                 rs = {name: w4_compare(u, v) for name, u, v in (
                     ("act", a[0], a_ref[0]), ("h", a[1], a_ref[1]),
                     ("h2", b[0], b_ref[0]), ("qkv", b[1], b_ref[1]))}
@@ -929,6 +958,15 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
                           f"K6 {name} m={m} {dn} layer {layer}: |y - plain| at "
                           f"{r['ratio']:.3f} of its limit")
                 res[("k6", m, dn, layer)] = rs
+            a = k6.w4_suffix_a(attn, h, ln, o, gu, 0)
+            per_call = (kernels_per_call(lambda: k6.w4_suffix_a(attn, h, ln, o, gu, 0)),
+                        kernels_per_call(lambda: k6.w4_suffix_b(a[0], a[1], ln, down, qkv, 0, 1)))
+            log(f"K6 m={m} {dn}: replays bit-identical; kernels per call (torch.profiler) A "
+                f"{per_call[0]}, B {per_call[1]}")
+            check(per_call == (1, 1), f"K6 m={m} {dn}: {per_call} kernels per suffix call, not 1")
+            res[("k6calls", m, dn)] = per_call
+            if m == 3:   # checked, not timed
+                continue
             ra = dict(err=max(res[("k6", m, dn, i)][n]["err"] for i in (0, n_layers - 1)
                               for n in ("act", "h")),
                       ratio=max(res[("k6", m, dn, i)][n]["ratio"] for i in (0, n_layers - 1)
@@ -955,15 +993,20 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
             ra["bound_ms"], ra["bound_by"] = suffix_bound_ms(o, gu, m, dn, gated=True)
             rb["bound_ms"], rb["bound_by"] = suffix_bound_ms(down, qkv, m, dn, gated=False)
             for name, r in (("A", ra), ("B", rb)):
+                before = K6_BEFORE_MS.get((name, m)) if dn == "bfloat16" else None
                 log(f"K6 suffix {name} m={m} {dn:8s}: max|y-plain|={r['err']:.3e} (at "
                     f"{r['ratio']:.3f} of the limit, layers 0 and {n_layers - 1}) ms="
                     f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=null (no single "
                     f"PyTorch call computes the fused suffix) bound_ms={r['bound_ms']:.5f} "
                     f"({r['bound_by']}); device {r['dev_ms']:.4f} ms = "
-                    f"{r['bound_ms'] / r['dev_ms'] * 100:.1f} % of the bound")
+                    f"{r['bound_ms'] / r['dev_ms'] * 100:.1f} % of the bound (the parent, "
+                    f"PERF.md: {'not listed' if before is None else f'{before:.4f} ms'})")
                 res[("k6" + name, m, dn)] = r
+            before = K6_BEFORE_MS.get(("step", m)) if dn == "bfloat16" else None
             log(f"K6 per decode step m={m} {dn:8s} ({n_layers} A + {n_layers} B, layer after "
-                f"layer): device {ra['step_dev_ms']:.3f} ms")
+                f"layer): device {ra['step_dev_ms']:.3f} ms against a bound of "
+                f"{n_layers * (ra['bound_ms'] + rb['bound_ms']):.3f} ms (the parent, PERF.md: "
+                f"{'not listed' if before is None else f'{before:.3f} ms'})")
     return res
 
 
@@ -1206,6 +1249,20 @@ PAGED_NO_LIBRARY = ("none (no single PyTorch call computes it: SDPA over a gathe
                     "has no block table and returns no (o, m, l))")
 ENGINE = dict(num_rows=4, num_blocks=88, block_size=128, max_blocks_per_seq=32, chunk=16,
               eos_token_id=151_645)    # bench.py:486-488, the JAX mixed-workload engine
+
+
+def kernels_per_call(fn) -> int:
+    """Device kernels one call of fn launches, as torch.profiler sees them (copies and
+    memsets left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
 
 
 def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
@@ -3472,6 +3529,12 @@ def main() -> int:
            "fa8_codes_kernel<128>", "w8_mma_kernel<1>", "w8_mma_kernel<4>", "w8_fma_kernel<1>",
            "w8_fma_kernel<8>"} <= {r["kernel"] for r in k8_ptxas + k4_ptxas},
           "the redesigned K8 and K4 kernels were not compiled")
+    k6_ptxas = [r for r in ptxas if r["kernel"].startswith("w4_suffix_kernel")]
+    k1_ptxas = [r for r in ptxas if r["kernel"].startswith("log_mel_")]
+    check({"w4_suffix_kernel<1>", "w4_suffix_kernel<2>", "w4_suffix_kernel<4>",
+           "w4_suffix_kernel<8>", "log_mel_power_kernel", "log_mel_clamp_kernel"}
+          <= {r["kernel"] for r in k6_ptxas + k1_ptxas},
+          "the redesigned K6 (one persistent kernel) and K1 (3xTF32) kernels were not compiled")
     k3_ptxas = [r for r in ptxas if r["kernel"] in ("score_kernel", "attend_kernel")]
     k9_ptxas = [r for r in ptxas if r["kernel"].startswith(("ln_qkv_kernel", "out_ln_kernel"))]
     check({"score_kernel", "attend_kernel", "ln_qkv_kernel", "out_ln_kernel"}
@@ -3654,7 +3717,11 @@ def main() -> int:
         "plain_ms": mel_res[(20, "normal")]["plain_ms"],
         "bound_ms": mel_res[(20, "normal")]["bound_ms"],
         "bound_by": mel_res[(20, "normal")]["bound_by"],
+        "bound_route": "3xTF32 tensor cores",
+        "bound_f32_cuda_cores_ms": mel_res[(20, "normal")]["bound_f32_ms"],
+        "device_ms": mel_res[(20, "normal")]["dev_ms"],
         "library_ms": None,
+        "ptxas": k1_ptxas,
     }]
     iw = w4["warm"]
     k5_path = w4["k5"]
@@ -3689,6 +3756,9 @@ def main() -> int:
             "bound_ms": k6_path["bound_ms"],
             "bound_by": k6_path["bound_by"],
             "library_ms": None,
+            "kernels_per_call": max(w4["kernels"][("k6calls", m, dn)][key == "K6B"]
+                                    for m in (1, 3, 8) for dn in ("float32", "bfloat16")),
+            "ptxas": k6_ptxas,
         })
     full = paged["bf16"]["full"]
     kernels.append({
