@@ -17,7 +17,11 @@ helpers the engines call (``qkv_proj``, ``o_proj``, ``mlp_forward``) stay w8a16.
 
 Unlike the JAX caches, ``KVCache`` and the int8 ``Q8KVCache`` are updated in place:
 prefill and decode write their K/V (int8 codes and per-token scales for ``Q8KVCache``)
-into the preallocated tensors and advance ``index``, so no step copies the cache. Over a
+into the preallocated tensors and advance ``index``, so no step copies the cache. As in
+JAX, ``index`` lives on the device (a 0-dim int64 tensor): the K/V are written at it by
+``index_copy_`` and it is advanced by ``add_``, so a decode step reads nothing back to the
+host and can be captured in a CUDA graph (``runtime/generate.py``). The capacity check
+reads ``host_index``, the same count kept on the host by whoever advances the cache. Over a
 ``Q8KVCache`` attention reads the codes with the scales folded in after the dots
 (``gqa_attention_q8``), except on a fresh flash prefill, which attends over the block's
 own float K/V as JAX does.
@@ -56,21 +60,53 @@ from audio_flamingo_tpu_torch.ops.remat import remat_wrap
 from audio_flamingo_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 
+class _DeviceIndex:
+    """The filled-slot count of a cache: ``index`` a 0-dim int64 tensor on the cache's device
+    (a Python int given at construction is placed there) and ``host_index`` the same count
+    on the host, for the capacity check; a device ``index`` must come with its
+    ``host_index``. ``advance`` and ``rewind`` move both without reading the device."""
+
+    def __post_init__(self):
+        if isinstance(self.index, torch.Tensor):
+            if self.host_index is None:
+                raise ValueError("a device index needs its host_index")
+        else:
+            self.host_index = int(self.index)
+            self.index = torch.full((), self.host_index, dtype=torch.long,
+                                    device=self._codes().device)
+
+    def advance(self, n: int) -> None:
+        self.index.add_(n)
+        self.host_index += n
+
+    def rewind(self, n: int) -> None:
+        self.index.fill_(n)
+        self.host_index = n
+
+    @property
+    def batch(self) -> int:
+        return self._codes().shape[1]
+
+    @property
+    def capacity(self) -> int:
+        return self._codes().shape[2]
+
+
 @dataclass
-class KVCache:
+class KVCache(_DeviceIndex):
     """k, v: [num_layers, batch, capacity, num_kv_heads, head_dim]; index: filled slots."""
 
     k: torch.Tensor
     v: torch.Tensor
-    index: int = 0
+    index: torch.Tensor | int = 0
+    host_index: int | None = None
 
-    @property
-    def capacity(self) -> int:
-        return self.k.shape[2]
+    def _codes(self) -> torch.Tensor:
+        return self.k
 
 
 @dataclass
-class Q8KVCache:
+class Q8KVCache(_DeviceIndex):
     """The dense int8 KV cache (JAX ``Q8KVCache``): k_q, v_q int8 [num_layers, batch,
     capacity, num_kv_heads, head_dim] with per-(position, head) f32 scales k_scale,
     v_scale [num_layers, batch, capacity, num_kv_heads]; index: filled slots."""
@@ -79,11 +115,11 @@ class Q8KVCache:
     v_q: torch.Tensor
     k_scale: torch.Tensor
     v_scale: torch.Tensor
-    index: int = 0
+    index: torch.Tensor | int = 0
+    host_index: int | None = None
 
-    @property
-    def capacity(self) -> int:
-        return self.k_q.shape[2]
+    def _codes(self) -> torch.Tensor:
+        return self.k_q
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -315,14 +351,20 @@ def mlp_forward(hn: torch.Tensor, lm, cfg: Qwen2Config, i: int) -> torch.Tensor:
     return _qlinear(act, mlp["down"], i)
 
 
+def _gather_ids(token_ids: torch.Tensor, rows: int) -> torch.Tensor:
+    return torch.where(token_ids < 0, token_ids + rows, token_ids).clamp(0, rows - 1)
+
+
 def embed(lm, token_ids: torch.Tensor) -> torch.Tensor:
-    """Token ids -> embeddings in the compute dtype (an int8 row times its scale). An id
-    past the vocabulary reads the last row, as the JAX gather clamps (an engine feeds its
-    EOS id to finished rows and bucket padding, which may lie outside a test vocab)."""
+    """Token ids -> embeddings in the compute dtype (an int8 row times its scale). Ids are
+    read as JAX's gather reads them: a negative id counts from the end and an id past the
+    vocabulary reads the last row (an engine feeds its EOS id to finished rows and bucket
+    padding, and a decode step past a row's end its EOS id, which may lie outside a test
+    vocab or be negative)."""
     if isinstance(lm, Qwen2):
-        return F.embedding(token_ids.clamp(max=lm.embed_tokens.shape[0] - 1), lm.embed_tokens)
+        return F.embedding(_gather_ids(token_ids, lm.embed_tokens.shape[0]), lm.embed_tokens)
     emb = lm.embed
-    token_ids = token_ids.clamp(max=emb["w_q"].shape[0] - 1)
+    token_ids = _gather_ids(token_ids, emb["w_q"].shape[0])
     rows = emb["w_q"][token_ids].float() * emb["scale"][token_ids][..., None]
     return rows.to(lm.dtype)
 
@@ -353,24 +395,25 @@ def unembed(lm, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def _attend(q, k, v, cache: KVCache | Q8KVCache | None, layer_idx: int, mask,
-            use_flash: bool, a8_attention: bool = False):
+            use_flash: bool, a8_attention: bool = False, slots: torch.Tensor | None = None):
     """Write this step's K/V into the cache (if any; quantized per token and head for a
-    ``Q8KVCache``) and attend: flash over the block's own K/V on a fresh prefill (the
-    int8-QK K8 with ``a8_attention``, at JAX's default blocks), else plain attention over
-    the whole cache (``gqa_attention_q8`` over the codes of a ``Q8KVCache``)."""
-    s = q.shape[1]
+    ``Q8KVCache``) at ``slots`` ([s] int64 on the device, from the cache's device index)
+    and attend: flash over the block's own K/V on a fresh prefill (the int8-QK K8 with
+    ``a8_attention``, at JAX's default blocks), else plain attention over the whole cache
+    (``gqa_attention_q8`` over the codes of a ``Q8KVCache``)."""
     if isinstance(cache, Q8KVCache):
-        slots = slice(cache.index, cache.index + s)
         for codes, scales, x in ((cache.k_q, cache.k_scale, k), (cache.v_q, cache.v_scale, v)):
-            codes[layer_idx][:, slots], scales[layer_idx][:, slots] = quantize_kv(x)
+            x_q, x_scale = quantize_kv(x)
+            codes[layer_idx].index_copy_(1, slots, x_q)
+            scales[layer_idx].index_copy_(1, slots, x_scale)
         if not use_flash:
             return gqa_attention_q8(q, cache.k_q[layer_idx], cache.v_q[layer_idx],
                                     cache.k_scale[layer_idx], cache.v_scale[layer_idx],
                                     mask=mask)
     elif cache is not None:
         ck, cv = cache.k[layer_idx], cache.v[layer_idx]
-        ck[:, cache.index: cache.index + s] = k
-        cv[:, cache.index: cache.index + s] = v
+        ck.index_copy_(1, slots, k.to(ck.dtype))
+        cv.index_copy_(1, slots, v.to(cv.dtype))
         if not use_flash:
             # the block's own K/V is the whole context only on a fresh prefill
             k, v = ck, cv
@@ -398,7 +441,8 @@ def _linear_a8(x: torch.Tensor, p: TensorTree, layer: int) -> torch.Tensor:
 
 
 def _layer_forward_a8(x, lm: QuantQwen2, i: int, cfg: Qwen2Config, cos, sin, mask,
-                      cache: KVCache | Q8KVCache | None, flash_ok: bool) -> torch.Tensor:
+                      cache: KVCache | Q8KVCache | None, flash_ok: bool,
+                      slots: torch.Tensor | None = None) -> torch.Tensor:
     """A multi-token layer of an int8 LM under ``a8_prefill`` (JAX ``_layer_forward`` with
     a8): q/k/v share one activation quantization, gate/up another, o and down quantize
     their own input."""
@@ -414,7 +458,7 @@ def _layer_forward_a8(x, lm: QuantQwen2, i: int, cfg: Qwen2Config, cos, sin, mas
     else:
         q, k, v = qkv_proj(h, lm, cfg, i)
     q, k = apply_rope(q, k, cos, sin)
-    attn = _attend(q, k, v, cache, i, mask, flash_ok and s > 1, cfg.a8_attention)
+    attn = _attend(q, k, v, cache, i, mask, flash_ok and s > 1, cfg.a8_attention, slots)
     x = x + _linear_a8(attn.reshape(b, s, -1), layers["o"], i)
     h = rms_norm(x, layers["ln2_w"][i], cfg.rms_norm_eps)
     mlp = layers["mlp"]
@@ -426,14 +470,15 @@ def _layer_forward_a8(x, lm: QuantQwen2, i: int, cfg: Qwen2Config, cos, sin, mas
 
 
 def _layer_forward(x, lm, i: int, cfg: Qwen2Config, cos, sin, mask,
-                   cache: KVCache | Q8KVCache | None, flash_ok: bool) -> torch.Tensor:
+                   cache: KVCache | Q8KVCache | None, flash_ok: bool,
+                   slots: torch.Tensor | None = None) -> torch.Tensor:
     b, s, _ = x.shape
     if cfg.a8_prefill and s > 1 and isinstance(lm, QuantQwen2):
-        return _layer_forward_a8(x, lm, i, cfg, cos, sin, mask, cache, flash_ok)
+        return _layer_forward_a8(x, lm, i, cfg, cos, sin, mask, cache, flash_ok, slots)
     ln1, ln2 = layer_norm_weights(lm, i)
     q, k, v = qkv_proj(rms_norm(x, ln1, cfg.rms_norm_eps), lm, cfg, i)
     q, k = apply_rope(q, k, cos, sin)
-    attn = _attend(q, k, v, cache, i, mask, flash_ok and s > 1, cfg.a8_attention)
+    attn = _attend(q, k, v, cache, i, mask, flash_ok and s > 1, cfg.a8_attention, slots)
     x = x + o_proj(attn.reshape(b, s, -1), lm, i)
     return x + mlp_forward(rms_norm(x, ln2, cfg.rms_norm_eps), lm, cfg, i)
 
@@ -470,15 +515,15 @@ def w4_suffix_layer_step(h, y, lm: QuantQwen2, idx: int, *, cfg: Qwen2Config, st
 
 
 def _forward_w4_suffix(lm: QuantQwen2, cfg: Qwen2Config, x, cache: KVCache | Q8KVCache,
-                       mask, cos, sin, stacked: dict):
+                       mask, cos, sin, stacked: dict, slots: torch.Tensor):
     """Decode forward of a fused w4 tree at two suffix calls per layer, plus one K5 call
     for layer 0's qkv. Attention stays plain, over the cache of either kind (``_attend``)."""
     y = w4_suffix_seed(lm, cfg, stacked, x)
     for i in range(cfg.num_layers):
         x, y = w4_suffix_layer_step(
             x, y, lm, i, cfg=cfg, stacked=stacked, cos=cos, sin=sin,
-            attend=lambda q, k, v, i=i: _attend(q, k, v, cache, i, mask, False))
-    cache.index += x.shape[1]
+            attend=lambda q, k, v, i=i: _attend(q, k, v, cache, i, mask, False, slots=slots))
+    cache.advance(x.shape[1])
     return rms_norm(x, lm.ln_f_w, cfg.rms_norm_eps), cache
 
 
@@ -489,8 +534,9 @@ def forward(lm: Qwen2 | QuantQwen2, cfg: Qwen2Config, embeds: torch.Tensor,
     """Run the decoder stack on input embeddings [b, s, d] at absolute positions [b, s].
 
     With a cache (bf16/f32 ``KVCache`` or int8 ``Q8KVCache``), this step's K/V is written
-    at ``cache.index`` and attention spans the cache (causal by absolute position); the
-    cache is advanced by s and returned.
+    at ``cache.index`` (on the device) and attention spans the cache (causal by absolute
+    position); the cache is advanced by s and returned. Nothing here reads the device from
+    the host: the capacity check uses ``cache.host_index``.
     ``extra_mask`` [b, 1, s, kv_len] is AND-ed onto the causal mask. ``is_prefill``
     certifies cache.index == 0, which lets the flash kernel attend over the block's own
     K/V. A fused w4 LM decodes through the suffix kernels where JAX does. Returns
@@ -501,12 +547,13 @@ def forward(lm: Qwen2 | QuantQwen2, cfg: Qwen2Config, embeds: torch.Tensor,
     sliding = cfg.sliding_window is not None and cfg.max_window_layers < cfg.num_layers
     q_pos = positions[:, None, :, None]
     if cache is not None:
-        if cache.index + s > cache.capacity:
+        if cache.host_index + s > cache.capacity:
             raise ValueError(f"KV cache of {cache.capacity} slots cannot take "
-                             f"{cache.index} + {s} positions")
+                             f"{cache.host_index} + {s} positions")
         kv_pos = torch.arange(cache.capacity, device=embeds.device)[None, None, None, :]
+        slots = cache.index + torch.arange(s, device=embeds.device)
     else:
-        kv_pos = positions[:, None, None, :]
+        kv_pos, slots = positions[:, None, None, :], None
     mask = kv_pos <= q_pos
     sw_mask = mask & (kv_pos > q_pos - cfg.sliding_window) if sliding else None
     if extra_mask is not None:
@@ -519,14 +566,14 @@ def forward(lm: Qwen2 | QuantQwen2, cfg: Qwen2Config, embeds: torch.Tensor,
     stacked = split_stacked_w4(lm.layers) if quantized else None
     if (stacked is not None and cache is not None and s == 1 and b <= 8 and not sliding
             and suffix_supported(stacked, cfg)):
-        return _forward_w4_suffix(lm, cfg, embeds, cache, mask, cos, sin, stacked)
+        return _forward_w4_suffix(lm, cfg, embeds, cache, mask, cos, sin, stacked, slots)
     # the cache-free forward is the training path: each layer under cfg.remat
     layer_fn = _layer_forward if cache is not None else remat_wrap(_layer_forward, cfg.remat)
     x = embeds
     for i in range(cfg.num_layers):
         layer_mask = sw_mask if sliding and i >= cfg.max_window_layers else mask
-        x = layer_fn(x, lm, i, cfg, cos, sin, layer_mask, cache, flash_ok)
+        x = layer_fn(x, lm, i, cfg, cos, sin, layer_mask, cache, flash_ok, slots)
     if cache is not None:
-        cache.index += s
+        cache.advance(s)
     final = lm.ln_f_w if quantized else lm.norm.weight
     return rms_norm(x, final, cfg.rms_norm_eps), cache

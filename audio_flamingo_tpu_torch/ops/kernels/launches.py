@@ -1,4 +1,8 @@
-"""Launch counts of the hand-written kernels, so a run can show what went through them."""
+"""Launch counts of the hand-written kernels, so a run can show what went through them.
+
+A launch enqueued while the stream is being captured into a CUDA graph is not counted
+then: it is kept as captured (``take_captured``), and whoever replays the graph counts it
+at each replay (``count_replay``), when the kernel runs."""
 
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ class LaunchCounter:
     cost one attribute test per launch."""
 
     def __init__(self):
+        _ALL.append(self)
+        self.captured: collections.Counter = collections.Counter()
         self.count = 0
         self.shapes: collections.Counter = collections.Counter()
         self.timing = False
@@ -31,14 +37,18 @@ class LaunchCounter:
 
     def start(self, device: torch.device):
         """A start event recorded on the device's current stream when timing, else None."""
-        if not self.timing:
+        if not self.timing or _capturing(device):
             return None
         event = torch.cuda.Event(enable_timing=True)
         event.record(torch.cuda.current_stream(device))
         return event
 
     def record(self, key, device: torch.device, start=None, inputs=None) -> None:
-        """Count one launch under ``key``, just after it was enqueued on ``device``."""
+        """Count one launch under ``key``, just after it was enqueued on ``device`` (kept
+        as captured if the stream is being captured)."""
+        if _capturing(device):
+            self.captured[key] += 1
+            return
         self.count += 1
         self.shapes[key] += 1
         if start is not None:
@@ -52,3 +62,25 @@ class LaunchCounter:
         """Summed device time of the timed launches since the last reset."""
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self._events)
+
+
+_ALL: list[LaunchCounter] = []   # every counter made
+
+
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def take_captured() -> list:
+    """[(counter, Counter of keys)] of the launches captured since the last call (cleared)."""
+    out = [(c, collections.Counter(c.captured)) for c in _ALL if c.captured]
+    for c in _ALL:
+        c.captured.clear()
+    return out
+
+
+def count_replay(captured: list) -> None:
+    """Count one replay of a graph holding ``captured`` (from ``take_captured``)."""
+    for counter, keys in captured:
+        counter.count += sum(keys.values())
+        counter.shapes.update(keys)

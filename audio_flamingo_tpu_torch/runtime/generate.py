@@ -3,27 +3,55 @@
 ``prefill`` runs the prompt (+ audio) once and writes the KV cache; a prompt right-padded
 to a token bucket is handled by taking the logits at ``prompt_len - 1`` and setting the
 cache index back to ``prompt_len`` (pad slots are overwritten before any decode step
-attends to them). ``generate`` is a Python loop of ``decode_step`` calls that stops
-when every row has emitted EOS or a stop sequence; its outputs follow the JAX
-``decode_loop``'s contract (positions after EOS hold EOS; lengths count up to and
-including the first EOS, or up to the end of the first stop sequence; with
-``return_logprobs`` each sampled token's f32 log-probability under the logits it was
-sampled from). ``generate_stream`` is the host-driven batch-1 loop that yields token ids
-as they are sampled (JAX ``generate_stream``).
+attends to them).
+
+Decode is JAX's ``decode_loop``. Its body is one step function, ``decode_body``:
+``decode_step``, the processors, ``sample_token``, the writes into ``out`` and
+``logprobs`` and ``done |= eos | stop``, in place on fixed tensors (``DecodeState``: the
+cache, whose index lives on the device, the last token, the position and the step as
+0-dim device tensors, ``out``, ``done``, the logprobs and the token history). It reads
+nothing back to the host.
+
+- On a CUDA device the step is captured once in a CUDA graph (``DecodeGraph``) and
+  replayed, as JAX compiles ``decode_step`` once per shape. A captured step holds its
+  state, cache included, for the next call with the same key (``graph_key``: the LM's
+  weights and layout, batch, capacity, ``max_new_tokens``, dtype and the options that
+  change the traced ops); ``prefill`` writes into the held cache, as JAX donates it. At
+  most ``MAX_HELD`` steps are held, the least recently used dropped first;
+  ``release_graphs`` drops them all. A capture that fails raises: there is no eager
+  decode on the card.
+- On the CPU the same function runs eagerly, step by step.
+
+JAX's ``while_loop`` tests ``done`` on the device before every step. A graph cannot
+branch, so the host reads ``done.all()`` once before the first step and then once every
+``SYNC_EVERY`` steps. A step past every row's end writes EOS and a logprob of 0, as JAX's
+body does for a finished row, so tokens, lengths and logprobs are JAX's: positions after
+EOS hold EOS; lengths count up to and including the first EOS, or up to the end of the
+first stop sequence; with ``return_logprobs`` each sampled token's f32 log-probability
+under the logits it was sampled from. No step runs past ``max_new_tokens - 1``, so every
+position written stays below the capacity, which ``generate`` checks covers
+``prompt_len + max_new_tokens - 1``. ``generate_stream`` is the host-driven batch-1 loop
+that yields token ids as they are sampled (JAX ``generate_stream``): it replays the same
+step once per token and reads the token back, which is what streaming means.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Callable, Iterator, NamedTuple
 
 import torch
 
-from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config
+from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config, Qwen2Config
 from audio_flamingo_tpu_torch.models import af3, qwen2
+from audio_flamingo_tpu_torch.ops.kernels import launches
 from audio_flamingo_tpu_torch.ops.sampling import (SamplingParams, apply_no_repeat_ngram,
                                                    mask_eos, sample_token)
+
+SYNC_EVERY = 8   # decode steps between two host reads of done.all()
+MAX_HELD = 2     # captured steps (each with its cache) held for reuse
 
 
 @dataclass
@@ -33,8 +61,12 @@ class GenerateOutput:
     first_logits: torch.Tensor  # [B, vocab] f32 prefill logits at the last prompt token
     ttft_s: float               # prefill + first token, device-synchronized
     decode_s: float             # every later decode step, device-synchronized
-    decode_steps: int
+    decode_steps: int           # decode steps actually run: up to SYNC_EVERY - 1 past the
+                                # step where every row was done (they write EOS)
     logprobs: torch.Tensor | None = None   # [B, max_new_tokens] f32 with return_logprobs
+    capture_s: float = 0.0      # this call's capture of the decode step on the card (one
+                                # eager warm-up step and the capture; 0 when a held step
+                                # was reused), outside ttft_s and decode_s
 
 
 def sync(device: torch.device) -> None:
@@ -42,29 +74,40 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def compute_dtype(lm) -> torch.dtype:
+    """The dtype the LM computes (and keeps its cache) in."""
+    return lm.dtype if isinstance(lm, qwen2.QuantQwen2) else lm.embed_tokens.dtype
+
+
 @torch.inference_mode()
 def prefill(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
-            mels: torch.Tensor | None, capacity: int, prompt_len: int | None = None):
-    """Prompt (+ audio) -> (cache, last-token logits [B, vocab] f32)."""
+            mels: torch.Tensor | None, capacity: int, prompt_len: int | None = None,
+            cache: qwen2.KVCache | None = None):
+    """Prompt (+ audio) -> (cache, last-token logits [B, vocab] f32). ``cache``: a cache
+    of that capacity to write into (a held decode step's), else a new one."""
     b, t = token_ids.shape
     embeds = af3.build_input_embeds(model, cfg, token_ids, mels)
     pos = torch.arange(t, device=token_ids.device)[None].expand(b, t)
-    cache = qwen2.init_cache(cfg.lm, b, capacity, embeds.dtype, token_ids.device)
+    if cache is None:
+        cache = qwen2.init_cache(cfg.lm, b, capacity, embeds.dtype, token_ids.device)
+    elif cache.capacity != capacity:
+        raise ValueError(f"a cache of {cache.capacity} slots for a capacity of {capacity}")
+    else:
+        cache.rewind(0)
     h, cache = qwen2.forward(model.lm, cfg.lm, embeds, pos, cache=cache, is_prefill=True)
     if prompt_len is None:
         return cache, qwen2.unembed(model.lm, h[:, -1])
-    cache.index = prompt_len
+    cache.rewind(prompt_len)
     return cache, qwen2.unembed(model.lm, h[:, prompt_len - 1])
 
 
-@torch.inference_mode()
-def decode_step(model: af3.AF3Model, cfg: AF3Config, cache: qwen2.KVCache,
-                token: torch.Tensor, position: int):
-    """One decode step: [B] token ids at ``position`` -> (cache, [B, vocab] f32 logits)."""
-    embeds = qwen2.embed(model.lm, token[:, None])
-    pos = torch.full((token.shape[0], 1), position, dtype=torch.long, device=token.device)
-    h, cache = qwen2.forward(model.lm, cfg.lm, embeds, pos, cache=cache)
-    return cache, qwen2.unembed(model.lm, h[:, 0])
+def decode_step(lm, cfg: Qwen2Config, cache: qwen2.KVCache | qwen2.Q8KVCache,
+                token: torch.Tensor, position: torch.Tensor):
+    """One decode step of the LM: [B] token ids at ``position`` (a 0-dim int64 tensor on
+    the device) -> (cache, [B, vocab] f32 logits). Reads nothing back to the host."""
+    embeds = qwen2.embed(lm, token[:, None])
+    h, cache = qwen2.forward(lm, cfg, embeds, position.expand(token.shape[0], 1), cache=cache)
+    return cache, qwen2.unembed(lm, h[:, 0])
 
 
 def token_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
@@ -72,14 +115,19 @@ def token_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
     return torch.log_softmax(logits.float(), dim=-1).gather(1, tok[:, None])[:, 0]
 
 
-def check_stops(out: torch.Tensor, step: int, done: torch.Tensor,
-                stop_sequences: tuple) -> torch.Tensor:
-    """done | (a stop sequence ends exactly at ``step`` of out [B, max_new_tokens])."""
-    for seq in stop_sequences:
-        m = len(seq)
-        if m <= out.shape[1] and step + 1 >= m:
-            win = out[:, step + 1 - m: step + 1]
-            done = done | (win == torch.as_tensor(seq, device=out.device)[None]).all(dim=1)
+def check_stops(out: torch.Tensor, step: torch.Tensor, done: torch.Tensor,
+                stops: tuple) -> torch.Tensor:
+    """done | (a stop sequence ends exactly at ``step`` of out [B, max_new_tokens]).
+    ``step``: a 0-dim int64 device tensor; ``stops``: [m] int64 device tensors. JAX's
+    window ``dynamic_slice`` is a gather here."""
+    b = out.shape[0]
+    for seq in stops:
+        m = seq.shape[0]
+        if m > out.shape[1]:   # can never complete within the budget
+            continue
+        idx = (step - (m - 1)).clamp(min=0) + torch.arange(m, device=out.device)
+        hit = (torch.gather(out, 1, idx.expand(b, m)) == seq).all(dim=1)
+        done = done | (hit & (step + 1 >= m))
     return done
 
 
@@ -113,6 +161,326 @@ def _check_prompt_len(prompt_len, stop_sequences: tuple, return_logprobs: bool,
                                                 "BatchEngine and ragged rows"))
 
 
+# ----------------------------------------------------------------------------------------
+# The decode step: JAX's decode_loop body on fixed tensors
+
+
+class DecodeSpec(NamedTuple):
+    """What fixes a step's ops besides the shapes."""
+
+    max_new_tokens: int
+    eos_token_id: int = -1
+    sampling: SamplingParams = SamplingParams()
+    stop_sequences: tuple = ()     # token-id tuples
+    return_logprobs: bool = False
+
+
+@dataclass
+class DecodeState:
+    """The tensors one decode step reads and writes in place (JAX's ``GenState``)."""
+
+    cache: qwen2.KVCache | qwen2.Q8KVCache
+    tok: torch.Tensor        # [B] int64: the last sampled token, fed at ``position``
+    position: torch.Tensor   # [] int64: its absolute position (prompt length + step)
+    step: torch.Tensor       # [] int64: its index in ``out``
+    out: torch.Tensor        # [B, max_new_tokens] int64, EOS where nothing was sampled
+    done: torch.Tensor       # [B] bool
+    logits: torch.Tensor     # [B, vocab] f32: the last step's model logits (no processor)
+    logprobs: torch.Tensor | None   # [B, max_new_tokens] f32 with return_logprobs
+    seq: torch.Tensor | None        # [B, capacity + 1] int64: the prompt and each
+                                    # generated token at its position (the last one may
+                                    # lie one past the cache), for the repetition penalty
+                                    # and the n-gram ban (valid up to ``position``)
+    stops: tuple                    # the stop sequences as [m] int64 device tensors
+    generator: torch.Generator | None = None
+
+    def nbytes(self) -> dict:
+        """Bytes of the cache and of the rest of the state."""
+        cache = sum(t.numel() * t.element_size() for t in vars(self.cache).values()
+                    if isinstance(t, torch.Tensor))
+        rest = sum(t.numel() * t.element_size() for t in (
+            self.tok, self.position, self.step, self.out, self.done, self.logits,
+            self.logprobs, self.seq, *self.stops) if t is not None)
+        return dict(cache=cache, state=rest)
+
+
+def new_state(cfg: Qwen2Config, spec: DecodeSpec, cache, generator=None) -> DecodeState:
+    """A state over ``cache`` (its batch and capacity), every other tensor on its device."""
+    b, capacity, device = cache.batch, cache.capacity, cache.index.device
+    sp = spec.sampling
+    long = dict(dtype=torch.long, device=device)
+    return DecodeState(
+        cache=cache, tok=torch.zeros(b, **long), position=torch.zeros((), **long),
+        step=torch.zeros((), **long),
+        out=torch.full((b, spec.max_new_tokens), spec.eos_token_id, **long),
+        done=torch.zeros(b, dtype=torch.bool, device=device),
+        logits=torch.zeros((b, cfg.vocab_size), dtype=torch.float32, device=device),
+        logprobs=(torch.zeros((b, spec.max_new_tokens), dtype=torch.float32, device=device)
+                  if spec.return_logprobs else None),
+        seq=(torch.zeros((b, capacity + 1), **long)
+             if sp.repetition_penalty != 1.0 or sp.no_repeat_ngram_size > 0 else None),
+        stops=tuple(torch.tensor(s, **long) for s in spec.stop_sequences),
+        generator=generator)
+
+
+def _history(seq: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """The repetition penalty's history: seq's ids up to position ``last``, -1 after."""
+    valid = torch.arange(seq.shape[1], device=seq.device)[None] <= last
+    return torch.where(valid, seq, torch.full_like(seq, -1))
+
+
+def begin(st: DecodeState, spec: DecodeSpec, tok: torch.Tensor, position: int,
+          logits: torch.Tensor | None = None) -> None:
+    """Start a sequence: ``tok`` [B] is token 0, fed next at ``position`` (the prompt's
+    length); ``logits``: the logits it was sampled from, for its logprob."""
+    st.tok.copy_(tok)
+    st.position.fill_(position)
+    st.step.zero_()
+    st.out.fill_(spec.eos_token_id)
+    st.out[:, 0] = tok
+    if st.logprobs is not None:
+        st.logprobs.zero_()
+        st.logprobs[:, 0] = token_logprob(logits, tok)
+    if st.seq is not None:
+        st.seq[:, position] = tok
+    st.done.copy_(check_stops(st.out, st.step, tok == spec.eos_token_id, st.stops))
+
+
+def start_decode(st: DecodeState, spec: DecodeSpec, first_logits: torch.Tensor,
+                 token_ids: torch.Tensor, true_len: int,
+                 generator: torch.Generator | None) -> None:
+    """JAX's ``decode_loop`` before its ``while_loop``: the first token sampled from the
+    prefill's logits under the n-gram ban (over the exact prompt), the EOS floor and the
+    repetition penalty (over the prompt), then ``begin``."""
+    sp = spec.sampling
+    logits, hist = first_logits, None
+    if st.seq is not None:
+        st.seq[:, : token_ids.shape[1]] = token_ids
+        st.position.fill_(true_len)
+        if sp.repetition_penalty != 1.0:
+            hist = _history(st.seq, st.position - 1)
+        if sp.no_repeat_ngram_size > 0:
+            logits = apply_no_repeat_ngram(logits, st.seq, st.position,
+                                           sp.no_repeat_ngram_size)
+    if sp.min_new_tokens >= 1:
+        logits = mask_eos(logits, spec.eos_token_id,
+                          torch.ones(logits.shape[0], dtype=torch.bool, device=logits.device))
+    tok = sample_token(logits, sp, generator, token_history=hist)
+    begin(st, spec, tok, true_len, logits)
+
+
+def decode_body(lm, cfg: Qwen2Config, spec: DecodeSpec, st: DecodeState) -> None:
+    """One step of JAX's ``decode_loop`` body (audio_flamingo_tpu/runtime/generate.py
+    :154-179), in place on ``st``: decode ``tok`` at ``position``, the n-gram ban over the
+    prompt and the tokens so far, the EOS floor, the repetition penalty over the same,
+    sample, EOS for finished rows, write token ``step + 1`` (and its logprob), then ``done
+    |= eos | stop``. Reads nothing back to the host."""
+    sp = spec.sampling
+    b = st.tok.shape[0]
+    _, logits = decode_step(lm, cfg, st.cache, st.tok, st.position)
+    st.logits.copy_(logits)
+    hist = None
+    if sp.repetition_penalty != 1.0:
+        hist = _history(st.seq, st.position)
+    if sp.no_repeat_ngram_size > 0:
+        logits = apply_no_repeat_ngram(logits, st.seq, st.position + 1,
+                                       sp.no_repeat_ngram_size)
+    if sp.min_new_tokens > 0:
+        logits = mask_eos(logits, spec.eos_token_id, (st.step + 1 < sp.min_new_tokens).expand(b))
+    nxt = sample_token(logits, sp, st.generator, token_history=hist)
+    nxt = torch.where(st.done, torch.full_like(nxt, spec.eos_token_id), nxt)
+    st.step.add_(1)
+    at = st.step.expand(b, 1)
+    st.out.scatter_(1, at, nxt[:, None])
+    if st.logprobs is not None:
+        lp = torch.where(st.done, torch.zeros_like(st.logits[:, 0]), token_logprob(logits, nxt))
+        st.logprobs.scatter_(1, at, lp[:, None])
+    if st.seq is not None:
+        st.seq.scatter_(1, (st.position + 1).expand(b, 1), nxt[:, None])
+    st.done.copy_(check_stops(st.out, st.step, st.done | (nxt == spec.eos_token_id), st.stops))
+    st.tok.copy_(nxt)
+    st.position.add_(1)
+
+
+def run_decode(st: DecodeState, max_new_tokens: int, step: Callable[[], None]) -> int:
+    """``step()`` until every row is done or ``max_new_tokens - 1`` steps ran; the host
+    reads ``done.all()`` before the first step and then every ``SYNC_EVERY`` steps.
+    Returns the steps run."""
+    steps = 0
+    while steps + 1 < max_new_tokens and not bool(st.done.all()):
+        n = min(SYNC_EVERY, max_new_tokens - 1 - steps)
+        for _ in range(n):
+            step()
+        steps += n
+    return steps
+
+
+# ----------------------------------------------------------------------------------------
+# The captured step
+
+
+class DecodeGraph:
+    """``decode_body`` captured in one CUDA graph over the state it holds.
+
+    One eager step runs first, so that what the kernel wrappers keep for later calls
+    (plans, split counters, scratch) is allocated outside the graph's pool; its launches
+    count as launches. The launches made inside the capture are counted at each replay
+    (``ops/kernels/launches``). A sampled step draws from a generator of its own,
+    registered with the graph: ``load_generator`` and ``store_generator`` hand it the
+    caller's state and back, so the draws are the eager draws of the same seed."""
+
+    def __init__(self, lm, cfg: Qwen2Config, spec: DecodeSpec, state: DecodeState):
+        device = state.tok.device
+        if device.type != "cuda":
+            raise ValueError(f"a decode step is captured on cuda, not {device}")
+        if spec.max_new_tokens < 2:   # the warm-up step writes token 1
+            raise ValueError("a sequence of one token has no decode step to capture")
+        t0 = time.perf_counter()
+        self.spec, self.state, self.busy = spec, state, False
+        with torch.inference_mode():
+            decode_body(lm, cfg, spec, state)
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            self.graph = torch.cuda.CUDAGraph()
+            if state.generator is not None:
+                self.graph.register_generator_state(state.generator)
+            launches.take_captured()
+            with torch.cuda.graph(self.graph):
+                decode_body(lm, cfg, spec, state)
+            self.launches = launches.take_captured()
+        torch.cuda.synchronize(device)
+        self.graph_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.state.cache.host_index += 1
+        launches.count_replay(self.launches)
+
+    def load_generator(self, generator: torch.Generator | None) -> None:
+        if self.state.generator is not None:
+            self.state.generator.set_state(_source(generator, self.state).get_state())
+
+    def store_generator(self, generator: torch.Generator | None) -> None:
+        if self.state.generator is not None:
+            _source(generator, self.state).set_state(self.state.generator.get_state())
+
+    def nbytes(self) -> dict:
+        return dict(self.state.nbytes(), graph=self.graph_bytes)
+
+
+def _source(generator, state: DecodeState) -> torch.Generator:
+    if generator is not None:
+        return generator
+    device = state.tok.device
+    return torch.cuda.default_generators[device.index if device.index is not None
+                                         else torch.cuda.current_device()]
+
+
+_HELD: collections.OrderedDict = collections.OrderedDict()   # graph_key -> DecodeGraph
+
+
+def graph_key(lm, cfg: Qwen2Config, spec: DecodeSpec, batch: int, capacity: int,
+              dtype: torch.dtype, device: torch.device) -> tuple:
+    """What fixes a captured step: the LM's layout and the address, shape and dtype of
+    every weight (a graph reads them in place), its config, the spec, the batch, the
+    capacity and the dtype of the cache, and the device."""
+    weights = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                    for t in (*lm.parameters(), *lm.buffers()))
+    return (type(lm), weights, cfg, spec, batch, capacity, dtype, device)
+
+
+def held_graph(lm, cfg: Qwen2Config, spec: DecodeSpec, batch: int, capacity: int,
+               dtype: torch.dtype, device: torch.device) -> tuple[DecodeGraph, bool]:
+    """The held captured step of this key over a bf16/f32 ``KVCache`` (captured now if
+    there is none, dropping the least recently used beyond ``MAX_HELD``) and whether it
+    was captured now. A held step in use (an open stream) is not shared: a private one is
+    captured and not held."""
+    key = graph_key(lm, cfg, spec, batch, capacity, dtype, device)
+    graph = _HELD.get(key)
+    if graph is not None and not graph.busy:
+        _HELD.move_to_end(key)
+        return graph, False
+    cache = qwen2.init_cache(cfg, batch, capacity, dtype, device)
+    generator = None if spec.sampling.greedy else torch.Generator(device=device)
+    graph = DecodeGraph(lm, cfg, spec, new_state(cfg, spec, cache, generator))
+    if key not in _HELD:
+        _HELD[key] = graph
+        while len(_HELD) > MAX_HELD:
+            _HELD.popitem(last=False)   # an open stream keeps its step until it ends
+    return graph, True
+
+
+def release_graphs() -> int:
+    """Drop every held captured step and its cache (freed once no open stream uses it);
+    returns the bytes they held."""
+    freed = sum(sum(graph.nbytes().values()) for graph in _HELD.values())
+    _HELD.clear()
+    return freed
+
+
+def held_bytes() -> dict:
+    """Bytes the held captured steps keep: caches, the rest of their states, graph pools."""
+    out = dict(steps=len(_HELD), cache=0, state=0, graph=0)
+    for graph in _HELD.values():
+        for k, v in graph.nbytes().items():
+            out[k] += v
+    return out
+
+
+class _Decoder:
+    """A generate's decode: the held captured step on the card, a new state stepped
+    eagerly on the CPU (or, for a single token, which takes no step, anywhere)."""
+
+    def __init__(self, model: af3.AF3Model, cfg: AF3Config, spec: DecodeSpec, batch: int,
+                 capacity: int, device: torch.device, generator: torch.Generator | None):
+        self.generator, self.capture_s = generator, 0.0
+        dtype = compute_dtype(model.lm)
+        with torch.inference_mode():
+            if device.type == "cuda" and spec.max_new_tokens > 1:
+                t0 = time.perf_counter()
+                self.graph, captured = held_graph(model.lm, cfg.lm, spec, batch, capacity,
+                                                  dtype, device)
+                self.capture_s = time.perf_counter() - t0 if captured else 0.0
+                self.graph.busy = True
+                self.state = self.graph.state
+            else:
+                self.graph = None
+                cache = qwen2.init_cache(cfg.lm, batch, capacity, dtype, device)
+                self.state = new_state(cfg.lm, spec, cache, generator)
+        self._body = lambda: decode_body(model.lm, cfg.lm, spec, self.state)
+
+    @torch.inference_mode()
+    def step(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self._body()
+
+    def __enter__(self) -> "_Decoder":
+        return self
+
+    def started(self) -> None:
+        """The first token is sampled: the captured step draws on from here."""
+        if self.graph is not None:
+            self.graph.load_generator(self.generator)
+
+    def __exit__(self, *exc) -> None:
+        if self.graph is not None:
+            self.graph.store_generator(self.generator)
+            self.graph.busy = False
+
+
+def _capacity(t: int, true_len: int, max_new_tokens: int, capacity: int) -> int:
+    if capacity == 0:
+        return -(-(t + max_new_tokens) // 128) * 128
+    if t > capacity or true_len + max_new_tokens - 1 > capacity:
+        raise ValueError(f"KV cache of {capacity} slots cannot take a prompt of {t} "
+                         f"positions ({true_len} true) and {max_new_tokens} new tokens")
+    return capacity
+
+
 @torch.inference_mode()
 def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
              mels: torch.Tensor | None = None, *, max_new_tokens: int = 64,
@@ -130,75 +498,39 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
     (token-id tuples): a row stops after emitting any of them, keeping the sequence.
     ``return_logprobs``: ``logprobs`` holds each sampled token's log-probability under
     the logits it was sampled from, after the n-gram ban and the EOS floor (0 past a
-    row's end)."""
+    row's end). On a CUDA device decode replays the captured step (see the module)."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
     _check_prompt_len(prompt_len, stop_sequences, return_logprobs, sampling)
     stop_sequences = tuple(tuple(int(t) for t in seq) for seq in stop_sequences)
     b, t = token_ids.shape
     device = token_ids.device
-    if capacity == 0:
-        capacity = -(-(t + max_new_tokens) // 128) * 128
     true_len = t if prompt_len is None else int(prompt_len)
+    capacity = _capacity(t, true_len, max_new_tokens, capacity)
+    spec = DecodeSpec(max_new_tokens, eos_token_id, sampling, stop_sequences, return_logprobs)
 
-    t0 = time.perf_counter()
-    cache, logits = prefill(model, cfg, token_ids, mels, capacity, prompt_len=prompt_len)
-    first_logits = logits
-    history = None
-    if sampling.repetition_penalty != 1.0:
-        valid = torch.arange(t, device=device)[None] < true_len
-        history = torch.where(valid, token_ids.long(), torch.full_like(token_ids.long(), -1))
-    ngram = sampling.no_repeat_ngram_size
-    if ngram > 0:
-        prompt_tokens = token_ids[:, :true_len].long()
-        logits = apply_no_repeat_ngram(
-            logits, torch.cat([prompt_tokens, torch.zeros((b, max_new_tokens), dtype=torch.long,
-                                                          device=device)], 1), true_len, ngram)
-    if sampling.min_new_tokens >= 1:
-        logits = mask_eos(logits, eos_token_id, torch.ones(b, dtype=torch.bool, device=device))
-    tok = sample_token(logits, sampling, generator, token_history=history)
-    out = torch.full((b, max_new_tokens), eos_token_id, dtype=torch.long, device=device)
-    out[:, 0] = tok
-    logprobs = None
-    if return_logprobs:
-        logprobs = torch.zeros((b, max_new_tokens), dtype=torch.float32, device=device)
-        logprobs[:, 0] = token_logprob(logits, tok)
-    done = check_stops(out, 0, tok == eos_token_id, stop_sequences)
-    sync(device)
-    ttft = time.perf_counter() - t0
+    with _Decoder(model, cfg, spec, b, capacity, device, generator) as dec:
+        st = dec.state
+        t0 = time.perf_counter()
+        _, first_logits = prefill(model, cfg, token_ids, mels, capacity,
+                                  prompt_len=prompt_len, cache=st.cache)
+        start_decode(st, spec, first_logits, token_ids.long(), true_len, generator)
+        dec.started()
+        sync(device)
+        ttft = time.perf_counter() - t0
 
-    t1 = time.perf_counter()
-    step = 0
-    while step + 1 < max_new_tokens and not bool(done.all()):
-        cache, logits = decode_step(model, cfg, cache, tok, true_len + step)
-        hist = None
-        if history is not None:
-            gen = torch.where(torch.arange(max_new_tokens, device=device)[None] <= step,
-                              out, torch.full_like(out, -1))
-            hist = torch.cat([history, gen], dim=1)
-        if ngram > 0:
-            logits = apply_no_repeat_ngram(logits, torch.cat([prompt_tokens, out], 1),
-                                           true_len + step + 1, ngram)
-        if sampling.min_new_tokens > 0:
-            logits = mask_eos(logits, eos_token_id,
-                              torch.full((b,), step + 1 < sampling.min_new_tokens, device=device))
-        nxt = sample_token(logits, sampling, generator, token_history=hist)
-        nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
-        step += 1
-        out[:, step] = nxt
-        if return_logprobs:
-            logprobs[:, step] = torch.where(done, 0.0, token_logprob(logits, nxt))
-        done = check_stops(out, step, done | (nxt == eos_token_id), stop_sequences)
-        tok = nxt
-    sync(device)
-    decode_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        steps = run_decode(st, max_new_tokens, dec.step)
+        sync(device)
+        decode_s = time.perf_counter() - t1
+        out = st.out.clone()
+        logprobs = st.logprobs.clone() if return_logprobs else None
 
     return GenerateOutput(tokens=out, lengths=output_lengths(out, eos_token_id, stop_sequences),
                           first_logits=first_logits, ttft_s=ttft, decode_s=decode_s,
-                          decode_steps=step, logprobs=logprobs)
+                          decode_steps=steps, logprobs=logprobs, capture_s=dec.capture_s)
 
 
-@torch.inference_mode()
 def generate_stream(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
                     mels: torch.Tensor | None = None, *, max_new_tokens: int = 128,
                     capacity: int = 0, eos_token_id: int = -1,
@@ -207,32 +539,26 @@ def generate_stream(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor
                     prompt_len: int | None = None) -> Iterator[int]:
     """Host-driven streaming decode (batch 1): yields token ids as they are sampled, up to
     and including EOS. The EOS floor (``min_new_tokens``) and the repetition penalty
-    (over the prompt plus what it has generated) apply as in ``generate``."""
+    (over the prompt plus what it has generated) apply as in ``generate``; the n-gram ban
+    does not, as in JAX. Each token is one step (one replay on the card) and one read."""
     b, t = token_ids.shape
     if b != 1:
         raise ValueError(f"streaming drives batch 1, got {b} rows")
-    if capacity == 0:
-        capacity = -(-(t + max_new_tokens) // 128) * 128
-    cache, logits = prefill(model, cfg, token_ids, mels, capacity, prompt_len=prompt_len)
     true_len = t if prompt_len is None else int(prompt_len)
-    history = (token_ids[0, :true_len].tolist() if sampling.repetition_penalty != 1.0
-               else None)
-    device = token_ids.device
-
-    def pick(logits, generated: int) -> torch.Tensor:
-        if generated < sampling.min_new_tokens:
-            logits = mask_eos(logits, eos_token_id, torch.ones(1, dtype=torch.bool,
-                                                               device=device))
-        hist = None if history is None else torch.tensor(history, device=device)[None]
-        return sample_token(logits, sampling, generator, token_history=hist)
-
-    token = pick(logits, 0)
-    for i in range(max_new_tokens):
-        tid = int(token[0])
-        yield tid
-        if tid == eos_token_id or i + 1 == max_new_tokens:
-            return
-        if history is not None:
-            history.append(tid)
-        cache, logits = decode_step(model, cfg, cache, token, true_len + i)
-        token = pick(logits, i + 1)
+    capacity = _capacity(t, true_len, max_new_tokens, capacity)
+    spec = DecodeSpec(max_new_tokens, eos_token_id,
+                      sampling._replace(no_repeat_ngram_size=0))
+    # inference mode is entered around each device section, never held across a yield
+    with _Decoder(model, cfg, spec, b, capacity, token_ids.device, generator) as dec:
+        st = dec.state
+        _, logits = prefill(model, cfg, token_ids, mels, capacity, prompt_len=prompt_len,
+                            cache=st.cache)
+        with torch.inference_mode():
+            start_decode(st, spec, logits, token_ids.long(), true_len, generator)
+        dec.started()
+        for i in range(max_new_tokens):
+            tid = int(st.tok[0])
+            yield tid
+            if tid == eos_token_id or i + 1 == max_new_tokens:
+                return
+            dec.step()

@@ -28,7 +28,10 @@ Phases, each line stamped with elapsed seconds:
         f32 and bf16, the plain version evaluated over blocks of query rows;
   4. the 30 s main path: AudioFlamingo.from_random at full AF3 width (Whisper-large
      encoder + Qwen2.5-7B, bf16, random weights from a seed) and generate() on a 30 s
-     waveform, three times, greedy; launch counts per generate, identical ids, finite
+     waveform, three times, greedy (decode, here and in every generate below, replays the
+     step runtime/generate captures in a CUDA graph on its first call with a key; the
+     held steps' bytes are logged after phase 5 and released between phases); launch
+     counts per generate, identical ids, finite
      logits, and the prefill logits against the plain-attention path on the same weights.
      K2's launches inside the warm generate are timed with CUDA events and their inputs
      captured; each is then replayed against the plain version and timed beside it;
@@ -52,12 +55,21 @@ Phases, each line stamped with elapsed seconds:
         library call repeated on layer 0, K5 on every layer in turn, K6 repeated and one
         decode step's 28 A + 28 B);
      b. the 30 s path with phase 4's bf16 model's LM quantized on the card (encoder
-        shared): generate() three times, greedy, 32 tokens; identical ids, 56 K6 launches,
-        1 K5 and 1 K4 (the int8 head) per decode step (no K5 in the 1024-row prefill, one
-        K4 for its head), K2 still 60, the
-        kernels' device time in the warm run, TTFT split, decode rate against the
-        weight-streaming bound, the int8 head's per-step cost, and every one of the path's
-        own K5 and K6 launches replayed against (and timed beside) the plain versions;
+        shared): generate() three times, greedy, 32 tokens, the first capturing the decode
+        step and the others reusing it; identical ids, 56 K6 launches, 1 K5 and 1 K4 (the
+        int8 head) per decode step as the replays count them (no K5 in the 1024-row
+        prefill, one K4 for its head), K2 still 60, TTFT split, decode rate against the
+        weight-streaming bound, the capture time and held bytes, the int8 head's per-step
+        cost; then the captured step against the eager step function (the module's
+        decode_step loop) on the same prompt, 31 steps: ids equal, the first 4 steps' f32
+        logits bit-identical, one replay's kernels by torch.profiler (1 K5 + 28 + 28 K6 +
+        1 K4) equal to the eager step's launches, one replay and one eager step under
+        torch.cuda.set_sync_debug_mode("error"), ms per step of both beside the bound, a
+        trace of 2 replays (utils/profiling.trace, chip_smoke_traces/) with its
+        device-busy share; the kernels' device time in the warm run (the prefill's by CUDA
+        events, the decode's as its steps times the profiled replay's), and every K5 and
+        K6 launch of the eager steps replayed against (and timed beside) the plain
+        versions;
      c. (after phase 6) f32 int4 card against CPU: full width, 2 + 2 layers, the int4 LM
         quantized on the CPU and moved to the card (and quantized on the card as well:
         every code and scale equal); logits within 1e-4, greedy ids token-exact and not
@@ -148,16 +160,27 @@ Phases, each line stamped with elapsed seconds:
         113 launches in one graph (device times); K4 against the library route at m
         32-1024 (KERNEL_MAX_ROWS);
      b. bench.py's bench_decode: that LM on a bf16 KVCache, batch 1, capacity 1024, 64
-        greedy steps (a warm run and 3 timed), 113 K4 launches per step, identical ids,
-        ms per step and K4's device time beside the weight-streaming bound;
+        greedy steps, as the module's step function captured in a CUDA graph against the
+        same step run eagerly (timed_decode / decode_loop_run: ids equal, the first 4
+        steps' logits bit-identical, 113 K4 launches per step counted eagerly, by the
+        replays and by torch.profiler in one replay, sync debug on one replay and one
+        eager step); ms per step of the graph (median of 2 runs) and eager side by side,
+        K4's device time (profiled replay) and the device-busy share beside the
+        weight-streaming bound; the same LM sampled, top-p 0.9 at temperature 0.7, 16
+        tokens: graph (its generator registered with the graph) and eager draw the same
+        ids from one seed;
      c. bench_decode_matrix's b8 c8192 on the dense int8 cache (init_cache_q8, 32 steps),
-        and bench_decode_w4's b1 c1024 on it with the fused int4 LM: per step 1 K5, 28 +
-        28 K6 and 1 K4 (the int8 head);
+        and bench_decode_w4's b1 c1024 on it with the fused int4 LM (per step 1 K5, 28 +
+        28 K6 and 1 K4, the int8 head), each graph against eager as in b;
      d. the 30 s clip on the int8 LM (the bf16 model's LM quantized on the card): generate()
-        twice, 32 greedy tokens, identical ids, 113 K4 launches per decode step plus the
-        prefill's head (and its products where its rows are at most KERNEL_MAX_ROWS);
-        generate(stream=True) gives generate's ids; the prefill's and one step's K4
-        launches replayed against the plain version;
+        twice, 32 greedy tokens, the first capturing the step, identical ids, 113 K4
+        launches per decode step plus the prefill's head (and its products where its rows
+        are at most KERNEL_MAX_ROWS); generate(stream=True), one replay a token, gives
+        generate's ids, and generate reuses the stream's captured step; the captured step
+        against the eager one on that prompt as in 7b (113 K4 in one replay); the
+        prefill's and one eager step's K4 launches replayed against the plain version;
+        generate sampled (top-p 0.9, temperature 0.7, 16 tokens) twice from one seed gives
+        one answer;
      e. f32 card against CPU, full width, 2 LM layers: the int8 LM prefills through flash
         into a Q8KVCache and decodes 8 greedy steps; logits within 1e-4 of max|logit|,
         ids token-exact; quantize_kv's codes and the int4 group scales equal card vs CPU
@@ -1010,14 +1033,207 @@ def w4_kernel_phase(k5, k6, qlm, head_w4) -> dict:
     return res
 
 
+# ------------------------------------------------------------ decode: captured against eager
+# the decode kernels by the CUDA kernel names torch.profiler reports (csrc/*.cu)
+DECODE_KERNELS = {"K4": ("w8_mma_kernel", "w8_fma_kernel", "w8_nk_kernel"),
+                  "K5": ("w4_mma_kernel", "w4_fma_kernel"),
+                  "K6": ("w4_suffix_kernel",)}
+LOGITS_STEPS = 4   # steps whose f32 logits the captured step must give bit for bit
+
+
+def profile_replays(graph, tag: str, replays: int) -> dict:
+    """``replays`` replays of a captured decode step under utils/profiling.trace (the
+    Chrome trace in chip_smoke_traces/<tag>/), each in its own annotated range, after
+    one more that is not counted (the profiler can miss the first kernels it sees): per
+    DECODE_KERNELS group its kernels and their device ms per replay, every kernel's device
+    ms per replay, and the device-busy share of the counted window: the kernels' time over
+    the span of the replays' ranges on the device (the gaps between replays included);
+    ``ordered``: each group's kernel times (ms) in the order they ran."""
+    from audio_flamingo_tpu_torch.utils import profiling
+
+    labels = [f"{tag} replay {i}" for i in range(replays + 1)]
+    torch.cuda.synchronize()
+    with profiling.trace(os.path.join("chip_smoke_traces", tag)) as prof:
+        for label in labels:
+            with profiling.annotate(label):
+                graph.replay()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # an annotated range shows on the device as the span of its kernels
+    ranges = {e.name: e.time_range for e in events if e.name in labels}
+    check(all(label in ranges for label in labels[1:]),
+          f"{tag}: torch.profiler shows {sorted(ranges)} of the replays' ranges on the device")
+    t0, t1 = ranges[labels[1]].start, ranges[labels[-1]].end
+    kernels = [e for e in events if e.name not in labels and t0 <= e.time_range.start < t1
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    check(len(kernels) > 0, f"{tag}: torch.profiler saw no kernel in the replays")
+    groups = {g: [0, 0.0] for g in DECODE_KERNELS}
+    ordered = {g: [] for g in DECODE_KERNELS}
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        g = next((g for g, names in DECODE_KERNELS.items() if any(n in e.name for n in names)),
+                 None)
+        if g is not None:
+            groups[g][0] += 1
+            groups[g][1] += e.time_range.elapsed_us() / 1e3
+            ordered[g].append(e.time_range.elapsed_us() / 1e3)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    span = (t1 - t0) / 1e3
+    return dict(groups={g: (n / replays, ms / replays) for g, (n, ms) in groups.items()},
+                replays=replays, ordered=ordered, kernels=len(kernels) / replays,
+                busy_ms=busy / replays, span_ms=span / replays, busy_share=busy / span)
+
+
+def copy_state(dst, src) -> None:
+    """dst's tensors, its cache's included, set to src's."""
+    for name in ("tok", "position", "step", "out", "done", "logits", "logprobs", "seq"):
+        if getattr(dst, name) is not None:
+            getattr(dst, name).copy_(getattr(src, name))
+    for name, t in vars(dst.cache).items():
+        if isinstance(t, torch.Tensor):
+            t.copy_(getattr(src.cache, name))
+    dst.cache.host_index = src.cache.host_index
+
+
+def graph_against_eager(tag, lm, cfg, spec, make_cache, start, steps: int, counters: dict,
+                        keep_inputs=(), groups: dict | None = None, seed: int = 0,
+                        timed_runs: int = 2) -> dict:
+    """Decode through the captured step (runtime/generate.DecodeGraph) against the eager
+    step function (generate.decode_body, the module's decode_step loop) from one start.
+
+    ``start(state, generator)`` begins a sequence on a state (a prefill and its first
+    token, or token 0 at position 0); the eager state copies it, and a sampled step's
+    generators start from one seed. Both run ``steps`` steps: the ids must be equal over
+    every step and the first LOGITS_STEPS steps' f32 logits bit-identical (the graph
+    replays the eager step's kernels in its order). The eager steps' launches, counted by
+    the wrappers (``keep_inputs``: the counters whose inputs are kept), must equal per
+    step the launches the replays count and, for each DECODE_KERNELS group in
+    ``groups`` (its counters), the kernels torch.profiler sees in one replay. One replay
+    and one eager step run under set_sync_debug_mode("error"). Logged: ms per step of both
+    (device-synchronized host clock; the graph as the median of ``timed_runs`` runs),
+    the capture's seconds and bytes, and the profile of 2 replays with its device-busy
+    share (2 replays keep each trace a few MB)."""
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
+    sampled = not spec.sampling.greedy
+    with torch.inference_mode():
+        st = gen.new_state(cfg, spec, make_cache(),
+                           torch.Generator(device="cuda") if sampled else None)
+        t0 = time.perf_counter()
+        graph = gen.DecodeGraph(lm, cfg, spec, st)
+        capture_s = time.perf_counter() - t0
+        eager = gen.new_state(cfg, spec, make_cache(),
+                              torch.Generator(device="cuda") if sampled else None)
+
+        def begin():
+            g = torch.Generator(device="cuda").manual_seed(seed) if sampled else None
+            start(st, g)
+            copy_state(eager, st)
+            if sampled:
+                graph.load_generator(g)
+                eager.generator.set_state(g.get_state())
+
+        begin()
+        for name, c in counters.items():
+            c.reset()
+            c.capture = name in keep_inputs
+        logits_eager = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            gen.decode_body(lm, cfg, spec, eager)
+            if i < LOGITS_STEPS:
+                logits_eager.append(eager.logits.clone())
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / steps * 1e3
+        eager_counts = {n: c.count for n, c in counters.items()}
+        inputs = {n: list(counters[n].inputs) for n in keep_inputs}
+        for c in counters.values():
+            c.capture = False
+            c.reset()
+        logits_graph = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            graph.replay()
+            if i < LOGITS_STEPS:
+                logits_graph.append(st.logits.clone())
+        torch.cuda.synchronize()
+        first_graph_ms = (time.perf_counter() - t0) / steps * 1e3
+        graph_counts = {n: c.count for n, c in counters.items()}
+        for c in counters.values():
+            c.reset()
+        same_ids = torch.equal(st.out, eager.out)
+        n_out = min(steps + 1, st.out.shape[1])
+        ids = st.out[:, :n_out].clone().cpu()
+        logit_diff = max((a.double() - b.double()).abs().max().item()
+                         for a, b in zip(logits_graph, logits_eager))
+        bit_equal = all(torch.equal(a, b) for a, b in zip(logits_graph, logits_eager))
+        check(same_ids, f"{tag}: graph ids {st.out[0, :n_out].tolist()} != eager "
+                        f"{eager.out[0, :n_out].tolist()}")
+        check(bit_equal, f"{tag}: the first {LOGITS_STEPS} steps' logits differ graph vs eager "
+                         f"(max {logit_diff:.3e})")
+        check(graph_counts == eager_counts,
+              f"{tag}: launches counted over the replays {graph_counts} != eager {eager_counts}")
+        graph_times = []
+        for _ in range(timed_runs):
+            begin()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                graph.replay()
+            torch.cuda.synchronize()
+            graph_times.append((time.perf_counter() - t0) / steps * 1e3)
+        graph_ms = statistics.median(graph_times)
+        begin()
+        prof = profile_replays(graph, tag.split()[0], 2)
+        for g, names in (groups or {}).items():
+            want = sum(eager_counts[n] for n in names) / steps
+            check(prof["groups"][g][0] == want,
+                  f"{tag}: torch.profiler counts {prof['groups'][g][0]} {g} kernels in one "
+                  f"replay, the eager step launches {want}")
+        begin()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+            gen.decode_body(lm, cfg, spec, eager)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(torch.equal(st.logits, eager.logits), f"{tag}: the synced-debug step's logits differ")
+        nbytes = graph.nbytes()
+        graph.graph.reset()
+    del st, eager, graph
+    log(f"{tag}: captured step against the eager step over {steps} steps: ids equal "
+        f"({ids[0, :8].tolist()}...), the first {LOGITS_STEPS} steps' f32 logits bit-identical; "
+        f"{graph_ms:.3f} ms per step in the graph (median of {timed_runs} runs; "
+        f"{first_graph_ms:.3f} ms in the compared run) against {eager_ms:.3f} ms eager; "
+        f"capture {capture_s:.2f}s (one eager step + the capture), it holds cache "
+        f"{nbytes['cache'] / 2**20:.1f} MiB, state {nbytes['state'] / 2**20:.2f} MiB, graph "
+        f"pool {nbytes['graph'] / 2**20:.1f} MiB; one replay under torch.profiler: "
+        f"{prof['kernels']:g} kernels, {prof['busy_ms']:.3f} ms busy of {prof['span_ms']:.3f} ms "
+        f"(device busy {prof['busy_share'] * 100:.1f} %), "
+        + ", ".join(f"{g} {n} ({ms:.3f} ms)" for g, (n, ms) in prof["groups"].items() if n)
+        + "; eager launches per step " + ", ".join(
+            f"{n} {v / steps:g}" for n, v in eager_counts.items())
+        + "; one replay and one eager step ran under set_sync_debug_mode('error')")
+    return dict(graph_ms=graph_ms, eager_ms=eager_ms, first_graph_ms=first_graph_ms,
+                capture_s=capture_s, nbytes=nbytes, prof=prof, ids=ids,
+                counts={n: v / steps for n, v in eager_counts.items()}, inputs=inputs)
+
+
 def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
     """7b. The int4 main path: the bf16 model's LM quantized on the card by
     quantize_lm_params_w4 (what load(quantize_lm="int4") calls), the encoder shared, and
-    generate() on the 30 s clip three times, greedy, 32 tokens. Launch counts per decode
-    step, identical ids, the kernels' device time in the warm run (CUDA events around each
-    launch), TTFT split, decode rate against the weight-streaming bound, peak memory, and
-    the int4 prefill logits' cosine against the bf16 ones (logged: with random weights it
-    measures quantization error, not the port). Returns the numbers the kernel line needs."""
+    generate() on the 30 s clip three times, greedy, 32 tokens; decode replays the captured
+    step (the first run captures it). Launch counts per decode step (the replays count
+    the launches captured in the step, the capture's eager warm-up step counts its own),
+    identical ids, TTFT split, decode rate against the weight-streaming bound, the capture
+    time and held bytes, peak memory, and the int4 prefill logits' cosine against the bf16
+    ones (logged: with random weights it measures quantization error, not the port). Then
+    the captured step against the eager one on the same prompt (graph_against_eager: ids,
+    logits, 1 K5 + 28 + 28 K6 + 1 K4 in one replay by torch.profiler, sync debug), whose
+    eager launches' inputs are replayed against the plain versions. The kernels' device
+    time in the warm run: CUDA events around the prefill's launches plus the profiled
+    replay's per-step time times the decode steps. Returns the numbers the kernel line
+    needs."""
     from audio_flamingo_tpu_torch.models import af3, qwen2
     from audio_flamingo_tpu_torch.ops.quant4 import quantize_linear_w4, quantize_lm_params_w4
 
@@ -1043,15 +1259,16 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
                                history=[], last_output=None, last_processor_s=None)
     from audio_flamingo_tpu_torch.ops.kernels import w8a16_matmul as k4
 
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
     counters = {"K2": fa.LAUNCHES, "K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A,
                 "K6B": k6.LAUNCHES_B, "K4": k4.LAUNCHES}
     n_layers = lm_cfg.num_layers
     runs = []
     for i in range(3):
-        for name, c in counters.items():
+        for c in counters.values():
             c.reset()
-            c.timing = True
-            c.capture = i == 2 and name not in ("K2", "K4")
+            c.timing = True     # the prefill's launches; the replays' are profiled below
         torch.cuda.reset_peak_memory_stats()
         text, wall, split = timed_generate(int4, sound=wav, prompt="What do you hear?",
                                            max_new_tokens=32)
@@ -1059,30 +1276,31 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
         run = dict(ids=out.tokens[0, : int(out.lengths[0])].tolist(), steps=out.decode_steps,
                    tps=out.decode_steps / out.decode_s, decode_s=out.decode_s,
                    proc=int4.last_processor_s, ttft=out.ttft_s, wall=wall,
-                   first_logits=out.first_logits, peak=torch.cuda.max_memory_allocated() / 2**30,
+                   capture_s=out.capture_s, first_logits=out.first_logits,
+                   peak=torch.cuda.max_memory_allocated() / 2**30,
                    **{name: (c.count, dict(c.shapes), c.device_ms()) for name, c in counters.items()})
-        captured = {name: list(c.inputs) for name, c in counters.items()}
         for c in counters.values():
-            c.timing = c.capture = False
+            c.timing = False
             c.reset()
         steps = run["steps"]
+        warm_step = int(out.capture_s > 0)   # the capture's eager step
         log(f"int4 generate #{i + 1}: ids={run['ids'][:8]}... ({len(run['ids'])}) {split}; "
-            f"decode {run['tps']:.1f} tok/s ({steps} steps); launches K2 {run['K2'][0]} "
-            f"({run['K2'][2]:.3f} ms), K5 {run['K5'][0]} ({run['K5'][2]:.3f} ms), K6 A "
-            f"{run['K6A'][0]} ({run['K6A'][2]:.3f} ms), K6 B {run['K6B'][0]} "
-            f"({run['K6B'][2]:.3f} ms), K4 (the int8 head) {run['K4'][0]} "
-            f"({run['K4'][2]:.3f} ms); peak GPU memory {run['peak']:.2f} GiB")
+            f"decode {run['tps']:.1f} tok/s ({steps} steps, the captured step replayed; "
+            f"capture {out.capture_s:.2f}s outside ttft and decode); launches K2 "
+            f"{run['K2'][0]}, K5 {run['K5'][0]}, K6 A {run['K6A'][0]}, K6 B {run['K6B'][0]}, "
+            f"K4 (the int8 head) {run['K4'][0]}; peak GPU memory {run['peak']:.2f} GiB")
         check(steps >= 1, "the int4 generate made no decode step")
         k2_expected = model.cfg.encoder.num_layers + n_layers   # one window + the prefill
         check(run["K2"][0] == k2_expected,
               f"int4 path: K2 launches {run['K2'][0]} != {k2_expected}")
         n_qkv = (lm_cfg.num_heads + 2 * lm_cfg.num_kv_heads) * lm_cfg.resolved_head_dim()
-        check(run["K5"][1] == {(1, lm_cfg.hidden_size, n_qkv, True): steps},
+        check(run["K5"][1] == {(1, lm_cfg.hidden_size, n_qkv, True): steps + warm_step},
               f"int4 path: K5 launches {run['K5'][1]} != one seed qkv per decode step")
-        check(run["K6A"][0] == n_layers * steps and run["K6B"][0] == n_layers * steps,
+        check(run["K6A"][0] == n_layers * (steps + warm_step)
+              and run["K6B"][0] == n_layers * (steps + warm_step),
               f"int4 path: K6 launches A {run['K6A'][0]}, B {run['K6B'][0]} != "
-              f"{n_layers} each per decode step x {steps}")
-        check(run["K4"][0] == steps + 1,
+              f"{n_layers} each per decode step x {steps} (+ {warm_step} warm-up step)")
+        check(run["K4"][0] == steps + warm_step + 1,
               f"int4 path: K4 launches {run['K4'][0]} != one int8 head per decode step and "
               f"the prefill's")
         check(bool(torch.isfinite(out.first_logits).all()), "int4 prefill logits not finite")
@@ -1090,15 +1308,54 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
         runs.append(run)
     check(all(r["ids"] == runs[0]["ids"] for r in runs),
           f"int4 greedy ids differ: {[r['ids'] for r in runs]}")
+    check(runs[0]["capture_s"] > 0 and runs[1]["capture_s"] == runs[2]["capture_s"] == 0,
+          "the int4 path did not capture its step once and reuse it")
+    held = gen.held_bytes()
+    log(f"int4 path: held captured steps {held['steps']}: cache {held['cache'] / 2**20:.1f} MiB, "
+        f"state {held['state'] / 2**20:.2f} MiB, graph pools {held['graph'] / 2**20:.1f} MiB")
+
+    # the captured step against the eager one on the same (unpadded) prompt
+    batch = int4.processor(messages=[{"role": "user", "content": "<sound>What do you hear?"}],
+                           audios=[wav])
+    ids = torch.as_tensor(batch["ids"], device="cuda").long()
+    t_ids = ids.shape[1]
+    capacity = -(-(t_ids + 32) // 128) * 128
+    spec = gen.DecodeSpec(max_new_tokens=32, eos_token_id=int4.eos_token_id)
+
+    def start(st, generator):
+        _, logits = gen.prefill(int4.model, int4.cfg, ids, batch["mels"], capacity,
+                                cache=st.cache)
+        gen.start_decode(st, spec, logits, ids, t_ids, generator)
+
+    cmp = graph_against_eager(
+        "7b int4 LM, the 30 s prompt", qlm, lm_cfg, spec,
+        lambda: qwen2.init_cache(lm_cfg, 1, capacity, torch.bfloat16, "cuda"), start, 31,
+        counters, keep_inputs=("K5", "K6A", "K6B"),
+        groups={"K5": ("K5",), "K6": ("K6A", "K6B"), "K4": ("K4",)})
+    captured = cmp["inputs"]
+    per_step = cmp["prof"]["groups"]
+    check(per_step["K5"][0] == 1 and per_step["K6"][0] == 2 * n_layers and per_step["K4"][0] == 1,
+          f"7b: one replay holds {per_step} kernels, not 1 K5 + {n_layers} + {n_layers} K6 + 1 K4")
+    # each kernel's device time in the path: the prefill's events + the replays' profile
+    # (a layer runs suffix A, then B: the K6 kernels alternate)
+    replays = cmp["prof"]["replays"]
+    k6_a, k6_b = (sum(cmp["prof"]["ordered"]["K6"][i::2]) / replays for i in (0, 1))
+    for run in runs:
+        for name, ms in (("K5", per_step["K5"][1]), ("K6A", k6_a), ("K6B", k6_b),
+                         ("K4", per_step["K4"][1])):
+            count, shapes, events_ms = run[name]
+            run[name] = (count, shapes, events_ms + ms * run["steps"])
     warm = runs[1]
     a, b = warm["first_logits"].double(), bf16_logits.double()
     cos = F.cosine_similarity(a, b, dim=-1).min().item()
     log(f"int4 warm run: user TTFT {(warm['proc'] + warm['ttft']) * 1e3:.1f} ms = processor "
         f"{warm['proc'] * 1e3:.1f} ms + ttft {warm['ttft'] * 1e3:.1f} ms; decode "
         f"{warm['tps']:.1f} tok/s = {warm['decode_s'] / warm['steps'] * 1e3:.2f} ms/step "
+        f"(captured step: {cmp['graph_ms']:.3f} ms/step in the graph against "
+        f"{cmp['eager_ms']:.3f} ms/step eager, 7b's comparison) "
         f"against a bound of {step_bytes / PEAK_BYTES * 1e3:.3f} ms/step "
         f"({step_bytes / 1e9:.3f} GB at {PEAK_BYTES / 1e12:.2f} TB/s, "
-        f"{PEAK_BYTES / step_bytes:.0f} tok/s); kernels per decode step K5 "
+        f"{PEAK_BYTES / step_bytes:.0f} tok/s); kernels per decode step (profiled replay) K5 "
         f"{warm['K5'][2] / warm['steps']:.3f} ms, K6 A {warm['K6A'][2] / warm['steps']:.3f} ms, "
         f"K6 B {warm['K6B'][2] / warm['steps']:.3f} ms, K4 (the int8 head) "
         f"{warm['K4'][2] / (warm['steps'] + 1):.3f} ms; int4 vs bf16 prefill logits "
@@ -1119,7 +1376,8 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
         f"{(nbytes['lm_head.w_q'] + nbytes['lm_head.scale']) / PEAK_BYTES * 1e3:.4f} ms; "
         f"torch._weight_int8pack_mm on the same codes: {lib_ms}")
 
-    # the path's own launches (the third run's), every one replayed on its captured inputs
+    # the path's step's own launches (the eager step of the comparison above, which the
+    # graph replays), every one replayed on its captured inputs
     x0, w_p0, gscale0, layer0 = captured["K5"][0]
     lib, why = int4pack_call(x0, w_p0[layer0], gscale0[layer0])
     k5_tot = dict(err=0.0, ratio=0.0, plain_ms=0.0, library_ms=0.0 if lib else None, bound_ms=0.0)
@@ -1162,8 +1420,9 @@ def int4_path_phase(model, fa, k5, k6, wav, bf16_logits) -> dict:
         f"library {'null (' + why + ')' if k5_tot['library_ms'] is None else f'{k5_tot['library_ms']:.3f} ms'}, "
         f"bound {k5_tot['bound_ms']:.4f} ms; in the path {warm['K5'][2]:.3f} ms")
     del int4, qlm, captured
+    log(f"7b: released the held captured steps ({gen.release_graphs() / 2**20:.1f} MiB)")
     return dict(warm=warm, kernels=res, k5=k5_tot, k6=k6_tot, unembed_ms=unembed_ms,
-                convert_ms=convert_ms, step_bytes=step_bytes, cos=cos)
+                convert_ms=convert_ms, step_bytes=step_bytes, cos=cos, graph=cmp)
 
 
 def f32_int4_card_vs_cpu_phase(fa, k5, k6) -> None:
@@ -1252,16 +1511,24 @@ ENGINE = dict(num_rows=4, num_blocks=88, block_size=128, max_blocks_per_seq=32, 
 
 
 def kernels_per_call(fn) -> int:
-    """Device kernels one call of fn launches, as torch.profiler sees them (copies and
-    memsets left out)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device kernels one call of fn launches, as torch.profiler sees them in the call's
+    annotated range, after one call in the same window that is not counted (the profiler
+    can miss the first kernels it sees; copies and memsets left out)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    label = "counted call"
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
+        with record_function(label):
+            fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    span = next((e.time_range for e in events if e.name == label), None)
+    check(span is not None, "torch.profiler shows no device range of the counted call")
+    return sum(1 for e in events if e.name != label
+               and span.start <= e.time_range.start < span.end
                and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
 
 
@@ -3172,60 +3439,49 @@ def k4_phase(k4, qlm) -> dict:
     return dict(cases=res, route=route, stream=stream, step_ms=stream[("step", 1)][0])
 
 
-def decode_loop_run(lm, cfg, cache, steps: int, batch: int) -> tuple:
-    """bench.py's decode body, eagerly: embed -> forward -> unembed -> argmax, ``steps``
-    times from a zero token; (ids [steps, batch], seconds, device-synchronized)."""
-    from audio_flamingo_tpu_torch.models import qwen2
+def decode_loop_run(name, lm, cfg, make_cache, steps: int, batch: int, counters: dict,
+                    groups: dict, spec=None, timed_runs: int = 2) -> dict:
+    """bench.py's decode body (embed -> forward -> unembed -> argmax, ``steps`` times from
+    token 0 at position 0 on an empty cache) as the module's step function, through the
+    captured step against the eager one (graph_against_eager: ids, logits, launches per
+    step and the profiled replay's kernels, sync debug). ``spec``: another DecodeSpec (a
+    sampled one) than greedy with no EOS."""
+    from audio_flamingo_tpu_torch.runtime import generate as gen
 
-    token = torch.zeros((batch,), dtype=torch.long, device="cuda")
-    ids = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        for _ in range(steps):
-            x = qwen2.embed(lm, token[:, None])
-            pos = torch.full((batch, 1), cache.index, dtype=torch.long, device="cuda")
-            h, cache = qwen2.forward(lm, cfg, x, pos, cache=cache)
-            token = qwen2.unembed(lm, h[:, 0]).argmax(-1)
-            ids.append(token)
-    torch.cuda.synchronize()
-    return torch.stack(ids).cpu(), time.perf_counter() - t0
+    spec = spec or gen.DecodeSpec(max_new_tokens=steps + 1)
+
+    def start(st, generator):
+        st.cache.rewind(0)
+        gen.begin(st, spec, torch.zeros((batch,), dtype=torch.long, device=st.tok.device), 0)
+
+    return graph_against_eager(name, lm, cfg, spec, make_cache, start, steps, counters,
+                               groups=groups, timed_runs=timed_runs)
 
 
 def timed_decode(name, lm, cfg, make_cache, steps: int, batch: int, counters: dict,
-                 step_bytes: int, runs: int = 3) -> dict:
-    """One warm run, ``runs`` timed runs (fresh caches) with identical ids, then one run
-    with the counters' CUDA events on: ms per step, tok/s, launches and device ms per step
-    of each counter, against the bytes-per-step bound."""
-    decode_loop_run(lm, cfg, make_cache(), steps, batch)
-    ids, times = None, []
-    for _ in range(runs):
-        for c in counters.values():
-            c.reset()
-        got, sec = decode_loop_run(lm, cfg, make_cache(), steps, batch)
-        check(ids is None or torch.equal(got, ids), f"{name}: greedy ids differ between runs")
-        ids = got
-        times.append(sec)
-    counts = {n: c.count for n, c in counters.items()}
-    for c in counters.values():
-        c.reset()
-        c.timing = True
-    decode_loop_run(lm, cfg, make_cache(), steps, batch)
-    dev = {n: c.device_ms() / steps for n, c in counters.items()}
-    for c in counters.values():
-        c.timing = False
-        c.reset()
-    ms = statistics.median(times) / steps * 1e3
+                 step_bytes: int, groups: dict, runs: int = 2) -> dict:
+    """decode_loop_run, then ms per step of the captured step (median of ``runs`` runs)
+    and of the eager step function (one run) side by side, tok/s, launches per step of
+    each counter and the profiled replay's device ms per kernel group, against the
+    bytes-per-step bound."""
+    r = decode_loop_run(name, lm, cfg, make_cache, steps, batch, counters, groups,
+                        timed_runs=runs)
+    ids, ms = r["ids"][:, 1:], r["graph_ms"]
+    counts = {n: round(v * steps) for n, v in r["counts"].items()}
+    dev = {g: r["prof"]["groups"][g][1] for g in groups}
     bound = step_bytes / PEAK_BYTES * 1e3
     check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"{name}: ids out of vocab")
-    log(f"{name}: {ms:.3f} ms per step = {batch * 1e3 / ms:.1f} tok/s (median of {runs} runs of "
-        f"{steps} steps, batch {batch}) against a bound of {bound:.3f} ms per step "
+    log(f"{name}: {ms:.3f} ms per step = {batch * 1e3 / ms:.1f} tok/s through the captured step "
+        f"(median of {runs} runs of {steps} steps, batch {batch}), {r['eager_ms']:.3f} ms per "
+        f"step eager, against a bound of {bound:.3f} ms per step "
         f"({step_bytes / 1e9:.3f} GB at {PEAK_BYTES / 1e12:.2f} TB/s, {batch * 1e3 / bound:.0f} "
-        f"tok/s); launches per step " + ", ".join(
-            f"{n} {counts[n] / steps:g} ({dev[n]:.3f} ms device)" for n in counters)
-        + f"; ids {ids[:6, 0].tolist()}...")
-    return dict(ms=ms, tps=batch * 1e3 / ms, bound_ms=bound, counts=counts, dev=dev,
-                steps=steps, ids=ids)
+        f"tok/s); launches per step " + ", ".join(f"{n} {counts[n] / steps:g}" for n in counters)
+        + "; device ms per step (profiled replay) " + ", ".join(
+            f"{g} {ms_:.3f}" for g, ms_ in dev.items())
+        + f", all kernels {r['prof']['busy_ms']:.3f} (device busy "
+        f"{r['prof']['busy_share'] * 100:.1f} %); ids {ids[0, :6].tolist()}...")
+    return dict(ms=ms, eager_ms=r["eager_ms"], tps=batch * 1e3 / ms, bound_ms=bound,
+                counts=counts, dev=dev, steps=steps, ids=ids, graph=r)
 
 
 def lm_step_bytes(lm) -> int:
@@ -3235,14 +3491,18 @@ def lm_step_bytes(lm) -> int:
 
 
 def int8_decode_phase(k4, k5, k6, qlm, cfg) -> dict:
-    """11b, 11c. bench.py's decode points on the int8 7B LM: bench_decode (bf16 KVCache,
-    batch 1, capacity 1024, 64 greedy steps) with 28 x 4 + 1 = 113 K4 launches per step
-    (q|k|v and gate|up one launch each);
-    bench_decode_matrix's b8 c8192 on the dense int8 cache (init_cache_q8, 32 steps); and
-    bench_decode_w4's b1 c1024 on the q8 cache with the fused int4 LM
-    (random_quantized_lm_w4): per step 1 K5, 28 + 28 K6 and 1 K4 (the int8 head)."""
+    """11b, 11c. bench.py's decode points on the int8 7B LM, each through the captured step
+    against the eager step function (decode_loop_run): bench_decode (bf16 KVCache, batch
+    1, capacity 1024, 64 greedy steps) with 28 x 4 + 1 = 113 K4 launches per step (q|k|v
+    and gate|up one launch each), and the same LM sampled (top-p 0.9 at temperature 0.7,
+    16 tokens: the same ids from one seed); bench_decode_matrix's b8 c8192 on the dense
+    int8 cache (init_cache_q8, 32 steps); and bench_decode_w4's b1 c1024 on the q8 cache
+    with the fused int4 LM (random_quantized_lm_w4): per step 1 K5, 28 + 28 K6 and 1 K4
+    (the int8 head)."""
     from audio_flamingo_tpu_torch.models import qwen2
     from audio_flamingo_tpu_torch.ops.quant4 import random_quantized_lm_w4
+    from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
+    from audio_flamingo_tpu_torch.runtime import generate as gen
 
     n_layers = cfg.num_layers
     weights = lm_step_bytes(qlm)
@@ -3250,15 +3510,25 @@ def int8_decode_phase(k4, k5, k6, qlm, cfg) -> dict:
     res["b1"] = timed_decode(
         "11b int8 7B decode, bf16 cache c1024", qlm, cfg,
         lambda: qwen2.init_cache(cfg, 1, 1024, torch.bfloat16, "cuda"), 64, 1,
-        {"K4": k4.LAUNCHES}, weights)
+        {"K4": k4.LAUNCHES}, weights, {"K4": ("K4",)})
     check(res["b1"]["counts"]["K4"] == k4_step_launches(n_layers) * 64,
           f"11b: K4 launches {res['b1']['counts']['K4']} != {k4_step_launches(n_layers)} per step")
+    # sampled: the draws captured with a generator registered to the graph
+    sp = SamplingParams(greedy=False, temperature=0.7, top_p=0.9)
+    res["sampled"] = decode_loop_run(
+        "11b-sampled int8 7B decode, top-p 0.9 at temperature 0.7, 16 tokens", qlm, cfg,
+        lambda: qwen2.init_cache(cfg, 1, 1024, torch.bfloat16, "cuda"), 15, 1,
+        {"K4": k4.LAUNCHES}, {"K4": ("K4",)}, spec=gen.DecodeSpec(16, sampling=sp),
+        timed_runs=1)
+    sampled_ids = res["sampled"]["ids"][0].tolist()
+    check(len(set(sampled_ids[1:])) > 1, f"11b sampled: ids all one token {sampled_ids}")
+    log(f"11b sampled: graph and eager draw the same ids from seed 0: {sampled_ids}")
     hd = cfg.resolved_head_dim()
     q8_bytes = 2 * n_layers * 8 * 8192 * cfg.num_kv_heads * (hd + 4)
     res["b8"] = timed_decode(
-        "11c int8 7B decode, q8 cache b8 c8192", qlm, cfg,
+        "11c-q8 int8 7B decode, q8 cache b8 c8192", qlm, cfg,
         lambda: qwen2.init_cache_q8(cfg, 8, 8192, "cuda"), 32, 8, {"K4": k4.LAUNCHES},
-        weights + q8_bytes, runs=2)
+        weights + q8_bytes, {"K4": ("K4",)})
     check(res["b8"]["counts"]["K4"] == k4_step_launches(n_layers) * 32,
           f"11c: K4 launches {res['b8']['counts']['K4']} != {k4_step_launches(n_layers)} per step")
     log(f"11c: the q8 cache holds {q8_bytes / 1e9:.3f} GB of codes and scales, read every step")
@@ -3267,9 +3537,10 @@ def int8_decode_phase(k4, k5, k6, qlm, cfg) -> dict:
     counters = {"K4": k4.LAUNCHES, "K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A,
                 "K6B": k6.LAUNCHES_B}
     res["w4"] = timed_decode(
-        "11c int4 7B decode, q8 cache b1 c1024", w4, cfg,
+        "11c-w4 int4 7B decode, q8 cache b1 c1024", w4, cfg,
         lambda: qwen2.init_cache_q8(cfg, 1, 1024, "cuda"), 32, 1, counters,
-        lm_step_bytes(w4) + 2 * n_layers * 1024 * cfg.num_kv_heads * (hd + 4), runs=2)
+        lm_step_bytes(w4) + 2 * n_layers * 1024 * cfg.num_kv_heads * (hd + 4),
+        {"K4": ("K4",), "K5": ("K5",), "K6": ("K6A", "K6B")})
     want = {"K4": 32, "K5": 32, "K6A": n_layers * 32, "K6B": n_layers * 32}
     check(res["w4"]["counts"] == want, f"11c w4: launches {res['w4']['counts']} != {want}")
     del w4
@@ -3278,15 +3549,23 @@ def int8_decode_phase(k4, k5, k6, qlm, cfg) -> dict:
 
 def int8_clip_phase(k4, wav) -> dict:
     """11d. The 30 s clip on the int8 LM: the bf16 AF3 at full width with its LM quantized
-    on the card as load(quantize_lm=True) does; generate() twice, greedy, 32 tokens:
-    identical ids, 113 K4 launches per decode step plus the prefill's head (and its
-    products where its rows are at most KERNEL_MAX_ROWS), decode tok/s
-    (the first run, uninstrumented) and K4's time in the second (events around each launch); generate(stream=True) yields the ids that
-    runtime/generate.generate gives on the same (unpadded) prompt; one decode step's K4
-    launches and the prefill's head replayed against the plain version, each shape timed
-    with its plain version, library call and bound."""
+    on the card as load(quantize_lm=True) does; generate() twice, greedy, 32 tokens, decode
+    replaying the captured step (the first run captures it): identical ids, 113 K4
+    launches per decode step (the replays count the captured launches, the capture's
+    warm-up step its own) plus the prefill's head (and its products where its rows are at
+    most KERNEL_MAX_ROWS), decode tok/s (the first run, uninstrumented) and K4's time in
+    the second (CUDA events around the prefill's launches, the profiled replay's K4 time
+    per decode step); generate(stream=True), one replay a token, yields the ids that
+    runtime/generate.generate gives on the same (unpadded) prompt; the captured step
+    against the eager one on that prompt (graph_against_eager, 113 K4 in one replay by
+    torch.profiler); the prefill's K4 launches and the eager step's replayed against the
+    plain version, each shape timed with its plain version, library call and bound; and
+    AudioFlamingo.generate sampled (top-p 0.9 at temperature 0.7, 16 tokens) twice from
+    one seed: the same ids."""
     from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.models import qwen2
     from audio_flamingo_tpu_torch.ops.quant import KERNEL_MAX_ROWS
+    from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
     from audio_flamingo_tpu_torch.runtime import generate as gen
 
     w8 = a8_models(with_flash(AF3Config(), True))
@@ -3300,17 +3579,20 @@ def int8_clip_phase(k4, wav) -> dict:
         out = w8.last_output
         run = dict(ids=out.tokens[0, : int(out.lengths[0])].tolist(), steps=out.decode_steps,
                    tps=out.decode_steps / out.decode_s, ttft=out.ttft_s,
-                   proc=w8.last_processor_s, k4=k4.LAUNCHES.count,
+                   proc=w8.last_processor_s, k4=k4.LAUNCHES.count, capture_s=out.capture_s,
                    k4_shapes=dict(k4.LAUNCHES.shapes), k4_ms=k4.LAUNCHES.device_ms())
-        captured = list(k4.LAUNCHES.inputs)
+        captured = list(k4.LAUNCHES.inputs)     # the prefill's: the replays keep none
         k4.LAUNCHES.timing = k4.LAUNCHES.capture = False
         k4.LAUNCHES.reset()
         log(f"int8 LM generate #{i + 1}: ids={run['ids'][:8]}... ({len(run['ids'])}) {split}; "
-            f"decode {run['tps']:.1f} tok/s ({run['steps']} steps); K4 launches {run['k4']}"
-            + (f" ({run['k4_ms']:.3f} ms device in the path; this run brackets every K4 launch "
-               f"with CUDA events and keeps its inputs)" if i == 1 else ""))
+            f"decode {run['tps']:.1f} tok/s ({run['steps']} steps, the captured step replayed; "
+            f"capture {out.capture_s:.2f}s outside ttft and decode); K4 launches {run['k4']}"
+            + (" (this run brackets the prefill's K4 launches with CUDA events and keeps "
+               "their inputs)" if i == 1 else ""))
         rows = max(key[0] for key in run["k4_shapes"])   # the prefill's rows, if on K4
-        want = k4_step_launches(n_layers) * run["steps"] + 1 + (4 * n_layers if rows > 1 else 0)
+        warm_step = int(out.capture_s > 0)   # the capture's eager step
+        want = (k4_step_launches(n_layers) * (run["steps"] + warm_step) + 1
+                + (4 * n_layers if rows > 1 else 0))
         check(run["k4"] == want and (rows == 1 or rows <= KERNEL_MAX_ROWS),
               f"int8 LM generate: K4 launches {run['k4']} != {k4_step_launches(n_layers)} per "
               f"decode step x {run['steps']} + 1 (the prefill's head)"
@@ -3318,25 +3600,63 @@ def int8_clip_phase(k4, wav) -> dict:
         check(bool(torch.isfinite(out.first_logits).all()), "int8 LM prefill logits not finite")
         runs.append(run)
     check(runs[0]["ids"] == runs[1]["ids"], f"int8 LM greedy ids differ: {[r['ids'] for r in runs]}")
+    check(runs[0]["capture_s"] > 0 and runs[1]["capture_s"] == 0,
+          "the int8 path did not capture its step once and reuse it")
     streamed = list(w8.generate(sound=wav, prompt="What do you hear?", max_new_tokens=32,
                                 stream=True))
     batch = w8.processor(messages=[{"role": "user", "content": "<sound>What do you hear?"}],
                          audios=[wav])
-    ref = gen.generate(w8.model, w8.cfg, torch.as_tensor(batch["ids"], device="cuda").long(),
-                       batch["mels"], max_new_tokens=32, eos_token_id=w8.eos_token_id)
+    ids = torch.as_tensor(batch["ids"], device="cuda").long()
+    ref = gen.generate(w8.model, w8.cfg, ids, batch["mels"], max_new_tokens=32,
+                       eos_token_id=w8.eos_token_id)
     ref_ids = ref.tokens[0, : int(ref.lengths[0])].tolist()
     log(f"int8 LM generate(stream=True): {len(streamed)} ids {streamed[:8]}...; runtime "
         f"generate on the same unpadded prompt {'equal' if streamed == ref_ids else ref_ids}; "
         f"against the bucket-padded generate: {'equal' if streamed == runs[0]['ids'] else 'differs'}")
     check(streamed == ref_ids, "generate(stream=True) ids differ from generate's")
+    held = gen.held_bytes()
+    log(f"11d: held captured steps {held['steps']} (the stream's step was reused by generate "
+        f"on the unpadded prompt: capture {ref.capture_s:.2f}s): cache "
+        f"{held['cache'] / 2**20:.1f} MiB, state {held['state'] / 2**20:.2f} MiB, graph pools "
+        f"{held['graph'] / 2**20:.1f} MiB")
+    check(ref.capture_s == 0, "generate did not reuse the stream's captured step")
+
+    # the captured step against the eager one on the unpadded prompt
+    lm_cfg = w8.cfg.lm
+    t_ids = ids.shape[1]
+    capacity = -(-(t_ids + 32) // 128) * 128
+    spec = gen.DecodeSpec(max_new_tokens=32, eos_token_id=w8.eos_token_id)
+
+    def start(st, generator):
+        _, logits = gen.prefill(w8.model, w8.cfg, ids, batch["mels"], capacity, cache=st.cache)
+        gen.start_decode(st, spec, logits, ids, t_ids, generator)
+
+    cmp = graph_against_eager(
+        "11d int8 LM, the 30 s prompt", w8.model.lm, lm_cfg, spec,
+        lambda: qwen2.init_cache(lm_cfg, 1, capacity, torch.bfloat16, "cuda"), start, 31,
+        {"K4": k4.LAUNCHES}, keep_inputs=("K4",), groups={"K4": ("K4",)})
+    check(cmp["prof"]["groups"]["K4"][0] == k4_step_launches(n_layers),
+          f"11d: one replay holds {cmp['prof']['groups']['K4'][0]} K4 kernels, not "
+          f"{k4_step_launches(n_layers)}")
+    captured += cmp["inputs"]["K4"][: k4_step_launches(n_layers)]
+    for run in runs:   # K4's device time in the path: the prefill's events + the replays
+        run["k4_ms"] += cmp["prof"]["groups"]["K4"][1] * run["steps"]
+
+    # sampled through the API: one seed, the same draws in the graph
+    sp = SamplingParams(greedy=False, temperature=0.7, top_p=0.9)
+    sampled = [w8.generate(sound=wav, prompt="What do you hear?", max_new_tokens=16,
+                           sampling=sp, seed=3) for _ in range(2)]
+    sampled_ids = [w8.last_output.tokens[0].tolist()]
+    log(f"11d sampled generate (top-p 0.9, temperature 0.7, 16 tokens, seed 3) twice: "
+        f"{'equal' if sampled[0] == sampled[1] else 'different'} answers; ids {sampled_ids}")
+    check(sampled[0] == sampled[1], "sampled generate from one seed differs between runs")
     warm = runs[1]
     # the prefill's launches and the first decode step's, replayed; per shape the plain
     # version, the library call and the bound, weighted by the launches
     head_key = next(k for k in warm["k4_shapes"] if k[2] == (w8.cfg.lm.vocab_size,))
     tot = dict(err=0.0, ratio=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     by = set()
-    first = 1 + (4 * n_layers if max(key[0] for key in warm["k4_shapes"]) > 1 else 0)
-    for x, prods, od in captured[: first + k4_step_launches(n_layers)]:
+    for x, prods, od in captured:
         ys = k4.w8a16_matmul_group(x, [{"w_q": w, "scale": sc} for w, sc in prods], od) \
             if len(prods) > 1 else [k4.w8a16_matmul(x, *prods[0], od)]
         for y, (w_q, scale) in zip(ys, prods):
@@ -3372,9 +3692,10 @@ def int8_clip_phase(k4, wav) -> dict:
         f"{tot['bound_ms']:.3f} ms ({tot['bound_by']}); user TTFT "
         f"{(warm['proc'] + warm['ttft']) * 1e3:.1f} ms")
     del w8, captured
+    log(f"11d: released the held captured steps ({gen.release_graphs() / 2**20:.1f} MiB)")
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(warm=warm, path=tot)
+    return dict(warm=warm, path=tot, graph=cmp)
 
 
 def codes_card_vs_cpu(tag: str) -> None:
@@ -3433,7 +3754,7 @@ def f32_q8_card_vs_cpu_phase(fa, k4) -> None:
             logits = {}
             for w, lm in lms.items():
                 dev = tok[w].device
-                start = caches[w].index
+                start = caches[w].host_index
                 s = tok[w].shape[1]
                 pos = torch.arange(start, start + s, device=dev)[None]
                 h, caches[w] = qwen2.forward(lm, cfg, qwen2.embed(lm, tok[w]), pos,
@@ -3574,7 +3895,8 @@ def main() -> int:
         ids = out.tokens[0, : int(out.lengths[0])].tolist()
         tps = out.decode_steps / out.decode_s if out.decode_s > 0 else float("nan")
         log(f"generate #{i + 1}: ids={ids} text={text!r} {split}; decode={tps:.1f} tok/s "
-            f"({out.decode_steps} steps) flash launches={launches}, their device time in the "
+            f"({out.decode_steps} steps of the captured step; capture {out.capture_s:.2f}s "
+            f"outside ttft and decode) flash launches={launches}, their device time in the "
             f"path {kernel_ms:.3f} ms")
         runs.append((ids, out, launches, shapes, kernel_ms))
         if i == 1:
@@ -3624,6 +3946,13 @@ def main() -> int:
     # 5. a 10-minute file, in to answer out
     warm = ten_minute_phase(model, fa, lm)
     wav10 = warm.pop("wav")
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
+    held = gen.held_bytes()
+    log(f"held captured decode steps after phases 4 and 5: {held['steps']} (the 30 s and the "
+        f"10-minute buckets): caches {held['cache'] / 2**30:.3f} GiB, states "
+        f"{held['state'] / 2**20:.2f} MiB, graph pools {held['graph'] / 2**20:.1f} MiB; "
+        f"released: {gen.release_graphs() / 2**30:.3f} GiB")
 
     # 7a, 7b. the int4 LM: kernels at the 7B shapes, then the 30 s path through K5 and K6
     w4 = int4_path_phase(model, fa, k5, k6, wav, runs[0][1].first_logits)
@@ -3639,6 +3968,7 @@ def main() -> int:
         prefix_phase(model, probe)
         int4_engine_phase(model, fa, pa, k5, k6, probe)
     del model
+    gen.release_graphs()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3661,6 +3991,7 @@ def main() -> int:
                                                "int4": w4["warm"]["proc"] + w4["warm"]["ttft"]})
     a8_10min = a8_ten_minute_phase(w8, fa, fa8, ef, lm, wav10, warm)
     del w8, wav10
+    gen.release_graphs()
     gc.collect()
     torch.cuda.empty_cache()
     a8_f32_card_vs_cpu_phase(fa8, ef)
@@ -3875,11 +4206,14 @@ def main() -> int:
         "summed per-launch bounds. log_mel per warm 10-minute generate: ms = its 2 launches' "
         "device time inside it; plain_ms and bound_ms at [20, 480000]; library_ms null: no "
         "single PyTorch call computes this function. w4a16_matmul, w4_suffix_a, w4_suffix_b "
-        "per warm int4 30 s generate (32 tokens): ms = their launches' device time inside it; "
-        "bound_ms = summed per-launch bounds; w4a16_matmul plain_ms and library_ms "
-        "(torch._weight_int4pack_mm on the same codes) timed on each launch's captured "
-        "inputs, summed; the suffixes' plain_ms = the plain version timed on every launch's "
-        "captured inputs (median of 3), summed; their library_ms null: no single PyTorch "
+        "per warm int4 30 s generate (32 tokens): launches = the count of that run (the "
+        "replays of the captured decode step count the launches captured in it); ms = their "
+        "device time inside it (the decode steps times one replay's kernel time by "
+        "torch.profiler, 7b); bound_ms = summed per-launch bounds; w4a16_matmul plain_ms and "
+        "library_ms (torch._weight_int4pack_mm on the same codes) timed on the captured "
+        "inputs of the eager step's launches (the step the graph replays), summed; the "
+        "suffixes' plain_ms = the plain version timed on those launches' inputs (median of "
+        "3), summed; their library_ms null: no single PyTorch "
         "call computes a fused suffix. paged_attention: over every K3 launch of the third "
         "bf16-pool mixed-workload run: launches = their count, ms = their device time in the "
         "path, plain_ms = the plain version timed on each launch's captured inputs, summed, "
@@ -3912,7 +4246,8 @@ def main() -> int:
         "(x2 for enc_out_ln); library_ms null: no single PyTorch call computes a fused "
         "stage (10b times each against its composed torch form). w8a16_matmul (K4) per warm "
         "int8-LM 30 s generate (11d, 32 tokens): launches and ms = its launches' count and "
-        "device time inside it; plain_ms, library_ms (torch._weight_int8pack_mm on the same "
+        "device time inside it (the prefill's by CUDA events, the decode steps' as the steps "
+        "times one replay's K4 time by torch.profiler); plain_ms, library_ms (torch._weight_int8pack_mm on the same "
         "codes, laid out [N, K]) and bound_ms = each launch shape's plain time, library time "
         "(one captured launch each; a grouped launch: its products' summed) and bound, times "
         "that shape's launches, summed; max_abs_err = the largest |y - plain| of 11a and of "

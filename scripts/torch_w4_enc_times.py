@@ -338,7 +338,9 @@ def decode_cases(k6, rows: list) -> None:
         with torch.inference_mode():
             for _ in range(steps):
                 x = qwen2.embed(lm, token[:, None])
-                pos = torch.full((1, 1), cache.index, dtype=torch.long, device="cuda")
+                # the host count (an older checkout's index is a Python int)
+                pos = torch.full((1, 1), getattr(cache, "host_index", cache.index),
+                                 dtype=torch.long, device="cuda")
                 h, cache = qwen2.forward(lm, cfg, x, pos, cache=cache)
                 token = qwen2.unembed(lm, h[:, 0]).argmax(-1)
         torch.cuda.synchronize()
