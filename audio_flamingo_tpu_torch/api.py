@@ -24,6 +24,7 @@ from audio_flamingo_tpu_torch.models import af3, qwen2, whisper_encoder
 from audio_flamingo_tpu_torch.ops.quant import quantize_encoder_params, quantize_lm_params
 from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
+from audio_flamingo_tpu_torch.runtime import beam
 from audio_flamingo_tpu_torch.runtime import generate as gen
 from audio_flamingo_tpu_torch.runtime.processor import AUDIO_TOKEN, AF3Processor
 from audio_flamingo_tpu_torch.runtime.tokenizer import BBPETokenizer, train_bpe
@@ -67,11 +68,15 @@ class AudioFlamingo:
         token ids, prefill logits and timings are kept in ``last_output``, and the
         processor's time (chat template, log-mel, tokenizer; device-synchronized) in
         ``last_processor_s``: it runs before ``last_output.ttft_s`` starts, so the TTFT a
-        caller sees is their sum. length_penalty and early_stopping are beam-search
-        options, as in the JAX API."""
-        if num_beams > 1 or length_penalty != 1.0 or early_stopping is not False:
-            raise NotImplementedError(NOT_PORTED.format(
-                "beam search (num_beams, length_penalty, early_stopping)", "runtime/beam.py"))
+        caller sees is their sum.
+
+        num_beams > 1 runs beam search (``runtime/beam.generate_beam``, HF
+        ``_beam_search``) on the exact prompt with ``length_penalty``, ``early_stopping``
+        and ``sampling.min_new_tokens``, and answers with the best beam up to its first
+        EOS (``last_output`` is None then); it does not stream. With num_beams == 1 the
+        two beam options are ignored, as in JAX."""
+        if num_beams > 1 and stream:
+            raise ValueError("streaming and beam search are mutually exclusive")
         audios = None
         text = prompt
         if sound is not None:
@@ -90,6 +95,17 @@ class AudioFlamingo:
         ids = torch.as_tensor(batch["ids"], dtype=torch.long, device=self.device)
         gen.sync(self.device)
         self.last_processor_s = time.perf_counter() - t0
+        if num_beams > 1:
+            seqs, _ = beam.generate_beam(
+                self.model, self.cfg, ids, batch["mels"], num_beams=num_beams,
+                max_new_tokens=max_new_tokens, eos_token_id=self.eos_token_id,
+                length_penalty=length_penalty, early_stopping=early_stopping,
+                min_new_tokens=sampling.min_new_tokens)
+            seq = seqs[0, 0].tolist()
+            if self.eos_token_id in seq:
+                seq = seq[: seq.index(self.eos_token_id) + 1]
+            self.last_output = None
+            return self._answer(seq, text, audios, chat)
         if stream:
             return gen.generate_stream(
                 self.model, self.cfg, ids, batch["mels"], max_new_tokens=max_new_tokens,
@@ -110,8 +126,11 @@ class AudioFlamingo:
                            max_new_tokens=max_new_tokens, eos_token_id=self.eos_token_id,
                            sampling=sampling, generator=generator, prompt_len=prompt_len)
         self.last_output = out
-        out_ids = out.tokens[0, : int(out.lengths[0])].tolist()
-        answer = self.processor.tokenizer.decode(out_ids, skip_special=True)
+        return self._answer(out.tokens[0, : int(out.lengths[0])].tolist(), text, audios, chat)
+
+    def _answer(self, ids: list, text: str, audios, chat: bool) -> str:
+        """Detokenize the answer and, in a chat, keep the turn."""
+        answer = self.processor.tokenizer.decode(ids, skip_special=True)
         if chat:
             self.history.append({"role": "user", "content": text, "audios": audios or []})
             self.history.append({"role": "assistant", "content": answer})

@@ -48,8 +48,8 @@ from audio_flamingo_tpu_torch.config import Qwen2Config
 from audio_flamingo_tpu_torch.ops.attention import gqa_attention, gqa_attention_q8
 from audio_flamingo_tpu_torch.ops.kernels.flash_attention import flash_attention
 from audio_flamingo_tpu_torch.ops.kernels.flash_attention_a8 import flash_attention_a8
-from audio_flamingo_tpu_torch.ops.kernels.w4_suffix import (suffix_supported, w4_suffix_a,
-                                                            w4_suffix_b)
+from audio_flamingo_tpu_torch.ops.kernels.w4_suffix import (MAX_ROWS, suffix_supported,
+                                                            w4_suffix_a, w4_suffix_b)
 from audio_flamingo_tpu_torch.ops.mlp import swiglu_mlp
 from audio_flamingo_tpu_torch.ops.norms import Norm, rms_norm
 from audio_flamingo_tpu_torch.ops.quant import (div127, mm_f32, q_matmul, q_matmul_a8q,
@@ -525,6 +525,33 @@ def _forward_w4_suffix(lm: QuantQwen2, cfg: Qwen2Config, x, cache: KVCache | Q8K
             attend=lambda q, k, v, i=i: _attend(q, k, v, cache, i, mask, False, slots=slots))
     cache.advance(x.shape[1])
     return rms_norm(x, lm.ln_f_w, cfg.rms_norm_eps), cache
+
+
+def forward_attend(lm: Qwen2 | QuantQwen2, cfg: Qwen2Config, x: torch.Tensor, cos, sin,
+                   attend_layer) -> torch.Tensor:
+    """The decoder stack on x [b, s, d] for the engines' caches: layer i attends through
+    ``attend_layer(i)(q, k, v)`` -> [b, s, nh, hd], which also writes the cache (pages,
+    slots). A fused w4 tree at one token and at most MAX_ROWS rows takes the two suffix
+    calls per layer, as JAX does. Returns the final-normed hidden states."""
+    b, s, _ = x.shape
+    eps = cfg.rms_norm_eps
+    quantized = isinstance(lm, QuantQwen2)
+    stacked = split_stacked_w4(lm.layers) if quantized else None
+    if stacked is not None and s == 1 and b <= MAX_ROWS and suffix_supported(stacked, cfg):
+        # layer i's qkv comes from layer i-1's suffix B; attention stays with the caller
+        y = w4_suffix_seed(lm, cfg, stacked, x)
+        for i in range(cfg.num_layers):
+            x, y = w4_suffix_layer_step(x, y, lm, i, cfg=cfg, stacked=stacked, cos=cos,
+                                        sin=sin, attend=attend_layer(i))
+    else:
+        for i in range(cfg.num_layers):
+            ln1, ln2 = layer_norm_weights(lm, i)
+            q, k, v = qkv_proj(rms_norm(x, ln1, eps), lm, cfg, i)
+            q, k = apply_rope(q, k, cos, sin)
+            attn = attend_layer(i)(q, k, v).reshape(b, s, -1).to(x.dtype)
+            x = x + o_proj(attn, lm, i)
+            x = x + mlp_forward(rms_norm(x, ln2, eps), lm, cfg, i)
+    return rms_norm(x, lm.ln_f_w if quantized else lm.norm.weight, eps)
 
 
 def forward(lm: Qwen2 | QuantQwen2, cfg: Qwen2Config, embeds: torch.Tensor,

@@ -123,6 +123,9 @@ def apply_no_repeat_ngram_rows(logits: torch.Tensor, history: torch.Tensor,
     valid = (torch.arange(w, device=device)[None] + n) <= lengths[:, None]
     match = (wins == prefix[:, None, :]).all(dim=-1) & valid
     tok = torch.where(match, nxt.long(), torch.full_like(nxt, v, dtype=torch.long))
+    # an empty (-1) entry reads as JAX's scatter reads a negative index: from the end, the
+    # pad column (a reused engine row's stale history may hold one past the old request)
+    tok = torch.where(tok < 0, tok + (v + 1), tok)
     banned = torch.zeros((b, v + 1), dtype=torch.bool, device=device)
     banned.scatter_(1, tok, True)
     out = logits.masked_fill(banned[:, :v], NEG_INF)

@@ -1,23 +1,140 @@
-"""Request bookkeeping of the serving engines, as ``audio_flamingo_tpu/runtime/engine.py``
-(``Request`` :521, ``seed_history`` :493, ``_find_stop`` :506, the request metrics
-:576-595, ``_emit_first_token`` :597, ``_postprocess_chunk_row`` :636).
+"""The slot-based continuous-batching engine and the request bookkeeping of the serving
+engines, as ``audio_flamingo_tpu/runtime/engine.py``.
 
-The slot engine (``BatchEngine``) and the speculative-decoding statistics of that module
-are not ported yet (ROADMAP.md, Queue 1); ``runtime/paged_engine.PagedEngine`` uses what
-is here. An engine passed to these functions has ``sampling``, ``eos_token_id``,
-``finished``, ``request_metrics``, ``metrics`` and ``generator`` (a ``torch.Generator``).
+``BatchEngine``: ``num_slots`` cache rows share one static KV buffer (``SlotCache``, a
+filled length per row); requests prefill into free slots as they arrive
+(``prefill_into_slot``, in place into the slot's row) and ``decode_chunk`` advances every
+active slot ``chunk`` steps at once, each row at its own offset (``_rows_forward``: per-row
+writes at ``positions[b]``, the mask ``kv_pos <= positions[b] + i``; a fused w4 LM at one
+token and at most 8 rows through the two suffix kernels, K6, as JAX does). The engine's
+step is eager and reads the device once per chunk. Greedy rows equal single-request
+``generate`` token for token. Beam requests ride the beam lane (``submit_beam``,
+``runtime/beam_lane.py``); speculative decoding (``draft_params``) is not ported yet and
+raises.
+
+The bookkeeping (``Request`` :521, ``seed_history`` :493, ``_find_stop`` :506, the request
+metrics :576-595, ``_emit_first_token`` :597, ``_postprocess_chunk_row`` :636) is shared
+with ``runtime/paged_engine.PagedEngine``. An engine passed to these functions has
+``sampling``, ``eos_token_id``, ``finished``, ``request_metrics``, ``metrics`` and
+``generator`` (a ``torch.Generator``). The engines take the port's model (``AF3Model``)
+where JAX takes ``params``, decode in the model's dtype and draw from one
+``torch.Generator`` seeded from ``seed``: greedy rows match the JAX engines token for
+token, sampled rows in law.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.ops.sampling import (SamplingParams, apply_no_repeat_ngram,
-                                                   mask_eos, sample_token)
+from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config, Qwen2Config, bucket_tokens
+from audio_flamingo_tpu_torch.device import resolve_device
+from audio_flamingo_tpu_torch.models import af3, qwen2
+from audio_flamingo_tpu_torch.ops.attention import gqa_attention
+from audio_flamingo_tpu_torch.ops.rope import rope_cos_sin
+from audio_flamingo_tpu_torch.ops.sampling import (RowSampling, SamplingParams,
+                                                   apply_no_repeat_ngram, engine_row_step,
+                                                   mask_eos, processor_flags, row_sampling,
+                                                   sample_token)
+from audio_flamingo_tpu_torch.runtime import beam_lane
+from audio_flamingo_tpu_torch.runtime import generate as gen
 from audio_flamingo_tpu_torch.utils.metrics import RequestTimer
+
+
+@dataclass
+class SlotCache:
+    k: torch.Tensor         # [L, B, C, nkv, hd]
+    v: torch.Tensor
+    lengths: torch.Tensor   # [B] int32 filled length per row; a step replaces the tensor
+
+
+def init_slot_cache(cfg: Qwen2Config, batch: int, capacity: int, dtype: torch.dtype,
+                    device: torch.device | str) -> SlotCache:
+    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.resolved_head_dim())
+    return SlotCache(torch.zeros(shape, dtype=dtype, device=device),
+                     torch.zeros(shape, dtype=dtype, device=device),
+                     torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def _rows_forward(lm, cfg: Qwen2Config, embeds: torch.Tensor, positions: torch.Tensor,
+                  cache: SlotCache):
+    """Decode forward with per-row cache offsets: embeds [B, s, d] at positions [B].
+    Token i of row b is written at cache position positions[b] + i (in place) and attends
+    the positions <= positions[b] + i; writes come before the read, so a block of several
+    tokens is causal per row. Returns (final-normed hidden states, cache)."""
+    b, s, _ = embeds.shape
+    device = embeds.device
+    pos_grid = positions.long()[:, None] + torch.arange(s, device=device)[None]    # [B, s]
+    cos, sin = rope_cos_sin(pos_grid, cfg.resolved_head_dim(), cfg.rope_theta)
+    kv_pos = torch.arange(cache.k.shape[2], device=device)
+    mask = kv_pos[None, None, None, :] <= pos_grid[:, None, :, None]              # [B,1,s,C]
+    rows = torch.arange(b, device=device)[:, None].expand(b, s)
+
+    def attend_layer(i: int):
+        def attend(q, k, v):
+            ck, cv = cache.k[i], cache.v[i]
+            ck.index_put_((rows, pos_grid), k.to(ck.dtype))
+            cv.index_put_((rows, pos_grid), v.to(cv.dtype))
+            return gqa_attention(q, ck, cv, mask=mask)
+        return attend
+
+    return qwen2.forward_attend(lm, cfg, embeds, cos, sin, attend_layer), cache
+
+
+@torch.inference_mode()
+def decode_chunk(lm, cfg: Qwen2Config, cache: SlotCache, tokens: torch.Tensor,
+                 done: torch.Tensor, generator: torch.Generator | None, rows: RowSampling,
+                 min_left: torch.Tensor, hist: torch.Tensor | None = None, *, chunk: int,
+                 eos_token_id: int, mixed_sampling: bool = False, want_logprobs: bool = False,
+                 use_min_new: bool = False, use_penalty: bool = False, ngram_ns: tuple = ()):
+    """Advance every slot ``chunk`` steps, reading nothing back to the host. rows: per-row
+    sampling parameters; min_left [B]: tokens still under the EOS floor; hist [B, H]:
+    prompt + generated ids (-1 elsewhere) for the repetition penalty and the n-gram ban,
+    kept across chunks (row b holds lengths[b] + 1 ids: the cache lags by the token not
+    yet forwarded). A done row keeps its length and emits EOS.
+
+    Returns (cache, tokens [B], done [B], out [B, chunk], logprobs [B, chunk] f32, hist)."""
+    b = tokens.shape[0]
+    device = tokens.device
+    out = torch.full((b, chunk), eos_token_id, dtype=torch.long, device=device)
+    lp = torch.zeros((b, chunk), dtype=torch.float32, device=device)
+    if hist is None:
+        hist = torch.full((b, 8), -1, dtype=torch.long, device=device)   # processors off
+    for i in range(chunk):
+        x = qwen2.embed(lm, tokens[:, None])
+        h, cache = _rows_forward(lm, cfg, x, cache.lengths, cache)
+        logits = qwen2.unembed(lm, h[:, 0])
+        nxt, lp_val, hist = engine_row_step(
+            generator, logits, hist, cache.lengths + 1, rows, done, min_left, i,
+            eos_token_id=eos_token_id, mixed_sampling=mixed_sampling,
+            want_logprobs=want_logprobs, use_min_new=use_min_new, use_penalty=use_penalty,
+            ngram_ns=ngram_ns)
+        if want_logprobs:
+            lp[:, i] = lp_val
+        cache.lengths = cache.lengths + (~done).int()
+        out[:, i] = nxt
+        done = done | (nxt == eos_token_id)
+        tokens = nxt
+    return cache, tokens, done, out, lp, hist
+
+
+@torch.inference_mode()
+def prefill_into_slot(model: af3.AF3Model, cfg: AF3Config, cache: SlotCache, slot: int,
+                      token_ids: torch.Tensor, mels, *, prompt_len: int | None = None):
+    """Prefill ONE request (batch 1) into row ``slot`` of the cache, in place (decode
+    writes every position before it attends it, so what an earlier occupant left past
+    the prompt is never read). token_ids may be right-padded to a bucket with
+    ``prompt_len`` the true length. Returns (cache, first-token logits [vocab])."""
+    row = qwen2.KVCache(k=cache.k[:, slot:slot + 1], v=cache.v[:, slot:slot + 1])
+    _, logits = gen.prefill(model, cfg, token_ids, mels, cache.k.shape[2],
+                            prompt_len=prompt_len, cache=row)
+    lengths = cache.lengths.clone()
+    lengths[slot] = token_ids.shape[1] if prompt_len is None else prompt_len
+    cache.lengths = lengths
+    return cache, logits[0]
 
 
 def seed_history(hist: torch.Tensor, row: int, capacity: int, req, sampling) -> torch.Tensor:
@@ -138,3 +255,139 @@ def _postprocess_chunk_row(engine, req: Request, row_tokens, lp_row) -> bool:
     if req.on_tokens and kept:
         req.on_tokens(kept)
     return hit_stop
+
+
+@dataclass
+class BatchEngine:
+    """Host-side scheduler over ``prefill_into_slot`` and ``decode_chunk`` (JAX
+    ``BatchEngine`` :665): admit queued requests into free slots, decode every active slot
+    one chunk per round, retire finished ones; beam requests advance one lane chunk per
+    round. ``device=None`` means CUDA (an error without a card)."""
+
+    model: af3.AF3Model                # the port's AF3 model (AudioFlamingo.model)
+    cfg: AF3Config
+    num_slots: int = 4
+    capacity: int = 2048
+    chunk: int = 16
+    eos_token_id: int = -1
+    sampling: SamplingParams = SamplingParams()
+    seed: int = 0
+    draft_params: object = None        # speculative decoding: not ported yet
+    draft_cfg: object = None
+    metrics: object = None             # optional utils.metrics.MetricsLogger sink
+    device: torch.device | str | None = None
+
+    def __post_init__(self):
+        if self.draft_params is not None or self.draft_cfg is not None:
+            raise NotImplementedError(NOT_PORTED.format(
+                "speculative slot serving (draft_params)", "4, speculative decoding"))
+        self.device = resolve_device(self.device)
+        self.cache = init_slot_cache(self.cfg.lm, self.num_slots, self.capacity,
+                                     gen.compute_dtype(self.model.lm), self.device)
+        # per-row prompt + generated ids (-1 = empty) for the history processors
+        self.hist = torch.full((self.num_slots, self.capacity), -1, dtype=torch.long,
+                               device=self.device)
+        self.tokens = torch.full((self.num_slots,), self.eos_token_id, dtype=torch.long,
+                                 device=self.device)
+        self.done = torch.ones((self.num_slots,), dtype=torch.bool, device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.queue: deque[Request] = deque()
+        self.active: dict[int, Request] = {}
+        self.finished: dict[str, list[int]] = {}
+        self.row_params: list[SamplingParams] = [self.sampling] * self.num_slots
+        self.rows = row_sampling(self.row_params, self.device)
+        self.request_metrics: dict[str, dict] = {}
+
+    def submit(self, req: Request) -> None:
+        if req.ids.shape[1] > self.capacity:
+            raise ValueError(f"prompt ({req.ids.shape[1]} tokens) exceeds the slot capacity "
+                             f"({self.capacity})")
+        _start_request_metrics(req)
+        self.queue.append(req)
+
+    def submit_beam(self, req) -> None:
+        """Queue a beam-search request (``beam_lane.BeamRequest``), served by the beam lane
+        between decode rounds; results appear in ``finished_beams`` as (sequences [R,
+        max_new], scores [R])."""
+        beam_lane.attach_beam_lane(self).submit(req)
+
+    @property
+    def finished_beams(self) -> dict:
+        return beam_lane.finished_beams(self)
+
+    def _fill_slots(self) -> None:
+        for slot in range(self.num_slots):
+            if slot in self.active or not self.queue:
+                continue
+            req = self.queue.popleft()
+            ids = torch.as_tensor(np.asarray(req.ids), dtype=torch.long, device=self.device)
+            t = ids.shape[1]
+            bucket = min(bucket_tokens(t), self.capacity)
+            prompt_len = None
+            if bucket != t:
+                pad = torch.full((1, bucket - t), self.eos_token_id, dtype=torch.long,
+                                 device=self.device)
+                ids = torch.cat([ids, pad], dim=1)
+                prompt_len = t
+            mels = None if req.mels is None else torch.as_tensor(req.mels, device=self.device)
+            self.cache, logits = prefill_into_slot(self.model, self.cfg, self.cache, slot, ids,
+                                                   mels, prompt_len=prompt_len)
+            first, finished, req_sampling = _emit_first_token(self, req, logits)
+            if finished:
+                self.cache.lengths[slot] = 0
+                continue
+            self.row_params[slot] = req_sampling
+            self.rows = row_sampling(self.row_params, self.device)
+            self.hist = seed_history(self.hist, slot, self.capacity, req, req_sampling)
+            self.tokens[slot] = first
+            self.done[slot] = False
+            self.active[slot] = req
+
+    @torch.inference_mode()
+    def step(self) -> None:
+        """One round: admit queued requests, decode one chunk of every active slot and
+        retire the finished ones, then advance the beam lane one chunk."""
+        self._fill_slots()
+        if not self.active:
+            beam_lane.step_beam_lane(self)
+            return
+        min_left = np.zeros((self.num_slots,), np.int64)
+        for slot, req in self.active.items():
+            want = max(req.min_new_tokens, (req.sampling or self.sampling).min_new_tokens)
+            min_left[slot] = max(want - len(req.tokens), 0)
+        reqs = list(self.active.values())
+        use_pen, ngram_ns = processor_flags(r.sampling or self.sampling for r in reqs)
+        self.cache, self.tokens, self.done, out, lp, self.hist = decode_chunk(
+            self.model.lm, self.cfg.lm, self.cache, self.tokens, self.done, self.generator,
+            self.rows, torch.as_tensor(min_left, device=self.device), self.hist,
+            chunk=self.chunk, eos_token_id=self.eos_token_id,
+            mixed_sampling=any(not (r.sampling or self.sampling).greedy for r in reqs),
+            want_logprobs=any(r.logprobs for r in reqs), use_min_new=bool(min_left.any()),
+            use_penalty=use_pen, ngram_ns=ngram_ns)
+        # the chunk's one host read
+        out, lp = out.cpu().numpy(), lp.cpu().numpy()
+        done = self.done.cpu().numpy().copy()
+        lengths = self.cache.lengths.cpu().numpy()
+        for slot, req in list(self.active.items()):
+            if _postprocess_chunk_row(self, req, out[slot].tolist(),
+                                      lp[slot] if req.logprobs else None):
+                done[slot] = True
+            # capacity guard: retire a row before its writes could pass the last slot
+            if lengths[slot] >= self.capacity - self.chunk - 1:
+                done[slot] = True
+            if done[slot] or len(req.tokens) >= req.max_new_tokens:
+                req.done = True
+                self.finished[req.request_id] = req.tokens
+                _finish_request_metrics(self, req)
+                del self.active[slot]
+                self.done[slot] = True
+                self.cache.lengths[slot] = 0
+        beam_lane.step_beam_lane(self)
+
+    def run_until_done(self, max_rounds: int = 1000) -> dict[str, list[int]]:
+        rounds = 0
+        while ((self.queue or self.active or beam_lane.beam_lane_busy(self))
+               and rounds < max_rounds):
+            self.step()
+            rounds += 1
+        return self.finished

@@ -21,6 +21,8 @@ nothing back to the host.
   ``release_graphs`` drops them all. A capture that fails raises: there is no eager
   decode on the card.
 - On the CPU the same function runs eagerly, step by step.
+- A ragged batch (``prompt_len`` a [B] tensor, JAX ``_generate_rows``) decodes each row
+  from its own offset through the slot engine's per-row forward, eagerly on every device.
 
 JAX's ``while_loop`` tests ``done`` on the device before every step. A graph cannot
 branch, so the host reads ``done.all()`` once before the first step and then once every
@@ -44,7 +46,7 @@ from typing import Callable, Iterator, NamedTuple
 
 import torch
 
-from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config, Qwen2Config
+from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config
 from audio_flamingo_tpu_torch.models import af3, qwen2
 from audio_flamingo_tpu_torch.ops.kernels import launches
 from audio_flamingo_tpu_torch.ops.sampling import (SamplingParams, apply_no_repeat_ngram,
@@ -149,16 +151,15 @@ def output_lengths(out: torch.Tensor, eos_token_id: int, stop_sequences: tuple) 
     return lengths.clamp(max=max_new)
 
 
-def _check_prompt_len(prompt_len, stop_sequences: tuple, return_logprobs: bool,
-                      sampling: SamplingParams) -> None:
-    """A scalar prompt_len only: JAX refuses stops, logprobs and the n-gram ban on ragged
-    rows, and its ragged generate (the slot engine's rows) is not ported."""
+def _ragged(prompt_len, stop_sequences: tuple, return_logprobs: bool,
+            sampling: SamplingParams) -> bool:
+    """Whether prompt_len gives one length per row. JAX refuses stops, logprobs and the
+    n-gram ban on ragged rows (the engines serve them)."""
     if prompt_len is None or isinstance(prompt_len, int) or torch.as_tensor(prompt_len).ndim == 0:
-        return
+        return False
     if stop_sequences or return_logprobs or sampling.no_repeat_ngram_size:
         raise ValueError("ragged batches: use the engines for stops/logprobs/ngram blocking")
-    raise NotImplementedError(NOT_PORTED.format("ragged generate (prompt_len per row)",
-                                                "BatchEngine and ragged rows"))
+    return True
 
 
 # ----------------------------------------------------------------------------------------
@@ -275,6 +276,8 @@ def decode_body(lm, cfg: Qwen2Config, spec: DecodeSpec, st: DecodeState) -> None
     prompt and the tokens so far, the EOS floor, the repetition penalty over the same,
     sample, EOS for finished rows, write token ``step + 1`` (and its logprob), then ``done
     |= eos | stop``. Reads nothing back to the host."""
+    if spec.max_new_tokens < 2:   # a step writes token step + 1
+        raise ValueError("a sequence of one token has no decode step")
     sp = spec.sampling
     b = st.tok.shape[0]
     _, logits = decode_step(lm, cfg, st.cache, st.tok, st.position)
@@ -320,7 +323,9 @@ def run_decode(st: DecodeState, max_new_tokens: int, step: Callable[[], None]) -
 
 
 class DecodeGraph:
-    """``decode_body`` captured in one CUDA graph over the state it holds.
+    """A step function, ``decode_body`` or another of its signature (the beam's
+    ``runtime/beam.beam_body``), captured in one CUDA graph over the state it holds (a
+    state with ``cache``, ``generator`` and ``nbytes``).
 
     One eager step runs first, so that what the kernel wrappers keep for later calls
     (plans, split counters, scratch) is allocated outside the graph's pool; its launches
@@ -329,16 +334,15 @@ class DecodeGraph:
     registered with the graph: ``load_generator`` and ``store_generator`` hand it the
     caller's state and back, so the draws are the eager draws of the same seed."""
 
-    def __init__(self, lm, cfg: Qwen2Config, spec: DecodeSpec, state: DecodeState):
-        device = state.tok.device
+    def __init__(self, lm, cfg: Qwen2Config, spec, state, body: Callable | None = None):
+        body = body or decode_body
+        device = state.cache.index.device
         if device.type != "cuda":
             raise ValueError(f"a decode step is captured on cuda, not {device}")
-        if spec.max_new_tokens < 2:   # the warm-up step writes token 1
-            raise ValueError("a sequence of one token has no decode step to capture")
         t0 = time.perf_counter()
         self.spec, self.state, self.busy = spec, state, False
         with torch.inference_mode():
-            decode_body(lm, cfg, spec, state)
+            body(lm, cfg, spec, state)
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(device)
@@ -347,7 +351,7 @@ class DecodeGraph:
                 self.graph.register_generator_state(state.generator)
             launches.take_captured()
             with torch.cuda.graph(self.graph):
-                decode_body(lm, cfg, spec, state)
+                body(lm, cfg, spec, state)
             self.launches = launches.take_captured()
         torch.cuda.synchronize(device)
         self.graph_bytes = torch.cuda.memory_reserved(device) - reserved
@@ -360,25 +364,25 @@ class DecodeGraph:
 
     def load_generator(self, generator: torch.Generator | None) -> None:
         if self.state.generator is not None:
-            self.state.generator.set_state(_source(generator, self.state).get_state())
+            self.state.generator.set_state(self._source(generator).get_state())
 
     def store_generator(self, generator: torch.Generator | None) -> None:
         if self.state.generator is not None:
-            _source(generator, self.state).set_state(self.state.generator.get_state())
+            self._source(generator).set_state(self.state.generator.get_state())
+
+    def _source(self, generator) -> torch.Generator:
+        """The caller's generator, or the default generator of the state's device."""
+        if generator is not None:
+            return generator
+        device = self.state.cache.index.device
+        return torch.cuda.default_generators[device.index if device.index is not None
+                                             else torch.cuda.current_device()]
 
     def nbytes(self) -> dict:
         return dict(self.state.nbytes(), graph=self.graph_bytes)
 
 
-def _source(generator, state: DecodeState) -> torch.Generator:
-    if generator is not None:
-        return generator
-    device = state.tok.device
-    return torch.cuda.default_generators[device.index if device.index is not None
-                                         else torch.cuda.current_device()]
-
-
-_HELD: collections.OrderedDict = collections.OrderedDict()   # graph_key -> DecodeGraph
+_HELD: collections.OrderedDict = collections.OrderedDict()   # key -> a captured step
 
 
 def graph_key(lm, cfg: Qwen2Config, spec: DecodeSpec, batch: int, capacity: int,
@@ -391,25 +395,32 @@ def graph_key(lm, cfg: Qwen2Config, spec: DecodeSpec, batch: int, capacity: int,
     return (type(lm), weights, cfg, spec, batch, capacity, dtype, device)
 
 
-def held_graph(lm, cfg: Qwen2Config, spec: DecodeSpec, batch: int, capacity: int,
-               dtype: torch.dtype, device: torch.device) -> tuple[DecodeGraph, bool]:
-    """The held captured step of this key over a bf16/f32 ``KVCache`` (captured now if
-    there is none, dropping the least recently used beyond ``MAX_HELD``) and whether it
-    was captured now. A held step in use (an open stream) is not shared: a private one is
-    captured and not held."""
-    key = graph_key(lm, cfg, spec, batch, capacity, dtype, device)
+def hold(key: tuple, make: Callable[[], object]) -> tuple[object, bool]:
+    """The held captured step of ``key`` (made by ``make()`` if there is none, dropping the
+    least recently used beyond ``MAX_HELD``) and whether it was made now. A held step in
+    use (``busy``: an open stream, a beam request in an engine's lane) is not shared: a
+    private one is made and not held."""
     graph = _HELD.get(key)
     if graph is not None and not graph.busy:
         _HELD.move_to_end(key)
         return graph, False
-    cache = qwen2.init_cache(cfg, batch, capacity, dtype, device)
-    generator = None if spec.sampling.greedy else torch.Generator(device=device)
-    graph = DecodeGraph(lm, cfg, spec, new_state(cfg, spec, cache, generator))
+    graph = make()
     if key not in _HELD:
         _HELD[key] = graph
         while len(_HELD) > MAX_HELD:
-            _HELD.popitem(last=False)   # an open stream keeps its step until it ends
+            _HELD.popitem(last=False)   # a step in use is kept by its user until it ends
     return graph, True
+
+
+def held_graph(lm, cfg: Qwen2Config, spec: DecodeSpec, batch: int, capacity: int,
+               dtype: torch.dtype, device: torch.device) -> tuple[DecodeGraph, bool]:
+    """The held captured decode step of this key over a bf16/f32 ``KVCache`` (``hold``)
+    and whether it was captured now."""
+    def make():
+        cache = qwen2.init_cache(cfg, batch, capacity, dtype, device)
+        generator = None if spec.sampling.greedy else torch.Generator(device=device)
+        return DecodeGraph(lm, cfg, spec, new_state(cfg, spec, cache, generator))
+    return hold(graph_key(lm, cfg, spec, batch, capacity, dtype, device), make)
 
 
 def release_graphs() -> int:
@@ -490,7 +501,8 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
              prompt_len: int | None = None, stop_sequences: tuple = (),
              return_logprobs: bool = False) -> GenerateOutput:
     """Token ids [B, T] (+ mels) -> GenerateOutput. capacity=0 rounds T + max_new_tokens
-    up to a multiple of 128. prompt_len: the true length of a right-padded prompt.
+    up to a multiple of 128. prompt_len: the true length of a right-padded prompt, or a
+    [B] tensor of lengths for a ragged batch (``_generate_rows``).
 
     ``sampling.no_repeat_ngram_size`` bans, at every step, the tokens that would complete
     an n-gram of the exact prompt plus the tokens generated so far (the JAX loop's rule;
@@ -501,10 +513,13 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
     row's end). On a CUDA device decode replays the captured step (see the module)."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
-    _check_prompt_len(prompt_len, stop_sequences, return_logprobs, sampling)
-    stop_sequences = tuple(tuple(int(t) for t in seq) for seq in stop_sequences)
     b, t = token_ids.shape
     device = token_ids.device
+    if _ragged(prompt_len, stop_sequences, return_logprobs, sampling):
+        return _generate_rows(model, cfg, token_ids, mels, capacity, max_new_tokens,
+                              eos_token_id, sampling, generator,
+                              torch.as_tensor(prompt_len, device=device).long())
+    stop_sequences = tuple(tuple(int(t) for t in seq) for seq in stop_sequences)
     true_len = t if prompt_len is None else int(prompt_len)
     capacity = _capacity(t, true_len, max_new_tokens, capacity)
     spec = DecodeSpec(max_new_tokens, eos_token_id, sampling, stop_sequences, return_logprobs)
@@ -529,6 +544,80 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
     return GenerateOutput(tokens=out, lengths=output_lengths(out, eos_token_id, stop_sequences),
                           first_logits=first_logits, ttft_s=ttft, decode_s=decode_s,
                           decode_steps=steps, logprobs=logprobs, capture_s=dec.capture_s)
+
+
+@torch.inference_mode()
+def _generate_rows(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor, mels,
+                   capacity: int, max_new_tokens: int, eos_token_id: int,
+                   sampling: SamplingParams, generator: torch.Generator | None,
+                   prompt_len: torch.Tensor) -> GenerateOutput:
+    """A ragged batch (JAX ``_generate_rows``): prompt_len [B], each row decoding from its
+    own offset. One prefill over the right-padded batch (a row's pad slots hold garbage
+    K/V, which decode overwrites before it attends them), then the slot engine's per-row
+    forward (``engine._rows_forward``). Eager, one step at a time, on every device; the
+    host reads ``done.all()`` every ``SYNC_EVERY`` steps."""
+    from audio_flamingo_tpu_torch.runtime.engine import SlotCache, _rows_forward
+
+    b, t = token_ids.shape
+    device = token_ids.device
+    if capacity == 0:
+        capacity = -(-(t + max_new_tokens) // 128) * 128
+    elif t > capacity or int(prompt_len.max()) + max_new_tokens - 1 > capacity:
+        raise ValueError(f"KV cache of {capacity} slots cannot take a prompt of {t} "
+                         f"positions and {max_new_tokens} new tokens")
+    t0 = time.perf_counter()
+    embeds = af3.build_input_embeds(model, cfg, token_ids, mels)
+    cache = qwen2.init_cache(cfg.lm, b, capacity, embeds.dtype, device)
+    pos = torch.arange(t, device=device)[None].expand(b, t)
+    h, cache = qwen2.forward(model.lm, cfg.lm, embeds, pos, cache=cache, is_prefill=True)
+    first_logits = qwen2.unembed(model.lm, h[torch.arange(b, device=device), prompt_len - 1])
+
+    prompt_history = None
+    if sampling.repetition_penalty != 1.0:
+        valid = torch.arange(t, device=device)[None] < prompt_len[:, None]
+        prompt_history = torch.where(valid, token_ids.long(), torch.full_like(token_ids.long(), -1))
+    logits = first_logits
+    if sampling.min_new_tokens >= 1:
+        logits = mask_eos(logits, eos_token_id, torch.ones(b, dtype=torch.bool, device=device))
+    tok = sample_token(logits, sampling, generator, token_history=prompt_history)
+    slot = SlotCache(cache.k, cache.v, prompt_len.int())
+    out = torch.full((b, max_new_tokens), eos_token_id, dtype=torch.long, device=device)
+    out[:, 0] = tok
+    done = tok == eos_token_id
+    sync(device)
+    ttft = time.perf_counter() - t0
+
+    def step(i: int) -> None:
+        nonlocal slot, tok, done
+        x = qwen2.embed(model.lm, tok[:, None])
+        hs, slot = _rows_forward(model.lm, cfg.lm, x, slot.lengths, slot)
+        lg = qwen2.unembed(model.lm, hs[:, 0])
+        hist = None
+        if prompt_history is not None:
+            gen_hist = torch.where(torch.arange(max_new_tokens, device=device)[None] <= i - 1,
+                                   out, torch.full_like(out, -1))
+            hist = torch.cat([prompt_history, gen_hist], dim=1)
+        if sampling.min_new_tokens > 0:
+            lg = mask_eos(lg, eos_token_id,
+                          torch.full((b,), i < sampling.min_new_tokens, device=device))
+        nxt = sample_token(lg, sampling, generator, token_history=hist)
+        nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
+        out[:, i] = nxt
+        slot.lengths = slot.lengths + (~done).int()
+        done = done | (nxt == eos_token_id)
+        tok = nxt
+
+    t1 = time.perf_counter()
+    steps = 0
+    while steps + 1 < max_new_tokens and not bool(done.all()):
+        n = min(SYNC_EVERY, max_new_tokens - 1 - steps)
+        for _ in range(n):
+            steps += 1
+            step(steps)
+    sync(device)
+    return GenerateOutput(tokens=out, lengths=output_lengths(out, eos_token_id, ()),
+                          first_logits=first_logits, ttft_s=ttft,
+                          decode_s=time.perf_counter() - t1, decode_steps=steps)
 
 
 def generate_stream(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,

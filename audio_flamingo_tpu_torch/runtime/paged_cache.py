@@ -27,9 +27,7 @@ from audio_flamingo_tpu_torch.config import Qwen2Config
 from audio_flamingo_tpu_torch.models import qwen2
 from audio_flamingo_tpu_torch.ops.kernels.paged_attention import (merge_current_token,
                                                                   paged_attention)
-from audio_flamingo_tpu_torch.ops.kernels.w4_suffix import MAX_ROWS, suffix_supported
-from audio_flamingo_tpu_torch.ops.norms import rms_norm
-from audio_flamingo_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from audio_flamingo_tpu_torch.ops.rope import rope_cos_sin
 from audio_flamingo_tpu_torch.ops.sampling import RowSampling, engine_row_step
 
 
@@ -126,13 +124,12 @@ def paged_decode_step(lm, cfg: Qwen2Config, cache: PagedKV, tokens: torch.Tensor
     Each layer attends through the block tables with ``paged_attention`` (K3; per row
     only its mapped pages are read) and folds the current token in with
     ``merge_current_token``; every layer's new K/V is written to its page after the
-    layer loop. A fused w4 LM (at most 8 rows, ``suffix_supported``) runs the two suffix
-    kernels per layer, as JAX does. Returns (cache with lengths + 1, logits [B, vocab]
+    layer loop (``qwen2.forward_attend``: a fused w4 LM at most 8 rows runs the two
+    suffix kernels per layer, as JAX does). Returns (cache with lengths + 1, logits [B, vocab]
     f32)."""
     b = tokens.shape[0]
     hd, nkv, nh = cfg.resolved_head_dim(), cfg.num_kv_heads, cfg.num_heads
     g = nh // nkv
-    eps = cfg.rms_norm_eps
     positions = cache.lengths.long()
     cos, sin = rope_cos_sin(positions[:, None], hd, cfg.rope_theta)
     x = qwen2.embed(lm, tokens[:, None])
@@ -152,23 +149,8 @@ def paged_decode_step(lm, cfg: Qwen2Config, cache: PagedKV, tokens: torch.Tensor
             return merge_current_token(qg, k_cur, v_cur, o, m, l).reshape(b, 1, nh, hd)
         return attend
 
-    quantized_lm = isinstance(lm, qwen2.QuantQwen2)
-    stacked = qwen2.split_stacked_w4(lm.layers) if quantized_lm else None
-    if stacked is not None and b <= MAX_ROWS and suffix_supported(stacked, cfg):
-        y = qwen2.w4_suffix_seed(lm, cfg, stacked, x)
-        for i in range(cfg.num_layers):
-            x, y = qwen2.w4_suffix_layer_step(x, y, lm, i, cfg=cfg, stacked=stacked, cos=cos,
-                                              sin=sin, attend=attend_layer(i))
-    else:
-        for i in range(cfg.num_layers):
-            ln1, ln2 = qwen2.layer_norm_weights(lm, i)
-            q, k, v = qwen2.qkv_proj(rms_norm(x, ln1, eps), lm, cfg, i)
-            q, k = apply_rope(q, k, cos, sin)
-            attn = attend_layer(i)(q, k, v).reshape(b, 1, nh * hd).to(x.dtype)
-            x = x + qwen2.o_proj(attn, lm, i)
-            x = x + qwen2.mlp_forward(rms_norm(x, ln2, eps), lm, cfg, i)
+    x = qwen2.forward_attend(lm, cfg, x, cos, sin, attend_layer)
     _write_step_kv(cache, new, block_ids, offs)
-    x = rms_norm(x, lm.ln_f_w if quantized_lm else lm.norm.weight, eps)
     cache.lengths = cache.lengths + 1
     return cache, qwen2.unembed(lm, x[:, 0])
 

@@ -20,8 +20,9 @@ takes ``params``, and decodes in the model's dtype. ``device=None`` means CUDA (
 without a card); the tests pass ``device="cpu"``. Randomness comes from one
 ``torch.Generator`` per engine seeded from ``seed``, where JAX splits a key per admission
 and per chunk: greedy rows match the JAX engine token for token, sampled rows in law.
-Speculative decoding (``draft_params``) and the beam lane (``submit_beam``) are not
-ported yet and raise.
+Beam requests (``submit_beam``) ride the beam lane (``runtime/beam_lane.py``), one lane
+chunk per round beside the paged rows, with their own K-row caches. Speculative decoding
+(``draft_params``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config, bucket_tokens
 from audio_flamingo_tpu_torch.device import resolve_device
 from audio_flamingo_tpu_torch.models import af3, qwen2
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams, processor_flags, row_sampling
+from audio_flamingo_tpu_torch.runtime import beam_lane
 from audio_flamingo_tpu_torch.runtime.engine import (Request, _emit_first_token,
                                                      _finish_request_metrics,
                                                      _postprocess_chunk_row,
@@ -223,9 +225,15 @@ class PagedEngine:
         self.queue.append(req)
 
     def submit_beam(self, req) -> None:
-        """Beam search served beside the paged rows (JAX's beam lane)."""
-        raise NotImplementedError(NOT_PORTED.format("the paged engine's beam lane",
-                                                    "beam search"))
+        """Queue a beam-search request (``beam_lane.BeamRequest``), served by the beam lane
+        between paged decode rounds. The lane owns its K cache rows (the per-step reorder
+        by parent cannot share the page pool); results appear in ``finished_beams`` as
+        (sequences [R, max_new], scores [R])."""
+        beam_lane.attach_beam_lane(self).submit(req)
+
+    @property
+    def finished_beams(self) -> dict:
+        return beam_lane.finished_beams(self)
 
     def _set_row_params(self, row: int, params: SamplingParams) -> None:
         self.row_params[row] = params
@@ -494,8 +502,9 @@ class PagedEngine:
 
     @torch.inference_mode()
     def step(self) -> None:
-        """One engine round: admit, advance a chunked prefill, grow (or preempt), then
-        decode every active row ``chunk`` steps and retire the finished ones."""
+        """One engine round: admit, advance a chunked prefill, grow (or preempt), decode
+        every active row ``chunk`` steps and retire the finished ones, then advance the
+        beam lane one chunk."""
         self._admit()
         self._prefill_step()            # one chunk, then back to decoding
         starved = self._grow_pages()
@@ -506,6 +515,7 @@ class PagedEngine:
         for row in starved:             # a lone row in an exhausted pool
             self._finish_row(row)
         if not self.active:
+            beam_lane.step_beam_lane(self)
             return
         self.cache.block_tables = torch.as_tensor(self.tables_np, device=self.device)
         self.cache.lengths = torch.as_tensor(self.lengths_np, device=self.device)
@@ -533,10 +543,12 @@ class PagedEngine:
             full = self.lengths_np[row] >= self.capacity - self.chunk - 1
             if done[row] or full or len(req.tokens) >= req.max_new_tokens:
                 self._finish_row(row)
+        beam_lane.step_beam_lane(self)
 
     def run_until_done(self, max_rounds: int = 1000) -> dict[str, list[int]]:
         rounds = 0
-        while (self.queue or self.active or self.prefilling is not None) and rounds < max_rounds:
+        while ((self.queue or self.active or self.prefilling is not None
+                or beam_lane.beam_lane_busy(self)) and rounds < max_rounds):
             self.step()
             rounds += 1
         return self.finished

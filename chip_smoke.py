@@ -90,8 +90,8 @@ Phases, each line stamped with elapsed seconds:
         TTFT, K3 ms per step, pool bytes and peak memory; a second run gives the same ids,
         replays the first chunk's K3 launches against the plain version, runs one chunk
         under torch.cuda.set_sync_debug_mode("error") and bounds each chunk's temporaries;
-        a third keeps every K3 launch's inputs: their plain time and bounds summed, and all
-        of them replayed in one CUDA graph (K3's device time in the serving path, beside
+        a third (bf16 pool) keeps every K3 launch's inputs: their plain time and bounds
+        summed, and all of them replayed in one CUDA graph (K3's device time in the serving path, beside
         the CUDA-events figure, which includes the host's gaps);
      c. prefix caching: two requests with one system prompt and clip; the second hits the
         shared pages and skips the encoder; both TTFTs;
@@ -185,6 +185,31 @@ Phases, each line stamped with elapsed seconds:
         into a Q8KVCache and decodes 8 greedy steps; logits within 1e-4 of max|logit|,
         ids token-exact; quantize_kv's codes and the int4 group scales equal card vs CPU
         (checked in 7c and 8e as well).
+ 12. beam search, the slot engine and the beam lane (runtime/beam.py, runtime/engine.py,
+     runtime/beam_lane.py), after every earlier model is freed:
+     a. a new bf16 AF3 at full width (seed 0) on the 30 s clip: api.generate(num_beams=4,
+        32 new tokens) twice (32 + 28 K2 launches each, one answer) and generate_beam with
+        every beam (its best beam decodes to the answer, scores finite and best first);
+        the captured beam step (the held graph both used) against the eager step from one
+        prefill, 32 steps: every state tensor and the cache bit-identical, two replays after
+        the search ended change none of them; ms per step of
+        both beside the bound (LM weights + the gather's read and write of the K-row cache
+        + the filled K/V), one replay and one eager step under set_sync_debug_mode("error"),
+        two replays under torch.profiler (the top-k's, gather's and copies' share), the
+        held graph's bytes;
+     b. the beam lane on PagedEngine (8b's settings, lane chunk 8) beside two requests of
+        500 random ids: the lane equals generate_beam on the same bucket-padded prompt bit
+        for bit, the normal ids equal a run without the lane;
+     c. bench.py's mixed workload without the clip (3 x 500 + 3 x 3800 ids, 48 greedy
+        tokens) on BatchEngine (4 slots of 4096, chunk 16) and on PagedEngine, each after a
+        warm-up instance: tok/s, TTFT, 28 K2 launches per prefill, requests with equal ids;
+     d. f32 card against CPU, full width, 2 + 2 layers: the beam (K 4, every beam, ids
+        exact, scores within 1e-4), BatchEngine (and each request against generate() on the
+        card), ragged generate (and each row against the row alone); the int4 LM on
+        BatchEngine at 4 rows in f32 (card vs CPU) and bf16, every K5, K6 and K4 launch
+        (m = 4) re-run against its plain version, K6 timed at m = 4 in bf16; the int8 LM's
+        beam at K = 4 in f32 (card vs CPU), two eager steps' K4 launches (m = 4) in f32 and
+        bf16 against the plain version, each bf16 launch shape timed.
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -1041,14 +1066,15 @@ DECODE_KERNELS = {"K4": ("w8_mma_kernel", "w8_fma_kernel", "w8_nk_kernel"),
 LOGITS_STEPS = 4   # steps whose f32 logits the captured step must give bit for bit
 
 
-def profile_replays(graph, tag: str, replays: int) -> dict:
+def profile_replays(graph, tag: str, replays: int, kernel_groups: dict = DECODE_KERNELS) -> dict:
     """``replays`` replays of a captured decode step under utils/profiling.trace (the
     Chrome trace in chip_smoke_traces/<tag>/), each in its own annotated range, after
     one more that is not counted (the profiler can miss the first kernels it sees): per
-    DECODE_KERNELS group its kernels and their device ms per replay, every kernel's device
-    ms per replay, and the device-busy share of the counted window: the kernels' time over
-    the span of the replays' ranges on the device (the gaps between replays included);
-    ``ordered``: each group's kernel times (ms) in the order they ran."""
+    group of ``kernel_groups`` (kernel name parts) its kernels and their device ms per
+    replay, every kernel's device ms per replay, and the device-busy share of the counted
+    window: the kernels' time over the span of the replays' ranges on the device (the gaps
+    between replays included); ``ordered``: each group's kernel times (ms) in the order
+    they ran."""
     from audio_flamingo_tpu_torch.utils import profiling
 
     labels = [f"{tag} replay {i}" for i in range(replays + 1)]
@@ -1066,10 +1092,10 @@ def profile_replays(graph, tag: str, replays: int) -> dict:
     kernels = [e for e in events if e.name not in labels and t0 <= e.time_range.start < t1
                and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
     check(len(kernels) > 0, f"{tag}: torch.profiler saw no kernel in the replays")
-    groups = {g: [0, 0.0] for g in DECODE_KERNELS}
-    ordered = {g: [] for g in DECODE_KERNELS}
+    groups = {g: [0, 0.0] for g in kernel_groups}
+    ordered = {g: [] for g in kernel_groups}
     for e in sorted(kernels, key=lambda e: e.time_range.start):
-        g = next((g for g, names in DECODE_KERNELS.items() if any(n in e.name for n in names)),
+        g = next((g for g, names in kernel_groups.items() if any(n in e.name for n in names)),
                  None)
         if g is not None:
             groups[g][0] += 1
@@ -1849,10 +1875,11 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
     bench.py's engine settings, greedy, 48 tokens each: a warm-up instance, the measured
     run (K2 and K3 launches counted from 0 and timed), a second run on a fresh engine
     with the first chunk's K3 launches replayed against the plain version, the second
-    under sync-debug "error", and every chunk's peak memory over its start, and a third
-    whose every K3 launch is timed in the path and kept, so that the plain version's time
-    and the bound are summed over the same launches (kept inputs hold memory, so neither
-    the measured run nor the second keeps them all)."""
+    under sync-debug "error", and every chunk's peak memory over its start, and (bf16 pool
+    only, the kernels line's K3 row; the int8 pool's took about 100 s and was cut to make
+    room for phase 12) a third whose every K3 launch is timed in the path and kept, so that
+    the plain version's time and the bound are summed over the same launches (kept inputs
+    hold memory, so neither the measured run nor the second keeps them all)."""
     from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
 
     lm_cfg = model.cfg.lm
@@ -1924,29 +1951,32 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
         f"= {rep['bound_ms'] / rep['steps']:.4f} ms per step ({rep['bound_by']}), library "
         f"{PAGED_NO_LIBRARY}")
 
+    if name != "bf16":
+        del eng, eng2
+        return dict(run=run, replay=rep, full=None, pool_bytes=pool_bytes,
+                    tps=run["tokens"] / wall)
     probe.reset()
     for c in (fa.LAUNCHES, pa.LAUNCHES):
         c.reset()
     pa.LAUNCHES.timing = pa.LAUNCHES.capture = True
-    fa.LAUNCHES.timing = fa.LAUNCHES.capture = name == "bf16"   # K2's serving row
+    fa.LAUNCHES.timing = fa.LAUNCHES.capture = True   # K2's serving row
     third, _ = serve(make(), specs, 48)
     pa.LAUNCHES.timing = pa.LAUNCHES.capture = False
     full = dict(launches=pa.LAUNCHES.count, steps=probe.steps, ms=pa.LAUNCHES.device_ms())
-    if name == "bf16":
-        fa.LAUNCHES.timing = fa.LAUNCHES.capture = False
-        path = dict(launches=fa.LAUNCHES.count, ms=fa.LAUNCHES.device_ms())
-        captured = list(fa.LAUNCHES.inputs)
-        fa.LAUNCHES.reset()
-        k2 = {**k2_launch_sums(fa, captured), **path}   # the replays launch K2 again
-        fa.LAUNCHES.reset()
-        del captured
-        check(k2["launches"] == k2_want, f"paged {name}: third run {k2['launches']} K2 launches")
-        full["k2"] = k2
-        log(f"paged {name}: third run's {k2['launches']} K2 launches (7 fresh prefills x 28 + "
-            f"the clip's window x 32): in the path {k2['ms']:.2f} ms; each replayed on its "
-            f"inputs: max|o-plain| {k2['err']:.3e} (at {k2['ratio']:.3f} of its limit), "
-            f"plain {k2['plain_ms']:.1f} ms, SDPA {k2['library_ms']:.2f} ms, bound "
-            f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}), summed")
+    fa.LAUNCHES.timing = fa.LAUNCHES.capture = False
+    path = dict(launches=fa.LAUNCHES.count, ms=fa.LAUNCHES.device_ms())
+    captured = list(fa.LAUNCHES.inputs)
+    fa.LAUNCHES.reset()
+    k2 = {**k2_launch_sums(fa, captured), **path}   # the replays launch K2 again
+    fa.LAUNCHES.reset()
+    del captured
+    check(k2["launches"] == k2_want, f"paged {name}: third run {k2['launches']} K2 launches")
+    full["k2"] = k2
+    log(f"paged {name}: third run's {k2['launches']} K2 launches (7 fresh prefills x 28 + "
+        f"the clip's window x 32): in the path {k2['ms']:.2f} ms; each replayed on its "
+        f"inputs: max|o-plain| {k2['err']:.3e} (at {k2['ratio']:.3f} of its limit), "
+        f"plain {k2['plain_ms']:.1f} ms, SDPA {k2['library_ms']:.2f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}), summed")
     check(third == results, f"paged {name}: greedy ids differ in the third run")
     check(full["launches"] == lm_cfg.num_layers * full["steps"] == len(pa.LAUNCHES.inputs),
           f"paged {name}: third run {full['launches']} K3 launches for {full['steps']} steps")
@@ -3776,6 +3806,534 @@ def f32_q8_card_vs_cpu_phase(fa, k4) -> None:
     del lms, caches
 
 
+# ----------------------------------------------------------------------------------------
+# 12. beam search, the slot engine and the beam lane
+
+BEAM_K, BEAM_NEW = 4, 32            # 12a-12b: beams and new tokens on the 30 s clip
+BEAM_SCORE_TOL = 1e-4               # 12d, f32 card vs CPU: beam scores
+# one replay of the beam step split by kernel name (torch.topk's kernels; the cache rows'
+# gather and small index_selects; the elementwise copies, the gather's write-back among them)
+BEAM_GROUPS = {"top-k": ("TopK", "topk", "Radix", "radix", "Sort", "sort", "Blockwise",
+                         "KthCounts"),
+               "gather": ("indexSelect", "index_select", "IndexSelect"),
+               "copy": ("direct_copy_kernel",)}
+SLOT_ENGINE = dict(num_slots=4, capacity=4096, chunk=16, eos_token_id=ENGINE["eos_token_id"])
+BEAM_STATE = ("i", "t", "logits", "run_seq", "run_sc", "fin_seq", "fin_sc", "is_fin",
+              "heur_ok", "alive", "hist")
+
+
+def clip_prompt(model, wav, prompt: str) -> tuple:
+    """The processor's ids [1, T] on the card and mels of one clip and prompt."""
+    batch = model.processor(messages=[{"role": "user", "content": f"<sound>{prompt}"}],
+                            audios=[wav])
+    return torch.as_tensor(batch["ids"], dtype=torch.long, device="cuda"), batch["mels"]
+
+
+def lm_weight_bytes(lm, tied: bool) -> int:
+    """Bytes a decode step reads of a float LM: every weight but the embedding table
+    (read a row a token) unless it is the tied head."""
+    return sum(p.numel() * p.element_size() for n, p in lm.named_parameters()
+               if n != "embed_tokens" or tied)
+
+
+def beam_graph_phase(model, fa, wav) -> dict:
+    """12a. Beam search on the 30 s clip at full width, bf16, K = 4, 32 new tokens:
+    api.generate(num_beams=4) twice (K2's 32 + 28 launches each) and generate_beam with
+    every beam returned (its best beam is the answer); then the captured step (the held
+    graph both used) against the eager step function from one prefill, 32 steps: every
+    state tensor and the cache bit-identical, and unchanged by two replays after the
+    search ended; ms per step of both beside the bound (the
+    LM's weights, the gather's read and write of the K-row cache, the filled K/V read);
+    one replay under set_sync_debug_mode("error"); two replays profiled: the top-k's, the
+    gather's and the copies' share; the held graph's bytes."""
+    from audio_flamingo_tpu_torch.runtime import beam
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
+    cfg, lm, eos = model.cfg, model.model.lm, model.eos_token_id
+    prompt = "What do you hear?"
+    ids, mels = clip_prompt(model, wav, prompt)
+    t = ids.shape[1]
+    capacity = -(-(t + BEAM_NEW) // 128) * 128
+    fa.LAUNCHES.reset()
+    answers, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers.append(model.generate(sound=wav, prompt=prompt, num_beams=BEAM_K,
+                                      max_new_tokens=BEAM_NEW))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    k2 = fa.LAUNCHES.count
+    k2_want = 2 * (cfg.encoder.num_layers + cfg.lm.num_layers)
+    check(k2 == k2_want, f"12a: {k2} K2 launches over two beam generates, not {k2_want}")
+    check(answers[0] == answers[1], f"12a: two beam answers differ: {answers}")
+    seqs, scores = beam.generate_beam(model.model, cfg, ids, mels, num_beams=BEAM_K,
+                                      max_new_tokens=BEAM_NEW, eos_token_id=eos,
+                                      num_return_sequences=BEAM_K)
+    best = seqs[0, 0].tolist()
+    if eos in best:
+        best = best[: best.index(eos) + 1]
+    check(model.processor.tokenizer.decode(best, skip_special=True) == answers[0],
+          "12a: generate_beam's best beam is not api.generate's answer")
+    check(bool(torch.isfinite(scores).all()) and bool((scores[0, :-1] >= scores[0, 1:]).all()),
+          f"12a: beam scores not finite and best first: {scores.tolist()}")
+    check(all(0 <= i < cfg.lm.vocab_size for i in seqs.flatten().tolist()), "12a: ids out of vocab")
+
+    spec = beam.BeamSpec(BEAM_K, BEAM_NEW, eos)
+    device = ids.device                     # the held step's key holds the device as given
+    with torch.inference_mode():
+        cache, logits0 = gen.prefill(model.model, cfg, ids, mels, capacity)
+    search = beam.BeamSearch(model.model, cfg, spec, 1, capacity, device)
+    check(search.capture_s == 0.0, "12a: the held beam step of the API's key was not reused")
+    eager = beam.new_beam_state(cfg.lm, spec, 1, capacity, torch.bfloat16, device)
+
+    def start():
+        search.begin(logits0, cache, t, ids)
+        with torch.inference_mode():
+            beam.begin(eager, spec, logits0, cache, t, ids)
+
+    def same_state() -> bool:
+        st = search.state
+        return (all(torch.equal(getattr(st, n), getattr(eager, n)) for n in BEAM_STATE)
+                and torch.equal(st.cache.k, eager.cache.k) and torch.equal(st.cache.v, eager.cache.v)
+                and torch.equal(st.cache.index, eager.cache.index))
+
+    try:
+        start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for _ in range(BEAM_NEW):
+                beam.beam_body(lm, cfg.lm, spec, eager)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / BEAM_NEW * 1e3
+        t0 = time.perf_counter()
+        for _ in range(BEAM_NEW):
+            search.graph.replay()
+        torch.cuda.synchronize()
+        first_graph_ms = (time.perf_counter() - t0) / BEAM_NEW * 1e3
+        st = search.state
+        steps = int(st.i)
+        check(same_state(), "12a: the captured step's state differs from the eager step's after "
+                            f"{BEAM_NEW} steps")
+        check(torch.equal(st.fin_seq, seqs) and torch.equal(st.fin_sc, scores),
+              "12a: the compared run differs from generate_beam's")
+        # JAX's loop runs no body once alive is false: two replays past the end change nothing
+        check(not bool(st.alive), "12a: the search is alive after max_new_tokens steps")
+        before = [getattr(st, n).clone() for n in BEAM_STATE]
+        before += [st.cache.k.clone(), st.cache.v.clone(), st.cache.index.clone()]
+        for _ in range(2):
+            search.graph.replay()
+        after = [getattr(st, n) for n in BEAM_STATE] + [st.cache.k, st.cache.v, st.cache.index]
+        check(all(torch.equal(a, b) for a, b in zip(after, before)),
+              "12a: a replay after the search ended changed the state")
+        del before, after
+        graph_times = []
+        for _ in range(2):
+            start()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BEAM_NEW):
+                search.graph.replay()
+            torch.cuda.synchronize()
+            graph_times.append((time.perf_counter() - t0) / BEAM_NEW * 1e3)
+        graph_ms_ = statistics.median(graph_times)
+        start()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            search.graph.replay()
+            with torch.inference_mode():
+                beam.beam_body(lm, cfg.lm, spec, eager)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(same_state(), "12a: the synced-debug step's states differ")
+        start()
+        prof = profile_replays(search.graph, "12a", 2, BEAM_GROUPS)
+        nbytes = search.graph.nbytes()
+    finally:
+        search.close()
+    del eager, cache
+    cache_bytes = nbytes["cache"]
+    weights = lm_weight_bytes(lm, cfg.lm.tie_word_embeddings)
+    per_pos = cache_bytes // capacity                       # K and V of one position, K rows
+    kv_read = per_pos * (t + (steps + 1) / 2)               # the filled positions, on average
+    bound_ms = (weights + 2 * cache_bytes + kv_read) / PEAK_BYTES * 1e3
+    groups = {g: (n, ms) for g, (n, ms) in prof["groups"].items()}
+    log(f"12a beam on the 30 s clip (bf16, K {BEAM_K}, {BEAM_NEW} new, prompt {t}, capacity "
+        f"{capacity}): api.generate {walls[0]:.3f} s (capture included) and {walls[1]:.3f} s; "
+        f"answer {answers[0]!r}; generate_beam's {BEAM_K} beams {seqs[0, :, :8].tolist()}... "
+        f"scores {[round(x, 4) for x in scores[0].tolist()]}; the search ran {steps} steps")
+    log(f"12a captured beam step against the eager step over {BEAM_NEW} steps from one "
+        f"prefill: every state tensor and the cache bit-identical, and unchanged by two "
+        f"replays after the search ended; {graph_ms_:.3f} ms per step "
+        f"in the graph (median of 2 runs; {first_graph_ms:.3f} ms in the compared run) against "
+        f"{eager_ms:.3f} ms eager; bound {bound_ms:.3f} ms (LM weights {weights / 1e9:.3f} GB + "
+        f"the gather's read and write of the {cache_bytes / 1e6:.1f} MB cache + the filled K/V "
+        f"{kv_read / 1e6:.1f} MB, at {PEAK_BYTES / 1e12:.2f} TB/s); one replay under "
+        f"torch.profiler: {prof['kernels']:g} kernels, {prof['busy_ms']:.3f} ms busy of "
+        f"{prof['span_ms']:.3f} ms (device busy {prof['busy_share'] * 100:.1f} %); "
+        + ", ".join(f"{g} {n:g} kernels {ms:.3f} ms ({ms / prof['busy_ms'] * 100:.1f} %)"
+                    for g, (n, ms) in groups.items())
+        + f"; held graph: cache {nbytes['cache'] / 2**20:.1f} MiB, state "
+        f"{nbytes['state'] / 2**20:.2f} MiB, graph pool {nbytes['graph'] / 2**20:.1f} MiB; "
+        f"one replay and one eager step ran under set_sync_debug_mode('error')")
+    return dict(ids=ids, mels=mels, seqs=seqs, scores=scores, k2=k2, graph_ms=graph_ms_,
+                eager_ms=eager_ms, bound_ms=bound_ms, prof=prof, nbytes=nbytes, steps=steps)
+
+
+def beam_lane_phase(model, ref: dict) -> dict:
+    """12b. The beam lane on PagedEngine (bench.py's engine settings, lane chunk 8) beside
+    two requests of 500 random ids, 32 greedy tokens each: the lane's sequences and scores
+    equal generate_beam's on the same bucket-padded prompt bit for bit; the normal
+    requests' ids equal those of a run without the lane."""
+    from audio_flamingo_tpu_torch.config import bucket_tokens
+    from audio_flamingo_tpu_torch.runtime import beam
+    from audio_flamingo_tpu_torch.runtime.beam_lane import BeamRequest
+    from audio_flamingo_tpu_torch.runtime.engine import Request
+    from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
+
+    eos = ENGINE["eos_token_id"]
+    ids, mels = ref["ids"], ref["mels"]
+    t = ids.shape[1]
+    rng = np.random.default_rng(4)
+    normal = [(f"n{i}", rng.integers(0, 150_000, (1, 500)).astype(np.int32)) for i in range(2)]
+
+    def run(with_beam: bool):
+        eng = PagedEngine(model=model.model, cfg=model.cfg, **ENGINE)
+        for rid, x in normal:
+            eng.submit(Request(request_id=rid, ids=x.copy(), max_new_tokens=BEAM_NEW))
+        if with_beam:
+            eng.submit_beam(BeamRequest(request_id="beam", ids=ids.cpu().numpy(), mels=mels,
+                                        num_beams=BEAM_K, max_new_tokens=BEAM_NEW,
+                                        num_return_sequences=BEAM_K))
+            eng.beam_lane.chunk = 8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run_until_done()
+        torch.cuda.synchronize()
+        return out, dict(eng.finished_beams), time.perf_counter() - t0
+
+    plain, _, wall0 = run(False)
+    mixed, beams, wall1 = run(True)
+    check(mixed == plain, "12b: the normal requests' ids changed beside the beam lane")
+    check(set(beams) == {"beam"}, f"12b: the lane finished {sorted(beams)}")
+    bucket = bucket_tokens(t)
+    padded = torch.cat([ids, torch.full((1, bucket - t), max(eos, 0), dtype=torch.long,
+                                        device=ids.device)], dim=1)
+    capacity = -(-(bucket + BEAM_NEW) // 128) * 128
+    want, want_sc = beam.generate_beam(model.model, model.cfg, padded, mels, prompt_len=t,
+                                       capacity=capacity, num_beams=BEAM_K,
+                                       max_new_tokens=BEAM_NEW, eos_token_id=eos,
+                                       num_return_sequences=BEAM_K)
+    got, got_sc = beams["beam"]
+    check(np.array_equal(got, want[0].cpu().numpy()) and np.array_equal(got_sc, want_sc[0].cpu().numpy()),
+          "12b: the lane's result differs from generate_beam's on the same padded prompt")
+    unpadded = np.array_equal(got, ref["seqs"][0].cpu().numpy())
+    log(f"12b beam lane on PagedEngine (chunk 8) beside 2 x 500-id requests: the lane's "
+        f"{BEAM_K} beams and scores equal generate_beam's on the bucket-padded prompt ({t} -> "
+        f"{bucket}) bit for bit; against 12a's unpadded prompt the beams are "
+        f"{'equal' if unpadded else 'different'}; the normal ids equal a run without the lane "
+        f"({wall0:.3f} s without, {wall1:.3f} s with)")
+    return dict(wall_plain=wall0, wall_lane=wall1, unpadded_equal=unpadded)
+
+
+def slot_engine_phase(model, fa, wav) -> dict:
+    """12c. bench.py's mixed workload (3 prompts of 500 and 3 of 3800 random ids, 48 greedy
+    tokens each) on BatchEngine (4 slots of 4096, chunk 16) and on PagedEngine (8b's
+    settings), each after a warm-up instance, in this run: aggregate tok/s, TTFT from
+    submit, K2's launches (28 per prefill), how many requests give the same ids."""
+    from audio_flamingo_tpu_torch.runtime.engine import BatchEngine
+    from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
+
+    specs = mixed_workload(model, wav)[:6]
+    make = {"slot": lambda: BatchEngine(model=model.model, cfg=model.cfg, **SLOT_ENGINE),
+            "paged": lambda: PagedEngine(model=model.model, cfg=model.cfg, **ENGINE)}
+    res = {}
+    for name, mk in make.items():
+        serve(mk(), specs[:2], 48)                               # warm-up instance
+        fa.LAUNCHES.reset()
+        eng = mk()
+        out, wall = serve(eng, specs, 48)
+        tokens = sum(len(v) for v in out.values())
+        ttft = sorted(m["ttft_s"] for m in eng.request_metrics.values())
+        res[name] = dict(out=out, wall=wall, tokens=tokens, tps=tokens / wall, ttft=ttft,
+                         k2=fa.LAUNCHES.count)
+        check(set(out) == {rid for rid, _, _ in specs} and all(out.values()),
+              f"12c {name}: not every request finished")
+        check(res[name]["k2"] == len(specs) * model.cfg.lm.num_layers,
+              f"12c {name}: {res[name]['k2']} K2 launches for {len(specs)} prefills")
+        del eng
+    same = sum(res["slot"]["out"][r] == res["paged"]["out"][r] for r in res["slot"]["out"])
+    log("12c mixed workload (3 x 500 + 3 x 3800 ids, 48 greedy tokens): " + "; ".join(
+        f"{n} engine {r['tokens']} tokens in {r['wall']:.3f} s = {r['tps']:.1f} tok/s, TTFT "
+        f"median {statistics.median(r['ttft']):.3f} s max {r['ttft'][-1]:.3f} s, K2 {r['k2']}"
+        for n, r in res.items()) + f"; {same} of {len(specs)} requests give the same ids on "
+        "both engines (bf16: their summation orders differ)")
+    return dict(res=res, same=same)
+
+
+def captured_w4_checks(k5, k6, inputs: dict) -> dict:
+    """Every captured K5 and K6 launch re-run on its inputs against its plain version
+    (7a's tolerances)."""
+    worst = {"K5": [0.0, 0.0], "K6A": [0.0, 0.0], "K6B": [0.0, 0.0]}
+
+    def note(key, y, ref):
+        r = w4_compare(y, ref)
+        check(r["finite"] and r["ratio"] <= 1.0,
+              f"12d {key} m={y.shape[0]}: |y - plain| at {r['ratio']:.3f} of its limit")
+        worst[key] = [max(worst[key][0], r["err"]), max(worst[key][1], r["ratio"])]
+
+    for x, w_p, gscale, layer in inputs["K5"]:
+        if layer is None:
+            note("K5", k5.w4a16_matmul(x, w_p, gscale), k5.w4a16_matmul_reference(x, w_p, gscale))
+        else:
+            note("K5", k5.w4a16_matmul_stacked(x, w_p, gscale, layer),
+                 k5.w4a16_matmul_reference(x, w_p[layer], gscale[layer]))
+    for args in inputs["K6A"]:
+        for y, ref in zip(k6.w4_suffix_a(*args), k6.w4_suffix_a_reference(*args)):
+            note("K6A", y, ref)
+    for args in inputs["K6B"]:
+        for y, ref in zip(k6.w4_suffix_b(*args), k6.w4_suffix_b_reference(*args)):
+            note("K6B", y, ref)
+    return worst
+
+
+def captured_k4_checks(k4, inputs: list) -> list:
+    """Every captured K4 launch re-run on its inputs against the plain version of each of
+    its products (K5's tolerances): [err, ratio]."""
+    worst = [0.0, 0.0]
+    for x, prods, od in inputs:
+        ys = (k4.w8a16_matmul_group(x, [{"w_q": w, "scale": sc} for w, sc in prods], od)
+              if len(prods) > 1 else [k4.w8a16_matmul(x, *prods[0], od)])
+        for y, (w_q, scale) in zip(ys, prods):
+            r = w4_compare(y, k4.w8a16_matmul_reference(x, w_q, scale, od))
+            check(r["finite"] and r["ratio"] <= 1.0,
+                  f"12d K4 m={x.shape[0]}: |y - plain| at {r['ratio']:.3f} of its limit")
+            worst = [max(worst[0], r["err"]), max(worst[1], r["ratio"])]
+    return worst
+
+
+def f32_beam_slot_phase(k4, k5, k6) -> dict:
+    """12d. Full width, 2 + 2 layers, weights made on the CPU from a seed and moved to the
+    card: (1) f32 beam search card vs CPU (K = 4, 12 new tokens, every beam: ids exact,
+    scores within 1e-4); (2) BatchEngine card vs CPU and each request against generate()
+    on the card; (3) ragged generate card vs CPU; (4) the int4 LM on BatchEngine at 4 rows
+    in f32 (card vs CPU) and bf16, every K5 and K6 launch (m = 4) held to its plain version,
+    K6 timed at m = 4 in bf16; (5) the int8 LM's beam at K = 4 in f32 (card vs CPU) and
+    bf16, the launches of two eager steps (K4 at m = 4) held to the plain version, each
+    K4 launch shape timed at m = 4 in bf16."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.models import af3, qwen2
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+    from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
+    from audio_flamingo_tpu_torch.runtime import beam
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+    from audio_flamingo_tpu_torch.runtime.engine import BatchEngine
+
+    full = AF3Config()
+    cfg = with_flash(dataclasses.replace(
+        full, encoder=dataclasses.replace(full.encoder, num_layers=2),
+        lm=dataclasses.replace(full.lm, num_layers=2)), True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {}
+    try:
+        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        card = AudioFlamingo.from_state_dict(cpu.cfg, cpu.model.state_dict(),
+                                             cpu.processor.tokenizer, torch.float32,
+                                             device="cuda")
+        eos = card.eos_token_id
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(0, 150_000, (1, n)).astype(np.int32) for n in (48, 80, 33, 61)]
+        models = {"cpu": cpu.model, "card": card.model}
+        on = {"cpu": lambda p: torch.as_tensor(p, dtype=torch.long),
+              "card": lambda p: torch.as_tensor(p, dtype=torch.long, device="cuda")}
+        beam_kw = dict(num_beams=BEAM_K, max_new_tokens=12, eos_token_id=eos,
+                       num_return_sequences=BEAM_K)
+
+        def beams_both(mods: dict, tag: str) -> tuple:
+            got = {w: beam.generate_beam(m, cpu.cfg, on[w](prompts[0]), **beam_kw)
+                   for w, m in mods.items()}
+            seqs = {w: s.cpu() for w, (s, _) in got.items()}
+            err = (got["card"][1].cpu() - got["cpu"][1]).abs().max().item()
+            check(torch.equal(seqs["card"], seqs["cpu"]),
+                  f"12d {tag}: beams differ card {seqs['card'][0].tolist()} vs CPU "
+                  f"{seqs['cpu'][0].tolist()}")
+            check(err <= BEAM_SCORE_TOL, f"12d {tag}: beam scores card vs CPU {err}")
+            check(len(set(seqs["card"][0, 0].tolist())) > 1, f"12d {tag}: the best beam is one token")
+            return seqs["card"], err
+
+        # (1) the beam, f32
+        seqs, err = beams_both(models, "f32 beam")
+        log(f"12d f32 beam card vs CPU (2 + 2 layers, K {BEAM_K}, 12 tokens): {BEAM_K} beams "
+            f"equal ({seqs[0, 0].tolist()}), scores max|card - CPU| {err:.3e} (limit "
+            f"{BEAM_SCORE_TOL})")
+        out["beam_err"] = err
+
+        # (2) BatchEngine
+        eng_kw = dict(num_slots=4, capacity=256, chunk=8, eos_token_id=eos)
+        specs = [(f"r{i}", p, None) for i, p in enumerate(prompts)]
+        res = {}
+        for w, m in models.items():
+            eng = BatchEngine(model=m, cfg=cpu.cfg, device="cpu" if w == "cpu" else None,
+                              **eng_kw)
+            res[w], _ = serve(eng, specs, 8)
+        check(res["card"] == res["cpu"], f"12d BatchEngine ids differ card vs CPU")
+        for rid, p, _ in specs:
+            g = gen.generate(card.model, cpu.cfg, on["card"](p), max_new_tokens=8, eos_token_id=eos)
+            want = g.tokens[0, : int(g.lengths[0])].tolist()
+            n = min(len(want), len(res["card"][rid]))
+            check(n >= 1 and res["card"][rid][:n] == want[:n],
+                  f"12d BatchEngine {rid} != generate: {res['card'][rid]} vs {want}")
+            check(len(set(res["card"][rid])) > 1, f"12d BatchEngine {rid} ids are one token")
+        log(f"12d f32 BatchEngine (4 slots, chunk 8) card vs CPU: ids equal {res['card']}; "
+            "each request's ids equal generate()'s on the card")
+
+        # (3) ragged generate
+        width = max(p.shape[1] for p in prompts)
+        padded = np.stack([np.pad(p[0], (0, width - p.shape[1]), constant_values=0)
+                           for p in prompts])
+        plen = [p.shape[1] for p in prompts]
+        rag = {w: gen.generate(m, cpu.cfg, on[w](padded), max_new_tokens=8, eos_token_id=eos,
+                               prompt_len=torch.tensor(plen, device="cpu" if w == "cpu" else "cuda"))
+               for w, m in models.items()}
+        check(torch.equal(rag["card"].tokens.cpu(), rag["cpu"].tokens),
+              "12d ragged generate ids differ card vs CPU")
+        for r, p in enumerate(prompts):
+            one = gen.generate(card.model, cpu.cfg, on["card"](p), max_new_tokens=8,
+                               eos_token_id=eos)
+            check(torch.equal(one.tokens[0], rag["card"].tokens[r]),
+                  f"12d ragged row {r} differs from the row generated alone")
+        log(f"12d ragged generate (prompt_len {plen}, width {width}) card vs CPU: ids equal, "
+            "each row equal to the row generated alone on the card")
+
+        # (4) the int4 LM on the slot engine at 4 rows
+        counters = {"K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A, "K6B": k6.LAUNCHES_B,
+                    "K4": k4.LAUNCHES}
+        tree_cpu = quantize_lm_params_w4(cpu.model.lm.state_dict())
+        tree_card = quantize_lm_params_w4(card.model.lm.state_dict())
+        w4 = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            m4 = af3.AF3Model(card.model.encoder, card.model.adaptor,
+                              qwen2.quantized_lm(tree_card, dtype, "cuda"))
+            for c in counters.values():
+                c.reset()
+                c.capture = True
+            got, _ = serve(BatchEngine(model=m4, cfg=cpu.cfg, **eng_kw), specs, 8)
+            counts = {n: c.count for n, c in counters.items()}
+            shapes = {n: dict(c.shapes) for n, c in counters.items()}
+            inputs = {n: list(c.inputs) for n, c in counters.items()}
+            for c in counters.values():
+                c.capture = False
+                c.reset()
+            check(all(counts[n] > 0 for n in ("K5", "K6A", "K6B", "K4")),
+                  f"12d int4 slot engine {dn}: a kernel of the path did not launch: {counts}")
+            check(all(k[0] == 4 for n in ("K6A", "K6B") for k in shapes[n]),
+                  f"12d int4 slot engine {dn}: K6 launched at {shapes['K6A']}, not m = 4")
+            worst = captured_w4_checks(k5, k6, inputs)
+            worst["K4"] = captured_k4_checks(k4, inputs["K4"])
+            if dtype == torch.float32:
+                m4_cpu = af3.AF3Model(cpu.model.encoder, cpu.model.adaptor,
+                                      qwen2.quantized_lm(tree_cpu, dtype, "cpu"))
+                want, _ = serve(BatchEngine(model=m4_cpu, cfg=cpu.cfg, device="cpu", **eng_kw),
+                                specs, 8)
+                check(got == want, f"12d int4 slot engine f32 ids differ card vs CPU")
+            timing = {}
+            if dtype == torch.bfloat16:
+                a, b = inputs["K6A"][0], inputs["K6B"][0]
+                for key, fn, ref, args, gated in (
+                        ("K6A", k6.w4_suffix_a, k6.w4_suffix_a_reference, a, True),
+                        ("K6B", k6.w4_suffix_b, k6.w4_suffix_b_reference, b, False)):
+                    timing[key] = dict(
+                        ms=time_ms(lambda: fn(*args)), device_ms=graph_ms(lambda: fn(*args), 20, 8),
+                        plain_ms=time_ms(lambda: ref(*args), 5, 1),
+                        bound=suffix_bound_ms(args[3], args[4], 4, dn, gated))
+            w4[dn] = dict(counts=counts, worst=worst, timing=timing)
+            log(f"12d int4 LM on BatchEngine at 4 rows, {dn}: launches K5 {counts['K5']}, K6 A "
+                f"{counts['K6A']}, K6 B {counts['K6B']}, K4 {counts['K4']} (m = 4); every launch "
+                f"re-run against its plain version: max|y - plain| K5 {worst['K5'][0]:.3e}, K6 A "
+                f"{worst['K6A'][0]:.3e}, K6 B {worst['K6B'][0]:.3e}, K4 {worst['K4'][0]:.3e} "
+                f"(at most {max(v[1] for v in worst.values()):.3f} of the limits)"
+                + ("; ids equal card vs CPU" if dtype == torch.float32 else "")
+                + "".join(f"; {k} at m = 4 (layer 0): {v['ms']:.4f} ms with the wrapper, "
+                          f"{v['device_ms']:.4f} ms device, plain {v['plain_ms']:.3f} ms, bound "
+                          f"{v['bound'][0]:.5f} ms ({v['bound'][1]})" for k, v in timing.items()))
+            del m4
+        out["w4"] = w4
+
+        # (5) the int8 LM's beam at K = 4
+        tree8_cpu = quantize_lm_params(cpu.model.lm.state_dict())
+        tree8_card = quantize_lm_params(card.model.lm.state_dict())
+        k4.LAUNCHES.reset()
+        seqs8, err8 = beams_both(
+            {"cpu": af3.AF3Model(cpu.model.encoder, cpu.model.adaptor,
+                                 qwen2.quantized_lm(tree8_cpu, torch.float32, "cpu")),
+             "card": af3.AF3Model(card.model.encoder, card.model.adaptor,
+                                  qwen2.quantized_lm(tree8_card, torch.float32, "cuda"))},
+            "int8 f32 beam")
+        k4_beam = k4.LAUNCHES.count
+        check(k4_beam > 0, "12d int8 beam: K4 did not launch")
+        k4.LAUNCHES.reset()
+        k4_res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            m8 = af3.AF3Model(card.model.encoder, card.model.adaptor,
+                              qwen2.quantized_lm(tree8_card, dtype, "cuda"))
+            spec = beam.BeamSpec(BEAM_K, 12, eos)
+            ids = on["card"](prompts[0])
+            with torch.inference_mode():
+                cache, logits0 = gen.prefill(m8, cpu.cfg, ids, None, 128)
+                st = beam.new_beam_state(cpu.cfg.lm, spec, 1, 128, dtype, torch.device("cuda"))
+                beam.begin(st, spec, logits0, cache, ids.shape[1], ids)
+                k4.LAUNCHES.reset()
+                k4.LAUNCHES.capture = True
+                for _ in range(2):
+                    beam.beam_body(m8.lm, cpu.cfg.lm, spec, st)
+            k4.LAUNCHES.capture = False
+            captured = list(k4.LAUNCHES.inputs)
+            k4.LAUNCHES.reset()
+            check(captured and all(x.shape[0] == BEAM_K for x, _, _ in captured),
+                  f"12d int8 beam {dn}: K4 launches not at m = {BEAM_K}")
+            worst = captured_k4_checks(k4, captured)
+            timing = {}
+            if dtype == torch.bfloat16:
+                seen = set()
+                for x, prods, od in captured:
+                    key = (x.shape[1], tuple(w.shape[1] for w, _ in prods),
+                           str(od).split(".")[-1])
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    if len(prods) > 1:
+                        r = k4_group_case(k4, x, [{"w_q": w, "scale": sc} for w, sc in prods],
+                                          od, True)
+                        r["plain_ms"] = sum(time_ms(lambda w=w, sc=sc: k4.w8a16_matmul_reference(
+                            x, w, sc, od), 5, 1) for w, sc in prods)
+                    else:
+                        r = k4_case(k4, x, *prods[0], od, True)
+                    timing[key] = r
+                k4.LAUNCHES.reset()
+            k4_res[dn] = dict(worst=worst, launches=len(captured), timing=timing)
+            log(f"12d int8 LM beam at K = {BEAM_K}, {dn}: two eager steps' {len(captured)} K4 "
+                f"launches (m = {BEAM_K}) re-run against the plain version: max|y - plain| "
+                f"{worst[0]:.3e} (at {worst[1]:.3f} of the limit)"
+                + "".join(f"; K4 [4,{k[0]}]x[{k[0]},{'|'.join(map(str, k[1]))}] -> {k[2]}: "
+                          f"{r['ms']:.4f} "
+                          f"ms with the wrapper, {r['graph_ms']:.4f} ms device, plain "
+                          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
+                          for k, r in timing.items()))
+            del m8, st, cache
+        log(f"12d int8 f32 beam card vs CPU: {BEAM_K} beams equal ({seqs8[0, 0].tolist()}), "
+            f"scores max|card - CPU| {err8:.3e}; {k4_beam} K4 launches on the card (the warm-up "
+            f"step's and the replays')")
+        out.update(k4=k4_res, k4_beam_launches=k4_beam, int8_beam_err=err8)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
 def timed_generate(model, **kw) -> tuple:
     """One AudioFlamingo.generate call timed from its start: (text, wall seconds, and a
     line splitting it into the processor's share, ttft_s, their sum (the TTFT a user
@@ -4010,6 +4568,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8_clip = int8_clip_phase(k4, wav)
     f32_q8_card_vs_cpu_phase(fa, k4)
+    # 12a-12d. beam search (the step captured), the beam lane on PagedEngine, BatchEngine on
+    # the mixed workload, then f32 card against CPU at 2 + 2 layers (K4, K5, K6 at m = 4)
+    gen.release_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = AudioFlamingo.from_random(with_flash(AF3Config(), True), seed=0,
+                                      compute_dtype=torch.bfloat16, device="cuda")
+    beam12 = beam_graph_phase(model, fa, wav)
+    lane12 = beam_lane_phase(model, beam12)
+    slot12 = slot_engine_phase(model, fa, wav)
+    del model, beam12["mels"]
+    log(f"12: released the held captured steps ({gen.release_graphs() / 2**20:.1f} MiB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_12 = f32_beam_slot_phase(k4, k5, k6)
+    gen.release_graphs()
 
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
@@ -4036,6 +4610,8 @@ def main() -> int:
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
+        "launches_phase12": {"12a beam, two api.generate(num_beams=4)": beam12["k2"],
+                             "12c BatchEngine, mixed workload": slot12["res"]["slot"]["k2"]},
         "ptxas": [r for r in flash_ptxas if r["kernel"].startswith("flash_fwd")],
     }, {
         "name": "log_mel",
@@ -4069,6 +4645,9 @@ def main() -> int:
         "bound_ms": k5_path["bound_ms"],
         "bound_by": k5_path["bound_by"],
         "library_ms": k5_path["library_ms"],
+        "launches_phase12": {f"12d int4 BatchEngine at 4 rows, {dn}": r["counts"]["K5"]
+                             for dn, r in f32_12["w4"].items()},
+        "max_abs_err_m4": max(r["worst"]["K5"][0] for r in f32_12["w4"].values()),
         "ptxas": w4_ptxas,
     })
     for name, key, line in (("w4_suffix_a", "K6A", 225), ("w4_suffix_b", "K6B", 288)):
@@ -4089,6 +4668,11 @@ def main() -> int:
             "library_ms": None,
             "kernels_per_call": max(w4["kernels"][("k6calls", m, dn)][key == "K6B"]
                                     for m in (1, 3, 8) for dn in ("float32", "bfloat16")),
+            "launches_phase12": {f"12d int4 BatchEngine at 4 rows, {dn}": r["counts"][key]
+                                 for dn, r in f32_12["w4"].items()},
+            "max_abs_err_m4": max(r["worst"][key][0] for r in f32_12["w4"].values()),
+            "m4_bf16": {k: (v if k != "bound" else list(v))
+                        for k, v in f32_12["w4"]["bfloat16"]["timing"][key].items()},
             "ptxas": k6_ptxas,
         })
     full = paged["bf16"]["full"]
@@ -4189,17 +4773,33 @@ def main() -> int:
         "bound_ms": k4_path["bound_ms"],
         "bound_by": k4_path["bound_by"],
         "library_ms": k4_path["library_ms"],
+        "launches_phase12": {"12d int8 beam at K = 4, f32 (warm-up step and replays)":
+                             f32_12["k4_beam_launches"],
+                             **{f"12d int4 BatchEngine at 4 rows (the int8 head), {dn}":
+                                r["counts"]["K4"] for dn, r in f32_12["w4"].items()}},
+        "max_abs_err_m4": max(r["worst"][0] for r in f32_12["k4"].values()),
+        "m4_bf16": {f"[4,{k[0]}]x[{k[0]},{'|'.join(map(str, k[1]))}]->{k[2]}":
+                    {n: r[n] for n in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")}
+                    for k, r in f32_12["k4"]["bfloat16"]["timing"].items()},
         "ptxas": k4_ptxas,
     })
     for name, p in paged.items():
         r, f = p["run"], p["full"]
+        third = ("" if f is None else
+                 f"; over the third run's {f['launches']} launches K3 "
+                 f"{f['ms'] / f['steps']:.3f} ms per step against a bound of "
+                 f"{f['bound_ms'] / f['steps']:.5f} ms and a plain "
+                 f"{f['plain_ms'] / f['steps']:.3f} ms")
         log(f"paged engine, {name} pool: {p['tps']:.1f} tok/s, TTFT median "
             f"{statistics.median(r['ttft']):.3f} s max {r['ttft'][-1]:.3f} s, K3 "
-            f"{r['k3_ms'] / r['steps']:.3f} ms per decode step; over the third run's "
-            f"{f['launches']} launches K3 {f['ms'] / f['steps']:.3f} ms per step against a "
-            f"bound of {f['bound_ms'] / f['steps']:.5f} ms and a plain "
-            f"{f['plain_ms'] / f['steps']:.3f} ms; pool {p['pool_bytes'] / 1e6:.1f} MB, "
-            f"peak {r['peak']:.2f} GiB")
+            f"{r['k3_ms'] / r['steps']:.3f} ms per decode step{third}; pool "
+            f"{p['pool_bytes'] / 1e6:.1f} MB, peak {r['peak']:.2f} GiB")
+    slot, paged_s = slot12["res"]["slot"], slot12["res"]["paged"]
+    log(f"12: the beam step (bf16 7B, K {BEAM_K}) {beam12['graph_ms']:.3f} ms in the graph, "
+        f"{beam12['eager_ms']:.3f} ms eager, bound {beam12['bound_ms']:.3f} ms; the lane beside "
+        f"2 paged requests {lane12['wall_lane']:.3f} s ({lane12['wall_plain']:.3f} s without); "
+        f"mixed workload BatchEngine {slot['tps']:.1f} tok/s, PagedEngine {paged_s['tps']:.1f} "
+        f"tok/s, {slot12['same']} of 6 requests with the same ids")
     log("kernel line: flash_attention_fwd per warm 30 s generate: ms = the 60 launches' device "
         "time inside generate #2 (CUDA events around each launch); plain_ms, library_ms = the "
         "plain version and SDPA timed on each launch's captured inputs, summed; bound_ms = "
@@ -4256,7 +4856,15 @@ def main() -> int:
         "the redesigned routes; their device times per shape are 7a's, 8a's and 10b's log "
         "lines. ptxas (flash_attention_a8, its prelude, w8a16_matmul): the same "
         "for K8's body, the prelude's three kernels and K4's layout-0 kernels; 10a and 11a "
-        "log their times per shape.")
+        "log their times per shape. launches_phase12 (flash_attention_fwd, "
+        "w4a16_matmul, w4_suffix_a/b, w8a16_matmul): each kernel's launches on phase 12's "
+        "paths, each counted from 0 just before the path and read just after (K2: two "
+        "api.generate(num_beams=4) calls and the BatchEngine run of 12c; K5, K6, K4: the int4 "
+        "LM on BatchEngine at 4 rows, 12d, and the int8 LM's beam at K = 4 in f32, 12d, its "
+        "warm-up step's launches and the replays'); max_abs_err_m4: the largest |y - plain| "
+        "of those launches at m = 4, re-run on their captured inputs; m4_bf16: the bf16 "
+        "2 + 2-layer model's (7B layer shapes) launches at m = 4 timed with the wrapper (ms), "
+        "as device time (graph_ms / device_ms), the plain version and the bound.")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")

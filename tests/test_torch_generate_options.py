@@ -160,8 +160,8 @@ def test_ragged_prompt_len_refuses_stops_and_logprobs(models):
     for kw in (dict(stop_sequences=((1, 2),)), dict(return_logprobs=True)):
         with pytest.raises(ValueError, match="ragged"):
             tgen.generate(model, cfg, ids, prompt_len=ragged, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.generate(model, cfg, ids, prompt_len=ragged)
+    out = tgen.generate(model, cfg, ids, prompt_len=ragged, max_new_tokens=3)   # now ported
+    assert out.tokens.shape == (2, 3)
     with pytest.raises(ValueError, match="batch 1"):
         next(tgen.generate_stream(model, cfg, ids))
 

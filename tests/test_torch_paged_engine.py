@@ -26,6 +26,7 @@ from audio_flamingo_tpu_torch.io.convert import params_from_jax
 from audio_flamingo_tpu_torch.models import af3
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
 from audio_flamingo_tpu_torch.runtime import generate as tgen
+from audio_flamingo_tpu_torch.runtime.beam_lane import BeamRequest
 from audio_flamingo_tpu_torch.runtime.engine import Request
 from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
 from audio_flamingo_tpu_torch.utils.metrics import MetricsLogger
@@ -300,8 +301,9 @@ def test_unported_options_and_the_device_rule(model_b, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PagedEngine(model=model, cfg=cfg, device="cpu", draft_params=object())
     eng = PagedEngine(model=model, cfg=cfg, device="cpu", **PREFIX)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit_beam(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):   # the AF1/AF2 lane
+        eng.submit_beam(BeamRequest(request_id="b", ids=np.zeros((1, 4), np.int32),
+                                    window_embeds=np.zeros((1, 1, 4, 16), np.float32)))
     with pytest.raises(ValueError, match="capacity"):
         eng.submit(Request(request_id="x", ids=np.zeros((1, 40), np.int32)))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
