@@ -1,7 +1,7 @@
 """Top-level user API of the port: load a model, run waveform -> text, multi-turn chat.
 
 Mirrors ``audio_flamingo_tpu/api.py`` (``AudioFlamingo.generate``, ``from_random``,
-``load``). Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
+``load``, ``load_draft``). Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 card and no explicit device they raise instead of running on the CPU. Weights are made
 on the target device in the compute dtype.
 """
@@ -17,8 +17,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.config import (NOT_PORTED, AF3Config, Qwen2Config,
-                                             WhisperEncoderConfig, bucket_tokens)
+from audio_flamingo_tpu_torch.config import (AF3Config, Qwen2Config, WhisperEncoderConfig,
+                                             bucket_tokens)
 from audio_flamingo_tpu_torch.device import resolve_device
 from audio_flamingo_tpu_torch.models import af3, qwen2, whisper_encoder
 from audio_flamingo_tpu_torch.ops.quant import quantize_encoder_params, quantize_lm_params
@@ -26,6 +26,7 @@ from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
 from audio_flamingo_tpu_torch.runtime import beam
 from audio_flamingo_tpu_torch.runtime import generate as gen
+from audio_flamingo_tpu_torch.runtime import speculative
 from audio_flamingo_tpu_torch.runtime.processor import AUDIO_TOKEN, AF3Processor
 from audio_flamingo_tpu_torch.runtime.tokenizer import BBPETokenizer, train_bpe
 
@@ -40,6 +41,12 @@ class AudioFlamingo:
     history: list = field(default_factory=list)
     last_output: gen.GenerateOutput | None = None   # ids, prefill logits and timings
     last_processor_s: float | None = None   # the last generate's processor, device-synced
+    # an optional speculative draft: a small Qwen2 / QuantQwen2 LM on the model's device
+    # sharing the tokenizer (``load_draft``), its config and the proposals a round
+    draft: object = None
+    draft_cfg: Qwen2Config | None = None
+    spec_k: int = 4
+    last_spec: speculative.SpecOutput | None = None   # the last speculative run's stats
 
     THINK_INSTRUCTION = ("Please think and reason about the input audio before you "
                          "respond. Put your thoughts between <think> and </think>, then "
@@ -52,7 +59,7 @@ class AudioFlamingo:
     def with_config(self, cfg: AF3Config) -> "AudioFlamingo":
         """The same weights under another config (e.g. the flash switches flipped)."""
         return dataclasses.replace(self, cfg=cfg, history=[], last_output=None,
-                                   last_processor_s=None)
+                                   last_processor_s=None, last_spec=None)
 
     def generate(self, sound: np.ndarray | list[np.ndarray] | None = None,
                  prompt: str = "Describe the audio.", *, max_new_tokens: int = 256,
@@ -74,7 +81,13 @@ class AudioFlamingo:
         ``_beam_search``) on the exact prompt with ``length_penalty``, ``early_stopping``
         and ``sampling.min_new_tokens``, and answers with the best beam up to its first
         EOS (``last_output`` is None then); it does not stream. With num_beams == 1 the
-        two beam options are ignored, as in JAX."""
+        two beam options are ignored, as in JAX.
+
+        With a ``draft`` attached, batch 1 and no repetition penalty, generate speculates
+        (``runtime/speculative.generate_speculative``, ``spec_k`` proposals a round; greedy
+        output equals the plain path's, sampled output has its law) on the exact-length
+        prompt, as JAX routes it; ``last_spec`` keeps the run's acceptance and timings
+        (``last_output`` is None then)."""
         if num_beams > 1 and stream:
             raise ValueError("streaming and beam search are mutually exclusive")
         audios = None
@@ -111,6 +124,17 @@ class AudioFlamingo:
                 self.model, self.cfg, ids, batch["mels"], max_new_tokens=max_new_tokens,
                 eos_token_id=self.eos_token_id, sampling=sampling,
                 generator=torch.Generator(device=self.device).manual_seed(seed))
+
+        if (self.draft is not None and ids.shape[0] == 1
+                and sampling.repetition_penalty == 1.0):
+            # the exact-length prompt: the speculative loop has no prompt_len
+            out = speculative.generate_speculative(
+                self.model, self.cfg, self.draft, self.draft_cfg, ids, batch["mels"],
+                k=self.spec_k, max_new_tokens=max_new_tokens, eos_token_id=self.eos_token_id,
+                sampling=sampling, generator=torch.Generator(device=self.device).manual_seed(seed))
+            self.last_output, self.last_spec = None, out
+            return self._answer(out.tokens[0, : int(out.lengths[0])].tolist(), text, audios,
+                                chat)
 
         # right-pad the prompt with EOS to its token bucket: one prefill shape per bucket
         t = ids.shape[1]
@@ -280,7 +304,46 @@ def load(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, *,
                                          device=device)
 
 
-def load_draft(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, **kwargs):
-    """Speculative-decoding draft loader of the JAX API (api.load_draft)."""
-    raise NotImplementedError(NOT_PORTED.format("speculative decoding",
-                                                 "speculative decoding"))
+def draft_config_from_hf(raw: dict) -> Qwen2Config:
+    """A plain Qwen2 config.json (or its ``text_config``) -> Qwen2Config, as JAX's
+    ``load_draft`` reads it: an untied checkpoint that omits ``tie_word_embeddings`` keeps
+    its lm_head (HF's default is False)."""
+    txt = raw.get("text_config", raw)
+    return Qwen2Config(
+        vocab_size=txt.get("vocab_size", 151_936),
+        hidden_size=txt["hidden_size"],
+        intermediate_size=txt["intermediate_size"],
+        num_layers=txt["num_hidden_layers"],
+        num_heads=txt["num_attention_heads"],
+        num_kv_heads=txt.get("num_key_value_heads", txt["num_attention_heads"]),
+        rope_theta=txt.get("rope_theta", 1e6),
+        tie_word_embeddings=txt.get("tie_word_embeddings", False),
+        sliding_window=(txt.get("sliding_window", None)
+                        if txt.get("use_sliding_window", False) else None),
+        max_window_layers=txt.get("max_window_layers", 0),
+    )
+
+
+def load_draft(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, *,
+               quantize: bool = False, device: torch.device | str | None = None):
+    """Load a plain Qwen2 CausalLM checkpoint directory (config.json + safetensors) as a
+    speculative draft (JAX ``api.load_draft`` :421). The draft must share the target's
+    tokenizer (e.g. Qwen2.5-0.5B beside the AF3 7B backbone): only token ids reach it.
+    Returns (draft, draft_cfg) for ``AudioFlamingo(draft=..., draft_cfg=...)`` or an
+    engine's ``draft_params=`` / ``draft_cfg=``. quantize=True stores it w8a16
+    (``ops/quant.quantize_lm_params``, from the checkpoint's f32 values on ``device``)."""
+    from audio_flamingo_tpu_torch.io.convert import qwen2_state_from_hf
+    from audio_flamingo_tpu_torch.io.safetensors import load_checkpoint_dir
+
+    device = resolve_device(device)
+    with open(os.path.join(model_path, "config.json")) as f:
+        cfg = draft_config_from_hf(json.load(f))
+    state = qwen2_state_from_hf(load_checkpoint_dir(model_path), cfg)
+    if quantize:
+        tree = quantize_lm_params({k: v.float().to(device) for k, v in state.items()})
+        return qwen2.quantized_lm(tree, compute_dtype, device), cfg
+    with torch.device("meta"):
+        lm = qwen2.Qwen2(cfg, dtype=compute_dtype)
+    lm = lm.to_empty(device=device)
+    lm.load_state_dict({k: v.to(compute_dtype) for k, v in state.items()})
+    return lm.eval().requires_grad_(False), cfg

@@ -81,6 +81,16 @@ class Qwen2Config:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.hidden_size // self.num_heads
 
+    @staticmethod
+    def qwen25_7b() -> "Qwen2Config":
+        return Qwen2Config()
+
+    @staticmethod
+    def qwen25_0_5b() -> "Qwen2Config":
+        """Qwen2.5-0.5B, the speculative draft of the 7B (same tokenizer; 128 fewer rows)."""
+        return Qwen2Config(vocab_size=151_936, hidden_size=896, intermediate_size=4864,
+                           num_layers=24, num_heads=14, num_kv_heads=2, tie_word_embeddings=True)
+
 
 @dataclass(frozen=True)
 class AF3Config:

@@ -1,12 +1,16 @@
-// Paged-attention decode (one query token per row) for Hopper (sm_90a), plain C interface
-// bound with ctypes.
+// Paged-attention decode (one query token per row, or the S tokens of a speculative verify
+// folded into the group axis) for Hopper (sm_90a), plain C interface bound with ctypes.
 //
 // Replaces the Pallas TPU kernel audio_flamingo_tpu/ops/pallas/paged_attention.py
 // (`paged_attention`, kernel `_paged_kernel`): GQA decode attention for one layer with
 // K/V read through a block table from the layer-stacked page pool, f32 or bf16 queries,
 // pools in the query's dtype, bf16, or int8 with f32 per-token scales. It returns the
 // UNNORMALIZED online-softmax triple (o [B, nkv, g, hd], m, l [B, nkv, g], all f32); the
-// caller folds the current token in (`merge_current_token`) and normalizes.
+// caller folds the current token in (`merge_current_token`) and normalizes. A speculative
+// verify (runtime/paged_cache.paged_verify_step, as the JAX one) folds its S = k + 1 fresh
+// queries into the group axis: g' = S g query rows a KV head (35 at k = 4 on Qwen2.5-7B),
+// every one attending the same past (`lengths[b]` keys); the block's own triangle is merged
+// outside the kernel (`merge_block_tokens`).
 //
 // Layout: q [B, nkv, g, hd] contiguous; pools [L, NB, BS, nkv, hd] contiguous, the layer
 // chosen inside the kernel by a pointer offset (the stacked pool is never sliced or
@@ -53,6 +57,19 @@
 //      part's weight computed once. No float atomics, so a replay is bit-identical
 //      whichever block comes last. A row with len = 0 gets its empty triple from its
 //      part 0 block; parts past a row's pages return at once.
+// Groups: the kernels are templates over kT head tiles of 8 query rows. g <= 8 takes
+// kT = 1, the decode kernels as they were; 8 < g <= 64 (kMaxG) takes kT = 8, the same two
+// launches reading each live page's K and V once for all g rows: the score pass stages q
+// (bf16, in shared memory) and runs one mma per head tile on the same K fragments, the V
+// pass one mma per head tile on the same V^T fragments; on the CUDA cores the score pass
+// loops over head tiles of 8 (part[8] in registers) and the V pass gives thread (column
+// pair, tile group) the tiles ph and ph + 4 over all 64 keys of a step (no key phases),
+// so no accumulator array outgrows its registers. At g' = 35 a call does about 35 flops a
+// byte of bf16 K and V: still the bytes' side of the ridge. The score stage of kT = 8
+// holds K rows only (the V pass's stage also holds the step's scores [64][64]). kT = 8
+// launched at g = 7 took 1.4-2.5x kT = 1's device time on 8a's mixed rows (its V-pass
+// stage holds 64 score columns, so fewer blocks fit an SM; scripts/torch_k3_k9_times.py
+// --tiles, NVIDIA H100 80GB HBM3 at 700 W), so g <= 8 keeps the one-tile kernels.
 // Shared memory a block: bf16 pool on the tensor cores, score_kernel 3 x 19,712 + 4,352 =
 // 63,488 bytes and attend_kernel 3 x 19,712 + 2,048 + 32 (pages_per_part + 1) + 256,
 // about 62 KB (3 blocks an SM); int8 pool 3 x 14,592 + .. (3-4 an SM); f32 pool 3 x
@@ -87,7 +104,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHD = 128;      // head dim the kernel takes
-constexpr int kMaxG = 8;      // query heads per KV head
+constexpr int kMaxG = 64;     // query rows per KV head (decode heads, or verify tokens x heads)
+constexpr int kTile = 8;      // query rows a head tile
 constexpr int kC = 64;        // keys a ring step
 constexpr int kStages = 3;    // ring slots
 constexpr int kPad = 64;      // row padding: a row stride of 64 mod 128 bytes keeps the
@@ -159,23 +177,40 @@ template <typename TQ, typename TKV> __host__ __device__ constexpr int row_bytes
 }
 
 // One ring slot: 64 rows of K (pass 1) or V (pass 2), then (pass 2) the step's scores
-// [64][g], then the step's int8 scales [64].
-template <typename TQ, typename TKV> __host__ __device__ constexpr int stage_bytes() {
-  return kC * row_bytes<TQ, TKV>() + kC * kMaxG * 4 + kC * 4;
+// [64][8 kT], then the step's int8 scales [64]. kT head tiles of 8 query rows.
+template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int stage_bytes() {
+  return kC * row_bytes<TQ, TKV>() + kC * kTile * kT * 4 + kC * 4;
 }
-template <typename TQ, typename TKV> __host__ __device__ constexpr int stage_scores() {
+template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int stage_scores() {
   return kC * row_bytes<TQ, TKV>();
 }
-template <typename TQ, typename TKV> __host__ __device__ constexpr int stage_scales() {
-  return kC * row_bytes<TQ, TKV>() + kC * kMaxG * 4;
+template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int stage_scales() {
+  return kC * row_bytes<TQ, TKV>() + kC * kTile * kT * 4;
 }
+// The score pass's slot: kT = 1 keeps the V pass's layout (the decode kernel as it was);
+// kT = 8 holds K rows and scales only.
+template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int kstage_bytes() {
+  return kT == 1 ? stage_bytes<TQ, TKV, kT>() : kC * row_bytes<TQ, TKV>() + kC * 4;
+}
+template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int kstage_scales() {
+  return kT == 1 ? stage_scales<TQ, TKV, kT>() : kC * row_bytes<TQ, TKV>();
+}
+constexpr int kQRow = kHD + 8;   // staged bf16 q row (kT > 1): B fragments hit 32 banks
 
-template <typename TQ, typename TKV> size_t score_smem() {
-  return (size_t)kStages * stage_bytes<TQ, TKV>() + (kMaxG * kHD + kWarps * kMaxG) * 4;
+// q as the score pass holds it: f32 rows (CUDA cores), bf16 rows of kQRow (tensor cores,
+// kT > 1), nothing (tensor cores, kT = 1: registers); then the warps' page maxima.
+template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr size_t q_smem() {
+  return kMma<TQ, TKV> ? (kT == 1 ? (size_t)kTile * kHD * 4 : (size_t)kTile * kT * kQRow * 2)
+                       : (size_t)kTile * kT * kHD * 4;
 }
-template <typename TQ, typename TKV> size_t attend_smem(int pages_per_part) {
-  return (size_t)kStages * stage_bytes<TQ, TKV>() + kC * kMaxG * 4 +
-         (size_t)(pages_per_part + 1) * kMaxG * 4 + kWarps * kMaxG * 4;
+template <typename TQ, typename TKV, int kT> size_t score_smem() {
+  return (size_t)kStages * kstage_bytes<TQ, TKV, kT>() + q_smem<TQ, TKV, kT>() +
+         (size_t)kWarps * kTile * kT * 4;
+}
+template <typename TQ, typename TKV, int kT> size_t attend_smem(int pages_per_part) {
+  constexpr int kG = kTile * kT;
+  return (size_t)kStages * stage_bytes<TQ, TKV, kT>() + kC * kG * 4 +
+         (size_t)(pages_per_part + 1) * kG * 4 + kWarps * kG * 4;
 }
 
 // One layer's operands as the kernels read them.
@@ -206,10 +241,10 @@ __device__ __forceinline__ int row_pages(int len, int BS, int MP) {
 }
 
 // Step c (keys c * 64 ..) of page `page` of head kvh: its 64 rows of `pool` by 16-byte
-// cp.async copies (rows past BS zero-filled) and, with scales, the rows' int8 scales
-// (past BS: 0). All threads take part; the caller commits.
+// cp.async copies (rows past BS zero-filled) and, with scales, the rows' int8 scales at
+// byte `scales_at` of the slot (past BS: 0). All threads take part; the caller commits.
 template <typename TQ, typename TKV, bool kQuant>
-__device__ __forceinline__ void stage_rows(unsigned char* slot, const TKV* pool,
+__device__ __forceinline__ void stage_rows(unsigned char* slot, int scales_at, const TKV* pool,
                                            const float* scales, int page, int c, int BS,
                                            int nkv, int kvh) {
   constexpr int kRow = row_bytes<TQ, TKV>();
@@ -224,7 +259,7 @@ __device__ __forceinline__ void stage_rows(unsigned char* slot, const TKV* pool,
   }
   if (kQuant && threadIdx.x < kC) {
     const int kt = c * kC + threadIdx.x;
-    float* dst = reinterpret_cast<float*>(slot + stage_scales<TQ, TKV>()) + threadIdx.x;
+    float* dst = reinterpret_cast<float*>(slot + scales_at) + threadIdx.x;
     if (kt < BS)
       cp_async4(dst, scales + (row0 + kt) * nkv + kvh, true);
     else
@@ -232,28 +267,32 @@ __device__ __forceinline__ void stage_rows(unsigned char* slot, const TKV* pool,
   }
 }
 
-// Pass 1: the scores of one page of one (row, kv head) and the page's max per head.
-template <typename TQ, typename TKV, bool kQuant>
+// Pass 1: the scores of one page of one (row, kv head) and the page's max per query row.
+template <typename TQ, typename TKV, bool kQuant, int kT>
 __global__ void __launch_bounds__(kThreads)
 score_kernel(Layer<TQ, TKV> a, Scratch sc) {
   constexpr int kRow = row_bytes<TQ, TKV>();
   constexpr int kE = 16 / (int)sizeof(TKV);                 // values in 16 bytes
   constexpr int kN = kHD * (int)sizeof(TKV) / 16 / 4;       // 16-byte reads a quarter
+  constexpr int kG = kTile * kT;                            // query rows the block can hold
+  constexpr int kSlot = kstage_bytes<TQ, TKV, kT>();
   extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + kStages * stage_bytes<TQ, TKV>());   // [8][128]
-  float* red = qs + kMaxG * kHD;                                               // [8 warps][8]
+  float* qs = reinterpret_cast<float*>(smem + kStages * kSlot);                  // q_smem
+  float* red = reinterpret_cast<float*>(smem + kStages * kSlot + q_smem<TQ, TKV, kT>());
+  __nv_bfloat16* qsb = reinterpret_cast<__nv_bfloat16*>(qs);   // [kG][kQRow] (kT > 1)
   const int j = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = a.lengths[b];
   const int entry = a.tables[(size_t)b * a.MP + j];   // read beside the length
   if (j >= row_pages(len, a.BS, a.MP)) return;
   const int g = a.g, nc = a.nc;
+  const int nt = (g + kTile - 1) / kTile;             // head tiles in use
   const int page = max(entry, 0);
   const size_t bk = (size_t)b * a.nkv + kvh;
 
   auto fetch = [&](int c) {
-    stage_rows<TQ, TKV, kQuant>(smem + (c % kStages) * stage_bytes<TQ, TKV>(), a.k, a.ks, page, c,
-                            a.BS, a.nkv, kvh);
+    stage_rows<TQ, TKV, kQuant>(smem + (c % kStages) * kSlot, kstage_scales<TQ, TKV, kT>(), a.k,
+                                a.ks, page, c, a.BS, a.nkv, kvh);
   };
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -261,10 +300,11 @@ score_kernel(Layer<TQ, TKV> a, Scratch sc) {
     cp_async_commit();
   }
   const TQ* qb = a.q + bk * g * kHD;
-  // tensor cores: q as the B fragments of S = K q^T, 8 k-steps of 16 dims (head = lane / 4,
-  // zero past g); CUDA cores: q in f32 in shared memory
+  // tensor cores, kT = 1: q as the B fragments of S = K q^T, 8 k-steps of 16 dims (head =
+  // lane / 4, zero past g), in registers; kT > 1: q in bf16 rows in shared memory, each
+  // head tile's fragments read there; CUDA cores: q in f32 in shared memory
   uint32_t qf[kHD / 16][2];
-  if constexpr (kMma<TQ, TKV>) {
+  if constexpr (kMma<TQ, TKV> && kT == 1) {
     const int gq = lane >> 2, tq = lane & 3;
     const uint32_t* qrow = reinterpret_cast<const uint32_t*>(qb + min(gq, g - 1) * kHD);
 #pragma unroll
@@ -272,116 +312,149 @@ score_kernel(Layer<TQ, TKV> a, Scratch sc) {
       qf[kk][0] = gq < g ? qrow[8 * kk + tq] : 0u;
       qf[kk][1] = gq < g ? qrow[8 * kk + tq + 4] : 0u;
     }
+  } else if constexpr (kMma<TQ, TKV>) {
+    const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qb);
+    for (int i = tid; i < kG * kHD / 2; i += kThreads) {
+      const int h = i / (kHD / 2);
+      reinterpret_cast<uint32_t*>(qsb + h * kQRow)[i % (kHD / 2)] = h < g ? q32[i] : 0u;
+    }
   } else {
-    for (int i = tid; i < kMaxG * kHD; i += kThreads)
+    for (int i = tid; i < kG * kHD; i += kThreads)
       qs[i] = i < g * kHD ? to_f32(qb[i]) : 0.f;
   }
 
   const int t = tid >> 2, qd = tid & 3;
-  float pm = kNegInf;   // thread gi < g: the page's running max of head gi
+  float pm = kNegInf;   // thread gi < g: the page's running max of query row gi
   for (int c = 0; c < nc; ++c) {
     cp_async_wait<kStages - 2>();
     __syncthreads();   // step c has landed for every thread; step c - 1's slot is free
     if (c + kStages - 1 < nc) fetch(c + kStages - 1);
     cp_async_commit();
-    const unsigned char* slot = smem + (c % kStages) * stage_bytes<TQ, TKV>();
+    const unsigned char* slot = smem + (c % kStages) * kSlot;
     if constexpr (kMma<TQ, TKV>) {
-      // warp w < 4 scores keys 16 w .. 16 w + 15 of the step: C [16 keys x 8 heads]
+      // warp w < 4 scores keys 16 w .. 16 w + 15 of the step: C [16 keys x 8 rows] a tile
       if (warp < kC / 16) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        const int gq = lane >> 2, tq = lane & 3;
+        float acc[kT][4];
+#pragma unroll
+        for (int tt = 0; tt < kT; ++tt) acc[tt][0] = acc[tt][1] = acc[tt][2] = acc[tt][3] = 0.f;
         const unsigned char* arow = slot + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow
                                     + (lane >> 4) * 16;
 #pragma unroll
         for (int kk = 0; kk < kHD / 16; ++kk) {
           uint32_t af[4];
           ldmatrix_x4(af, arow + 32 * kk);
-          mma_bf16(acc, af, qf[kk][0], qf[kk][1]);
-        }
-        const int gq = lane >> 2, tq = lane & 3;
-        float mx[2] = {kNegInf, kNegInf};
+          if constexpr (kT == 1) {
+            mma_bf16(acc[0], af, qf[kk][0], qf[kk][1]);
+          } else {
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int tk = 16 * warp + gq + 8 * half;
-          const int kt = c * kC + tk;
-          const bool live = kt < a.BS && j * a.BS + kt < len;
-          float* out = sc.scores + (((bk * a.MP + j) * nc + c) * kC + tk) * g;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float s = live ? acc[2 * half + e] * a.scale : kNegInf;
-            if (2 * tq + e < g) out[2 * tq + e] = s;
-            mx[e] = fmaxf(mx[e], s);
+            for (int tt = 0; tt < kT; ++tt) {   // the same K fragments for every head tile
+              if (tt < nt) {
+                const uint32_t* qrow =
+                    reinterpret_cast<const uint32_t*>(qsb + (kTile * tt + gq) * kQRow) + 8 * kk + tq;
+                mma_bf16(acc[tt], af, qrow[0], qrow[4]);
+              }
+            }
           }
         }
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {   // over the warp's 16 keys
-          mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 4));
-          mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 8));
-          mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 16));
-          if (lane < 4) red[warp * kMaxG + 2 * tq + e] = mx[e];
+        for (int tt = 0; tt < kT; ++tt) {
+          if (tt < nt) {
+            float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int tk = 16 * warp + gq + 8 * half;
+              const int kt = c * kC + tk;
+              const bool live = kt < a.BS && j * a.BS + kt < len;
+              float* out = sc.scores + (((bk * a.MP + j) * nc + c) * kC + tk) * g;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int h = kTile * tt + 2 * tq + e;
+                const float s = live ? acc[tt][2 * half + e] * a.scale : kNegInf;
+                if (h < g) out[h] = s;
+                mx[e] = fmaxf(mx[e], s);
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {   // over the warp's 16 keys
+              mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 4));
+              mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 8));
+              mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 16));
+              if (lane < 4) red[warp * kG + kTile * tt + 2 * tq + e] = mx[e];
+            }
+          }
         }
       }
       __syncthreads();
       if (tid < g) {
 #pragma unroll
-        for (int w = 0; w < kC / 16; ++w) pm = fmaxf(pm, red[w * kMaxG + tid]);
+        for (int w = 0; w < kC / 16; ++w) pm = fmaxf(pm, red[w * kG + tid]);
       }
       continue;
     }
     const int kt = c * kC + t;
-    float part[kMaxG];
+    const bool live = kt < a.BS && j * a.BS + kt < len;
+    const float ksc = kQuant ? reinterpret_cast<const float*>(slot + kstage_scales<TQ, TKV, kT>())[t]
+                             : 1.f;
+    float* out = sc.scores + (((bk * a.MP + j) * nc + c) * kC + t) * g;
+    // a head tile of 8 query rows at a time: 8 partial dots in registers
+#pragma unroll 1
+    for (int tt = 0; tt < kT; ++tt) {
+      if (tt >= nt) break;
+      const int h0 = kTile * tt;
+      float part[kTile];
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) part[gi] = 0.f;
-    if (kt < a.BS) {
-      const unsigned char* row = slot + t * kRow;
+      for (int gi = 0; gi < kTile; ++gi) part[gi] = 0.f;
+      if (kt < a.BS) {
+        const unsigned char* row = slot + t * kRow;
 #pragma unroll
-      for (int i = 0; i < kN; ++i) {
-        const int ch = qd + 4 * i;   // interleaved 16-byte chunks of the row
-        float kf[kE];
-        unpack16(*reinterpret_cast<const uint4*>(row + 16 * ch), kf, TKV());
+        for (int i = 0; i < kN; ++i) {
+          const int ch = qd + 4 * i;   // interleaved 16-byte chunks of the row
+          float kf[kE];
+          unpack16(*reinterpret_cast<const uint4*>(row + 16 * ch), kf, TKV());
 #pragma unroll
-        for (int gi = 0; gi < kMaxG; ++gi) {
-          if (gi < g) {
+          for (int gi = 0; gi < kTile; ++gi) {
+            if (h0 + gi < g) {
 #pragma unroll
-            for (int e = 0; e < kE; e += 4) {
-              const float4 qv = *reinterpret_cast<const float4*>(qs + gi * kHD + ch * kE + e);
-              part[gi] = fmaf(qv.x, kf[e], part[gi]);
-              part[gi] = fmaf(qv.y, kf[e + 1], part[gi]);
-              part[gi] = fmaf(qv.z, kf[e + 2], part[gi]);
-              part[gi] = fmaf(qv.w, kf[e + 3], part[gi]);
+              for (int e = 0; e < kE; e += 4) {
+                const float4 qv =
+                    *reinterpret_cast<const float4*>(qs + (h0 + gi) * kHD + ch * kE + e);
+                part[gi] = fmaf(qv.x, kf[e], part[gi]);
+                part[gi] = fmaf(qv.y, kf[e + 1], part[gi]);
+                part[gi] = fmaf(qv.z, kf[e + 2], part[gi]);
+                part[gi] = fmaf(qv.w, kf[e + 3], part[gi]);
+              }
             }
           }
         }
       }
-    }
-    const bool live = kt < a.BS && j * a.BS + kt < len;
-    const float ksc = kQuant ? reinterpret_cast<const float*>(slot + stage_scales<TQ, TKV>())[t] : 1.f;
-    float* out = sc.scores + (((bk * a.MP + j) * nc + c) * kC + t) * g;
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
-      if (gi < g) {   // the quarters meet: (q0 + q1) + (q2 + q3) in every lane of the quad
-        float s = part[gi] + __shfl_xor_sync(0xffffffffu, part[gi], 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        s *= a.scale;
-        if (kQuant) s *= ksc;
-        part[gi] = live ? s : kNegInf;
-        if ((gi & 3) == qd) out[gi] = part[gi];
+      for (int gi = 0; gi < kTile; ++gi) {
+        if (h0 + gi < g) {   // the quarters meet: (q0 + q1) + (q2 + q3) in every lane of the quad
+          float s = part[gi] + __shfl_xor_sync(0xffffffffu, part[gi], 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          s *= a.scale;
+          if (kQuant) s *= ksc;
+          part[gi] = live ? s : kNegInf;
+          if ((gi & 3) == qd) out[h0 + gi] = part[gi];
+        }
       }
-    }
-    // the page max per head: over the warp's 8 keys, then (below) over the 8 warps
+      // the page max per row: over the warp's 8 keys, then (below) over the 8 warps
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
-      if (gi < g) {
-        float mx = part[gi];
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-        if (lane == 0) red[warp * kMaxG + gi] = mx;
+      for (int gi = 0; gi < kTile; ++gi) {
+        if (h0 + gi < g) {
+          float mx = part[gi];
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+          if (lane == 0) red[warp * kG + h0 + gi] = mx;
+        }
       }
     }
     __syncthreads();
     if (tid < g) {
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) pm = fmaxf(pm, red[w * kMaxG + tid]);
+      for (int w = 0; w < kWarps; ++w) pm = fmaxf(pm, red[w * kG + tid]);
     }
   }
   if (tid < g) sc.pmax[(bk * a.MP + j) * g + tid] = pm;
@@ -389,18 +462,24 @@ score_kernel(Layer<TQ, TKV> a, Scratch sc) {
 
 // Pass 2: the online softmax over one part's pages from the scores and V, then the
 // part's triple (or the output), and the merge of the parts by the last one to finish.
-template <typename TQ, typename TKV, bool kQuant>
+template <typename TQ, typename TKV, bool kQuant, int kT>
 __global__ void __launch_bounds__(kThreads)
 attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict__ tickets,
               float* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out) {
   constexpr int kRow = row_bytes<TQ, TKV>();
+  constexpr int kG = kTile * kT;
+  constexpr int kSlot = stage_bytes<TQ, TKV, kT>();
+  // accumulators: tensor cores [head tile][column half][2]; CUDA cores, kT = 1: [row][2]
+  // over every 4th key; kT > 1: [tile ph, ph + 4][row][2] over every key
+  constexpr int kAcc = kMma<TQ, TKV> ? kT : (kT == 1 ? 1 : 2);
   extern __shared__ __align__(128) unsigned char smem[];
-  float* pr = reinterpret_cast<float*>(smem + kStages * stage_bytes<TQ, TKV>());   // [64][8]
-  float* pm = pr + kC * kMaxG;                              // [pages_per_part + 1][8]
-  float* lred = pm + (pages_per_part + 1) * kMaxG;          // [8 warps][8]
+  float* pr = reinterpret_cast<float*>(smem + kStages * kSlot);   // [64][kG]
+  float* pm = pr + kC * kG;                                   // [pages_per_part + 1][kG]
+  float* lred = pm + (pages_per_part + 1) * kG;               // [8 warps][kG]
   const int part = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, parts = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = a.g, nc = a.nc;
+  const int nt = (g + kTile - 1) / kTile;
   const size_t bk = (size_t)b * a.nkv + kvh;
   const int n_pages = row_pages(a.lengths[b], a.BS, a.MP);
   const int live_parts = (n_pages + pages_per_part - 1) / pages_per_part;
@@ -420,12 +499,12 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
   const int* table = a.tables + (size_t)b * a.MP;
 
   auto fetch = [&](int q) {   // ring step q: page j0 + q / nc, keys (q % nc) * 64 ..
-    unsigned char* slot = smem + (q % kStages) * stage_bytes<TQ, TKV>();
-    stage_rows<TQ, TKV, kQuant>(slot, a.v, a.vs, max(table[j0 + q / nc], 0), q % nc, a.BS,
-                                a.nkv, kvh);
+    unsigned char* slot = smem + (q % kStages) * kSlot;
+    stage_rows<TQ, TKV, kQuant>(slot, stage_scales<TQ, TKV, kT>(), a.v, a.vs,
+                                max(table[j0 + q / nc], 0), q % nc, a.BS, a.nkv, kvh);
     const float* src = sc.scores + ((bk * a.MP + j0 + q / nc) * nc + q % nc) * kC * g;
     for (int i = tid; i < kC * g / 4; i += kThreads)
-      cp_async16(slot + stage_scores<TQ, TKV>() + 16 * i, src + 4 * i, true);
+      cp_async16(slot + stage_scores<TQ, TKV, kT>() + 16 * i, src + 4 * i, true);
   };
   const int n = np * nc;
 #pragma unroll
@@ -435,7 +514,7 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
   }
 
   // the running max after each page: pm[0] = max of the maxima before the part,
-  // pm[jj + 1] = max(pm[jj], page j0 + jj's max) (one warp a head, a scan over lanes)
+  // pm[jj + 1] = max(pm[jj], page j0 + jj's max) (one warp a row, a scan over lanes)
   for (int gi = warp; gi < g; gi += kWarps) {
     const float* src = sc.pmax + bk * a.MP * g + gi;
     float mx = kNegInf;
@@ -451,57 +530,69 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
         if (lane >= off) v = fmaxf(v, u);
       }
       v = fmaxf(v, mx);
-      if (jj < np) pm[(jj + 1) * kMaxG + gi] = v;
+      if (jj < np) pm[(jj + 1) * kG + gi] = v;
       mx = __shfl_sync(0xffffffffu, v, 31);
     }
   }
-  for (int i = tid; i < kC * kMaxG; i += kThreads) pr[i] = 0.f;   // heads past g stay 0
-  // tensor cores: p^T in bf16 [8 heads][kPT] in pr's place
+  for (int i = tid; i < kC * kG; i += kThreads) pr[i] = 0.f;   // rows past g stay 0
+  // tensor cores: p^T in bf16 [kG rows][kPT] in pr's place
   __nv_bfloat16* pT = reinterpret_cast<__nv_bfloat16*>(pr);
 
-  const int t = tid >> 2, hq = tid & 3;          // p: key t, heads hq and hq + 4
-  const int cp = tid & 63, ph = tid >> 6;        // P.V: columns 2 cp, 2 cp + 1, keys ph + 4 i
-  float lp[2] = {0.f, 0.f};
-  float acc[kMaxG][2];
+  const int t = tid >> 2, hq = tid & 3;          // p: key t, rows hq + 4 h
+  const int cp = tid & 63, ph = tid >> 6;        // P.V: columns 2 cp, 2 cp + 1; key phase or
+                                                 // tile group ph
+  float lp[2 * kT];
 #pragma unroll
-  for (int gi = 0; gi < kMaxG; ++gi) acc[gi][0] = acc[gi][1] = 0.f;
+  for (int h = 0; h < 2 * kT; ++h) lp[h] = 0.f;
+  float acc[kAcc][kTile][2];
+#pragma unroll
+  for (int u = 0; u < kAcc; ++u)
+#pragma unroll
+    for (int gi = 0; gi < kTile; ++gi) acc[u][gi][0] = acc[u][gi][1] = 0.f;
 
   for (int q = 0; q < n; ++q) {
     cp_async_wait<kStages - 2>();
     __syncthreads();   // step q has landed; step q - 1's slot and p are free
     if (q + kStages - 1 < n) fetch(q + kStages - 1);
     cp_async_commit();
-    const unsigned char* slot = smem + (q % kStages) * stage_bytes<TQ, TKV>();
+    const unsigned char* slot = smem + (q % kStages) * kSlot;
     const int jj = q / nc;
     const bool first = q % nc == 0;   // a page starts: rescale by exp(m_prev - m_new)
-    const float* s_in = reinterpret_cast<const float*>(slot + stage_scores<TQ, TKV>());
-    const float vsc = kQuant ? reinterpret_cast<const float*>(slot + stage_scales<TQ, TKV>())[t] : 1.f;
+    const float* s_in = reinterpret_cast<const float*>(slot + stage_scores<TQ, TKV, kT>());
+    const float vsc =
+        kQuant ? reinterpret_cast<const float*>(slot + stage_scales<TQ, TKV, kT>())[t] : 1.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < 2 * kT; ++h) {
       const int gi = hq + 4 * h;
       if (gi < g) {
-        const float m_new = pm[(jj + 1) * kMaxG + gi];
-        if (first) lp[h] *= expf(pm[jj * kMaxG + gi] - m_new);
+        const float m_new = pm[(jj + 1) * kG + gi];
+        if (first) lp[h] *= expf(pm[jj * kG + gi] - m_new);
         const float p = expf(s_in[t * g + gi] - m_new);
         lp[h] += p;
         if constexpr (kMma<TQ, TKV>)
           pT[gi * kPT + t] = __float2bfloat16(p);
         else
-          pr[t * kMaxG + gi] = round_q<TQ>(kQuant ? p * vsc : p);
+          pr[t * kG + gi] = round_q<TQ>(kQuant ? p * vsc : p);
       }
     }
     __syncthreads();
     if constexpr (kMma<TQ, TKV>) {
-      // warp w: output columns 16 w .. 16 w + 15 x 8 heads, C = V^T p over the step's
-      // 64 keys (4 k-steps; A by ldmatrix.trans from the V rows, B from p^T)
+      // warp w: output columns 16 w .. 16 w + 15 x 8 rows a head tile, C = V^T p over the
+      // step's 64 keys (4 k-steps; A by ldmatrix.trans from the V rows, shared by every
+      // head tile, B from p^T)
       const int gq = lane >> 2, tq = lane & 3;
       if (first) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int h = 2 * tq + e;
-          const float alpha = h < g ? expf(pm[jj * kMaxG + h] - pm[(jj + 1) * kMaxG + h]) : 1.f;
-          acc[0][e] *= alpha;
-          acc[1][e] *= alpha;
+        for (int tt = 0; tt < kT; ++tt) {
+          if (tt < nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int h = kTile * tt + 2 * tq + e;
+              const float alpha = h < g ? expf(pm[jj * kG + h] - pm[(jj + 1) * kG + h]) : 1.f;
+              acc[tt][0][e] *= alpha;
+              acc[tt][1][e] *= alpha;
+            }
+          }
         }
       }
       const unsigned char* vrow = slot + ((lane & 7) + ((lane >> 4) & 1) * 8) * kRow
@@ -510,62 +601,103 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
       for (int kk = 0; kk < kC / 16; ++kk) {
         uint32_t af[4];
         ldmatrix_x4_trans(af, vrow + 16 * kk * kRow);
-        const __nv_bfloat16* pb = pT + gq * kPT + 16 * kk + 2 * tq;
-        float c4[4] = {acc[0][0], acc[0][1], acc[1][0], acc[1][1]};
-        mma_bf16(c4, af, *reinterpret_cast<const uint32_t*>(pb),
-                 *reinterpret_cast<const uint32_t*>(pb + 8));
-        acc[0][0] = c4[0];
-        acc[0][1] = c4[1];
-        acc[1][0] = c4[2];
-        acc[1][1] = c4[3];
+#pragma unroll
+        for (int tt = 0; tt < kT; ++tt) {
+          if (tt < nt) {
+            const __nv_bfloat16* pb = pT + (kTile * tt + gq) * kPT + 16 * kk + 2 * tq;
+            float c4[4] = {acc[tt][0][0], acc[tt][0][1], acc[tt][1][0], acc[tt][1][1]};
+            mma_bf16(c4, af, *reinterpret_cast<const uint32_t*>(pb),
+                     *reinterpret_cast<const uint32_t*>(pb + 8));
+            acc[tt][0][0] = c4[0];
+            acc[tt][0][1] = c4[1];
+            acc[tt][1][0] = c4[2];
+            acc[tt][1][1] = c4[3];
+          }
+        }
       }
       continue;
     }
-    if (first) {
+    const unsigned char* vcol = slot + cp * 2 * (int)sizeof(TKV);
+    if constexpr (kT == 1) {
+      if (first) {
 #pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi) {
-        if (gi < g) {
-          const float alpha = expf(pm[jj * kMaxG + gi] - pm[(jj + 1) * kMaxG + gi]);
-          acc[gi][0] *= alpha;
-          acc[gi][1] *= alpha;
+        for (int gi = 0; gi < kTile; ++gi) {
+          if (gi < g) {
+            const float alpha = expf(pm[jj * kG + gi] - pm[(jj + 1) * kG + gi]);
+            acc[0][gi][0] *= alpha;
+            acc[0][gi][1] *= alpha;
+          }
         }
       }
-    }
-    const unsigned char* vcol = slot + cp * 2 * (int)sizeof(TKV);
 #pragma unroll 4
-    for (int i = 0; i < kC / 4; ++i) {
-      const int tk = ph + 4 * i;
-      const float2 v = unpack2(vcol + tk * kRow, TKV());
-      const float4 p0 = *reinterpret_cast<const float4*>(pr + tk * kMaxG);
-      const float4 p1 = *reinterpret_cast<const float4*>(pr + tk * kMaxG + 4);
-      const float pv[kMaxG] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      for (int i = 0; i < kC / 4; ++i) {
+        const int tk = ph + 4 * i;
+        const float2 v = unpack2(vcol + tk * kRow, TKV());
+        const float4 p0 = *reinterpret_cast<const float4*>(pr + tk * kG);
+        const float4 p1 = *reinterpret_cast<const float4*>(pr + tk * kG + 4);
+        const float pv[kTile] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi) {
-        acc[gi][0] = fmaf(pv[gi], v.x, acc[gi][0]);
-        acc[gi][1] = fmaf(pv[gi], v.y, acc[gi][1]);
+        for (int gi = 0; gi < kTile; ++gi) {
+          acc[0][gi][0] = fmaf(pv[gi], v.x, acc[0][gi][0]);
+          acc[0][gi][1] = fmaf(pv[gi], v.y, acc[0][gi][1]);
+        }
+      }
+    } else {
+      // thread (column pair, group ph): head tiles ph and ph + 4, every key in order
+      if (first) {
+#pragma unroll
+        for (int u = 0; u < kAcc; ++u) {
+          const int h0 = kTile * (ph + 4 * u);
+#pragma unroll
+          for (int gi = 0; gi < kTile; ++gi) {
+            if (h0 + gi < g) {
+              const float alpha = expf(pm[jj * kG + h0 + gi] - pm[(jj + 1) * kG + h0 + gi]);
+              acc[u][gi][0] *= alpha;
+              acc[u][gi][1] *= alpha;
+            }
+          }
+        }
+      }
+#pragma unroll 2
+      for (int tk = 0; tk < kC; ++tk) {
+        const float2 v = unpack2(vcol + tk * kRow, TKV());
+#pragma unroll
+        for (int u = 0; u < kAcc; ++u) {
+          const int tile = ph + 4 * u;
+          if (tile < nt) {
+            const float4 p0 = *reinterpret_cast<const float4*>(pr + tk * kG + kTile * tile);
+            const float4 p1 = *reinterpret_cast<const float4*>(pr + tk * kG + kTile * tile + 4);
+            const float pv[kTile] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+            for (int gi = 0; gi < kTile; ++gi) {
+              acc[u][gi][0] = fmaf(pv[gi], v.x, acc[u][gi][0]);
+              acc[u][gi][1] = fmaf(pv[gi], v.y, acc[u][gi][1]);
+            }
+          }
+        }
       }
     }
   }
   cp_async_wait<0>();
   __syncthreads();   // every step consumed: the ring's slots take the phases' sums
 
-  // the 4 key phases' accumulators (CUDA cores), then l: the threads' partial sums over
-  // the warp's keys (shuffles), then over the warps in order
+  // the 4 key phases' accumulators (CUDA cores, kT = 1), then l: the threads' partial
+  // sums over the warp's keys (shuffles), then over the warps in order
   float* xc = reinterpret_cast<float*>(smem);   // [4][8][128]
-  if constexpr (!kMma<TQ, TKV>) {
+  if constexpr (!kMma<TQ, TKV> && kT == 1) {
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi)
+    for (int gi = 0; gi < kTile; ++gi)
       if (gi < g)
-        *reinterpret_cast<float2*>(xc + (ph * kMaxG + gi) * kHD + 2 * cp) =
-            make_float2(acc[gi][0], acc[gi][1]);
+        *reinterpret_cast<float2*>(xc + (ph * kTile + gi) * kHD + 2 * cp) =
+            make_float2(acc[0][gi][0], acc[0][gi][1]);
   }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < 2 * kT; ++h) {
     float s = lp[h];
     s += __shfl_xor_sync(0xffffffffu, s, 4);
     s += __shfl_xor_sync(0xffffffffu, s, 8);
     s += __shfl_xor_sync(0xffffffffu, s, 16);
-    if (lane < 4 && hq + 4 * h < g) lred[warp * kMaxG + hq + 4 * h] = s;
+    if (lane < 4 && hq + 4 * h < g) lred[warp * kG + hq + 4 * h] = s;
   }
   __syncthreads();
   const bool single = live_parts == 1;
@@ -573,25 +705,38 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
   if constexpr (kMma<TQ, TKV>) {
     const int gq = lane >> 2, tq = lane & 3;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int h = 2 * tq + e;
-      if (h < g) {
-        o_dst[h * kHD + 16 * warp + gq] = acc[0][e];
-        o_dst[h * kHD + 16 * warp + gq + 8] = acc[1][e];
+    for (int tt = 0; tt < kT; ++tt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int h = kTile * tt + 2 * tq + e;
+        if (tt < nt && h < g) {
+          o_dst[h * kHD + 16 * warp + gq] = acc[tt][0][e];
+          o_dst[h * kHD + 16 * warp + gq + 8] = acc[tt][1][e];
+        }
       }
     }
-  } else {
+  } else if constexpr (kT == 1) {
     for (int i = tid; i < g * kHD; i += kThreads) {
       const int gi = i / kHD, col = i % kHD;
-      o_dst[i] = ((xc[(0 * kMaxG + gi) * kHD + col] + xc[(1 * kMaxG + gi) * kHD + col]) +
-                  xc[(2 * kMaxG + gi) * kHD + col]) + xc[(3 * kMaxG + gi) * kHD + col];
+      o_dst[i] = ((xc[(0 * kTile + gi) * kHD + col] + xc[(1 * kTile + gi) * kHD + col]) +
+                  xc[(2 * kTile + gi) * kHD + col]) + xc[(3 * kTile + gi) * kHD + col];
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kAcc; ++u) {
+      const int h0 = kTile * (ph + 4 * u);
+#pragma unroll
+      for (int gi = 0; gi < kTile; ++gi)
+        if (h0 + gi < g)
+          *reinterpret_cast<float2*>(o_dst + (h0 + gi) * kHD + 2 * cp) =
+              make_float2(acc[u][gi][0], acc[u][gi][1]);
     }
   }
   if (tid < g) {
     float l = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) l += lred[w * kMaxG + tid];
-    const float m = pm[np * kMaxG + tid];
+    for (int w = 0; w < kWarps; ++w) l += lred[w * kG + tid];
+    const float m = pm[np * kG + tid];
     if (single) {
       m_out[bk * g + tid] = m;
       l_out[bk * g + tid] = l;
@@ -613,24 +758,24 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
   __syncthreads();
   if (!last) return;
   __threadfence();
-  // each part's weight exp(m_s - m) once per head (a warp a head, a lane a part; in the
+  // each part's weight exp(m_s - m) once per row (a warp a row, a lane a part; in the
   // ring's slots, free now), l over the parts in order, then o's columns by 16 bytes, every
   // part's load in flight at once
-  float* wgt = reinterpret_cast<float*>(smem);   // [live_parts][8]
-  float* lsv = wgt + live_parts * kMaxG;          // [live_parts][8]
+  float* wgt = reinterpret_cast<float*>(smem);   // [live_parts][kG]
+  float* lsv = wgt + live_parts * kG;             // [live_parts][kG]
   for (int gi = warp; gi < g; gi += kWarps) {
     const float* mp = sc.m_part + bk * parts * g + gi;
     float mx = kNegInf;
     for (int s = lane; s < live_parts; s += 32) mx = fmaxf(mx, __ldcg(mp + s * g));
     mx = warp_max(mx);
     for (int s = lane; s < live_parts; s += 32) {
-      wgt[s * kMaxG + gi] = expf(__ldcg(mp + s * g) - mx);
-      lsv[s * kMaxG + gi] = __ldcg(sc.l_part + (bk * parts + s) * g + gi);
+      wgt[s * kG + gi] = expf(__ldcg(mp + s * g) - mx);
+      lsv[s * kG + gi] = __ldcg(sc.l_part + (bk * parts + s) * g + gi);
     }
     __syncwarp();
     if (lane == 0) {
       float acc_l = 0.f;
-      for (int s = 0; s < live_parts; ++s) acc_l = fmaf(lsv[s * kMaxG + gi], wgt[s * kMaxG + gi], acc_l);
+      for (int s = 0; s < live_parts; ++s) acc_l = fmaf(lsv[s * kG + gi], wgt[s * kG + gi], acc_l);
       m_out[bk * g + gi] = mx;
       l_out[bk * g + gi] = acc_l;
     }
@@ -644,7 +789,7 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
 #pragma unroll 16
     for (int s = 0; s < live_parts; ++s) {
       const float4 v = __ldcg(op + (size_t)s * g * kHD / 4 + i);
-      const float w = wgt[s * kMaxG + gi];
+      const float w = wgt[s * kG + gi];
       acc_o.x = fmaf(v.x, w, acc_o.x);
       acc_o.y = fmaf(v.y, w, acc_o.y);
       acc_o.z = fmaf(v.z, w, acc_o.z);
@@ -664,7 +809,7 @@ template <typename K> cudaError_t raise_smem_limit(K kernel) {
 
 // The shared-memory limit of a pair's two kernels, raised once per device to the card's
 // maximum (so that a launch captured in a CUDA graph makes no attribute call).
-template <typename TQ, typename TKV, bool kQuant>
+template <typename TQ, typename TKV, bool kQuant, int kT>
 cudaError_t configure() {
   static bool configured[64] = {false};
   int dev = 0;
@@ -672,25 +817,25 @@ cudaError_t configure() {
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    err = raise_smem_limit(score_kernel<TQ, TKV, kQuant>);
-    if (err == cudaSuccess) err = raise_smem_limit(attend_kernel<TQ, TKV, kQuant>);
+    err = raise_smem_limit(score_kernel<TQ, TKV, kQuant, kT>);
+    if (err == cudaSuccess) err = raise_smem_limit(attend_kernel<TQ, TKV, kQuant, kT>);
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
   return cudaSuccess;
 }
 
-// attend_kernel's blocks an SM for the pair, at MP table entries a part (its most shared
-// memory).
-template <typename TQ, typename TKV, bool kQuant>
+// attend_kernel's blocks an SM for the pair and head tiles, at MP table entries a part (its
+// most shared memory).
+template <typename TQ, typename TKV, bool kQuant, int kT>
 int attend_occupancy(int MP, int* blocks) {
-  const cudaError_t err = configure<TQ, TKV, kQuant>();
+  const cudaError_t err = configure<TQ, TKV, kQuant, kT>();
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, attend_kernel<TQ, TKV, kQuant>, kThreads, attend_smem<TQ, TKV>(MP));
+      blocks, attend_kernel<TQ, TKV, kQuant, kT>, kThreads, attend_smem<TQ, TKV, kT>(MP));
 }
 
-template <typename TQ, typename TKV, bool kQuant>
+template <typename TQ, typename TKV, bool kQuant, int kT>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
            const void* v_scale, const void* tables, const void* lengths, void* o, void* m,
            void* l, float* scratch, long long scratch_floats, int* tickets, int B, int nkv,
@@ -698,17 +843,17 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
            cudaStream_t stream) {
   const int nc = (BS + kC - 1) / kC;
   const int per_part = (MP + parts - 1) / parts;
-  const size_t smem1 = score_smem<TQ, TKV>(), smem2 = attend_smem<TQ, TKV>(per_part);
-  if (smem2 + 16 > kSmemLimit) return (int)cudaErrorInvalidValue;
-  static_assert(4 * kMaxG * kHD * 4 <= kStages * stage_bytes<TQ, TKV>(),
+  const size_t smem1 = score_smem<TQ, TKV, kT>(), smem2 = attend_smem<TQ, TKV, kT>(per_part);
+  if (smem1 + 16 > kSmemLimit || smem2 + 16 > kSmemLimit) return (int)cudaErrorInvalidValue;
+  static_assert(kT != 1 || 4 * kTile * kHD * 4 <= kStages * stage_bytes<TQ, TKV, kT>(),
                 "the phases' sums fit in the ring");
-  if ((long long)parts * kMaxG * 8 > (long long)kStages * stage_bytes<TQ, TKV>())
+  if ((long long)parts * kTile * kT * 8 > (long long)kStages * stage_bytes<TQ, TKV, kT>())
     return (int)cudaErrorInvalidValue;   // the merge's weights and l's live in the ring
   const long long bkg = (long long)B * nkv * g;
   const long long pmax_floats = (bkg * MP + 3) / 4 * 4;   // the parts' o stay 16-byte aligned
   const long long need = bkg * MP * nc * kC + pmax_floats + bkg * parts * (kHD + 2);
   if (scratch_floats < need) return (int)cudaErrorInvalidValue;
-  cudaError_t err = configure<TQ, TKV, kQuant>();
+  cudaError_t err = configure<TQ, TKV, kQuant, kT>();
   if (err != cudaSuccess) return (int)err;
   const size_t layer_scales = (size_t)layer * NB * BS * nkv;
   Layer<TQ, TKV> a;
@@ -731,19 +876,43 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
   sc.o_part = sc.pmax + pmax_floats;
   sc.m_part = sc.o_part + bkg * parts * kHD;
   sc.l_part = sc.m_part + bkg * parts;
-  score_kernel<TQ, TKV, kQuant><<<dim3(MP, nkv, B), kThreads, smem1, stream>>>(a, sc);
+  score_kernel<TQ, TKV, kQuant, kT><<<dim3(MP, nkv, B), kThreads, smem1, stream>>>(a, sc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attend_kernel<TQ, TKV, kQuant><<<dim3(parts, nkv, B), kThreads, smem2, stream>>>(
+  attend_kernel<TQ, TKV, kQuant, kT><<<dim3(parts, nkv, B), kThreads, smem2, stream>>>(
       a, sc, per_part, tickets, static_cast<float*>(o), static_cast<float*>(m),
       static_cast<float*>(l));
   return (int)cudaGetLastError();
 }
 
+// g <= 8 query rows a KV head: one head tile (the decode kernels); up to kMaxG: eight.
+template <typename TQ, typename TKV, bool kQuant>
+int launch_rows(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+                const void* v_scale, const void* tables, const void* lengths, void* o, void* m,
+                void* l, float* scratch, long long scratch_floats, int* tickets, int B,
+                int nkv, int g, int NB, int BS, int MP, int layer, int parts, float scale,
+                cudaStream_t stream) {
+  if (g <= kTile)
+    return launch<TQ, TKV, kQuant, 1>(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o,
+                                      m, l, scratch, scratch_floats, tickets, B, nkv, g, NB,
+                                      BS, MP, layer, parts, scale, stream);
+  return launch<TQ, TKV, kQuant, kMaxG / kTile>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                                                lengths, o, m, l, scratch, scratch_floats,
+                                                tickets, B, nkv, g, NB, BS, MP, layer, parts,
+                                                scale, stream);
+}
+
+template <typename TQ, typename TKV, bool kQuant>
+int occupancy_rows(int g, int MP, int* blocks) {
+  return g <= kTile ? attend_occupancy<TQ, TKV, kQuant, 1>(MP, blocks)
+                    : attend_occupancy<TQ, TKV, kQuant, kMaxG / kTile>(MP, blocks);
+}
+
 }  // namespace
 
 // q_dtype: 0 = f32, 1 = bf16; kv_dtype: 0 = f32, 1 = bf16, 2 = int8 with f32 scales (a
-// bf16 pool may serve f32 queries). The pools hold L layers of NB pages; `layer` selects
+// bf16 pool may serve f32 queries). g: query rows a KV head, 1 .. 64 (a verify's tokens x
+// heads). The pools hold L layers of NB pages; `layer` selects
 // one inside the kernels. parts (1 .. MP) splits each row's MP table entries over that
 // many blocks of ceil(MP / parts) entries. scratch: scratch_floats f32, at least
 // B nkv g MP ceil(BS / 64) 64 + round_up(B nkv g MP, 4) + B nkv g parts (hd + 2) (16-byte
@@ -764,29 +933,32 @@ extern "C" int af_paged_attention(const void* q, const void* k_pool, const void*
   int* tk = static_cast<int*>(tickets);
 #define AF_PAGED_ARGS q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o, m, l, sf, \
                       scratch_floats, tk, B, nkv, g, NB, BS, MP, layer, parts, scale, s
-  if (q_dtype == 0 && kv_dtype == 0) return launch<float, float, false>(AF_PAGED_ARGS);
-  if (q_dtype == 0 && kv_dtype == 1) return launch<float, __nv_bfloat16, false>(AF_PAGED_ARGS);
+  if (q_dtype == 0 && kv_dtype == 0) return launch_rows<float, float, false>(AF_PAGED_ARGS);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return launch_rows<float, __nv_bfloat16, false>(AF_PAGED_ARGS);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(AF_PAGED_ARGS);
-  if (q_dtype == 0 && kv_dtype == 2) return launch<float, int8_t, true>(AF_PAGED_ARGS);
-  if (q_dtype == 1 && kv_dtype == 2) return launch<__nv_bfloat16, int8_t, true>(AF_PAGED_ARGS);
+    return launch_rows<__nv_bfloat16, __nv_bfloat16, false>(AF_PAGED_ARGS);
+  if (q_dtype == 0 && kv_dtype == 2) return launch_rows<float, int8_t, true>(AF_PAGED_ARGS);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return launch_rows<__nv_bfloat16, int8_t, true>(AF_PAGED_ARGS);
 #undef AF_PAGED_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
-// blocks: how many attend_kernel blocks of the (q_dtype, kv_dtype) pair an SM of the
-// current device holds (its threads, registers and shared memory at MP entries a part,
-// the most a part can have): the occupancy the wrapper chooses its parts by
-// (ops/kernels/paged_attention.kernel_parts). Returns a cudaError_t.
-extern "C" int af_paged_attention_occupancy(int q_dtype, int kv_dtype, int MP, int* blocks) {
-  if (MP <= 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
-  if (q_dtype == 0 && kv_dtype == 0) return attend_occupancy<float, float, false>(MP, blocks);
+// blocks: how many attend_kernel blocks of the (q_dtype, kv_dtype) pair at g query rows a
+// KV head an SM of the current device holds (its threads, registers and shared memory at
+// MP entries a part, the most a part can have): the occupancy the wrapper chooses its
+// parts by (ops/kernels/paged_attention.kernel_parts). Returns a cudaError_t.
+extern "C" int af_paged_attention_occupancy(int q_dtype, int kv_dtype, int g, int MP,
+                                            int* blocks) {
+  if (MP <= 0 || g <= 0 || g > kMaxG || blocks == nullptr) return (int)cudaErrorInvalidValue;
+  if (q_dtype == 0 && kv_dtype == 0) return occupancy_rows<float, float, false>(g, MP, blocks);
   if (q_dtype == 0 && kv_dtype == 1)
-    return attend_occupancy<float, __nv_bfloat16, false>(MP, blocks);
+    return occupancy_rows<float, __nv_bfloat16, false>(g, MP, blocks);
   if (q_dtype == 1 && kv_dtype == 1)
-    return attend_occupancy<__nv_bfloat16, __nv_bfloat16, false>(MP, blocks);
-  if (q_dtype == 0 && kv_dtype == 2) return attend_occupancy<float, int8_t, true>(MP, blocks);
+    return occupancy_rows<__nv_bfloat16, __nv_bfloat16, false>(g, MP, blocks);
+  if (q_dtype == 0 && kv_dtype == 2) return occupancy_rows<float, int8_t, true>(g, MP, blocks);
   if (q_dtype == 1 && kv_dtype == 2)
-    return attend_occupancy<__nv_bfloat16, int8_t, true>(MP, blocks);
+    return occupancy_rows<__nv_bfloat16, int8_t, true>(g, MP, blocks);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,8 +8,11 @@
 - ``state_dict_from_hf(sd, cfg)``: an HF-named AF3 state dict (qwen2_audio names
   ``audio_tower.* / multi_modal_projector.linear.* / language_model.*``, or the llava
   ``mm_projector`` variants), torch layouts, as ``load`` reads from safetensors.
+- ``qwen2_state_from_hf(sd, cfg)``: a plain HF Qwen2 CausalLM state dict (a speculative
+  draft, ``api.load_draft``) into ``Qwen2``'s names (JAX ``io/hf_import.import_qwen2``
+  :57); ``lm_params_from_jax`` carries a JAX draft's parameters (float or quantized).
 
-Both return {port name: torch tensor}; a tied LM head is dropped.
+All return {port name: torch tensor}; a tied LM head is dropped.
 """
 
 from __future__ import annotations
@@ -122,6 +125,27 @@ _ADAPTOR_NAMES = ((("multi_modal_projector.linear", "fc1"),),
                   (("model.mm_projector.fc1", "fc1"), ("model.mm_projector.fc2", "fc2")))
 
 
+def qwen2_state_from_hf(sd: dict, cfg: Qwen2Config, prefix: str = "") -> dict[str, torch.Tensor]:
+    """An HF Qwen2ForCausalLM state dict (names under ``prefix``) -> ``Qwen2``'s names:
+    ``model.layers.*`` and ``model.norm.*`` without ``self_attn.`` / ``mlp.``,
+    ``model.embed_tokens.weight`` -> ``embed_tokens`` and, untied, ``lm_head.weight`` ->
+    ``lm_head``. Torch layouts are kept."""
+    sd = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+          for k, v in sd.items()}
+    out: dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if not k.startswith(prefix + "model."):
+            continue
+        name = k[len(prefix + "model."):]
+        if name.startswith("layers.") or name.startswith("norm."):
+            out[name.replace("self_attn.", "").replace("mlp.", "")] = v
+        elif name == "embed_tokens.weight":
+            out["embed_tokens"] = v
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = sd[prefix + "lm_head.weight"]
+    return out
+
+
 def state_dict_from_hf(sd: dict, cfg: AF3Config) -> dict[str, torch.Tensor]:
     """HF names -> port names. Raises KeyError when a part of the model is missing."""
     sd = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
@@ -147,14 +171,7 @@ def state_dict_from_hf(sd: dict, cfg: AF3Config) -> dict[str, torch.Tensor]:
         out[f"adaptor.{ours}.bias"] = sd[base + ".bias"]
 
     lm_prefix = "language_model." if any(k.startswith("language_model.") for k in sd) else ""
-    for k, v in sd.items():
-        if not k.startswith(lm_prefix + "model.") or k.startswith(tower):
-            continue
-        name = k[len(lm_prefix + "model."):]
-        if name.startswith("layers.") or name.startswith("norm."):
-            out["lm." + name.replace("self_attn.", "").replace("mlp.", "")] = v
-        elif name == "embed_tokens.weight":
-            out["lm.embed_tokens"] = v
-    if not cfg.lm.tie_word_embeddings:
-        out["lm.lm_head"] = sd[lm_prefix + "lm_head.weight"]
+    lm = qwen2_state_from_hf({k: v for k, v in sd.items() if not k.startswith(tower)}, cfg.lm,
+                             lm_prefix)
+    out.update({"lm." + k: v for k, v in lm.items()})
     return out

@@ -1,12 +1,15 @@
 """Paged-attention decode (K3): the hand-written Hopper kernel, its plain PyTorch version,
-the dense reference and the current-token merge.
+the dense reference and the merges of the tokens not yet in the pool.
 
 Replaces the Pallas TPU kernel ``audio_flamingo_tpu/ops/pallas/paged_attention.py``
-(``paged_attention`` :116, kernel ``_paged_kernel`` :45); ``merge_current_token`` (:215)
-and ``paged_attention_reference`` (:266) are ported as they are. One query token per row,
-GQA-grouped, attends the row's context through its block table; the kernel returns the
-unnormalized triple (o, m, l) and ``merge_current_token`` folds in the token being
-decoded, whose K/V is not in the pool yet. The CUDA source is ``csrc/paged_attention.cu``;
+(``paged_attention`` :116, kernel ``_paged_kernel`` :45); ``merge_current_token`` (:215),
+``merge_block_tokens`` (:236) and ``paged_attention_reference`` (:266) are ported as they
+are. One query token per row, GQA-grouped, attends the row's context through its block
+table; the kernel returns the unnormalized triple (o, m, l) and ``merge_current_token``
+folds in the token being decoded, whose K/V is not in the pool yet. A speculative verify
+folds its S fresh query tokens into the group axis (g' = S g rows a KV head, up to
+``KERNEL_MAX_GROUP``), one call a layer, and ``merge_block_tokens`` folds in the block's
+own causal triangle. The CUDA source is ``csrc/paged_attention.cu``;
 its header states the design (a score pass that reads K once, then a pass over V in
 parts of each row's pages whose last part merges them: two launches, counted here as one
 launch of K3), the bound and what the design leaves. ``plan`` lays out the kernel's f32
@@ -31,7 +34,7 @@ from audio_flamingo_tpu_torch.ops.kernels.launches import LaunchCounter
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIM = 128
-KERNEL_MAX_GROUP = 8
+KERNEL_MAX_GROUP = 64     # query rows a KV head: decode heads, or a verify's tokens x heads
 KEYS_PER_STEP = 64         # csrc kC: keys a ring step, the scores' page padding unit
 TICKETS = 4096             # (row, kv head) pairs a launch may have (one int ticket each)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -79,11 +82,12 @@ def parts_for(b: int, nkv: int, max_pages: int, sms: int, blocks_per_sm: int) ->
 
 
 @functools.lru_cache(maxsize=None)
-def _attend_blocks_per_sm(index: int, q_code: int, kv_code: int, max_pages: int) -> int:
+def _attend_blocks_per_sm(index: int, q_code: int, kv_code: int, g: int, max_pages: int) -> int:
     lib = _build.load_library()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = lib.af_paged_attention_occupancy(q_code, kv_code, max_pages, ctypes.byref(blocks))
+        err = lib.af_paged_attention_occupancy(q_code, kv_code, g, max_pages,
+                                               ctypes.byref(blocks))
     if err != 0 or blocks.value < 1:
         raise RuntimeError(f"paged_attention occupancy query failed with CUDA error {err} "
                            f"({blocks.value} blocks an SM)")
@@ -91,12 +95,13 @@ def _attend_blocks_per_sm(index: int, q_code: int, kv_code: int, max_pages: int)
 
 
 def kernel_parts(b: int, nkv: int, max_pages: int, device: torch.device,
-                 q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
-    """``parts_for`` on this card, at the V pass's occupancy for the dtype pair as the CUDA
-    side reports it (threads, registers, shared memory)."""
+                 q_dtype: torch.dtype, kv_dtype: torch.dtype, g: int = 1) -> int:
+    """``parts_for`` on this card, at the V pass's occupancy for the dtype pair and the
+    group's head tiles (g <= 8: one; up to 64: eight) as the CUDA side reports it
+    (threads, registers, shared memory)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     bps = _attend_blocks_per_sm(index, _DTYPE_CODES[q_dtype], _DTYPE_CODES[kv_dtype],
-                                max_pages)
+                                min(g, 9), max_pages)
     return parts_for(b, nkv, max_pages, sm_count(device), bps)
 
 
@@ -317,6 +322,30 @@ def merge_current_token(q, k_cur, v_cur, o, m, l, *, scale: float | None = None)
     return acc / l2.clamp(min=1e-30)[..., None]
 
 
+def merge_block_tokens(q, k_blk, v_blk, o, m, l, *, scale: float | None = None):
+    """Online-softmax merge of a verify's S-token block (JAX :236): the S fresh queries all
+    attend the same past pages (their triples from ONE ``paged_attention`` call with the
+    token axis folded into the group axis) plus the block's causal triangle (query i sees
+    block keys 0..i), none of whose K/V is in the pool yet. S == 1 is
+    ``merge_current_token``.
+
+    q [B, S, nkv, g, hd]; k_blk, v_blk [B, S, nkv, hd]; o [B, S, nkv, g, hd], m, l [B, S,
+    nkv, g] -> normalized attention [B, S, nkv, g, hd] f32."""
+    hd = q.shape[-1]
+    s = q.shape[1]
+    if scale is None:
+        scale = hd ** -0.5
+    s_c = torch.einsum("bikgd,bjkd->bikgj", q.float(), k_blk.float()) * scale
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()   # [S_q, S_k]
+    s_c = torch.where(causal[:, None, None, :], s_c, torch.full_like(s_c, NEG_INF))
+    m2 = torch.maximum(m, s_c.amax(dim=-1))
+    alpha = torch.exp(m - m2)
+    w = torch.exp(s_c - m2[..., None])
+    l2 = l * alpha + w.sum(dim=-1)
+    acc = o * alpha[..., None] + torch.einsum("bikgj,bjkd->bikgd", w, v_blk.float())
+    return acc / l2.clamp(min=1e-30)[..., None]
+
+
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                     block_tables: torch.Tensor, lengths: torch.Tensor, layer_idx=None, *,
                     k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
@@ -328,9 +357,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     int), in q's dtype, bf16 (values read as they are), or int8 with ``k_scale`` /
     ``v_scale`` [(L,) NB, BS, nkv] f32;
     block_tables [B, MP] int (-1 = unmapped); lengths [B] tokens already in pages (the
-    current token excluded). o is unnormalized: merge with ``merge_current_token`` or
-    divide by l. The kernel takes hd = 128 and g <= 8; the stacked pool is read in place
-    at the layer's offset, never sliced into a copy."""
+    current token excluded). o is unnormalized: merge with ``merge_current_token`` (or a
+    verify's folded tokens with ``merge_block_tokens``) or divide by l. The kernel takes
+    hd = 128 and g <= ``KERNEL_MAX_GROUP`` query rows a KV head, each live page's K and V
+    read once for all g rows; the stacked pool is read in place at the layer's offset,
+    never sliced into a copy."""
     _check(q, k_pool, v_pool, block_tables, lengths, layer_idx, k_scale, v_scale)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -341,8 +372,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         raise ValueError(f"paged_attention runs on cuda (kernel) or cpu (plain), not {q.device}")
     b, nkv, g, hd = q.shape
     if hd != KERNEL_HEAD_DIM or g > KERNEL_MAX_GROUP:
-        raise ValueError(f"the CUDA kernel takes hd = {KERNEL_HEAD_DIM} and g <= "
-                         f"{KERNEL_MAX_GROUP}, got hd = {hd}, g = {g}")
+        raise ValueError(f"the CUDA kernel takes hd = {KERNEL_HEAD_DIM} and at most "
+                         f"KERNEL_MAX_GROUP = {KERNEL_MAX_GROUP} query rows a KV head, got "
+                         f"hd = {hd}, g = {g}")
     quantized = k_pool.dtype == torch.int8
     pools = [k_pool, v_pool] + ([k_scale, v_scale] if quantized else [])
     if not all(p.is_contiguous() for p in pools):
@@ -358,7 +390,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     mp = tables.shape[1]
-    pl = plan(b, nkv, g, hd, bs, mp, kernel_parts(b, nkv, mp, q.device, q.dtype, k_pool.dtype))
+    pl = plan(b, nkv, g, hd, bs, mp,
+              kernel_parts(b, nkv, mp, q.device, q.dtype, k_pool.dtype, g))
     o = torch.empty((b, nkv, g, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((b, nkv, g), dtype=torch.float32, device=q.device)
     l = torch.empty((b, nkv, g), dtype=torch.float32, device=q.device)

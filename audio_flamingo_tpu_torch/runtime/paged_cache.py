@@ -12,9 +12,14 @@ one shared pool, a block table per row, and decode that reads K/V through the ta
   inside: done flags, lengths and tokens stay on the device; the caller reads once per
   chunk.
 - ``BlockAllocator`` is the host-side free list.
-
-The speculative verify step and chunks (:251, :351, :379) are not ported yet (ROADMAP.md,
-Queue 1).
+- ``paged_verify_step`` is the speculative verify through the pages (JAX :251): the S
+  fresh queries of a row go through ONE K3 call per layer with the token axis folded into
+  the group axis (g' = S g rows a KV head), ``merge_block_tokens`` folds in the block's
+  own causal triangle (an int8 pool's dequantized block), every token's K/V is written to
+  its page and ``lengths`` comes back unchanged: the spec chunks
+  (``paged_decode_spec_chunk`` :351, ``paged_decode_spec_chunk_sampled`` :379, the slot
+  engine's ``spec_chunk_rounds`` with this verify) advance it by each row's accepted
+  count, and rejected slots are overwritten before they are attended.
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ import torch
 
 from audio_flamingo_tpu_torch.config import Qwen2Config
 from audio_flamingo_tpu_torch.models import qwen2
-from audio_flamingo_tpu_torch.ops.kernels.paged_attention import (merge_current_token,
+from audio_flamingo_tpu_torch.ops.kernels.paged_attention import (merge_block_tokens,
+                                                                  merge_current_token,
                                                                   paged_attention)
 from audio_flamingo_tpu_torch.ops.rope import rope_cos_sin
-from audio_flamingo_tpu_torch.ops.sampling import RowSampling, engine_row_step
+from audio_flamingo_tpu_torch.ops.sampling import RowSampling, SamplingParams, engine_row_step
 
 
 @dataclass
@@ -107,8 +113,9 @@ def _current_kv(cache: PagedKV, k: torch.Tensor, v: torch.Tensor):
 
 def _write_step_kv(cache: PagedKV, new: list, block_ids: torch.Tensor,
                    offs: torch.Tensor) -> None:
-    """Every layer's new K/V (and scales) into (layer, block, offset), in place. Rows
-    that point at the trash page may write the same slot; that page is never read."""
+    """Every layer's new K/V (and scales) [N, nkv(, hd)] into (layer, block, offset) of
+    block_ids, offs [N], in place. Rows that point at the trash page may write the same
+    slot; that page is never read."""
     n_layers, b = len(new), block_ids.shape[0]
     l_idx = torch.arange(n_layers, device=block_ids.device)[:, None].expand(n_layers, b)
     index = (l_idx.flatten(), block_ids.repeat(n_layers), offs.repeat(n_layers))
@@ -190,6 +197,83 @@ def paged_decode_chunk(lm, cfg: Qwen2Config, cache: PagedKV, tokens: torch.Tenso
         done = done | (nxt == eos_token_id)
         tokens = nxt
     return cache, tokens, done, out, lp, hist
+
+
+@torch.inference_mode()
+def paged_verify_step(lm, cfg: Qwen2Config, cache: PagedKV, tokens: torch.Tensor):
+    """Multi-token forward through the pages (the speculative verify, JAX :251): tokens
+    [B, S] at positions lengths .. lengths + S - 1 of each row.
+
+    Per layer, the S queries of a row go through ONE ``paged_attention`` call (K3) with the
+    token axis folded into the group axis: kernel row (kv, i g + gg) holds query token i,
+    group head gg, and every one of them attends the row's past; ``merge_block_tokens``
+    adds the block's own causal triangle (an int8 pool merges the dequantized block, what
+    those positions will contribute from their pages). Every token's K/V is written to its
+    page after the layer loop; ``lengths`` is left as it was (the caller advances it by
+    its accepted count). The engine maps pages to cover lengths + S - 1. Returns (cache,
+    logits [B, S, vocab] f32)."""
+    b, s = tokens.shape
+    hd, nkv, nh = cfg.resolved_head_dim(), cfg.num_kv_heads, cfg.num_heads
+    g = nh // nkv
+    pos_grid = cache.lengths.long()[:, None] + torch.arange(s, device=tokens.device)[None]
+    cos, sin = rope_cos_sin(pos_grid, hd, cfg.rope_theta)
+    x = qwen2.embed(lm, tokens)
+    bs = cache.block_size
+    page_pos = (pos_grid // bs).clamp(max=cache.max_blocks - 1)
+    block_ids = torch.gather(cache.block_tables.long(), 1, page_pos).clamp(min=0)   # [B, S]
+    offs = pos_grid % bs
+    new: list = []
+
+    def attend_layer(i: int):
+        def attend(q, k, v):
+            qf = q.reshape(b, s, nkv, g, hd).transpose(1, 2).reshape(b, nkv, s * g, hd)
+            o, m, l = paged_attention(qf, cache.k, cache.v, cache.block_tables, cache.lengths,
+                                      i, k_scale=cache.k_scale, v_scale=cache.v_scale)
+            o = o.reshape(b, nkv, s, g, hd).transpose(1, 2)
+            m = m.reshape(b, nkv, s, g).transpose(1, 2)
+            l = l.reshape(b, nkv, s, g).transpose(1, 2)
+            store, k_cur, v_cur = _current_kv(cache, k, v)
+            new.append(tuple(t.reshape(b * s, *t.shape[2:]) for t in store))
+            attn = merge_block_tokens(q.reshape(b, s, nkv, g, hd), k_cur, v_cur, o, m, l)
+            return attn.reshape(b, s, nh, hd)
+        return attend
+
+    x = qwen2.forward_attend(lm, cfg, x, cos, sin, attend_layer)
+    _write_step_kv(cache, new, block_ids.reshape(-1), offs.reshape(-1))
+    return cache, qwen2.unembed(lm, x)
+
+
+@torch.inference_mode()
+def paged_decode_spec_chunk(lm, draft, cfg: Qwen2Config, draft_cfg: Qwen2Config,
+                            cache: PagedKV, d_cache, tokens: torch.Tensor, done: torch.Tensor,
+                            generator: torch.Generator | None = None, *, k: int, rounds: int,
+                            eos_token_id: int, accept_sim: float | None = None):
+    """Batched greedy speculation over the paged pool (JAX :351): the slot engine's round
+    body (``engine.spec_chunk_rounds``) with ``paged_verify_step`` as the target forward;
+    the draft on its dense ``SlotCache`` ``d_cache``. Emitted tokens equal target-only
+    greedy decoding. Returns (cache, d_cache, tokens, done, out, valid)."""
+    from audio_flamingo_tpu_torch.runtime.engine import spec_chunk_rounds
+
+    return spec_chunk_rounds(draft, draft_cfg, cache, d_cache, tokens, done, generator, k=k,
+                             rounds=rounds, eos_token_id=eos_token_id, nv=cfg.vocab_size,
+                             verify=lambda c, seq: paged_verify_step(lm, cfg, c, seq),
+                             accept_sim=accept_sim)
+
+
+@torch.inference_mode()
+def paged_decode_spec_chunk_sampled(lm, draft, cfg: Qwen2Config, draft_cfg: Qwen2Config,
+                                    cache: PagedKV, d_cache, tokens: torch.Tensor,
+                                    done: torch.Tensor, generator: torch.Generator | None, *,
+                                    k: int, rounds: int, eos_token_id: int,
+                                    sampling: SamplingParams):
+    """Sampled (Leviathan) speculation over the paged pool (JAX :379): one warp for every
+    row; the emitted law is the warped target's."""
+    from audio_flamingo_tpu_torch.runtime.engine import spec_chunk_rounds
+
+    return spec_chunk_rounds(draft, draft_cfg, cache, d_cache, tokens, done, generator, k=k,
+                             rounds=rounds, eos_token_id=eos_token_id, nv=cfg.vocab_size,
+                             verify=lambda c, seq: paged_verify_step(lm, cfg, c, seq),
+                             sampling=sampling)
 
 
 def _install(cache: PagedKV, page_ids: torch.Tensor, k_pages: torch.Tensor,

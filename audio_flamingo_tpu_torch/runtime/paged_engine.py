@@ -21,8 +21,15 @@ without a card); the tests pass ``device="cpu"``. Randomness comes from one
 ``torch.Generator`` per engine seeded from ``seed``, where JAX splits a key per admission
 and per chunk: greedy rows match the JAX engine token for token, sampled rows in law.
 Beam requests (``submit_beam``) ride the beam lane (``runtime/beam_lane.py``), one lane
-chunk per round beside the paged rows, with their own K-row caches. Speculative decoding
-(``draft_params``) is not ported yet and raises.
+chunk per round beside the paged rows, with their own K-row caches.
+
+Speculative decoding (``draft_params`` / ``draft_cfg``, as the slot engine's) needs
+``preempt=False`` (a swapped row would have to take its draft rows along); the draft runs
+on a dense ``SlotCache`` of its own and prefills over the full prompt ids when a row goes
+live, however the target's pages were built (prefix hits, chunked prefill). Each chunk
+runs ``paged_decode_spec_chunk`` (or ``_sampled``), whose verify reads the pages through
+K3 at folded groups (``paged_cache.paged_verify_step``); rows grow pages for
+``spec_rounds (spec_k + 1)`` tokens a chunk.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config, bucket_tokens
+from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config, bucket_tokens
 from audio_flamingo_tpu_torch.device import resolve_device
 from audio_flamingo_tpu_torch.models import af3, qwen2
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams, processor_flags, row_sampling
@@ -42,10 +49,16 @@ from audio_flamingo_tpu_torch.runtime import beam_lane
 from audio_flamingo_tpu_torch.runtime.engine import (Request, _emit_first_token,
                                                      _finish_request_metrics,
                                                      _postprocess_chunk_row,
-                                                     _start_request_metrics, seed_history)
-from audio_flamingo_tpu_torch.runtime.generate import prefill
+                                                     _start_request_metrics,
+                                                     check_spec_request,
+                                                     draft_prefill_into_slot,
+                                                     init_slot_cache, seed_history,
+                                                     spec_step, speculating)
+from audio_flamingo_tpu_torch.runtime.generate import compute_dtype, prefill
 from audio_flamingo_tpu_torch.runtime.paged_cache import (BlockAllocator, init_paged,
                                                           paged_decode_chunk,
+                                                          paged_decode_spec_chunk,
+                                                          paged_decode_spec_chunk_sampled,
                                                           paged_install_pages,
                                                           paged_prefill_suffix,
                                                           paged_restore_pages)
@@ -153,17 +166,32 @@ class PagedEngine:
     preempt: bool = True               # pool pressure: swap a row to the host and resume
     #                                    it later instead of truncating its output
     metrics: object = None             # optional utils.metrics.MetricsLogger sink
-    draft_params: object = None        # speculative decoding: not ported yet
-    draft_cfg: object = None
+    # speculative decoding, as BatchEngine's: the draft proposes spec_k tokens per row a
+    # round on a dense SlotCache; the target verifies each k + 1 block through its pages
+    draft_params: object = None        # the draft LM (Qwen2 / QuantQwen2)
+    draft_cfg: Qwen2Config | None = None
+    spec_k: int = 4
+    spec_rounds: int = 4
+    spec_accept_sim: float | None = None   # measurement: Bernoulli(a) acceptance
+    spec_guard: bool = True
+    spec_guard_min_accept: float = 0.5
+    spec_guard_warmup: int = 64
+    spec_disabled: bool = False
     device: torch.device | str | None = None
 
     def __post_init__(self):
         if self.prefill_chunk % self.block_size:
             raise ValueError("prefill_chunk must be a multiple of block_size")
-        if self.draft_params is not None or self.draft_cfg is not None:
-            raise NotImplementedError(NOT_PORTED.format(
-                "speculative paged serving (draft_params)", "speculative decoding"))
         self.device = resolve_device(self.device)
+        self.d_cache = None
+        if self.draft_params is not None:
+            if self.draft_cfg is None:
+                raise ValueError("draft_params needs its draft_cfg")
+            # preemption would have to swap the draft's dense rows beside the pages
+            if self.preempt:
+                raise ValueError("speculative paged serving requires preempt=False")
+            self.d_cache = init_slot_cache(self.draft_cfg, self.num_rows, self.capacity,
+                                           compute_dtype(self.draft_params), self.device)
         self.prefilling: dict | None = None   # at most one chunked prefill in flight
         self.swapped: dict[str, dict] = {}    # request_id -> host-side K/V pages
         self.preemptions = 0
@@ -221,6 +249,7 @@ class PagedEngine:
         if req.ids.shape[1] > self.capacity:
             raise ValueError(f"prompt ({req.ids.shape[1]} tokens) exceeds row capacity "
                              f"({self.capacity} = max_blocks_per_seq * block_size)")
+        check_spec_request(self, req)
         _start_request_metrics(req)
         self.queue.append(req)
 
@@ -268,9 +297,11 @@ class PagedEngine:
         return None if req.mels is None else torch.as_tensor(req.mels, device=self.device)
 
     def _activate(self, row: int, req: Request, table_pages: list[int], blocks: list[int],
-                  held: list[bytes], logits: torch.Tensor) -> None:
+                  held: list[bytes], logits: torch.Tensor, bucket: int) -> None:
         """After a prompt's pages are in: map them, sample the first token and make the
-        row live (or release it at once if that token is EOS)."""
+        row live (or release it at once if that token is EOS). A speculating engine
+        prefills the draft's dense row over the full prompt ids (JAX ``_draft_prefill``
+        :304), however the target's pages were built: the draft shares no pages."""
         t = req.ids.shape[1]
         self.tables_np[row] = -1
         self.tables_np[row, :len(table_pages)] = table_pages
@@ -284,6 +315,9 @@ class PagedEngine:
             return
         self._set_row_params(row, req_sampling)
         self._seed_hist(row, req)
+        if speculating(self):
+            draft_prefill_into_slot(self.draft_params, self.draft_cfg, self.d_cache, row,
+                                    self._padded_ids(req, bucket))
         self.tokens[row] = first
         self.done[row] = False
         self.active[row] = (req, blocks, held)
@@ -369,7 +403,7 @@ class PagedEngine:
                 paged_install_pages(self.cache, sub_cache.k, sub_cache.v, blocks)
             table_pages = prefix_pages + blocks
             self._register_prompt_blocks(keys, n_hit, t, table_pages, blocks, held)
-            self._activate(row, req, table_pages, blocks, held, logits)
+            self._activate(row, req, table_pages, blocks, held, logits, bucket)
 
     def _preempt_row(self, row: int) -> None:
         """Swap a starved row's pages to the host and requeue it at the front: pool
@@ -436,7 +470,8 @@ class PagedEngine:
                     else None)
         emb = _suffix_embeds(self.model, self.cfg, ids, mels_arg, start=0)
         self.prefilling = dict(req=req, row=row, t=t, n_hit=n_hit, keys=keys, held=held,
-                               prefix_pages=prefix_pages, own=own, emb=emb, done=start0, ce=ce)
+                               prefix_pages=prefix_pages, own=own, emb=emb, done=start0, ce=ce,
+                               bucket=bucket)
         return True
 
     def _prefill_step(self) -> None:
@@ -463,14 +498,21 @@ class PagedEngine:
         row, req, t = st["row"], st["req"], st["t"]
         blocks, held = st["own"], st["held"]
         self._register_prompt_blocks(st["keys"], st["n_hit"], t, table_pages, blocks, held)
-        self._activate(row, req, table_pages, blocks, held, logits)
+        self._activate(row, req, table_pages, blocks, held, logits, st["bucket"])
+
+    def _step_budget(self) -> int:
+        """The most tokens a row can emit (and write K/V for) in one decode chunk."""
+        if speculating(self):
+            return self.spec_rounds * (self.spec_k + 1)
+        return self.chunk
 
     def _grow_pages(self) -> list[int]:
         """Top up every active row with the pages the next chunk needs (host table edits
         only). Returns the rows that could not grow (pool exhausted)."""
         starved: list[int] = []
+        budget = self._step_budget()
         for row, (_, blocks, _) in self.active.items():
-            needed = -(-(int(self.lengths_np[row]) + self.chunk + 1) // self.block_size)
+            needed = -(-(int(self.lengths_np[row]) + budget + 1) // self.block_size)
             needed = min(needed, self.max_blocks_per_seq)
             mapped = int((self.tables_np[row] >= 0).sum())
             while mapped < needed:
@@ -519,6 +561,27 @@ class PagedEngine:
             return
         self.cache.block_tables = torch.as_tensor(self.tables_np, device=self.device)
         self.cache.lengths = torch.as_tensor(self.lengths_np, device=self.device)
+        budget = self._step_budget()
+        if speculating(self):
+            out, valid = spec_step(self, self.model.lm, self.cfg.lm, paged_decode_spec_chunk,
+                                   paged_decode_spec_chunk_sampled)
+            row_tokens = [out[r][valid[r]].tolist() for r in range(self.num_rows)]
+            lp = None
+        else:
+            row_tokens, lp = self._decode_chunk()
+        done = self.done.cpu().numpy().copy()
+        self.lengths_np = self.cache.lengths.cpu().numpy().astype(np.int32)
+        for row, (req, _, _) in list(self.active.items()):
+            if _postprocess_chunk_row(self, req, row_tokens[row],
+                                      lp[row] if req.logprobs and lp is not None else None):
+                done[row] = True
+            full = self.lengths_np[row] >= self.capacity - budget - 1
+            if done[row] or full or len(req.tokens) >= req.max_new_tokens:
+                self._finish_row(row)
+        beam_lane.step_beam_lane(self)
+
+    def _decode_chunk(self):
+        """The plain chunk over every row -> (row tokens, logprobs), read once."""
         min_left = np.zeros((self.num_rows,), np.int64)
         for row, (req, _, _) in self.active.items():
             want = max(req.min_new_tokens, (req.sampling or self.sampling).min_new_tokens)
@@ -532,18 +595,8 @@ class PagedEngine:
             mixed_sampling=any(not (r.sampling or self.sampling).greedy for r in reqs),
             want_logprobs=any(r.logprobs for r in reqs), use_min_new=bool(min_left.any()),
             use_penalty=use_pen, ngram_ns=ngram_ns)
-        # the chunk's one host read
-        out, lp = out.cpu().numpy(), lp.cpu().numpy()
-        done = self.done.cpu().numpy().copy()
-        self.lengths_np = self.cache.lengths.cpu().numpy().astype(np.int32)
-        for row, (req, _, _) in list(self.active.items()):
-            if _postprocess_chunk_row(self, req, out[row].tolist(),
-                                      lp[row] if req.logprobs else None):
-                done[row] = True
-            full = self.lengths_np[row] >= self.capacity - self.chunk - 1
-            if done[row] or full or len(req.tokens) >= req.max_new_tokens:
-                self._finish_row(row)
-        beam_lane.step_beam_lane(self)
+        out = out.cpu().numpy()   # the chunk's one host read
+        return [out[r].tolist() for r in range(self.num_rows)], lp.cpu().numpy()
 
     def run_until_done(self, max_rounds: int = 1000) -> dict[str, list[int]]:
         rounds = 0

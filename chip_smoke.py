@@ -210,12 +210,39 @@ Phases, each line stamped with elapsed seconds:
         (m = 4) re-run against its plain version, K6 timed at m = 4 in bf16; the int8 LM's
         beam at K = 4 in f32 (card vs CPU), two eager steps' K4 launches (m = 4) in f32 and
         bf16 against the plain version, each bf16 launch shape timed.
+ 13. speculative decoding (runtime/speculative.py, the engines' draft path, the paged
+     verify), after every earlier model is freed:
+     a. K3 at the verify's folded groups (g' = (k + 1) g: 35 at k = 4 on the 7B, and the
+        kernel's limit 64) against its plain version on 8a's pools: rows of {548, 3848, 1,
+        0} at layers 0 and 27 with a 5-token block merged by merge_block_tokens, bf16 q over
+        bf16 and int8 pools and f32 over f32, two launches bit-identical; the device time
+        (10 calls in a graph) at 8a's mixed rows beside the bound (and the bound with the
+        scores scratch written and read) and beside five g = 7 calls on the same rows (the
+        same verify as decode calls); 8a's g = 7 shapes re-timed beside 8a's figures;
+     b. dense speculation on the 30 s clip at full width: a new bf16 7B (seed 0) as its own
+        draft, k = 4, 32 tokens, api.generate with the draft twice (the round captured once
+        and replayed, one answer, 32 + 2 x 28 K2 launches: the encoder, both prefills), the measured
+        acceptance, ms a round replayed and eager, tok/s beside plain generate, how many
+        ids agree with plain greedy (bf16: the 5-token verify and the 1-token step round
+        differently), every emitted token the argmax of the verify at its position (an
+        instrumented eager run), sampled (temperature 0.7, top-p 0.9) twice from one seed;
+     c. bench.py's bench_spec_engine cut to fit (the 7B int8 target and a 0.5B int8 draft
+        from random_quantized_lm, 8 requests of 500 random ids, SPEC_MAX_NEW tokens):
+        BatchEngine (8 slots of 1024, k 4, 6 rounds) plain and at spec_accept_sim 0.6 and
+        1.0, tok/s; PagedEngine with the draft at a = 1.0 on a bf16 and an int8 pool: tok/s,
+        every K3 launch a verify at g' = 35 (6 x 28 a chunk), one chunk's launches re-run
+        against the plain version, timed in the path and in one graph beside the bound;
+     d. f32 card against CPU, full width, 2 + 2 layers with a random 2-layer draft at the
+        0.5B's widths (vocab 151,936: clamp and pad): generate_speculative, BatchEngine and
+        PagedEngine (bf16 and int8 pools) token-exact card vs CPU and equal to the plain
+        paths on the card.
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -1539,23 +1566,28 @@ ENGINE = dict(num_rows=4, num_blocks=88, block_size=128, max_blocks_per_seq=32, 
 def kernels_per_call(fn) -> int:
     """Device kernels one call of fn launches, as torch.profiler sees them in the call's
     annotated range, after one call in the same window that is not counted (the profiler
-    can miss the first kernels it sees; copies and memsets left out)."""
+    can miss the first kernels it sees; copies and memsets left out). A window whose trace
+    holds no device range for the annotation (seen once in a full run, at K6 m = 8) is
+    taken again, up to three windows."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    label = "counted call"
+    label, windows = "counted call", 3
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        with record_function(label):
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    span = next((e.time_range for e in events if e.name == label), None)
-    check(span is not None, "torch.profiler shows no device range of the counted call")
-    return sum(1 for e in events if e.name != label
-               and span.start <= e.time_range.start < span.end
-               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
+            with record_function(label):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        span = next((e.time_range for e in events if e.name == label), None)
+        if span is not None:
+            return sum(1 for e in events if e.name != label
+                       and span.start <= e.time_range.start < span.end
+                       and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
+    check(False, f"torch.profiler shows no device range of the counted call in {windows} "
+                 "windows")
 
 
 def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
@@ -3855,14 +3887,19 @@ def beam_graph_phase(model, fa, wav) -> dict:
     t = ids.shape[1]
     capacity = -(-(t + BEAM_NEW) // 128) * 128
     fa.LAUNCHES.reset()
-    answers, walls = [], []
-    for _ in range(2):
+    answers, walls, k2_path = [], [], []
+    for i in range(2):
+        fa.LAUNCHES.timing, fa.LAUNCHES.capture = True, i == 1
+        ms0 = fa.LAUNCHES.device_ms()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         answers.append(model.generate(sound=wav, prompt=prompt, num_beams=BEAM_K,
                                       max_new_tokens=BEAM_NEW))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        k2_path.append(fa.LAUNCHES.device_ms() - ms0)
+    fa.LAUNCHES.timing = fa.LAUNCHES.capture = False
+    k2_launches = list(fa.LAUNCHES.inputs)
     k2 = fa.LAUNCHES.count
     k2_want = 2 * (cfg.encoder.num_layers + cfg.lm.num_layers)
     check(k2 == k2_want, f"12a: {k2} K2 launches over two beam generates, not {k2_want}")
@@ -3977,8 +4014,15 @@ def beam_graph_phase(model, fa, wav) -> dict:
         + f"; held graph: cache {nbytes['cache'] / 2**20:.1f} MiB, state "
         f"{nbytes['state'] / 2**20:.2f} MiB, graph pool {nbytes['graph'] / 2**20:.1f} MiB; "
         f"one replay and one eager step ran under set_sync_debug_mode('error')")
+    k2_sums = k2_launch_sums(fa, k2_launches)
+    log(f"12a K2 in the path: {len(k2_launches)} launches a beam generate, "
+        f"{k2_path[1]:.3f} ms device time (CUDA events; {k2_path[0]:.3f} in the first), plain "
+        f"{k2_sums['plain_ms']:.3f} ms, SDPA {k2_sums['library_ms']:.3f} ms, bound "
+        f"{k2_sums['bound_ms']:.4f} ms ({k2_sums['bound_by']}), max|o - plain| "
+        f"{k2_sums['err']:.3e}")
     return dict(ids=ids, mels=mels, seqs=seqs, scores=scores, k2=k2, graph_ms=graph_ms_,
-                eager_ms=eager_ms, bound_ms=bound_ms, prof=prof, nbytes=nbytes, steps=steps)
+                eager_ms=eager_ms, bound_ms=bound_ms, prof=prof, nbytes=nbytes, steps=steps,
+                k2_path=dict(k2_sums, ms=k2_path[1], launches=len(k2_launches)))
 
 
 def beam_lane_phase(model, ref: dict) -> dict:
@@ -4053,11 +4097,19 @@ def slot_engine_phase(model, fa, wav) -> dict:
         serve(mk(), specs[:2], 48)                               # warm-up instance
         fa.LAUNCHES.reset()
         eng = mk()
+        fa.LAUNCHES.timing = fa.LAUNCHES.capture = name == "slot"
         out, wall = serve(eng, specs, 48)
+        fa.LAUNCHES.timing = fa.LAUNCHES.capture = False
         tokens = sum(len(v) for v in out.values())
         ttft = sorted(m["ttft_s"] for m in eng.request_metrics.values())
         res[name] = dict(out=out, wall=wall, tokens=tokens, tps=tokens / wall, ttft=ttft,
                          k2=fa.LAUNCHES.count)
+        if name == "slot":   # K2 in the path: the launches' device time, plain, SDPA, bound
+            launches, path_ms = list(fa.LAUNCHES.inputs), fa.LAUNCHES.device_ms()
+            fa.LAUNCHES.reset()
+            res[name]["k2_path"] = dict(k2_launch_sums(fa, launches), ms=path_ms,
+                                        launches=len(launches))
+            del launches
         check(set(out) == {rid for rid, _, _ in specs} and all(out.values()),
               f"12c {name}: not every request finished")
         check(res[name]["k2"] == len(specs) * model.cfg.lm.num_layers,
@@ -4068,7 +4120,11 @@ def slot_engine_phase(model, fa, wav) -> dict:
         f"{n} engine {r['tokens']} tokens in {r['wall']:.3f} s = {r['tps']:.1f} tok/s, TTFT "
         f"median {statistics.median(r['ttft']):.3f} s max {r['ttft'][-1]:.3f} s, K2 {r['k2']}"
         for n, r in res.items()) + f"; {same} of {len(specs)} requests give the same ids on "
-        "both engines (bf16: their summation orders differ)")
+        "both engines (bf16: their summation orders differ); K2 in BatchEngine's path: "
+        f"{res['slot']['k2_path']['ms']:.3f} ms device (CUDA events), plain "
+        f"{res['slot']['k2_path']['plain_ms']:.3f} ms, SDPA "
+        f"{res['slot']['k2_path']['library_ms']:.3f} ms, bound "
+        f"{res['slot']['k2_path']['bound_ms']:.4f} ms ({res['slot']['k2_path']['bound_by']})")
     return dict(res=res, same=same)
 
 
@@ -4098,7 +4154,7 @@ def captured_w4_checks(k5, k6, inputs: dict) -> dict:
     return worst
 
 
-def captured_k4_checks(k4, inputs: list) -> list:
+def captured_k4_checks(k4, inputs: list, tag: str = "12d") -> list:
     """Every captured K4 launch re-run on its inputs against the plain version of each of
     its products (K5's tolerances): [err, ratio]."""
     worst = [0.0, 0.0]
@@ -4108,7 +4164,7 @@ def captured_k4_checks(k4, inputs: list) -> list:
         for y, (w_q, scale) in zip(ys, prods):
             r = w4_compare(y, k4.w8a16_matmul_reference(x, w_q, scale, od))
             check(r["finite"] and r["ratio"] <= 1.0,
-                  f"12d K4 m={x.shape[0]}: |y - plain| at {r['ratio']:.3f} of its limit")
+                  f"{tag} K4 m={x.shape[0]}: |y - plain| at {r['ratio']:.3f} of its limit")
             worst = [max(worst[0], r["err"]), max(worst[1], r["ratio"])]
     return worst
 
@@ -4242,6 +4298,17 @@ def f32_beam_slot_phase(k4, k5, k6) -> dict:
                 check(got == want, f"12d int4 slot engine f32 ids differ card vs CPU")
             timing = {}
             if dtype == torch.bfloat16:
+                x5, wp5, gs5, l5 = next(a for a in inputs["K5"] if a[0].shape[0] == 4)
+                wp5, gs5 = (wp5, gs5) if l5 is None else (wp5[l5], gs5[l5])
+                lib5, why5 = int4pack_call(x5, wp5, gs5)
+                timing["K5"] = dict(
+                    ms=time_ms(lambda: k5.w4a16_matmul(x5, wp5, gs5)),
+                    device_ms=graph_ms(lambda: k5.w4a16_matmul(x5, wp5, gs5), 20, 8),
+                    plain_ms=time_ms(lambda: k5.w4a16_matmul_reference(x5, wp5, gs5), 5, 1),
+                    library_ms=time_ms(lib5, 5, 1) if lib5 else None, library_why=why5,
+                    bound=w4_bound_ms([k5_shape(wp5, gs5)], 4, dn),
+                    shape=f"[4,{x5.shape[1]}]x[{wp5.shape[0]},{wp5.shape[1]}]")
+                del lib5
                 a, b = inputs["K6A"][0], inputs["K6B"][0]
                 for key, fn, ref, args, gated in (
                         ("K6A", k6.w4_suffix_a, k6.w4_suffix_a_reference, a, True),
@@ -4257,9 +4324,13 @@ def f32_beam_slot_phase(k4, k5, k6) -> dict:
                 f"{worst['K6A'][0]:.3e}, K6 B {worst['K6B'][0]:.3e}, K4 {worst['K4'][0]:.3e} "
                 f"(at most {max(v[1] for v in worst.values()):.3f} of the limits)"
                 + ("; ids equal card vs CPU" if dtype == torch.float32 else "")
-                + "".join(f"; {k} at m = 4 (layer 0): {v['ms']:.4f} ms with the wrapper, "
-                          f"{v['device_ms']:.4f} ms device, plain {v['plain_ms']:.3f} ms, bound "
-                          f"{v['bound'][0]:.5f} ms ({v['bound'][1]})" for k, v in timing.items()))
+                + "".join(f"; {k} at m = 4 (layer 0{', ' + v['shape'] if 'shape' in v else ''}): "
+                          f"{v['ms']:.4f} ms with the wrapper, "
+                          f"{v['device_ms']:.4f} ms device, plain {v['plain_ms']:.3f} ms, "
+                          + (f"torch._weight_int4pack_mm {v['library_ms']} ms ({v['library_why']}), "
+                             if k == "K5" else "")
+                          + f"bound {v['bound'][0]:.5f} ms ({v['bound'][1]})"
+                          for k, v in timing.items()))
             del m4
         out["w4"] = w4
 
@@ -4311,6 +4382,10 @@ def f32_beam_slot_phase(k4, k5, k6) -> dict:
                                           od, True)
                         r["plain_ms"] = sum(time_ms(lambda w=w, sc=sc: k4.w8a16_matmul_reference(
                             x, w, sc, od), 5, 1) for w, sc in prods)
+                        libs = [int8pack_call(x, w, sc)[0] for w, sc in prods]
+                        r["library_ms"] = (sum(time_ms(f, 5, 1) for f in libs)
+                                           if all(libs) else None)
+                        del libs
                     else:
                         r = k4_case(k4, x, *prods[0], od, True)
                     timing[key] = r
@@ -4322,7 +4397,9 @@ def f32_beam_slot_phase(k4, k5, k6) -> dict:
                 + "".join(f"; K4 [4,{k[0]}]x[{k[0]},{'|'.join(map(str, k[1]))}] -> {k[2]}: "
                           f"{r['ms']:.4f} "
                           f"ms with the wrapper, {r['graph_ms']:.4f} ms device, plain "
-                          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
+                          f"{r['plain_ms']:.3f} ms, torch._weight_int8pack_mm "
+                          f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
+                          f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
                           for k, r in timing.items()))
             del m8, st, cache
         log(f"12d int8 f32 beam card vs CPU: {BEAM_K} beams equal ({seqs8[0, 0].tolist()}), "
@@ -4332,6 +4409,600 @@ def f32_beam_slot_phase(k4, k5, k6) -> dict:
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     return out
+
+
+# ----------------------------------------------------------------------------------------
+# 13. speculative decoding: K3 over folded verify groups, dense speculation, the engines
+
+
+SPEC_K = 4                      # draft proposals a round (JAX AudioFlamingo.spec_k)
+VERIFY_GROUPS = (35, 64)        # g' = (k + 1) g: k = 4 at g = 7, and the kernel's limit
+
+
+def k3_scores_bytes(lengths, block: int, max_pages: int, b: int, nkv: int, g: int) -> int:
+    """The score pass's f32 scratch written and read back by the V pass: 64-key steps of
+    every live page of every (row, kv head), g scores a key (csrc Scratch)."""
+    pages = sum(min(-(-int(n) // block), max_pages) for n in lengths)
+    steps = -(-block // 64)
+    return 2 * pages * nkv * steps * 64 * g * 4
+
+
+def verify_kernel_phase(pa) -> dict:
+    """13a. K3 at the verify's folded groups: q [4, 4, g', 128] for g' = 35 (k = 4 at g = 7)
+    and 64 (the limit), 8a's stacked pools [28, 88, 128, 4, 128] with shuffled tables, rows
+    of {548, 3848, 1, 0} (checked at layers 0 and 27, a verify block of 5 tokens merged by
+    merge_block_tokens) and 8a's mixed rows {548, 548, 3848, 3848} (timed at layer 5): bf16
+    q over bf16 and int8 pools, f32 q over f32. Two launches bit-identical. Device time (10
+    calls in a CUDA graph) beside the bound and beside five g = 7 calls on the same rows (the
+    same verify as five decode calls); 8a's g = 7 shapes re-timed beside it."""
+    n_layers, nb, block, nkv, g7, hd, mp = 28, 88, 128, 4, 7, 128, 32
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    perm = (torch.randperm(nb - 1, generator=gen, device="cuda") + 1).int()
+
+    def tables_for(lengths):
+        t = torch.full((len(lengths), mp), -1, dtype=torch.int32, device="cuda")
+        ptr = 0
+        for row, n in enumerate(lengths):
+            pages = -(-n // block)
+            t[row, :pages] = perm[ptr:ptr + pages]
+            ptr += pages
+        return t, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+    shape = (n_layers, nb, block, nkv, hd)
+    kf = torch.randn(shape, generator=gen, device="cuda")
+    vf = torch.randn(shape, generator=gen, device="cuda")
+    k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.018 + 0.002
+    vs = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.018 + 0.002
+    check_rows, mixed = [548, 3848, 1, 0], [548, 548, 3848, 3848]
+    results = {}
+    for q_dtype, kv_name in ((torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
+                             (torch.float32, "float32")):
+        if kv_name == "int8":
+            pools = (k8, v8, ks, vs)
+        else:
+            dt = getattr(torch, kv_name)
+            pools = (kf.to(dt), vf.to(dt), None, None)
+        qn = str(q_dtype).split(".")[-1]
+        q7 = torch.randn((4, nkv, g7, hd), generator=gen, device="cuda").to(q_dtype)
+        tables_m, lengths_m = tables_for(mixed)
+        args7 = (q7, pools[0], pools[1], tables_m, lengths_m, 5)
+        call7 = lambda: pa.paged_attention(*args7, k_scale=pools[2], v_scale=pools[3])
+        g7_ms = graph_ms(call7, calls=10)
+        for gw in VERIFY_GROUPS:
+            q = torch.randn((4, nkv, gw, hd), generator=gen, device="cuda").to(q_dtype)
+            worst = dict(err=0.0, ratio=0.0, o_err=0.0, merged_err=0.0)
+            tables, lengths = tables_for(check_rows)
+            for layer in (0, n_layers - 1):
+                args = (q, pools[0], pools[1], tables, lengths, layer, pools[2], pools[3], None)
+                r = paged_compare(pa, args)
+                check(r["ratio"] <= 1.0, f"K3 verify g' {gw} q {qn} pool {kv_name} layer "
+                                         f"{layer}: at {r['ratio']:.3f} of its limit")
+                if gw % g7 == 0:   # the verify's merge of its own 5-token block
+                    s = gw // g7
+                    o, m, l = pa.paged_attention(*args[:6], k_scale=args[6], v_scale=args[7])
+                    o_p, m_p, l_p = pa.paged_attention_plain(*args[:6], k_scale=args[6],
+                                                             v_scale=args[7])
+                    fold = lambda x: x.reshape(4, nkv, s, g7, *x.shape[3:]).transpose(1, 2)
+                    qg = fold(q.float())
+                    kb = torch.randn((4, s, nkv, hd), generator=gen, device="cuda")
+                    vb = torch.randn((4, s, nkv, hd), generator=gen, device="cuda")
+                    got = pa.merge_block_tokens(qg, kb, vb, fold(o), fold(m), fold(l))
+                    ref = pa.merge_block_tokens(qg, kb, vb, fold(o_p), fold(m_p), fold(l_p))
+                    diff = (got - ref).abs()
+                    lim = (PAGED_F32_TOL * ref.abs().max() if q_dtype == torch.float32
+                           else PAGED_BF16_TOL[0] * ref.abs() + PAGED_BF16_TOL[1])
+                    check(bool((diff <= lim).all()), f"K3 verify g' {gw} {qn}/{kv_name}: the "
+                          f"merged block is off by {diff.max().item():.3e}")
+                    worst["merged_err"] = max(worst["merged_err"], diff.max().item())
+                for key in ("err", "ratio", "o_err"):
+                    worst[key] = max(worst[key], r[key])
+                first = pa.paged_attention(*args[:6], k_scale=args[6], v_scale=args[7])
+                again = pa.paged_attention(*args[:6], k_scale=args[6], v_scale=args[7])
+                check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                      f"K3 verify g' {gw} {qn}/{kv_name}: two launches differ")
+            args = (q, pools[0], pools[1], tables_m, lengths_m, 5)
+            call = lambda: pa.paged_attention(*args, k_scale=pools[2], v_scale=pools[3])
+            plain = lambda: pa.paged_attention_plain(*args, k_scale=pools[2], v_scale=pools[3])
+            r = dict(worst, ms=time_ms(call), plain_ms=time_ms(plain, 3, 1),
+                     graph_ms=graph_ms(call, calls=10), g7_graph_ms=g7_ms,
+                     five_g7_ms=5 * g7_ms, library_ms=None)
+            r["bound_ms"], r["bound_by"] = paged_bound_ms(mixed, block, mp, tuple(q.shape),
+                                                          q_dtype, pools[0].dtype)
+            scores = k3_scores_bytes(mixed, block, mp, 4, nkv, gw)
+            r["with_scratch_ms"] = r["bound_ms"] + scores / PEAK_BYTES * 1e3
+            parts = pa.kernel_parts(4, nkv, mp, q.device, q.dtype, pools[0].dtype, gw)
+            log(f"13a K3 verify g'={gw} q {qn:8s} pool {kv_name:8s}: max|o/l - plain| "
+                f"{r['err']:.3e} (at {r['ratio']:.3f} of its limit), merged block "
+                f"{r['merged_err']:.3e}, replays bit-identical; {parts} parts; mixed rows "
+                f"{mixed}: device {r['graph_ms']:.4f} ms (10 calls in a graph; the call with "
+                f"the wrapper {r['ms']:.4f}) against five g=7 calls {r['five_g7_ms']:.4f} ms "
+                f"(one {g7_ms:.4f}); bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
+                f"{r['with_scratch_ms']:.5f} with the scores scratch written and read, "
+                f"{scores / 1e6:.2f} MB); plain {r['plain_ms']:.3f} ms; "
+                f"{r['bound_ms'] / r['graph_ms'] * 100:.2f} % of the bound")
+            results[(qn, kv_name, gw)] = r
+        del pools
+    del kf, vf, k8, v8, ks, vs
+    torch.cuda.empty_cache()
+    return results
+
+
+def common_prefix(a: list, b: list) -> int:
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def spec_rounds(model, cfg, draft, draft_cfg, ids, mels, n: int, eos: int, *, graph: bool,
+                body=None, every: int = 0) -> dict:
+    """generate_speculative's greedy rounds (k = SPEC_K) driven from one start outside it:
+    new_state, start (both prefills), then the round, replayed from a generate.DecodeGraph
+    over it (graph=True, on the card) or stepped eagerly (spec_body, or ``body`` of the
+    DecodeGraph signature), reading done and n_out every ``every`` rounds
+    (generate.SYNC_EVERY by default, as generate_speculative reads done). Returns the
+    finished tokens, the emitted ids, the rounds run, their device-synchronized seconds and
+    the tokens emitted between reads (with every = 1, m + 1 a round before done)."""
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+    from audio_flamingo_tpu_torch.runtime import speculative as sp
+
+    every = every or gen.SYNC_EVERY
+    spec = sp.SpecSpec(SPEC_K, n, eos)
+    capacity = -(-(ids.shape[1] + n + SPEC_K + 1) // 128) * 128
+    lm = model.lm
+    run = body or (lambda lm_, cfg_, spec_, st_: sp.spec_body(lm_, cfg_, draft, draft_cfg,
+                                                              spec_, st_))
+    with torch.inference_mode():
+        st = sp.new_state(cfg.lm, draft_cfg, spec, capacity, gen.compute_dtype(lm),
+                          gen.compute_dtype(draft), ids.device)
+        step = (gen.DecodeGraph(lm, cfg.lm, spec, st, body=run).replay if graph
+                else lambda: run(lm, cfg.lm, spec, st))
+        sp.start(model, cfg, draft, draft_cfg, spec, st, ids, mels, None)
+        gen.sync(ids.device)
+        t0 = time.perf_counter()
+        rounds_run, emitted = 0, []
+        while rounds_run + 1 < n and not bool(st.done):
+            n0, todo = int(st.n_out), min(every, n - 1 - rounds_run)
+            for _ in range(todo):
+                step()
+            rounds_run += todo
+            emitted.append(int(st.n_out) - n0)
+        gen.sync(ids.device)
+        decode_s = time.perf_counter() - t0
+        tokens, lengths = sp.finish(st.out, st.n_out, n, eos)
+    tokens = tokens[0].tolist()
+    return dict(tokens=tokens, ids=tokens[: int(lengths[0])], rounds_run=rounds_run,
+                decode_s=decode_s, emitted=emitted)
+
+
+def spec_dense_phase(model, fa, wav) -> dict:
+    """13b. Dense speculation on the 30 s clip at full width: the bf16 7B as its own draft,
+    k = 4, 32 tokens. api.generate with the draft twice (the second reuses the held round;
+    one answer), the measured acceptance, ms per round replayed against the same round run
+    eagerly, tok/s beside plain generate on the exact prompt, how many ids agree with plain
+    greedy (the 5-token verify and the 1-token decode round differently in bf16, so they
+    need not all agree); the same rounds stepped eagerly from spec_body (spec_rounds),
+    timed, with every emitted token checked to be the argmax of the verify logits at its
+    position; sampled (temperature 0.7, top-p 0.9)
+    twice from one seed, one answer."""
+    from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+    from audio_flamingo_tpu_torch.runtime import speculative as sp
+
+    n, k, prompt = 32, SPEC_K, "What do you hear?"
+    lm, cfg, eos = model.model.lm, model.cfg, model.eos_token_id
+    ids, mels = clip_prompt(model, wav, prompt)
+    plain = [gen.generate(model.model, cfg, ids, mels, max_new_tokens=n, eos_token_id=eos)
+             for _ in range(2)][1]
+    plain_ids = plain.tokens[0, : int(plain.lengths[0])].tolist()
+    drafted = dataclasses.replace(model, draft=lm, draft_cfg=cfg.lm, spec_k=k)
+    runs = []
+    for _ in range(2):
+        fa.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = drafted.generate(sound=wav, prompt=prompt, max_new_tokens=n)
+        runs.append((text, drafted.last_spec, time.perf_counter() - t0, fa.LAUNCHES.count))
+    (text, first, _, _), (text2, out, wall, k2) = runs
+    check(text == text2, f"13b: two speculative generates differ: {text!r} vs {text2!r}")
+    check(first.capture_s > 0 and out.capture_s == 0,
+          f"13b: the round was not captured once and reused ({first.capture_s}, {out.capture_s})")
+    k2_want = cfg.encoder.num_layers + 2 * cfg.lm.num_layers   # the encoder, both prefills
+    check(k2 == k2_want, f"13b: {k2} K2 launches, not the encoder's and the two prefills' "
+                         f"{k2_want}")
+    spec_ids = out.tokens[0, : int(out.lengths[0])].tolist()
+    check(len(spec_ids) == n or spec_ids[-1] == eos, f"13b: short answer {spec_ids}")
+
+    # the same rounds stepped eagerly (spec_body from one start) and timed, instrumented:
+    # every emitted token is the argmax of the verify's logits at its position
+    rec, real_fwd = [], sp._forward_tokens
+
+    def fwd(lm_, cfg_, cache, tokens, start):
+        logits = real_fwd(lm_, cfg_, cache, tokens, start)
+        if lm_ is lm and cfg_ is cfg.lm and tokens.shape[1] == k + 1 and rec[-1]["verify"] is None:
+            rec[-1]["verify"] = logits[0].argmax(dim=-1)
+        return logits
+
+    def body(lm_, cfg_, spec, st):
+        rec.append(dict(n0=st.n_out.clone(), done=st.done.clone(), verify=None))
+        sp.spec_body(lm_, cfg_, lm, cfg.lm, spec, st)
+        rec[-1]["n1"] = st.n_out.clone()
+
+    sp._forward_tokens = fwd
+    try:
+        eager = spec_rounds(model.model, cfg, lm, cfg.lm, ids, mels, n, eos, graph=False,
+                            body=body)
+    finally:
+        sp._forward_tokens = real_fwd
+    check(eager["ids"] == spec_ids, f"13b: the eager rounds give other ids ({eager['ids']}) "
+                                    f"than the captured round ({spec_ids})")
+    got = eager["tokens"]
+    n_checked = 0
+    for r in rec:
+        if bool(r["done"]):
+            continue
+        n0, n1, arg = int(r["n0"]), int(r["n1"]), r["verify"].tolist()
+        for i in range(n1 - n0):
+            if n0 + i < n:
+                check(got[n0 + i] == arg[i], f"13b: emitted token {n0 + i} ({got[n0 + i]}) is "
+                                             f"not the verify's argmax ({arg[i]})")
+                n_checked += 1
+    check(n_checked == len(eager["ids"]) - 1,
+          f"13b: {n_checked} tokens checked against the verify, {len(eager['ids']) - 1} emitted")
+
+    # the draft sees ids only: on the clip its context lacks the audio; on a text prompt
+    # it sees what the target sees, and only the rounding of the 5-token verify against
+    # the 1-token steps parts them
+    text_ids = torch.as_tensor(np.random.default_rng(13).integers(0, 150_000, (1, 200)),
+                               device="cuda")
+    text = sp.generate_speculative(model.model, cfg, lm, cfg.lm, text_ids, k=k,
+                                   max_new_tokens=n, eos_token_id=eos)
+    sampled = SamplingParams(greedy=False, temperature=0.7, top_p=0.9)
+    answers = [drafted.generate(sound=wav, prompt=prompt, max_new_tokens=n, sampling=sampled,
+                                seed=0) for _ in range(2)]
+    check(answers[0] == answers[1], "13b: sampled speculation from one seed gave two answers")
+    r = dict(acceptance=out.acceptance, rounds=out.rounds, rounds_run=out.rounds_run,
+             graph_round_ms=out.decode_s / out.rounds_run * 1e3,
+             eager_round_ms=eager["decode_s"] / eager["rounds_run"] * 1e3,
+             spec_tps=(len(spec_ids) - 1) / out.decode_s,
+             plain_tps=plain.decode_steps / plain.decode_s,
+             plain_step_ms=plain.decode_s / plain.decode_steps * 1e3,
+             agree=common_prefix(spec_ids, plain_ids), n_ids=len(spec_ids), k2=k2,
+             ttft_s=out.ttft_s, capture_s=first.capture_s, wall=wall, checked=n_checked,
+             text_acceptance=text.acceptance, text_rounds=text.rounds)
+    log(f"13b dense speculation, bf16 7B as its own draft, k {k}, 30 s clip, {n} tokens: "
+        f"acceptance {r['acceptance']:.4f} over {out.rounds} rounds ({out.rounds_run} run); "
+        f"{r['graph_round_ms']:.3f} ms a round replayed, {r['eager_round_ms']:.3f} ms eager; "
+        f"decode {r['spec_tps']:.1f} tok/s against plain generate's {r['plain_tps']:.1f} "
+        f"({r['plain_step_ms']:.3f} ms a step); {r['agree']} of {len(spec_ids)} ids agree "
+        f"with plain greedy before the first difference; TTFT {out.ttft_s:.3f} s (both "
+        f"prefills), capture {first.capture_s:.2f} s (first call only), {k2} K2 launches "
+        f"(32 encoder, 28 + 28 prefills); "
+        f"{n_checked} emitted tokens each the verify's argmax; on a text prompt of 200 random "
+        f"ids (the draft's context then equals the target's): acceptance "
+        f"{text.acceptance:.4f} over {text.rounds} rounds; sampled: one answer from one "
+        f"seed; spec ids {spec_ids}; plain ids {plain_ids}")
+    return r
+
+
+SPEC_ENGINE = dict(num_slots=8, capacity=1024, chunk=16, eos_token_id=ENGINE["eos_token_id"])
+SPEC_MAX_NEW = 64      # bench_spec_engine's 256 tokens a request, cut to fit the run
+
+
+def spec_engine_phase(pa, k4) -> dict:
+    """13c. bench.py's bench_spec_engine cut to fit: the 7B int8 target
+    (random_quantized_lm, seed 0) and a Qwen2.5-0.5B int8 draft (seed 1), 8 requests of 500
+    random ids, SPEC_MAX_NEW greedy tokens each. BatchEngine (8 slots of 1024, chunk 16, k 4,
+    6 rounds): plain, then spec_accept_sim 0.6 and 1.0 with the guard off, each after a
+    warm-up instance: tok/s. PagedEngine (8b's settings, preempt off) with the same draft
+    at a = 1.0 on a bf16 and an int8 pool: tok/s, one chunk's K3 verify launches (g' =
+    35) kept, re-run against the plain version and replayed in one CUDA graph."""
+    from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config
+    from audio_flamingo_tpu_torch.models import af3, qwen2
+    from audio_flamingo_tpu_torch.ops.quant import random_quantized_lm
+    from audio_flamingo_tpu_torch.runtime.engine import BatchEngine, Request
+    from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
+
+    cfg = with_flash(AF3Config(), True)
+    tree = random_quantized_lm(torch.Generator(device="cuda").manual_seed(0), cfg.lm, "cuda")
+    # text-only requests never run the encoder: its weights are allocated, not made
+    model = af3.build(cfg, "cuda", torch.bfloat16,
+                      lm=qwen2.quantized_lm(tree, torch.bfloat16, "cuda"))
+    del tree
+    dcfg = Qwen2Config.qwen25_0_5b()
+    draft = qwen2.quantized_lm(random_quantized_lm(torch.Generator(device="cuda").manual_seed(1),
+                                                   dcfg, "cuda"), torch.bfloat16, "cuda")
+    rng = np.random.default_rng(13)
+    specs = [(f"r{i}", rng.integers(0, 150_000, (1, 500)).astype(np.int32), None)
+             for i in range(8)]
+    warm = [("w", rng.integers(0, 150_000, (1, 500)).astype(np.int32), None)]
+    spec_kw = dict(draft_params=draft, draft_cfg=dcfg, spec_k=SPEC_K, spec_rounds=6,
+                   spec_guard=False)
+    res = {}
+    for name, kw in (("plain", {}), ("a0.6", dict(spec_kw, spec_accept_sim=0.6)),
+                     ("a1.0", dict(spec_kw, spec_accept_sim=1.0))):
+        serve(BatchEngine(model=model, cfg=cfg, **SPEC_ENGINE, **kw), warm, 8)
+        k4.LAUNCHES.reset()
+        eng = BatchEngine(model=model, cfg=cfg, **SPEC_ENGINE, **kw)
+        out, wall = serve(eng, specs, SPEC_MAX_NEW)
+        tokens = sum(len(v) for v in out.values())
+        check(set(out) == {s[0] for s in specs} and all(out.values()),
+              f"13c BatchEngine {name}: not every request finished")
+        res[name] = dict(tps=tokens / wall, wall=wall, tokens=tokens, k4=k4.LAUNCHES.count,
+                         stats=getattr(eng, "spec_stats", None))
+        del eng
+    # one BatchEngine chunk's K4 launches kept (a = 1.0, the slots filled first): those of
+    # its first round, the draft's steps at m = 8 and the verify at m = 8 (k + 1), re-run
+    # against the plain version
+    eng = BatchEngine(model=model, cfg=cfg, **SPEC_ENGINE, **dict(spec_kw, spec_accept_sim=1.0))
+    for rid, ids, mels in specs:
+        eng.submit(Request(request_id=rid, ids=ids.copy(), mels=mels,
+                           max_new_tokens=SPEC_MAX_NEW))
+    eng._fill_slots()
+    k4.LAUNCHES.reset()
+    k4.LAUNCHES.capture = True
+    try:
+        eng.step()
+    finally:
+        k4.LAUNCHES.capture = False
+    captured = list(k4.LAUNCHES.inputs)
+    k4.LAUNCHES.reset()
+    per_round = len(captured) // 6
+    check(per_round > 0 and len(captured) == 6 * per_round,
+          f"13c BatchEngine: one chunk made {len(captured)} K4 launches, not 6 rounds' alike")
+    first = captured[:per_round]
+    rows = collections.Counter(x.shape[0] for x, _, _ in first)
+    check(set(rows) == {8, 8 * (SPEC_K + 1)},
+          f"13c BatchEngine: a round's K4 launches at m {dict(rows)}, not 8 and 40")
+    err, ratio = captured_k4_checks(k4, first, "13c")
+    shapes = sorted({(x.shape[0], x.shape[1], "|".join(str(w.shape[1]) for w, _ in prods))
+                     for x, prods, _ in first})
+    k4_round = dict(launches=len(first), rows=dict(rows), err=err, ratio=ratio, shapes=shapes)
+    del eng, captured, first
+    paged = {}
+    for pool in (torch.bfloat16, torch.int8):
+        pname = "int8" if pool is torch.int8 else "bf16"
+        make = lambda: PagedEngine(model=model, cfg=cfg, kv_dtype=pool, preempt=False,
+                                   spec_accept_sim=1.0, **ENGINE, **spec_kw)
+        serve(make(), warm, 8)
+        pa.LAUNCHES.reset()
+        k4.LAUNCHES.reset()
+        eng = make()
+        out, wall = serve(eng, specs, SPEC_MAX_NEW)
+        tokens = sum(len(v) for v in out.values())
+        check(set(out) == {s[0] for s in specs} and all(out.values()),
+              f"13c PagedEngine {pname}: not every request finished")
+        verify = sum(c for key, c in pa.LAUNCHES.shapes.items() if key[2] == 5 * 7)
+        check(verify == pa.LAUNCHES.count and verify > 0,
+              f"13c PagedEngine {pname}: {pa.LAUNCHES.count} K3 launches, {verify} at g' = 35")
+        check(verify % (6 * cfg.lm.num_layers) == 0,
+              f"13c PagedEngine {pname}: {verify} verify launches, not 6 rounds x 28 a chunk")
+        counts, stats = dict(k3=pa.LAUNCHES.count, k4=k4.LAUNCHES.count), eng.spec_stats
+        # one chunk's verify launches kept and replayed against the plain version
+        eng = make()
+        for rid, ids, mels in specs[:4]:
+            eng.submit(Request(request_id=rid, ids=ids.copy(), mels=mels, max_new_tokens=24))
+        eng._admit()
+        pa.LAUNCHES.reset()
+        pa.LAUNCHES.capture, pa.LAUNCHES.timing = True, True
+        try:
+            eng.step()
+            path_ms = pa.LAUNCHES.device_ms()
+        finally:
+            pa.LAUNCHES.capture = pa.LAUNCHES.timing = False
+        launches = list(pa.LAUNCHES.inputs)
+        pa.LAUNCHES.reset()
+        check(len(launches) == 6 * cfg.lm.num_layers,
+              f"13c: one chunk made {len(launches)} K3 launches, not 6 x 28")
+        worst = dict(err=0.0, ratio=0.0)
+        for args in launches:
+            check(args[0].shape[2] == 5 * 7, f"13c: a verify launch at g' {args[0].shape[2]}")
+            r = paged_compare(pa, args)
+            check(r["ratio"] <= 1.0, f"13c verify launch at {r['ratio']:.3f} of its limit")
+            worst = {key: max(worst[key], r[key]) for key in worst}
+        sums = launch_sums(pa, launches)
+        graph = launches_graph_ms(pa, launches)
+        paged[pname] = dict(tps=tokens / wall, wall=wall, tokens=tokens, counts=counts,
+                            stats=stats, chunk_launches=len(launches),
+                            path_ms=path_ms, graph_ms=graph, **sums, **worst)
+        del eng
+    log("13c bench_spec_engine cut to fit (7B int8 target, 0.5B int8 draft, 8 x 500 random "
+        f"ids, {SPEC_MAX_NEW} greedy tokens each; k {SPEC_K}, 6 rounds a chunk): BatchEngine "
+        + "; ".join(f"{n} {r['tps']:.1f} tok/s ({r['tokens']} tokens in {r['wall']:.3f} s, "
+                    f"{r['k4']} K4 launches)" for n, r in res.items())
+        + f"; a = 0.6 is {res['a0.6']['tps'] / res['plain']['tps']:.2f}x plain, a = 1.0 "
+        f"{res['a1.0']['tps'] / res['plain']['tps']:.2f}x (the k + 1 = 5x ceiling); PagedEngine "
+        "at a = 1.0 " + "; ".join(
+            f"{p} pool {r['tps']:.1f} tok/s, {r['counts']['k3']} K3 verify launches (g' = 35), "
+            f"{r['counts']['k4']} K4; one chunk's {r['chunk_launches']} verify launches: "
+            f"{r['path_ms']:.3f} ms in the path (CUDA events), {r['graph_ms']:.3f} ms in one "
+            f"graph, plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max|o/l - plain| {r['err']:.3e}"
+            for p, r in paged.items())
+        + f"; BatchEngine a = 1.0, one round's {k4_round['launches']} K4 launches (m: "
+        f"{k4_round['rows']}; [m, K] x N: {k4_round['shapes']}) re-run against the plain "
+        f"version: max|y - plain| {k4_round['err']:.3e} (at {k4_round['ratio']:.3f} of the "
+        "limit)")
+    del model, draft
+    return dict(slot=res, paged=paged, k4_round=k4_round)
+
+
+SPEC_LIVELY = 3.0     # 13d's partial-accept target: its layer linears scaled (the CPU tests')
+SPEC_PERTURB = 0.3    # and its draft: that target, noise on its last down_proj (x its std)
+
+
+def lively_pair(lm, noise: float, seed: int = 5) -> tuple:
+    """A target LM whose greedy ids vary (``lm`` with every layer linear's weights times
+    SPEC_LIVELY, as the CPU tests' ``lively``) and a draft that agrees with it in part: the
+    same LM with Normal(0, noise std(w)) added to its last layer's down_proj."""
+    import copy
+
+    lm = copy.deepcopy(lm)
+    with torch.no_grad():
+        for layer in lm.layers:
+            for lin in (layer.q_proj, layer.k_proj, layer.v_proj, layer.o_proj,
+                        layer.gate_proj, layer.up_proj, layer.down_proj):
+                lin.weight.mul_(SPEC_LIVELY)
+        draft = copy.deepcopy(lm)
+        w = draft.layers[-1].down_proj.weight
+        z = torch.randn(w.shape, generator=torch.Generator().manual_seed(seed))
+        w.add_(z.to(w.device) * (noise * float(w.std())))
+    return lm, draft
+
+
+def partial_accept_case(cpu, card, prompt, held, n: int = 16) -> dict:
+    """13d's dense case where a round accepts part of its proposals (0 < m < k): the
+    lively_pair of the 2 + 2-layer f32 LM, made on the CPU and moved to the card, greedy,
+    k = SPEC_K, ``n`` tokens. Plain generate on the CPU (the CPU tests hold the CPU's
+    speculation to it), generate_speculative on the card (the held captured round), the
+    same rounds replayed one at a time from a captured round (m read after each) and plain
+    generate on the card must give one list of ids."""
+    from audio_flamingo_tpu_torch.models import af3
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+    from audio_flamingo_tpu_torch.runtime import speculative as sp
+
+    cfg, eos = cpu.cfg, cpu.eos_token_id
+    lm, draft = lively_pair(cpu.model.lm, SPEC_PERTURB)
+    g = gen.generate(af3.AF3Model(cpu.model.encoder, cpu.model.adaptor, lm), cfg,
+                     torch.as_tensor(prompt).long(), max_new_tokens=n, eos_token_id=eos)
+    on_cpu = g.tokens[0, : int(g.lengths[0])].tolist()
+    target = af3.AF3Model(card.model.encoder, card.model.adaptor, lm.to("cuda"))
+    draft.to("cuda")
+    ids = torch.as_tensor(prompt).long().cuda()
+    r = sp.generate_speculative(target, cfg, draft, cfg.lm, ids, k=SPEC_K, max_new_tokens=n,
+                                eos_token_id=eos)
+    on_card = r.tokens[0, : int(r.lengths[0])].tolist()
+    held("partial-accept generate_speculative (card) against plain generate (CPU)", on_card,
+         on_cpu, prompt, target)
+    rounds = spec_rounds(target, cfg, draft, cfg.lm, ids, None, n, eos, graph=True, every=1)
+    g = gen.generate(target, cfg, ids, max_new_tokens=n, eos_token_id=eos)
+    plain = g.tokens[0, : int(g.lengths[0])].tolist()
+    accepted = [e - 1 for e in rounds["emitted"]]
+    check(rounds["ids"] == on_card, f"13d partial accept: the captured rounds one at a time "
+                                    f"give {rounds['ids']}, generate_speculative {on_card}")
+    check(on_card == plain, f"13d partial accept: speculative ids {on_card} != plain "
+                            f"generate's {plain} on the card")
+    check(any(0 < a < SPEC_K for a in accepted),
+          f"13d partial accept: no round accepted part of its proposals (m {accepted})")
+    del target, draft
+    return dict(ids=plain, m=accepted, hist=dict(sorted(collections.Counter(accepted).items())))
+
+
+def f32_spec_card_vs_cpu_phase() -> dict:
+    """13d. f32, full width, 2 encoder + 2 LM layers, the same weights on the card and on
+    the CPU, with a random 2-layer draft at Qwen2.5-0.5B's widths (vocabulary 151,936, so
+    clamp and pad run): dense generate_speculative (k 4) on a text prompt, and
+    partial_accept_case; BatchEngine and PagedEngine (f32 target; bf16 and int8 pools)
+    with the draft on three requests. Ids token-exact card against CPU and, on the card, equal to the plain path's
+    (generate, the engines without the draft). A divergence is reported with the top-2
+    logit gap of the plain logits where it occurs; the check is not loosened."""
+    import copy
+
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config
+    from audio_flamingo_tpu_torch.models import af3, qwen2
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+    from audio_flamingo_tpu_torch.runtime import speculative as sp
+    from audio_flamingo_tpu_torch.runtime.engine import BatchEngine
+    from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
+
+    full = AF3Config()
+    cfg = with_flash(dataclasses.replace(
+        full, encoder=dataclasses.replace(full.encoder, num_layers=2),
+        lm=dataclasses.replace(full.lm, num_layers=2)), True)
+    dcfg = dataclasses.replace(Qwen2Config.qwen25_0_5b(), num_layers=2)
+    cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+    card = AudioFlamingo.from_state_dict(cpu.cfg, cpu.model.state_dict(), cpu.processor.tokenizer,
+                                         torch.float32, device="cuda")
+    d_cpu = qwen2.Qwen2(dcfg, dtype=torch.float32)
+    qwen2.init_(d_cpu, torch.Generator().manual_seed(1))
+    d_card = copy.deepcopy(d_cpu).to("cuda")
+    eos = card.eos_token_id
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, 150_000, (1, n)).astype(np.int32) for n in (40, 90, 12)]
+    n_new = 10
+
+    def gap(model, ids, prefix):
+        """The top-2 gap of the plain logits after the prompt and the common prefix."""
+        seq = torch.cat([torch.as_tensor(ids).long(), torch.tensor([prefix])], dim=1)
+        lg = af3.logits(model, cfg, seq.to("cuda"))[0, -1].float()
+        top = lg.topk(2).values
+        return float(top[0] - top[1])
+
+    def held(name, got_card, got_cpu, ids=None, model=None):
+        if got_card != got_cpu:
+            msg = f"13d {name}: ids differ card vs CPU: {got_card} vs {got_cpu}"
+            if ids is not None:
+                p = common_prefix(got_card, got_cpu)
+                msg += (f"; top-2 gap there {gap(model or card.model, ids, got_card[:p]):.3e} "
+                        "(card)")
+            check(False, msg)
+
+    results = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        dense = {}
+        for where, m, d in (("cpu", cpu, d_cpu), ("card", card, d_card)):
+            out = sp.generate_speculative(m.model, m.cfg, d, dcfg,
+                                          torch.as_tensor(prompts[0], device=m.device).long(),
+                                          k=SPEC_K, max_new_tokens=n_new, eos_token_id=eos)
+            dense[where] = out.tokens[0, : int(out.lengths[0])].tolist()
+        held("generate_speculative", dense["card"], dense["cpu"], prompts[0])
+        g = gen.generate(card.model, card.cfg, torch.as_tensor(prompts[0], device="cuda").long(),
+                         max_new_tokens=n_new, eos_token_id=eos)
+        plain = g.tokens[0, : int(g.lengths[0])].tolist()
+        check(dense["card"] == plain, f"13d: speculative ids {dense['card']} != plain "
+                                      f"generate's {plain} on the card")
+        check(len(set(plain)) > 1, f"13d: the ids are one token repeated: {plain}")
+        results["dense"] = dense["card"]
+        results["partial"] = partial_accept_case(cpu, card, prompts[0], held)
+        specs = [(f"r{i}", ids, None) for i, ids in enumerate(prompts)]
+        engines = {"slot": (BatchEngine, dict(num_slots=2, capacity=256, chunk=4)),
+                   "paged bf16": (PagedEngine, dict(num_rows=2, num_blocks=16, block_size=128,
+                                                    max_blocks_per_seq=2, chunk=4, preempt=False,
+                                                    kv_dtype=torch.bfloat16)),
+                   "paged int8": (PagedEngine, dict(num_rows=2, num_blocks=16, block_size=128,
+                                                    max_blocks_per_seq=2, chunk=4, preempt=False,
+                                                    kv_dtype=torch.int8))}
+        for name, (cls, kw) in engines.items():
+            spec_kw = dict(spec_k=SPEC_K, spec_rounds=2, spec_guard=False, eos_token_id=eos)
+            out = {}
+            for where, m, d in (("cpu", cpu, d_cpu), ("card", card, d_card)):
+                eng = cls(model=m.model, cfg=m.cfg, draft_params=d, draft_cfg=dcfg,
+                          device=where if where == "cpu" else None, **kw, **spec_kw)
+                out[where] = serve_any(eng, specs, n_new)
+            plain = serve_any(cls(model=card.model, cfg=card.cfg, eos_token_id=eos, **kw),
+                              specs, n_new)
+            for rid, ids, _ in specs:
+                held(f"{name} {rid}", out["card"][rid], out["cpu"][rid], ids)
+            check(out["card"] == plain, f"13d {name}: speculative ids {out['card']} != the "
+                                        f"plain engine's {plain}")
+            results[name] = out["card"]
+        part = results["partial"]
+        log("13d f32 card vs CPU (2 + 2 layers at full width, a 2-layer 0.5B-width draft, "
+            f"vocab {dcfg.vocab_size} against {cfg.lm.vocab_size}): generate_speculative, "
+            "BatchEngine, PagedEngine with bf16 and int8 pools token-exact card vs CPU and "
+            f"equal to the plain paths on the card: {results}; partial accept (the target's "
+            f"layer linears x {SPEC_LIVELY}, its draft with noise {SPEC_PERTURB} std on the "
+            f"last down_proj): {len(part['ids'])} ids equal in the held captured round, one "
+            f"captured round at a time, plain generate on the card and on the CPU; m a round "
+            f"{part['m']} (rounds by m: {part['hist']})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return results
+
+
+def serve_any(engine, specs, max_new_tokens: int) -> dict:
+    """``serve`` on any device (the CPU's engines need no synchronization)."""
+    from audio_flamingo_tpu_torch.runtime.engine import Request
+
+    for rid, ids, mels in specs:
+        engine.submit(Request(request_id=rid, ids=ids.copy(), mels=mels,
+                              max_new_tokens=max_new_tokens))
+    return engine.run_until_done()
 
 
 def timed_generate(model, **kw) -> tuple:
@@ -4414,11 +5085,15 @@ def main() -> int:
            "w4_suffix_kernel<8>", "log_mel_power_kernel", "log_mel_clamp_kernel"}
           <= {r["kernel"] for r in k6_ptxas + k1_ptxas},
           "the redesigned K6 (one persistent kernel) and K1 (3xTF32) kernels were not compiled")
-    k3_ptxas = [r for r in ptxas if r["kernel"] in ("score_kernel", "attend_kernel")]
+    k3_ptxas = [r for r in ptxas if r["kernel"].startswith(("score_kernel", "attend_kernel"))]
     k9_ptxas = [r for r in ptxas if r["kernel"].startswith(("ln_qkv_kernel", "out_ln_kernel"))]
-    check({"score_kernel", "attend_kernel", "ln_qkv_kernel", "out_ln_kernel"}
-          <= {r["kernel"] for r in k3_ptxas + k9_ptxas},
-          "the redesigned K3 and K9 kernels were not compiled")
+    check({"score_kernel<1>", "attend_kernel<1>", "score_kernel<8>", "attend_kernel<8>",
+           "ln_qkv_kernel", "out_ln_kernel"} <= {r["kernel"] for r in k3_ptxas + k9_ptxas},
+          "the redesigned K3 (decode and folded verify groups) and K9 kernels were not compiled")
+    # the verify's eight head tiles (<8>) must not spill; the decode kernels (<1>) keep the
+    # report they had before them (one CUDA-core pair's V pass: 20 bytes, PERF.md)
+    check(all(r["spill_bytes"] == 0 for r in k3_ptxas if r["kernel"].endswith("<8>")),
+          f"a K3 verify kernel spills: {[r for r in k3_ptxas if r['spill_bytes']]}")
 
     # 3. kernels against their plain versions
     res = kernel_phase(fa)
@@ -4584,6 +5259,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_12 = f32_beam_slot_phase(k4, k5, k6)
     gen.release_graphs()
+    # 13a-13d. speculative decoding: K3 at the verify's folded groups (8a's g = 7 re-timed
+    # beside it), dense speculation on the 30 s clip at full width, the engines with an int8
+    # target and draft, f32 card against CPU at 2 + 2 layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    verify13 = verify_kernel_phase(pa)
+    for (qn, kv, gw), r in verify13.items():
+        if gw == VERIFY_GROUPS[0]:
+            log(f"13a K3 g = 7, q {qn} pool {kv}, 8a's mixed rows: {r['g7_graph_ms']:.4f} ms "
+                f"device now, {paged_k[(qn, kv, 'mixed')]['graph_ms']:.4f} ms in 8a")
+    model = AudioFlamingo.from_random(with_flash(AF3Config(), True), seed=0,
+                                      compute_dtype=torch.bfloat16, device="cuda")
+    dense13 = spec_dense_phase(model, fa, wav)
+    del model
+    log(f"13: released the held captured steps ({gen.release_graphs() / 2**20:.1f} MiB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    engines13 = spec_engine_phase(pa, k4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_spec_card_vs_cpu_phase()
+    gen.release_graphs()
 
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
@@ -4612,6 +5309,10 @@ def main() -> int:
         "library_ms": rep["library_ms"],
         "launches_phase12": {"12a beam, two api.generate(num_beams=4)": beam12["k2"],
                              "12c BatchEngine, mixed workload": slot12["res"]["slot"]["k2"]},
+        "launches_phase13": {"13b speculative api.generate, encoder and both prefills":
+                             dense13["k2"]},
+        "path_phase12": {"12a beam generate (the second)": beam12["k2_path"],
+                         "12c BatchEngine, mixed workload": slot12["res"]["slot"]["k2_path"]},
         "ptxas": [r for r in flash_ptxas if r["kernel"].startswith("flash_fwd")],
     }, {
         "name": "log_mel",
@@ -4648,6 +5349,8 @@ def main() -> int:
         "launches_phase12": {f"12d int4 BatchEngine at 4 rows, {dn}": r["counts"]["K5"]
                              for dn, r in f32_12["w4"].items()},
         "max_abs_err_m4": max(r["worst"]["K5"][0] for r in f32_12["w4"].values()),
+        "m4_bf16": {k: (v if k != "bound" else list(v))
+                    for k, v in f32_12["w4"]["bfloat16"]["timing"]["K5"].items()},
         "ptxas": w4_ptxas,
     })
     for name, key, line in (("w4_suffix_a", "K6A", 225), ("w4_suffix_b", "K6B", 288)):
@@ -4690,6 +5393,17 @@ def main() -> int:
         "bound_by": full["bound_by"],
         "library_ms": None,
         "path_graph_ms": full["graph_ms"],
+        "launches_phase13": {f"13c PagedEngine a = 1.0, {p} pool, verify at g' = 35":
+                             r["counts"]["k3"] for p, r in engines13["paged"].items()},
+        "max_abs_err_verify": {str(g): max(r["err"] for key, r in verify13.items()
+                                           if key[2] == g) for g in VERIFY_GROUPS},
+        "verify_13a": {f"g'={key[2]} q {key[0]} pool {key[1]}": {
+            n: r[n] for n in ("ms", "graph_ms", "five_g7_ms", "g7_graph_ms", "plain_ms",
+                              "bound_ms", "bound_by", "with_scratch_ms")}
+            for key, r in verify13.items()},
+        "verify_13c_chunk": {p: {n: r[n] for n in ("chunk_launches", "path_ms", "graph_ms",
+                                                   "plain_ms", "bound_ms", "bound_by", "err")}
+                             for p, r in engines13["paged"].items()},
         "ptxas": k3_ptxas,
     })
     rep7, run7 = stage2["replay"], stage2["run"]
@@ -4767,7 +5481,8 @@ def main() -> int:
         "source": "audio_flamingo_tpu_torch/csrc/w8a16_matmul.cu",
         "replaces": "audio_flamingo_tpu/ops/pallas/quant_matmul.py:44",
         "launches": int8_clip["warm"]["k4"],
-        "max_abs_err": max([r["err"] for r in k4_res["cases"].values()] + [k4_path["err"]]),
+        "max_abs_err": max([r["err"] for r in k4_res["cases"].values()] + [k4_path["err"],
+                            engines13["k4_round"]["err"]]),
         "ms": int8_clip["warm"]["k4_ms"],
         "plain_ms": k4_path["plain_ms"],
         "bound_ms": k4_path["bound_ms"],
@@ -4778,8 +5493,15 @@ def main() -> int:
                              **{f"12d int4 BatchEngine at 4 rows (the int8 head), {dn}":
                                 r["counts"]["K4"] for dn, r in f32_12["w4"].items()}},
         "max_abs_err_m4": max(r["worst"][0] for r in f32_12["k4"].values()),
+        "max_abs_err_13c": {n: engines13["k4_round"][n] for n in ("launches", "rows", "err",
+                                                                 "ratio")},
+        "launches_phase13": {**{f"13c BatchEngine {n}": r["k4"]
+                                for n, r in engines13["slot"].items()},
+                             **{f"13c PagedEngine a = 1.0, {p} pool": r["counts"]["k4"]
+                                for p, r in engines13["paged"].items()}},
         "m4_bf16": {f"[4,{k[0]}]x[{k[0]},{'|'.join(map(str, k[1]))}]->{k[2]}":
-                    {n: r[n] for n in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")}
+                    {n: r[n] for n in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by")}
                     for k, r in f32_12["k4"]["bfloat16"]["timing"].items()},
         "ptxas": k4_ptxas,
     })
@@ -4864,7 +5586,19 @@ def main() -> int:
         "warm-up step's launches and the replays'); max_abs_err_m4: the largest |y - plain| "
         "of those launches at m = 4, re-run on their captured inputs; m4_bf16: the bf16 "
         "2 + 2-layer model's (7B layer shapes) launches at m = 4 timed with the wrapper (ms), "
-        "as device time (graph_ms / device_ms), the plain version and the bound.")
+        "as device time (graph_ms / device_ms), the plain version and the bound. "
+        "launches_phase13 (flash_attention_fwd, paged_attention, w8a16_matmul): each "
+        "kernel's launches on phase 13's paths, counted from 0 just before each path and read "
+        "just after (K2: one speculative api.generate's encoder and two prefills, 13b; K3: every verify "
+        "launch of the PagedEngine runs at a = 1.0, 13c; K4: the int8 target's and draft's "
+        "launches of each 13c run); w8a16_matmul max_abs_err_13c: one 13c BatchEngine "
+        "round's K4 launches (the 0.5B draft's at m = 8, the 7B verify's at m = 40) re-run "
+        "against the plain version; paged_attention max_abs_err_verify: the largest "
+        "|o/l - plain| of 13a at g' = 35 and 64; verify_13a: 13a's times at 8a's mixed rows "
+        "(ms with the wrapper, graph_ms device time of one call, five_g7_ms five g = 7 calls' "
+        "device time, bound_ms, with_scratch_ms the bound with the scores scratch written and "
+        "read); verify_13c_chunk: one 13c chunk's 168 verify launches, path_ms in the path "
+        "(CUDA events), graph_ms replayed in one graph, plain_ms and bound_ms summed.")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")

@@ -4,7 +4,7 @@
 card in one run; with ``--check``, also each kernel held to its plain version first.
 
     python3 scripts/torch_k3_k9_times.py [--root DIR] [--tag NAME] [--reps N] [--check]
-        [--only k3,k9,serving] [--parts P,..] [--clusters C,..] [--profile]
+        [--only k3,k9,serving] [--parts P,..] [--clusters C,..] [--profile] [--tiles]
 
 ``--root`` names the repository checkout whose ``audio_flamingo_tpu_torch`` is measured
 (default: this one), so a parent commit unpacked beside the tree can be timed in the same
@@ -33,6 +33,11 @@ and divided by the calls in it, the host left out.
   with every K3 launch timed with CUDA events and its inputs kept (its ids equal to the
   first run's), those launches then replayed in one CUDA graph: K3's device time in the
   serving path beside the events figure, which holds the host's gaps.
+- ``--tiles``: K3's eight-head-tile kernels (kT = 8, which take 8 < g <= 64) at the
+  decode's g = 7, beside the one-tile kernels (kT = 1) the tree launches there: the kernel
+  library is built a second time from a copy of ``csrc/`` (under ``_build/``) whose K3
+  dispatch sends every g to kT = 8, held to the plain version at the check rows, and the
+  mixed rows timed in all five dtype pairs in the order tree, kT = 8, kT = 8, tree.
 - ``--profile``: each CUDA kernel's device time per call from torch.profiler, for K3 at the
   mixed bf16 rows and the K9 stages at m = 30,000.
 
@@ -197,6 +202,79 @@ def k3_times(pa, inp, rows: list, reps: int, parts_list) -> None:
                 pa.kernel_parts = real
             emit(rows, kernel="K3", q="bfloat16", pool=kv_name, lengths="mixed", parts=parts,
                  device_ms=ms)
+
+
+def tiles8_library() -> str:
+    """The kernel library built from a copy of csrc/ in which K3 takes its eight-head-tile
+    kernels at every g (the g <= 8 branches of launch_rows and occupancy_rows never
+    taken); returns its path."""
+    import glob
+
+    from audio_flamingo_tpu_torch.ops.kernels import _build
+
+    src = os.path.join(_build.BUILD_DIR, "tiles8_src")
+    os.makedirs(src, exist_ok=True)
+    cases = (("  if (g <= kTile)\n    return launch<", "  if (false)\n    return launch<"),
+             ("return g <= kTile ? attend_occupancy", "return false ? attend_occupancy"))
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")) + glob.glob(
+            os.path.join(_build.CSRC, "*.cuh")):
+        with open(path) as f:
+            text = f.read()
+        if os.path.basename(path) == "paged_attention.cu":
+            for old, new in cases:
+                if text.count(old) != 1:
+                    raise RuntimeError(f"paged_attention.cu: the dispatch {old!r} not found once")
+                text = text.replace(old, new)
+        with open(os.path.join(src, os.path.basename(path)), "w") as f:
+            f.write(text)
+    out, _, _ = _build.compile_library(_build.find_nvcc(), _build.NVCC_FLAGS,
+                                       sorted(glob.glob(os.path.join(src, "*.cu"))),
+                                       "libaf_tiles8")
+    return out
+
+
+def k3_tiles(pa, smoke, inp, rows: list, reps: int) -> None:
+    """kT = 8 against kT = 1 at g = 7 (``--tiles``)."""
+    from audio_flamingo_tpu_torch.ops.kernels import _build
+
+    tree_lib = _build.load_library()
+    tiles_path = tiles8_library()
+
+    def use(lib_path):
+        if lib_path is None:
+            _build._lib = tree_lib
+        else:
+            _build.load_library(lib_path)
+        pa._attend_blocks_per_sm.cache_clear()
+
+    try:
+        use(tiles_path)
+        for q_dtype, kv_name in K3_PAIRS:
+            q = inp["q32"].to(q_dtype)
+            k, v, ks, vs = inp["pools"](kv_name)
+            tables, lengths = inp["tables_for"](K3_ROWS["check"])
+            tag = f"K3 kT=8 at g=7 q {str(q_dtype).split('.')[-1]} pool {kv_name}"
+            r = smoke.paged_compare(pa, (q, k, v, tables, lengths, 0, ks, vs, None),
+                                    inp["k_cur"], inp["v_cur"])
+            held(tag, r["ratio"] <= 1.0, f"max|o/l - plain| {r['err']:.3e} at "
+                                         f"{r['ratio']:.3f} of its limit")
+        for q_dtype, kv_name in K3_PAIRS:
+            q = inp["q32"].to(q_dtype)
+            k, v, ks, vs = inp["pools"](kv_name)
+            tables, lengths = inp["tables_for"](K3_ROWS["mixed"])
+            call = lambda: pa.paged_attention(q, k, v, tables, lengths, 5, k_scale=ks,
+                                              v_scale=vs)
+            ms = {}
+            for i, (name, lib_path) in enumerate((("kT1", None), ("kT8", tiles_path),
+                                                  ("kT8", tiles_path), ("kT1", None))):
+                use(lib_path)
+                ms.setdefault(name, []).append(graph_ms(call, reps, 10))
+            emit(rows, kernel="K3 tiles", q=str(q_dtype).split(".")[-1], pool=kv_name,
+                 lengths="mixed", g=7, kT1_ms=ms["kT1"], kT8_ms=ms["kT8"],
+                 bound_ms=k3_bound_ms(K3_ROWS["mixed"], inp["block"], k.dtype),
+                 kT8_over_kT1=statistics.mean(ms["kT8"]) / statistics.mean(ms["kT1"]))
+    finally:
+        use(None)
 
 
 # ------------------------------------------------------------------ K9
@@ -403,6 +481,7 @@ def main() -> int:
     ap.add_argument("--parts", default="")
     ap.add_argument("--clusters", default="")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--tiles", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -424,6 +503,8 @@ def main() -> int:
         if args.check:
             k3_check(pa, smoke, inp)
         k3_times(pa, inp, rows, args.reps, ints(args.parts))
+        if args.tiles:
+            k3_tiles(pa, smoke, inp, rows, args.reps)
         del inp
         torch.cuda.empty_cache()
     if "k9" in only:

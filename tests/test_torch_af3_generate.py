@@ -155,8 +155,11 @@ def test_chat_think_and_unported_options(models):
     assert isinstance(answer, str) and tm.last_output is None
     streamed = list(tm.generate(prompt="x", stream=True, max_new_tokens=2))   # now ported
     assert 1 <= len(streamed) <= 2 and all(isinstance(t, int) for t in streamed)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.load_draft("unused")
+    # speculation is ported: the model as its own draft answers as the plain path does
+    want = tm.generate(prompt="x", max_new_tokens=4)
+    drafted = dataclasses.replace(tm, draft=tm.model.lm, draft_cfg=tm.cfg.lm)
+    assert drafted.generate(prompt="x", max_new_tokens=4) == want
+    assert drafted.last_output is None and drafted.last_spec.rounds >= 1
 
 
 def test_jax_api_arguments_exist_with_jax_defaults():

@@ -298,8 +298,10 @@ def test_request_options_match_jax(model_b):
 
 def test_unported_options_and_the_device_rule(model_b, monkeypatch):
     _, _, cfg, model = model_b
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedEngine(model=model, cfg=cfg, device="cpu", draft_params=object())
+    # speculation is ported: a draft is taken (preempt=False), its dense cache made
+    spec = PagedEngine(model=model, cfg=cfg, device="cpu", draft_params=model.lm,
+                       draft_cfg=cfg.lm, preempt=False)
+    assert spec.d_cache is not None and spec._step_budget() == 4 * (4 + 1)
     eng = PagedEngine(model=model, cfg=cfg, device="cpu", **PREFIX)
     with pytest.raises(NotImplementedError, match="ROADMAP"):   # the AF1/AF2 lane
         eng.submit_beam(BeamRequest(request_id="b", ids=np.zeros((1, 4), np.int32),

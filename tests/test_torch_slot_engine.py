@@ -176,8 +176,10 @@ def test_batch_engine_metrics_and_refusals(models):
     assert set(eng.request_metrics) == {"r0", "r1"}
     assert {r["request_id"] for r in sink.records} == {"r0", "r1"}
     assert all(m["ttft_s"] is not None and m["tokens"] >= 1 for m in eng.request_metrics.values())
-    with pytest.raises(NotImplementedError, match="4, speculative decoding"):
-        engine.BatchEngine(model=model, cfg=cfg, device="cpu", draft_params=object())
+    # speculation is ported: a draft is taken and its dense cache made
+    spec = engine.BatchEngine(model=model, cfg=cfg, device="cpu", draft_params=model.lm,
+                              draft_cfg=cfg.lm, num_slots=2, capacity=128)
+    assert spec.d_cache is not None and engine.speculating(spec)
     with pytest.raises(ValueError, match="capacity"):
         eng.submit(engine.Request(request_id="x", ids=np.zeros((1, 200), np.int32)))
     with pytest.raises(NotImplementedError, match="7, the AF1/AF2 family"):
