@@ -1,4 +1,4 @@
-"""Weight conversion into the port's ``AF3Model`` state dict.
+"""Weight conversion into the port's state dicts (``AF3Model`` and the voice modules).
 
 - ``params_from_jax(params, cfg)``: the JAX package's AF3 params pytree, as numpy arrays
   (layers stacked on a leading axis, linears [in, out], convs WIO [k, in, out]). A
@@ -11,6 +11,9 @@
 - ``qwen2_state_from_hf(sd, cfg)``: a plain HF Qwen2 CausalLM state dict (a speculative
   draft, ``api.load_draft``) into ``Qwen2``'s names (JAX ``io/hf_import.import_qwen2``
   :57); ``lm_params_from_jax`` carries a JAX draft's parameters (float or quantized).
+- Voice: ``tts_params_from_jax`` (``models/tts.TTSHead``), ``vocoder_params_from_jax``
+  (``audio/neural_vocoder.Vocoder``; the layouts move here, once) and
+  ``rvq_params_from_jax`` (``audio/rvq.RVQ``'s buffers).
 
 All return {port name: torch tensor}; a tied LM head is dropped.
 """
@@ -175,3 +178,61 @@ def state_dict_from_hf(sd: dict, cfg: AF3Config) -> dict[str, torch.Tensor]:
                              lm_prefix)
     out.update({"lm." + k: v for k, v in lm.items()})
     return out
+
+
+def tts_params_from_jax(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """JAX's TTS head tree (models/tts.py: blocks stacked on a leading axis, linears
+    [in, out]) -> ``TTSHead``'s state dict (Linear [out, in])."""
+    sd: dict[str, torch.Tensor] = {"embed": _t(params["embed"]),
+                                   "queries": _t(params["queries"])}
+    _lin(params["state_proj"], "state_proj", sd)
+    for i in range(cfg.num_layers):
+        bp = _layer(params["blocks"], i)
+        p = f"blocks.{i}."
+        for n in ("ln1", "ln2"):
+            sd[p + n + ".weight"] = _t(bp[n + "_w"])
+            sd[p + n + ".bias"] = _t(bp[n + "_b"])
+        for n in ("q", "k", "v", "o", "fc1", "fc2"):
+            _lin(bp[n], p + n, sd)
+    sd["ln_f.weight"] = _t(params["ln_f_w"])
+    sd["ln_f.bias"] = _t(params["ln_f_b"])
+    _lin(params["mel_out"], "mel_out", sd)
+    if "speaker" in params:
+        sd["speaker"] = _t(params["speaker"])
+    if "rvq_out" in params:
+        _lin(params["rvq_out"], "rvq_out", sd)
+    return sd
+
+
+def vocoder_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX's vocoder tree (audio/neural_vocoder.py: NWC / WIO convs, w [k, in, out]) ->
+    ``Vocoder``'s state dict: convs [out, in, k]; the upsampling convs in
+    ``conv_transpose1d``'s [in, out, k] with the kernel flipped (JAX's transposed conv is
+    a cross-correlation of the dilated input with w)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def conv(name: str, p: dict, transposed: bool = False) -> None:
+        w = np.asarray(p["w"], np.float32)
+        w = w[::-1].transpose(1, 2, 0) if transposed else w.transpose(2, 1, 0)
+        sd[name + ".weight"] = _t(np.ascontiguousarray(w))
+        sd[name + ".bias"] = _t(p["b"])
+
+    conv("pre", params["pre"])
+    conv("post", params["post"])
+    for i, p in enumerate(params["ups"]):
+        conv(f"ups.{i}", p, transposed=True)
+    for i, blocks in enumerate(params["res"]):
+        for j, blk in enumerate(blocks):
+            conv(f"res.{i}.{j}.c1", blk["c1"])
+            conv(f"res.{i}.{j}.c2", blk["c2"])
+    if "f0_head" in params:
+        conv("f0_head.c1", params["f0_head"]["c1"])
+        conv("f0_head.c2", params["f0_head"]["c2"])
+        for i, p in enumerate(params["src"]):
+            conv(f"src.{i}", p)
+    return sd
+
+
+def rvq_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX's RVQ codec tree (audio/rvq.py) -> ``RVQ``'s buffers."""
+    return {k: _t(params[k]) for k in ("codebooks", "ema_count", "ema_sum")}

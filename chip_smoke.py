@@ -232,10 +232,36 @@ Phases, each line stamped with elapsed seconds:
         1.0, tok/s; PagedEngine with the draft at a = 1.0 on a bf16 and an int8 pool: tok/s,
         every K3 launch a verify at g' = 35 (6 x 28 a chunk), one chunk's launches re-run
         against the plain version, timed in the path and in one graph beside the bound;
+        one BatchEngine round's K4 launches (the draft at m = 8, the verify at m = 40)
+        re-run against the plain version, each shape timed alone (device, one call in a
+        CUDA graph) beside its bound, plain version and torch._weight_int8pack_mm;
      d. f32 card against CPU, full width, 2 + 2 layers with a random 2-layer draft at the
         0.5B's widths (vocab 151,936: clamp and pad): generate_speculative, BatchEngine and
         PagedEngine (bf16 and int8 pools) token-exact card vs CPU and equal to the plain
         paths on the card.
+ 14. voice out (models/tts.py, audio/neural_vocoder.py, audio/vocoder.py, audio/rvq.py,
+     runtime/voice.py), on 13b's bf16 7B before it is freed; no kernel of its own (the
+     convs, DFT and TTS products are plain torch, as JAX's are plain XLA):
+     a. the shipped trained vocoder on the card (default_vocoder(), f32): its weights equal
+        the CPU load bit for bit; evaluate and envelope_correlation(num_speakers=16) within
+        the JAX test's bands of vocoder_eval.json and above its floors; apply on 64
+        held-out frames card vs CPU (the legacy layout, the same generator without the
+        source, within 1e-5; the harmonic layout within a bound derived from the F0 head's
+        card-vs-CPU difference and the generator's measured sensitivity to the source's
+        phase), two launches bit-identical; stream_synthesize against apply in the JAX
+        tests' setups and bands, and the trained vocoder's stream in the mel domain (its
+        samples depart from the full pass: the window's edge F0 enters the phase, as in
+        JAX);
+     b. the voice path at full width: generate(stream=True, 64 tokens) on the 30 s clip into
+        speak_stream, a StreamingTTSSession with TTSConfig() (random weights from a seed on
+        the card) and the trained vocoder, twice: time to the first audio chunk, chunks
+        (4 of 10,240 samples), TTS and vocoder ms per chunk (CUDA events), seconds of audio
+        per wall second, peak memory, K2's launches (60, no other kernel); ids and samples
+        identical across the runs, samples finite in (-1, 1); Griffin-Lim (32 rounds) on the
+        same mels, timed;
+     c. f32 card against CPU at small size: a 2-layer TTSConfig at d 256, synthesize_chunk
+        within 1e-4 with and without a speaker; RVQ codes equal and decode within 1e-5;
+        Griffin-Lim from one injected phase, 4 rounds, within 1e-4 from the same magnitude.
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -4169,6 +4195,33 @@ def captured_k4_checks(k4, inputs: list, tag: str = "12d") -> list:
     return worst
 
 
+def k4_launch_timing(k4, captured: list) -> dict:
+    """Per distinct shape of the captured K4 launches (x's K, the products' N, the output
+    dtype, m), one launch timed: with the wrapper, as device time (one call in a CUDA graph,
+    its own launch included), the plain version's and torch._weight_int8pack_mm's (a
+    grouped launch: its products' summed), the bound; and how many launches had it."""
+    timing = {}
+    for x, prods, od in captured:
+        key = (x.shape[1], tuple(w.shape[1] for w, _ in prods), str(od).split(".")[-1],
+               x.shape[0])
+        if key in timing:
+            timing[key]["count"] += 1
+            continue
+        if len(prods) > 1:
+            r = k4_group_case(k4, x, [{"w_q": w, "scale": sc} for w, sc in prods], od, True)
+            r["plain_ms"] = sum(time_ms(lambda w=w, sc=sc: k4.w8a16_matmul_reference(
+                x, w, sc, od), 5, 1) for w, sc in prods)
+            libs = [int8pack_call(x, w, sc)[0] for w, sc in prods]
+            r["library_ms"] = sum(time_ms(f, 5, 1) for f in libs) if all(libs) else None
+            del libs
+        else:
+            r = k4_case(k4, x, *prods[0], od, True)
+        r["count"] = 1
+        timing[key] = r
+    k4.LAUNCHES.reset()
+    return timing
+
+
 def f32_beam_slot_phase(k4, k5, k6) -> dict:
     """12d. Full width, 2 + 2 layers, weights made on the CPU from a seed and moved to the
     card: (1) f32 beam search card vs CPU (K = 4, 12 new tokens, every beam: ids exact,
@@ -4368,28 +4421,7 @@ def f32_beam_slot_phase(k4, k5, k6) -> dict:
             check(captured and all(x.shape[0] == BEAM_K for x, _, _ in captured),
                   f"12d int8 beam {dn}: K4 launches not at m = {BEAM_K}")
             worst = captured_k4_checks(k4, captured)
-            timing = {}
-            if dtype == torch.bfloat16:
-                seen = set()
-                for x, prods, od in captured:
-                    key = (x.shape[1], tuple(w.shape[1] for w, _ in prods),
-                           str(od).split(".")[-1])
-                    if key in seen:
-                        continue
-                    seen.add(key)
-                    if len(prods) > 1:
-                        r = k4_group_case(k4, x, [{"w_q": w, "scale": sc} for w, sc in prods],
-                                          od, True)
-                        r["plain_ms"] = sum(time_ms(lambda w=w, sc=sc: k4.w8a16_matmul_reference(
-                            x, w, sc, od), 5, 1) for w, sc in prods)
-                        libs = [int8pack_call(x, w, sc)[0] for w, sc in prods]
-                        r["library_ms"] = (sum(time_ms(f, 5, 1) for f in libs)
-                                           if all(libs) else None)
-                        del libs
-                    else:
-                        r = k4_case(k4, x, *prods[0], od, True)
-                    timing[key] = r
-                k4.LAUNCHES.reset()
+            timing = k4_launch_timing(k4, captured) if dtype == torch.bfloat16 else {}
             k4_res[dn] = dict(worst=worst, launches=len(captured), timing=timing)
             log(f"12d int8 LM beam at K = {BEAM_K}, {dn}: two eager steps' {len(captured)} K4 "
                 f"launches (m = {BEAM_K}) re-run against the plain version: max|y - plain| "
@@ -4759,7 +4791,25 @@ def spec_engine_phase(pa, k4) -> dict:
     err, ratio = captured_k4_checks(k4, first, "13c")
     shapes = sorted({(x.shape[0], x.shape[1], "|".join(str(w.shape[1]) for w, _ in prods))
                      for x, prods, _ in first})
-    k4_round = dict(launches=len(first), rows=dict(rows), err=err, ratio=ratio, shapes=shapes)
+    # each distinct shape of the round timed alone (one launch in a CUDA graph), beside its
+    # bound and the library call; the round's sums weight each by its launches
+    timing = k4_launch_timing(k4, first)
+    sums = {n: sum(r["count"] * r[n] for r in timing.values())
+            for n in ("graph_ms", "plain_ms", "bound_ms")}
+    sums["library_ms"] = (sum(r["count"] * r["library_ms"] for r in timing.values())
+                          if all(r["library_ms"] is not None for r in timing.values()) else None)
+    k4_round = dict(launches=len(first), rows=dict(rows), err=err, ratio=ratio, shapes=shapes,
+                    timing=timing, **{"round_" + n: v for n, v in sums.items()})
+    log("13c one BatchEngine round's K4 shapes, each one launch timed alone (device: one call "
+        "in a CUDA graph): " + "; ".join(
+            f"[{k[3]},{k[0]}]x[{k[0]},{'|'.join(map(str, k[1]))}] -> {k[2]} x {r['count']}: "
+            f"device {r['graph_ms']:.4f} ms (with the wrapper {r['ms']:.4f}), bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
+            f"torch._weight_int8pack_mm {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms"
+            for k, r in timing.items())
+        + f"; the round ({len(first)} launches): device {sums['graph_ms']:.3f} ms, bound "
+        f"{sums['bound_ms']:.4f} ms, plain {sums['plain_ms']:.2f} ms, library "
+        f"{sums['library_ms'] if sums['library_ms'] is None else round(sums['library_ms'], 3)} ms")
     del eng, captured, first
     paged = {}
     for pool in (torch.bfloat16, torch.int8):
@@ -4993,6 +5043,332 @@ def f32_spec_card_vs_cpu_phase() -> dict:
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     return results
+
+
+# ----------------------------------------------------------------------------------------
+# 14. voice out: the trained vocoder, the streaming TTS head and session, Griffin-Lim, RVQ
+
+VOICE_TOKENS = 64        # four TTS chunks of 16 tokens
+VOICE_SAMPLES = 64 * 160   # a chunk's 64 mel frames at a 160-sample hop
+
+
+def vocoder_phase() -> dict:
+    """14a. The shipped trained vocoder on the card in f32: the asset loaded by
+    default_vocoder() equals the CPU load; its held-out quality against the recorded
+    vocoder_eval.json (the JAX test's bands and floors, tests/test_neural_vocoder.py);
+    apply on 64 held-out frames card against CPU in both layouts, two launches
+    bit-identical; stream_synthesize against apply."""
+    import copy
+
+    from audio_flamingo_tpu_torch.audio import neural_vocoder as nv
+
+    t0 = time.perf_counter()
+    check(os.path.exists(nv.ASSET), f"14a: the vocoder asset {nv.ASSET} is missing")
+    voc = nv.default_vocoder()
+    cfg = voc.cfg
+    cpu = nv.load_vocoder(nv.ASSET, cfg, device="cpu")
+    check(voc.device.type == "cuda" and all(
+        torch.equal(a.cpu(), b) for a, b in zip(voc.voc.state_dict().values(),
+                                                cpu.state_dict().values())),
+          "14a: default_vocoder() on the card is not the asset's weights")
+    with open(os.path.join(os.path.dirname(nv.ASSET), "vocoder_eval.json")) as f:
+        rec = json.load(f)
+    ev = nv.evaluate(voc.voc, cfg)
+    corr = nv.envelope_correlation(voc.voc, cfg, num_speakers=16)
+    check(abs(ev["mel_mse"] - rec["heldout_mel_mse"]) < 0.05 * max(rec["heldout_mel_mse"], 1e-6)
+          and abs(corr - rec["heldout_envelope_corr"]) < 0.05
+          and abs(ev["f0_mae_hz"] - rec["heldout_f0_mae_hz"])
+          < max(0.2 * rec["heldout_f0_mae_hz"], 2.0),
+          f"14a: the trained vocoder's quality {ev}, corr {corr:.4f} is off its record {rec}")
+    check(ev["mel_mse"] < 1.0 and ev["f0_mae_hz"] <= 25.0 and corr > 0.5,
+          f"14a: the trained vocoder misses the quality floors: {ev}, corr {corr:.4f}")
+
+    # 64 held-out frames (the evaluation corpus's generator), their mel made on the CPU
+    wav, _ = nv.synthetic_voice_batch(np.random.default_rng(123), 1, 0.64)
+    mel = nv.VocoderMel(cfg, device="cpu")(wav)
+    frames = mel.shape[1]
+    legacy = nv.Vocoder(cfg, harmonic=False)     # the same generator without its source
+    legacy.load_state_dict({k: v for k, v in cpu.state_dict().items()
+                            if not k.startswith(("f0_head", "src"))})
+    res = {}
+    with torch.no_grad():
+        for name, host, card in (("harmonic", cpu, voc.voc),
+                                 ("legacy", legacy, copy.deepcopy(legacy).cuda())):
+            y = nv.apply(card, cfg, mel.cuda())
+            res[name] = dict(err=float((y.cpu() - nv.apply(host, cfg, mel)).abs().max()),
+                             same=torch.equal(y, nv.apply(card, cfg, mel.cuda())),
+                             ms=time_ms(lambda: nv.apply(card, cfg, mel.cuda()), 10, 2))
+        # the harmonic bound: the F0 head's convs sum in another order on the card, so f0
+        # moves by a few ulp; the source's phase integrates that over every earlier frame
+        # and the frame's own ramp, at most 2 pi hop / sr (frames + 1) max|df0|; a voicing
+        # change dv moves the source as a phase shift of sum(1/h) dv / H would. The
+        # generator's sensitivity to a phase shift is measured on the CPU (phase0 = 1e-3
+        # against 0), doubled for the linearization, plus the convs' own 1e-5
+        f0_c, v_c = nv.predict_f0(voc.voc, cfg, mel.cuda())
+        f0_h, v_h = nv.predict_f0(cpu, cfg, mel)
+        df0 = float((f0_c.cpu() - f0_h).abs().max())
+        dv = float((v_c.cpu() - v_h).abs().max())
+        probe = 1e-3
+        gain = float((nv.apply(cpu, cfg, mel, torch.full((1,), probe))
+                      - nv.apply(cpu, cfg, mel, torch.zeros(1))).abs().max()) / probe
+    dphi = 2 * np.pi * cfg.hop / cfg.sr * (frames + 1) * df0
+    dphi_v = sum(1.0 / h for h in range(1, cfg.harmonics + 1)) * dv / cfg.harmonics
+    bound = 1e-5 + 2 * gain * (dphi + dphi_v)
+    res["harmonic"].update(df0=df0, dv=dv, gain=gain, dphi=dphi, bound=bound)
+    check(res["legacy"]["err"] <= 1e-5, f"14a: legacy apply card vs CPU {res['legacy']}")
+    check(res["harmonic"]["err"] <= bound, f"14a: harmonic apply card vs CPU {res['harmonic']}")
+    check(res["harmonic"]["same"] and res["legacy"]["same"],
+          "14a: two launches of apply on the card differ")
+
+    # stream_synthesize against the full pass. The JAX tests' setups (tests/
+    # test_neural_vocoder.py): random weights at channels 64, 64 random frames in chunks
+    # of 16; legacy within 5e-5, harmonic within max 0.15, mean 2e-2. The trained vocoder
+    # on 2 s of voice in the session's 64-frame chunks: the stream integrates the window's
+    # edge F0 into its phase (JAX's design; the port's stream equals JAX's on the CPU), so
+    # it departs from the full pass sample by sample and is held in the mel domain: its
+    # log-mel against the full pass's closer than the vocoder's own recorded held-out
+    # error, the envelopes correlated above 0.9
+    tiny = nv.VocoderConfig(channels=64)
+    band = {}
+    for harmonic in (True, False):
+        v = nv.init(tiny, harmonic, torch.Generator(device="cuda").manual_seed(0))
+        m = torch.randn(64, 80, generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda")
+        with torch.no_grad():
+            f = nv.apply(v, tiny, m[None], torch.zeros(1, device="cuda") if harmonic else None)
+        d = np.abs(np.concatenate(list(nv.stream_synthesize(v, tiny, m.split(16))))
+                   - f[0].cpu().numpy())
+        band["harmonic" if harmonic else "legacy"] = (float(d.max()), float(d.mean()))
+    check(band["legacy"][0] <= 5e-5 and band["harmonic"][0] < 0.15
+          and band["harmonic"][1] < 2e-2, f"14a: stream_synthesize off apply: {band}")
+    wav2, _ = nv.synthetic_voice_batch(np.random.default_rng(7), 1, 2.0)
+    fe = nv.VocoderMel(cfg)
+    mel2 = fe(wav2)[0]
+    with torch.no_grad():
+        full = nv.apply(voc.voc, cfg, mel2[None], torch.zeros(1, device="cuda"))[0].cpu().numpy()
+    t1 = time.perf_counter()
+    stream = np.concatenate(list(nv.stream_synthesize(voc.voc, cfg, mel2.split(64))))
+    stream_s = time.perf_counter() - t1
+    serr = np.abs(stream - full)
+    ms, mf = fe(stream[None])[0], fe(full[None])[0]
+    stream_mse = float(torch.mean((ms - mf) ** 2))
+    a, b = ms - ms.mean(-1, keepdim=True), mf - mf.mean(-1, keepdim=True)
+    stream_corr = float(((a * b).sum(-1) / torch.sqrt((a * a).sum(-1) * (b * b).sum(-1))).mean())
+    check(stream.shape == full.shape and stream_mse < rec["heldout_mel_mse"]
+          and stream_corr > 0.9, f"14a: the trained vocoder's stream off its full pass: mel "
+                                 f"MSE {stream_mse:.4f}, envelope correlation {stream_corr:.4f}")
+    r = dict(eval=ev, corr=corr, record=rec, apply=res, stream_max=float(serr.max()),
+             stream_mean=float(serr.mean()), stream_mse=stream_mse, stream_corr=stream_corr,
+             band=band, stream_s=stream_s, s=time.perf_counter() - t0)
+    h = res["harmonic"]
+    log(f"14a trained vocoder (the shipped asset, f32, card): mel MSE {ev['mel_mse']:.5f} "
+        f"(recorded {rec['heldout_mel_mse']}), F0 MAE {ev['f0_mae_hz']:.2f} Hz (recorded "
+        f"{rec['heldout_f0_mae_hz']}), envelope correlation {corr:.4f} (recorded "
+        f"{rec['heldout_envelope_corr']}); apply on {frames} held-out frames card vs CPU: "
+        f"legacy layout max|d| {res['legacy']['err']:.3e} (limit 1e-5), harmonic "
+        f"{h['err']:.3e} (bound {bound:.3e}: max|df0| {df0:.3e} Hz -> phase {dphi:.3e} rad, "
+        f"max|dv| {dv:.3e}, sensitivity {gain:.4f} per rad); two launches bit-identical; "
+        f"apply {h['ms']:.3f} ms (legacy {res['legacy']['ms']:.3f} ms) with the host's "
+        f"launches; stream_synthesize against apply, random weights at channels 64 in "
+        f"16-frame chunks: legacy max {band['legacy'][0]:.3e}, harmonic max "
+        f"{band['harmonic'][0]:.4f} mean {band['harmonic'][1]:.5f} (the JAX tests' bands "
+        f"5e-5; 0.15, 2e-2); the trained vocoder over 2 s in 64-frame chunks: samples max "
+        f"{serr.max():.4f} mean {serr.mean():.5f} (the window's edge F0 in the phase), mel MSE "
+        f"{stream_mse:.4f} against the full pass (limit: the recorded held-out "
+        f"{rec['heldout_mel_mse']}), envelope correlation {stream_corr:.4f} (limit 0.9), "
+        f"{stream_s:.3f} s; 14a took {r['s']:.1f} s")
+    return r
+
+
+def voice_path_phase(model, fa, wav, counters: dict) -> dict:
+    """14b. The voice path at full width: generate(stream=True) on the 30 s clip into
+    speak_stream, a StreamingTTSSession with TTSConfig() (random weights from seed 0, on
+    the card) and the trained vocoder, twice; Griffin-Lim (32 rounds) on the first run's
+    mels."""
+    from audio_flamingo_tpu_torch.audio import neural_vocoder as nv
+    from audio_flamingo_tpu_torch.audio.vocoder import GriffinLim
+    from audio_flamingo_tpu_torch.models import tts
+    from audio_flamingo_tpu_torch.runtime import voice
+
+    t0 = time.perf_counter()
+    tcfg = tts.TTSConfig()
+    head = tts.init(tcfg, torch.Generator(device="cuda").manual_seed(0)).requires_grad_(False)
+    vocoder = nv.default_vocoder()
+    spans = {"tts": [], "voc": [], "mels": []}
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    real_chunk = voice.synthesize_chunk
+
+    def timed_chunk(*args, **kw):
+        ev = events()
+        ev[0].record()
+        mel = real_chunk(*args, **kw)
+        ev[1].record()
+        spans["tts"].append(ev)
+        spans["mels"].append(mel[0].clone())
+        return mel
+
+    class TimedVocoder:
+        def mel_to_waveform(self, log_mel):
+            ev = events()
+            ev[0].record()
+            out = vocoder.mel_to_waveform(log_mel)
+            ev[1].record()
+            spans["voc"].append(ev)
+            return out
+
+    runs = []
+    voice.synthesize_chunk = timed_chunk
+    try:
+        for _ in range(2):
+            for c in counters.values():
+                c.reset()
+            for v in spans.values():
+                v.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ids = []
+            sess = voice.StreamingTTSSession(tts=head, tts_cfg=tcfg, vocoder=TimedVocoder())
+
+            def tap(stream):
+                for tok in stream:
+                    ids.append(tok)
+                    yield tok
+
+            start = time.perf_counter()
+            stream = model.generate(sound=wav, prompt="What do you hear?", stream=True,
+                                    max_new_tokens=VOICE_TOKENS)
+            chunks, first = [], None
+            for c in voice.speak_stream(tap(stream), sess):
+                if first is None:
+                    first = time.perf_counter() - start
+                chunks.append(c)
+            wall = time.perf_counter() - start
+            torch.cuda.synchronize()
+            runs.append(dict(ids=ids, chunks=chunks, first=first, wall=wall,
+                             tts_ms=[a.elapsed_time(b) for a, b in spans["tts"]],
+                             voc_ms=[a.elapsed_time(b) for a, b in spans["voc"]],
+                             mels=list(spans["mels"]),
+                             peak=torch.cuda.max_memory_allocated() / 2**30,
+                             counts={n: c.count for n, c in counters.items()}))
+    finally:
+        voice.synthesize_chunk = real_chunk
+    a, b = runs
+    n_chunks = -(-len(a["ids"]) // tcfg.chunk_tokens)
+    check(a["ids"] == b["ids"], f"14b: the two runs' ids differ: {a['ids']} vs {b['ids']}")
+    check(len(a["chunks"]) == n_chunks == len(b["chunks"])
+          and all(c.shape == (VOICE_SAMPLES,) for c in a["chunks"] + b["chunks"]),
+          f"14b: {len(a['chunks'])} chunks of {[c.shape for c in a['chunks']]} for "
+          f"{len(a['ids'])} tokens")
+    check(all(np.array_equal(x, y) for x, y in zip(a["chunks"], b["chunks"])),
+          "14b: the two runs' samples differ")
+    samples = np.concatenate(a["chunks"])
+    check(bool(np.isfinite(samples).all()) and float(np.abs(samples).max()) < 1.0,
+          f"14b: samples not finite in (-1, 1): max|x| {np.abs(samples).max()}")
+    for r in runs:
+        others = {n: c for n, c in r["counts"].items() if n != "K2" and c}
+        check(r["counts"]["K2"] == 60 and not others,
+              f"14b: kernel launches {r['counts']}, not K2's 60 alone")
+    gl = GriffinLim(n_iter=32)
+    gl_s, gl_out = [], []
+    for m in a["mels"]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gl_out.append(gl.mel_to_waveform(m))
+        gl_s.append(time.perf_counter() - t1)
+    check(all(o.shape == (VOICE_SAMPLES,) and np.isfinite(o).all() for o in gl_out),
+          "14b: Griffin-Lim's waveform is not finite at the chunk's length")
+    audio_s = samples.size / 16_000
+    r = dict(ids=len(a["ids"]), chunks=len(a["chunks"]), samples=VOICE_SAMPLES,
+             first_s=[q["first"] for q in runs], wall_s=[q["wall"] for q in runs],
+             rtf=[audio_s / q["wall"] for q in runs],
+             tts_ms=[statistics.median(q["tts_ms"]) for q in runs],
+             voc_ms=[statistics.median(q["voc_ms"]) for q in runs],
+             peak=[q["peak"] for q in runs], k2=a["counts"]["K2"],
+             gl_ms=statistics.median(gl_s) * 1e3, s=time.perf_counter() - t0)
+    log(f"14b voice path (bf16 7B generate(stream=True, {VOICE_TOKENS} tokens) on the 30 s "
+        f"clip -> speak_stream, TTSConfig() f32 random (seed 0), the trained vocoder), two "
+        f"runs: {r['ids']} ids, {r['chunks']} chunks of {VOICE_SAMPLES} samples "
+        f"({audio_s:.2f} s of audio); time to the first audio chunk "
+        + " / ".join(f"{x:.3f}" for x in r["first_s"]) + " s; whole stream "
+        + " / ".join(f"{x:.3f}" for x in r["wall_s"]) + " s = "
+        + " / ".join(f"{x:.2f}" for x in r["rtf"]) + " s of audio per wall second; per chunk "
+        "(median, CUDA events) TTS " + " / ".join(f"{x:.3f}" for x in r["tts_ms"])
+        + " ms (each: " + ", ".join(f"{x:.3f}" for x in a["tts_ms"]) + "), vocoder "
+        + " / ".join(f"{x:.3f}" for x in r["voc_ms"]) + " ms (each: "
+        + ", ".join(f"{x:.3f}" for x in a["voc_ms"]) + "); peak "
+        + " / ".join(f"{x:.2f}" for x in r["peak"]) + f" GiB; {r['k2']} K2 launches a run and "
+        f"no other kernel; ids and samples identical across the runs; Griffin-Lim (32 rounds) "
+        f"on the same mels {r['gl_ms']:.1f} ms a chunk (median of {len(gl_s)}); 14b took "
+        f"{r['s']:.1f} s; ids {a['ids']}")
+    return r
+
+
+def f32_voice_card_vs_cpu_phase() -> dict:
+    """14c. f32 card against CPU at small size: a 2-layer TTSConfig at d 256 with speakers
+    (synthesize_chunk within 1e-4, with and without a speaker), the RVQ codec (codes equal,
+    decode within 1e-5), Griffin-Lim from one injected phase (4 rounds from the same
+    magnitude within 1e-4; the magnitude's power within 1e-4 of its max)."""
+    import copy
+
+    from audio_flamingo_tpu_torch.audio import neural_vocoder as nv
+    from audio_flamingo_tpu_torch.audio import rvq
+    from audio_flamingo_tpu_torch.audio.vocoder import GriffinLim
+    from audio_flamingo_tpu_torch.models import tts
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    cfg = tts.TTSConfig(num_layers=2, num_speakers=4)
+    head = tts.init(cfg, torch.Generator().manual_seed(3), device="cpu").requires_grad_(False)
+    card = copy.deepcopy(head).cuda()
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, cfg.chunk_tokens)))
+    prev = torch.as_tensor(rng.normal(size=(2, cfg.state_frames, cfg.n_mels)).astype(np.float32))
+    tts_err = {}
+    with torch.no_grad():
+        for name, spk in (("no speaker", None), ("speakers [1, 3]", torch.tensor([1, 3]))):
+            want = tts.synthesize_chunk(head, cfg, ids, prev, spk)
+            got = tts.synthesize_chunk(card, cfg, ids.cuda(), prev.cuda(),
+                                       None if spk is None else spk.cuda())
+            tts_err[name] = float((got.cpu() - want).abs().max())
+            check(tts_err[name] <= 1e-4, f"14c: synthesize_chunk ({name}) card vs CPU "
+                                         f"{tts_err[name]:.3e}")
+    rcfg = rvq.RVQConfig()
+    codec = rvq.init(rcfg, torch.Generator().manual_seed(0),
+                     data=torch.as_tensor(rng.normal(size=(1024, 80)).astype(np.float32)))
+    ccard = copy.deepcopy(codec).cuda()
+    x = torch.as_tensor(rng.normal(size=(2, 64, 80)).astype(np.float32))
+    codes = rvq.encode(codec, rcfg, x)
+    codes_c = rvq.encode(ccard, rcfg, x.cuda())
+    check(torch.equal(codes, codes_c.cpu()), "14c: RVQ codes differ card vs CPU")
+    dec_err = float((rvq.decode(ccard, rcfg, codes_c).cpu() - rvq.decode(codec, rcfg, codes))
+                    .abs().max())
+    check(dec_err <= 1e-5, f"14c: RVQ decode card vs CPU {dec_err:.3e}")
+    wav, _ = nv.synthetic_voice_batch(np.random.default_rng(9), 1, 0.64)
+    mel = nv.VocoderMel(device="cpu")(wav)[0]
+    gl_h, gl_c = GriffinLim(n_iter=4, device="cpu"), GriffinLim(n_iter=4, device="cuda")
+    phase = (torch.rand((mel.shape[0], 201), generator=torch.Generator().manual_seed(0))
+             * (2 * np.pi) - np.pi)
+    mag = gl_h._magnitude(mel)
+    gl_err = float((gl_c.rounds(mag.cuda(), phase.cuda()).cpu() - gl_h.rounds(mag, phase))
+                   .abs().max())
+    power_h = torch.pow(10.0, mel) @ gl_h.mel_pinv
+    power_err = float(((torch.pow(10.0, mel.cuda()) @ gl_c.mel_pinv).cpu() - power_h).abs().max())
+    full_err = float((gl_c.from_phase(mel.cuda(), phase.cuda()).cpu()
+                      - gl_h.from_phase(mel, phase)).abs().max())
+    check(gl_err <= 1e-4 and power_err <= 1e-4 * float(power_h.abs().max()),
+          f"14c: Griffin-Lim card vs CPU: rounds {gl_err:.3e}, power {power_err:.3e}")
+    r = dict(tts=tts_err, rvq_decode=dec_err, gl_rounds=gl_err, gl_power=power_err,
+             gl_from_phase=full_err, s=time.perf_counter() - t0)
+    log(f"14c f32 card vs CPU: synthesize_chunk (2 layers, d 256) max|d| "
+        + ", ".join(f"{n} {e:.3e}" for n, e in tts_err.items()) + f" (limit 1e-4); RVQ "
+        f"(4 x 256 codes of 80) codes equal over {codes.numel()}, decode {dec_err:.3e}; "
+        f"Griffin-Lim 4 rounds from one phase and magnitude {gl_err:.3e} (limit 1e-4), the "
+        f"magnitude's power {power_err:.3e} (max {float(power_h.abs().max()):.1f}), from the "
+        f"log-mel {full_err:.3e} (the sqrt of a power near zero is steep); 14c took "
+        f"{r['s']:.1f} s")
+    return r
 
 
 def serve_any(engine, specs, max_new_tokens: int) -> dict:
@@ -5272,6 +5648,17 @@ def main() -> int:
     model = AudioFlamingo.from_random(with_flash(AF3Config(), True), seed=0,
                                       compute_dtype=torch.bfloat16, device="cuda")
     dense13 = spec_dense_phase(model, fa, wav)
+    # 14a, 14b. voice out: the trained vocoder on the card, then the voice path on 13b's
+    # model (its answer streamed into the TTS session), before the model is freed
+    t14 = time.perf_counter()
+    voc14 = vocoder_phase()
+    counters = {"K2": fa.LAUNCHES, "K7": fa.BWD_LAUNCHES, "K1": lm.LAUNCHES, "K3": pa.LAUNCHES,
+                "K4": k4.LAUNCHES, "K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A,
+                "K6B": k6.LAUNCHES_B, "K8": fa8.LAUNCHES, "K8 prelude": fa8.PRELUDE_LAUNCHES,
+                "K9 ln_qkv": ef.LN_QKV_LAUNCHES, "K9 out_ln": ef.OUT_LN_LAUNCHES,
+                "K9 mlp": ef.MLP_LAUNCHES}
+    voice14 = voice_path_phase(model, fa, wav, counters)
+    phase14_s = time.perf_counter() - t14
     del model
     log(f"13: released the held captured steps ({gen.release_graphs() / 2**20:.1f} MiB)")
     gc.collect()
@@ -5281,6 +5668,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_spec_card_vs_cpu_phase()
     gen.release_graphs()
+    # 14c. voice: f32 card against CPU at small size
+    f32_14 = f32_voice_card_vs_cpu_phase()
+    phase14_s += f32_14["s"]
+    log(f"14: phase 14 took {phase14_s:.1f} s (14a {voc14['s']:.1f}, 14b {voice14['s']:.1f}, "
+        f"14c {f32_14['s']:.1f})")
 
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
@@ -5311,6 +5703,8 @@ def main() -> int:
                              "12c BatchEngine, mixed workload": slot12["res"]["slot"]["k2"]},
         "launches_phase13": {"13b speculative api.generate, encoder and both prefills":
                              dense13["k2"]},
+        "launches_phase14": {"14b voice path, generate(stream=True) into speak_stream (a run)":
+                             voice14["k2"]},
         "path_phase12": {"12a beam generate (the second)": beam12["k2_path"],
                          "12c BatchEngine, mixed workload": slot12["res"]["slot"]["k2_path"]},
         "ptxas": [r for r in flash_ptxas if r["kernel"].startswith("flash_fwd")],
@@ -5495,6 +5889,13 @@ def main() -> int:
         "max_abs_err_m4": max(r["worst"][0] for r in f32_12["k4"].values()),
         "max_abs_err_13c": {n: engines13["k4_round"][n] for n in ("launches", "rows", "err",
                                                                  "ratio")},
+        "round_13c": {
+            **{f"[{k[3]},{k[0]}]x[{k[0]},{'|'.join(map(str, k[1]))}]->{k[2]}":
+               {n: r[n] for n in ("count", "ms", "graph_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")}
+               for k, r in engines13["k4_round"]["timing"].items()},
+            **{n: engines13["k4_round"]["round_" + n]
+               for n in ("graph_ms", "plain_ms", "library_ms", "bound_ms")}},
         "launches_phase13": {**{f"13c BatchEngine {n}": r["k4"]
                                 for n, r in engines13["slot"].items()},
                              **{f"13c PagedEngine a = 1.0, {p} pool": r["counts"]["k4"]
@@ -5598,7 +5999,14 @@ def main() -> int:
         "(ms with the wrapper, graph_ms device time of one call, five_g7_ms five g = 7 calls' "
         "device time, bound_ms, with_scratch_ms the bound with the scores scratch written and "
         "read); verify_13c_chunk: one 13c chunk's 168 verify launches, path_ms in the path "
-        "(CUDA events), graph_ms replayed in one graph, plain_ms and bound_ms summed.")
+        "(CUDA events), graph_ms replayed in one graph, plain_ms and bound_ms summed. "
+        "w8a16_matmul round_13c: that round's K4 launches by shape ([m,K]x[K,N]->out), count "
+        "= its launches, one launch of each timed alone (ms with the wrapper, graph_ms device "
+        "time of one call in a CUDA graph, its own launch included), plain_ms, library_ms "
+        "(torch._weight_int8pack_mm; a grouped launch: its products' calls summed), bound_ms; "
+        "the round's sums weight each shape by its count. launches_phase14 "
+        "(flash_attention_fwd): K2's launches in one 14b run, counted from 0 just before it "
+        "and read just after (the encoder's 32 and the prefill's 28; no other kernel ran).")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")
