@@ -1,9 +1,11 @@
 """Top-level user API of the port: load a model, run waveform -> text, multi-turn chat.
 
-Mirrors ``audio_flamingo_tpu/api.py`` (``AudioFlamingo.generate``, ``from_random``,
-``load``, ``load_draft``). Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
-card and no explicit device they raise instead of running on the CPU. Weights are made
-on the target device in the compute dtype.
+Mirrors ``audio_flamingo_tpu/api.py``: ``AudioFlamingo`` (AF3: ``generate``,
+``from_random``, ``load``, ``load_draft``) and ``AudioFlamingo2`` (the AF1/AF2 family:
+``generate``, ``from_random``, ``save_af2``, ``load_af2``). Entry points run on CUDA
+unless the caller passes ``device="cpu"``; with no card and no explicit device they raise
+instead of running on the CPU. Weights are made on the target device in the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -17,16 +19,19 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.config import (AF3Config, Qwen2Config, WhisperEncoderConfig,
-                                             bucket_tokens)
+from audio_flamingo_tpu_torch.config import (NOT_PORTED, AF2Config, AF3Config,
+                                             ClapAudioConfig, ClapMelConfig, GatedXAttnConfig,
+                                             OPTConfig, Qwen2Config, WhisperEncoderConfig,
+                                             asdict, bucket_tokens)
 from audio_flamingo_tpu_torch.device import resolve_device
-from audio_flamingo_tpu_torch.models import af3, qwen2, whisper_encoder
+from audio_flamingo_tpu_torch.models import af3, clap, flamingo, qwen2, whisper_encoder
 from audio_flamingo_tpu_torch.ops.quant import quantize_encoder_params, quantize_lm_params
 from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
 from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
 from audio_flamingo_tpu_torch.runtime import beam
 from audio_flamingo_tpu_torch.runtime import generate as gen
 from audio_flamingo_tpu_torch.runtime import speculative
+from audio_flamingo_tpu_torch.runtime.clap_processor import AF2Processor
 from audio_flamingo_tpu_torch.runtime.processor import AUDIO_TOKEN, AF3Processor
 from audio_flamingo_tpu_torch.runtime.tokenizer import BBPETokenizer, train_bpe
 
@@ -347,3 +352,212 @@ def load_draft(model_path: str, compute_dtype: torch.dtype = torch.bfloat16, *,
     lm = lm.to_empty(device=device)
     lm.load_state_dict({k: v.to(compute_dtype) for k, v in state.items()})
     return lm.eval().requires_grad_(False), cfg
+
+
+# ---------------------------------------------------------------------------- AF1 / AF2
+
+@dataclass
+class AudioFlamingo2:
+    """An AF1/AF2-family model: CLAP tower -> audio transform -> gated-xattn LM
+    (``cfg.lm`` a ``Qwen2Config`` for AF2, an ``OPTConfig`` for AF1)."""
+
+    cfg: AF2Config
+    model: flamingo.FlamingoModel
+    tower: clap.ClapAudioTower
+    processor: AF2Processor
+    eos_token_id: int
+    history: list = field(default_factory=list)
+    last_output: gen.GenerateOutput | None = None   # ids, prefill logits and timings
+    last_processor_s: float | None = None   # the last generate's processor (chat template,
+                                            # CLAP mel, tokenizer), device-synced
+    last_tower_s: float | None = None       # and its HTSAT tower, device-synced
+
+    THINK_INSTRUCTION = AudioFlamingo.THINK_INSTRUCTION
+
+    @property
+    def device(self) -> torch.device:
+        return self.tower.proj_fc1.weight.device
+
+    def encode_audio(self, mels: torch.Tensor, is_longer: torch.Tensor) -> torch.Tensor:
+        """[n_media, n_windows, C, T, M] mel stacks -> [1, n_media, n_windows, proj]."""
+        nm, nw = mels.shape[:2]
+        out = self.tower.encode(mels.reshape((nm * nw,) + tuple(mels.shape[2:])),
+                                is_longer.reshape(nm * nw, 1))
+        return out["embeds"].reshape(1, nm, nw, -1)
+
+    def generate(self, sound: np.ndarray | list[np.ndarray] | None = None,
+                 prompt: str = "Describe the audio.", *, max_new_tokens: int = 128,
+                 sampling: SamplingParams = SamplingParams(), seed: int = 0,
+                 chat: bool = False, think: bool = False, num_beams: int = 1,
+                 length_penalty: float = 1.0, early_stopping: bool | str = False) -> str:
+        """sound: mono 48 kHz waveform(s) (f32, or int16 PCM). Every text token attends to
+        every clip (JAX's generate passes no media mask). The prompt is right-padded with
+        EOS to its token bucket and decoded from ``prompt_len``
+        (``models/flamingo.generate``; the step captured on the card). The run's ids,
+        prefill logits and timings are kept in ``last_output``, the processor's and the
+        tower's times in ``last_processor_s`` and ``last_tower_s``. think=True appends the
+        thinking instruction after the audio marker. Beam search (num_beams > 1) is not
+        ported for this family yet and raises."""
+        if num_beams > 1:
+            raise NotImplementedError(NOT_PORTED.format(
+                "AF1/AF2 beam search (AudioFlamingo2.generate with num_beams > 1)", beam.XATTN))
+        audios = None
+        text = prompt
+        if sound is not None:
+            audios = [sound] if isinstance(sound, (np.ndarray, torch.Tensor)) else list(sound)
+            if AUDIO_TOKEN not in prompt:
+                text = f"{AUDIO_TOKEN}{prompt}"
+        if think:
+            text = f"{text}\n{self.THINK_INSTRUCTION}"
+        history_audios = [a for m in (self.history if chat else []) for a in m.get("audios", [])]
+        all_audios = history_audios + (audios or [])
+        messages = ([{k: v for k, v in m.items() if k != "audios"} for m in self.history]
+                    if chat else []) + [{"role": "user", "content": text}]
+        device = self.device
+        t0 = time.perf_counter()
+        batch = self.processor(messages=messages, audios=all_audios or None)
+        ids = torch.as_tensor(batch["ids"], dtype=torch.long, device=device)
+        gen.sync(device)
+        t1 = time.perf_counter()
+        if batch["mels"] is not None:
+            wins = self.encode_audio(batch["mels"], batch["is_longer"])
+        else:
+            wins = torch.zeros((1, 1, 1, self.cfg.audio_embed_dim),
+                               dtype=flamingo.compute_dtype(self.model), device=device)
+        gen.sync(device)
+        self.last_processor_s, self.last_tower_s = t1 - t0, time.perf_counter() - t1
+        t = ids.shape[1]
+        bucket = bucket_tokens(t)
+        prompt_len = None
+        if bucket != t:
+            ids = torch.cat([ids, torch.full((1, bucket - t), self.eos_token_id,
+                                             dtype=torch.long, device=device)], dim=1)
+            prompt_len = t
+        out = flamingo.generate(self.model, self.cfg, ids, wins, max_new_tokens=max_new_tokens,
+                                eos_token_id=self.eos_token_id, sampling=sampling,
+                                generator=torch.Generator(device=device).manual_seed(seed),
+                                prompt_len=prompt_len)
+        self.last_output = out
+        answer = self.processor.tokenizer.decode(out.tokens[0, : int(out.lengths[0])].tolist(),
+                                                 skip_special=True)
+        if chat:
+            self.history.append({"role": "user", "content": text, "audios": audios or []})
+            self.history.append({"role": "assistant", "content": answer})
+        return answer
+
+    def reset_chat(self) -> None:
+        self.history.clear()
+
+    @staticmethod
+    def from_random(cfg: AF2Config | None = None, seed: int = 0,
+                    compute_dtype: torch.dtype = torch.float32,
+                    clap_cfg: ClapAudioConfig | None = None,
+                    device: torch.device | str | None = None,
+                    tokenizer: BBPETokenizer | None = None) -> "AudioFlamingo2":
+        """Random-weight model (tests/benchmarks), made on ``device`` in ``compute_dtype``
+        by a generator seeded with ``seed``. The defaults are JAX's: a tiny Qwen2 LM with
+        xattn blocks of 4 heads, and an HTSAT-base tower with fusion."""
+        cfg = cfg or AF2Config(
+            lm=Qwen2Config(vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
+                           num_heads=4, num_kv_heads=2, tie_word_embeddings=True),
+            xattn=GatedXAttnConfig(cross_every_n_layers=1, num_heads=4, ffn_mult=2))
+        clap_cfg = clap_cfg or ClapAudioConfig(enable_fusion=True)
+        device = resolve_device(device)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        model = flamingo.init(cfg, generator, device, compute_dtype)
+        tower = clap.build(clap_cfg, device, compute_dtype)
+        clap.init_(tower, generator)
+        return AudioFlamingo2._assemble(cfg, model, tower, tokenizer, device)
+
+    @staticmethod
+    def _assemble(cfg, model, tower, tokenizer, device) -> "AudioFlamingo2":
+        if tokenizer is None:
+            vocab, merges = train_bpe(["describe the sound of music"],
+                                      min(400, cfg.lm.vocab_size))
+            tokenizer = BBPETokenizer(vocab, merges)
+        proc = AF2Processor(tokenizer=tokenizer, cfg=cfg, device=device)
+        eos = tokenizer.special_tokens.get("<|im_end|>", -1)
+        return AudioFlamingo2(cfg=cfg, model=model, tower=tower, processor=proc,
+                              eos_token_id=eos)
+
+    @staticmethod
+    def from_state_dicts(cfg: AF2Config, clap_cfg: ClapAudioConfig, state: dict,
+                         clap_state: dict, tokenizer: BBPETokenizer,
+                         compute_dtype: torch.dtype = torch.float32,
+                         device: torch.device | str | None = None) -> "AudioFlamingo2":
+        """Weights in the port's names (``io/convert.af2_params_from_jax`` /
+        ``clap_params_from_jax``) -> model in compute_dtype on device. A quantized Qwen2
+        LM (``lm.*`` in the JAX tree layout) keeps its codes and f32 scales."""
+        device = resolve_device(device)
+        lm = None
+        if "lm.embed.w_q" in state:
+            lm = qwen2.quantized_lm(
+                qwen2.unflatten({k[3:]: v for k, v in state.items() if k.startswith("lm.")}),
+                compute_dtype, device)
+            state = {k: v for k, v in state.items() if not k.startswith("lm.")}
+        model = flamingo.build(cfg, device, compute_dtype, lm=lm)
+        missing, unexpected = model.load_state_dict(state, strict=lm is None)
+        if lm is not None and (unexpected or [k for k in missing if not k.startswith("lm.")]):
+            raise RuntimeError(f"state dict does not match the model: missing {missing}, "
+                               f"unexpected {unexpected}")
+        tower = clap.build(clap_cfg, device, compute_dtype)
+        tower.load_state_dict(clap_state)
+        return AudioFlamingo2._assemble(cfg, model, tower, tokenizer, device)
+
+
+def _dataclass_from(cls, raw: dict, **nested):
+    """A config dataclass from its asdict() form: tuples restored, keys the port's class
+    lacks dropped (the JAX Qwen2Config's max_position_embeddings)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    kw = {k: (tuple(v) if isinstance(v, list) else v) for k, v in raw.items() if k in names}
+    kw.update(nested)
+    return cls(**kw)
+
+
+def save_af2(path: str, model: AudioFlamingo2) -> None:
+    """Persist an AF1/AF2-family model as JAX's ``save_af2`` does: flamingo.safetensors and
+    clap.safetensors under the JAX trees' flat names (f32), config.json ({"af2", "clap",
+    "lm_family"}), vocab.json and merges.txt. JAX's ``load_af2`` reads it back."""
+    from audio_flamingo_tpu_torch.io.convert import af2_params_to_jax, clap_params_to_jax
+    from audio_flamingo_tpu_torch.io.safetensors import save_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    save_safetensors(os.path.join(path, "flamingo.safetensors"),
+                     af2_params_to_jax(model.model.state_dict(), model.cfg))
+    save_safetensors(os.path.join(path, "clap.safetensors"),
+                     clap_params_to_jax(model.tower.state_dict(), model.tower.cfg))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"af2": asdict(model.cfg), "clap": asdict(model.tower.cfg),
+                   "lm_family": "opt" if flamingo.is_opt(model.cfg) else "qwen2"}, f, indent=1)
+    tok = model.processor.tokenizer
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(tok.vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+        for a, b in tok.merges:
+            f.write(f"{a} {b}\n")
+
+
+def load_af2(path: str, compute_dtype: torch.dtype = torch.float32,
+             device: torch.device | str | None = None) -> AudioFlamingo2:
+    """Load an AF1/AF2-family model saved by ``save_af2`` (this package's or JAX's)."""
+    from audio_flamingo_tpu_torch.io.convert import af2_params_from_jax, clap_params_from_jax
+    from audio_flamingo_tpu_torch.io.safetensors import load_safetensors
+
+    device = resolve_device(device)
+    with open(os.path.join(path, "config.json")) as f:
+        raw = json.load(f)
+    a = raw["af2"]
+    lm_cls = OPTConfig if raw.get("lm_family") == "opt" else Qwen2Config
+    cfg = _dataclass_from(AF2Config, a, clap=_dataclass_from(ClapAudioConfig, a["clap"]),
+                          lm=_dataclass_from(lm_cls, a["lm"]),
+                          xattn=_dataclass_from(GatedXAttnConfig, a["xattn"]),
+                          mel=_dataclass_from(ClapMelConfig, a["mel"]))
+    clap_cfg = _dataclass_from(ClapAudioConfig, raw["clap"])
+    state = af2_params_from_jax(load_safetensors(os.path.join(path, "flamingo.safetensors")),
+                                cfg)
+    clap_state = clap_params_from_jax(load_safetensors(os.path.join(path, "clap.safetensors")),
+                                      clap_cfg)
+    return AudioFlamingo2.from_state_dicts(cfg, clap_cfg, state, clap_state,
+                                           BBPETokenizer.from_pretrained_dir(path),
+                                           compute_dtype=compute_dtype, device=device)

@@ -14,6 +14,14 @@
 - Voice: ``tts_params_from_jax`` (``models/tts.TTSHead``), ``vocoder_params_from_jax``
   (``audio/neural_vocoder.Vocoder``; the layouts move here, once) and
   ``rvq_params_from_jax`` (``audio/rvq.RVQ``'s buffers).
+- AF1/AF2: ``af2_params_from_jax(params, cfg)`` (the fusion stacks and the LM:
+  ``lm_params_from_jax`` for a Qwen2, float or quantized, and the OPT mapping) into
+  ``models/flamingo.FlamingoModel``'s names, and ``clap_params_from_jax(params, cfg)``
+  into ``models/clap.ClapAudioTower``'s (HWIO convs to OIHW, once). ``af2_params_to_jax``
+  and ``clap_params_to_jax`` go back to the JAX trees' flat names (the pytree flattened
+  with ".", as JAX's ``train/checkpoints.export_safetensors`` writes them), which
+  ``api.save_af2`` writes; the ``*_from_jax`` functions take a nested tree or those flat
+  names.
 
 All return {port name: torch tensor}; a tied LM head is dropped.
 """
@@ -23,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config
+from audio_flamingo_tpu_torch.config import (AF2Config, AF3Config, ClapAudioConfig, OPTConfig,
+                                             Qwen2Config)
 from audio_flamingo_tpu_torch.models.qwen2 import flatten
 
 
@@ -101,20 +110,7 @@ def lm_params_from_jax(lm: dict, cfg: Qwen2Config, prefix: str = "") -> dict[str
             raise ValueError("a quantized LM tree needs its int8 embedding "
                              "(quantize_lm_params with quantize_embed=True)")
         return {k: _as_tensor(v) for k, v in flatten(lm, prefix).items()}
-    sd: dict[str, torch.Tensor] = {prefix + "embed_tokens": _t(lm["embed"])}
-    for i in range(cfg.num_layers):
-        lp = _layer(lm["layers"], i)
-        p = f"{prefix}layers.{i}."
-        sd[p + "input_layernorm.weight"] = _t(lp["ln1_w"])
-        for ours, theirs in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("o_proj", "o")):
-            _lin(lp[theirs], p + ours, sd)
-        sd[p + "post_attention_layernorm.weight"] = _t(lp["ln2_w"])
-        for ours, theirs in (("gate_proj", "gate"), ("up_proj", "up"), ("down_proj", "down")):
-            _lin({"w": lp["mlp"][theirs]}, p + ours, sd)
-    sd[prefix + "norm.weight"] = _t(lm["ln_f_w"])
-    if not cfg.tie_word_embeddings:
-        sd[prefix + "lm_head"] = _t(np.asarray(lm["lm_head"]).T)
-    return sd
+    return _from_jax(_flat_tree(lm), _qwen2_names(cfg), prefix)
 
 
 _TOWER_PREFIXES = ("audio_tower.", "model.audio_tower.", "model.sound_tower.",
@@ -236,3 +232,205 @@ def vocoder_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
 def rvq_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """JAX's RVQ codec tree (audio/rvq.py) -> ``RVQ``'s buffers."""
     return {k: _t(params[k]) for k in ("codebooks", "ema_count", "ema_sum")}
+
+
+# ----------------------------------------------------------------------------------------
+# Name tables: (port name, JAX flat name, layer index or None, layout). A layout moves a
+# JAX array into the port's: "same", "linear" ([in, out] -> [out, in]) or "conv" (HWIO ->
+# OIHW). A layer index picks one layer of a leaf stacked on a leading axis.
+
+
+def _flat_tree(tree, prefix: str = "") -> dict:
+    """A nested tree (dicts, lists) -> {dotted name: leaf}, as JAX's export_safetensors
+    names it; a flat dict passes through."""
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, value in items:
+        name = f"{prefix}{key}"
+        if isinstance(value, (dict, list, tuple)):
+            out.update(_flat_tree(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
+def _to_port(arr, layout: str) -> torch.Tensor:
+    arr = np.asarray(arr, np.float32)
+    if layout == "linear":
+        arr = arr.T
+    elif layout == "conv":
+        arr = arr.transpose(3, 2, 0, 1)
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
+def _to_jax(t: torch.Tensor, layout: str) -> np.ndarray:
+    arr = t.detach().float().cpu().numpy()
+    if layout == "linear":
+        arr = arr.T
+    elif layout == "conv":
+        arr = arr.transpose(2, 3, 1, 0)
+    return np.array(arr, order="C")
+
+
+def _from_jax(flat: dict, names: list, prefix: str = "") -> dict[str, torch.Tensor]:
+    sd = {}
+    for port, theirs, layer, layout in names:
+        arr = np.asarray(flat[theirs])
+        sd[prefix + port] = _to_port(arr if layer is None else arr[layer], layout)
+    return sd
+
+
+def _names_to_jax(state: dict, names: list, prefix: str = "") -> dict[str, np.ndarray]:
+    """The inverse of ``_from_jax``: stacked leaves are stacked again in layer order."""
+    out, stacks = {}, {}
+    for port, theirs, layer, layout in names:
+        arr = _to_jax(state[prefix + port], layout)
+        if layer is None:
+            out[theirs] = arr
+        else:
+            stacks.setdefault(theirs, {})[layer] = arr
+    for theirs, layers in stacks.items():
+        out[theirs] = np.stack([layers[i] for i in range(len(layers))])
+    return out
+
+
+def _qwen2_names(cfg: Qwen2Config) -> list:
+    names = [("embed_tokens", "embed", None, "same"), ("norm.weight", "ln_f_w", None, "same")]
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        names += [(p + "input_layernorm.weight", "layers.ln1_w", i, "same"),
+                  (p + "post_attention_layernorm.weight", "layers.ln2_w", i, "same")]
+        for ours, theirs in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v")):
+            names += [(p + ours + ".weight", f"layers.{theirs}.w", i, "linear")]
+            if cfg.attention_bias:
+                names += [(p + ours + ".bias", f"layers.{theirs}.b", i, "same")]
+        names += [(p + "o_proj.weight", "layers.o.w", i, "linear")]
+        for ours, theirs in (("gate_proj", "gate"), ("up_proj", "up"), ("down_proj", "down")):
+            names += [(p + ours + ".weight", f"layers.mlp.{theirs}", i, "linear")]
+    if not cfg.tie_word_embeddings:
+        names += [("lm_head", "lm_head", None, "linear")]
+    return names
+
+
+def _opt_names(cfg) -> list:
+    names = [("embed", "embed", None, "same"), ("pos_embed", "pos_embed", None, "same"),
+             ("ln_f.weight", "ln_f_w", None, "same"), ("ln_f.bias", "ln_f_b", None, "same")]
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        for n in ("ln1", "ln2"):
+            names += [(p + n + ".weight", f"layers.{n}_w", i, "same"),
+                      (p + n + ".bias", f"layers.{n}_b", i, "same")]
+        for n in ("q", "k", "v", "o", "fc1", "fc2"):
+            names += [(p + n + ".weight", f"layers.{n}.w", i, "linear"),
+                      (p + n + ".bias", f"layers.{n}.b", i, "same")]
+    if cfg.word_embed_proj_dim:
+        names += [("project_in.weight", "project_in", None, "linear"),
+                  ("project_out.weight", "project_out", None, "linear")]
+    return names
+
+
+def _fusion_names(cfg: AF2Config) -> list:
+    names = []
+    for i in range(cfg.num_audio_transform_layers):
+        p = f"audio_transform.{i}."
+        for n in ("ln1", "ln2"):
+            names += [(p + n + ".weight", f"audio_transform.{n}_w", i, "same"),
+                      (p + n + ".bias", f"audio_transform.{n}_b", i, "same")]
+        for n in ("q", "k", "v", "o", "fc1", "fc2"):
+            names += [(p + n + ".weight", f"audio_transform.{n}.w", i, "linear")]
+        for n in ("fc1", "fc2"):
+            names += [(p + n + ".bias", f"audio_transform.{n}.b", i, "same")]
+    for i in range(cfg.lm.num_layers // cfg.xattn.cross_every_n_layers):
+        p = f"xattn.{i}."
+        for n in ("ln_q", "ln_kv", "ln_ffn"):
+            names += [(p + n + ".weight", f"xattn.{n}_w", i, "same"),
+                      (p + n + ".bias", f"xattn.{n}_b", i, "same")]
+        for n in ("q", "k", "v", "o", "fc1", "fc2"):
+            names += [(p + n + ".weight", f"xattn.{n}.w", i, "linear")]
+        for n in ("fc1", "fc2"):
+            names += [(p + n + ".bias", f"xattn.{n}.b", i, "same")]
+        for n in ("alpha_xattn", "alpha_dense"):
+            names += [(p + n, f"xattn.{n}", i, "same")]
+    return names
+
+
+def af2_params_from_jax(params: dict, cfg: AF2Config) -> dict[str, torch.Tensor]:
+    """JAX's flamingo params (``audio_transform``, ``xattn``, ``lm``; nested or flat) ->
+    ``FlamingoModel``'s state dict. A quantized Qwen2 tree crosses as it is, under
+    ``lm.<tree path>``."""
+    flat = _flat_tree(params)
+    sd = _from_jax(flat, _fusion_names(cfg))
+    lm = {k[3:]: v for k, v in flat.items() if k.startswith("lm.")}
+    if isinstance(cfg.lm, OPTConfig):
+        sd.update(_from_jax(lm, _opt_names(cfg.lm), "lm."))
+    elif "embed.w_q" in lm:
+        sd.update({"lm." + k: _as_tensor(v) for k, v in lm.items()})
+    else:
+        sd.update(_from_jax(lm, _qwen2_names(cfg.lm), "lm."))
+    return sd
+
+
+def af2_params_to_jax(state: dict, cfg: AF2Config) -> dict[str, np.ndarray]:
+    """``FlamingoModel``'s state dict -> the JAX flamingo tree's flat names (f32 floats;
+    a quantized LM's codes and scales as they are)."""
+    out = _names_to_jax(state, _fusion_names(cfg))
+    lm = {k[3:]: v for k, v in state.items() if k.startswith("lm.")}
+    if isinstance(cfg.lm, OPTConfig):
+        tree = _names_to_jax(lm, _opt_names(cfg.lm))
+    elif "embed.w_q" in lm:
+        tree = {k: (v.cpu().numpy() if not v.is_floating_point() else _to_jax(v, "same"))
+                for k, v in lm.items()}
+    else:
+        tree = _names_to_jax(lm, _qwen2_names(cfg.lm))
+    out.update({"lm." + k: v for k, v in tree.items()})
+    return out
+
+
+def _clap_names(cfg: ClapAudioConfig) -> list:
+    def bn(port, theirs):
+        return [(f"{port}.{a}", f"{theirs}.{b}", None, "same")
+                for a, b in (("mean", "mean"), ("var", "var"), ("weight", "w"), ("bias", "b"))]
+
+    def lin(port, theirs, bias=True):
+        out = [(port + ".weight", theirs + ".w", None, "linear")]
+        return out + [(port + ".bias", theirs + ".b", None, "same")] if bias else out
+
+    def norm(port, theirs):
+        return [(port + ".weight", theirs + "_w", None, "same"),
+                (port + ".bias", theirs + "_b", None, "same")]
+
+    names = bn("batch_norm", "batch_norm")
+    names += [("patch_embed.proj.weight", "patch_embed.proj_w", None, "conv"),
+              ("patch_embed.proj.bias", "patch_embed.proj_b", None, "same")]
+    names += norm("patch_embed.norm", "patch_embed.norm")
+    if cfg.enable_fusion:
+        names += [("patch_embed.mel_conv.weight", "patch_embed.mel_conv_w", None, "conv"),
+                  ("patch_embed.mel_conv.bias", "patch_embed.mel_conv_b", None, "same")]
+        for side in ("local", "global"):
+            p, q = f"patch_embed.aff_{side}", f"patch_embed.aff.{side}"
+            names += lin(p + ".c1", q + ".c1") + bn(p + ".bn1", q + ".bn1")
+            names += lin(p + ".c2", q + ".c2") + bn(p + ".bn2", q + ".bn2")
+    for i, depth in enumerate(cfg.depths):
+        for j in range(depth):
+            p = q = f"stages.{i}.blocks.{j}"
+            names += norm(p + ".ln1", q + ".ln1") + norm(p + ".ln2", q + ".ln2")
+            for n in ("q", "k", "v", "o", "fc1", "fc2"):
+                names += lin(f"{p}.{n}", f"{q}.{n}")
+            names += [(p + ".bias_table", q + ".bias_table", None, "same")]
+        if i < len(cfg.depths) - 1:
+            p = f"stages.{i}.downsample"
+            names += norm(p + ".norm", p + ".norm") + lin(p + ".reduction", p + ".reduction",
+                                                          bias=False)
+    names += norm("norm", "norm")
+    names += lin("proj_fc1", "projection.fc1") + lin("proj_fc2", "projection.fc2")
+    return names
+
+
+def clap_params_from_jax(params: dict, cfg: ClapAudioConfig) -> dict[str, torch.Tensor]:
+    """JAX's HTSAT tower params (nested or flat) -> ``ClapAudioTower``'s state dict."""
+    return _from_jax(_flat_tree(params), _clap_names(cfg))
+
+
+def clap_params_to_jax(state: dict, cfg: ClapAudioConfig) -> dict[str, np.ndarray]:
+    """``ClapAudioTower``'s state dict -> the JAX tower tree's flat names (f32)."""
+    return _names_to_jax(state, _clap_names(cfg))

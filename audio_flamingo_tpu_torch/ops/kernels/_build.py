@@ -1,8 +1,9 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled together by one nvcc call into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds); the headers
-they share (``csrc/*.cuh``) come in through them. Host-only C++ (the audio decoders,
+Every ``csrc/*.cu`` file is compiled by its own nvcc process, all started together, and
+the objects are linked into one shared library with a plain C interface (no PyTorch
+headers); the headers they share (``csrc/*.cuh``) come in through them. The build takes
+about as long as its slowest source. Host-only C++ (the audio decoders,
 ``audio/io.py``) goes through ``compile_library`` with g++ the same way. Libraries land in
 ``audio_flamingo_tpu_torch/_build/`` (ignored by git) under a name keyed by a hash of the
 sources, the headers beside them and the flags, so an unchanged tree does not rebuild and
@@ -68,18 +69,36 @@ def compile_library(compiler: str, flags, srcs: list[str], stem: str):
             return out, None, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [compiler, *flags, "-o", tmp, *srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # each source compiled by its own process, all at once, then one link
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    compile_flags = [f for f in flags if f != "-shared"]
+    try:
+        stderr = _run([[compiler, *compile_flags, "-c", "-o", obj, src]
+                       for obj, src in zip(objs, srcs)])
+        stderr += _run([[compiler, *flags, "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"{os.path.basename(compiler)} failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
     with open(f"{tmp}.log", "w") as f:
-        f.write(proc.stderr)
+        f.write(stderr)
     os.replace(f"{tmp}.log", log_path)
     os.replace(tmp, out)
-    return out, seconds, proc.stderr
+    return out, seconds, stderr
+
+
+def _run(cmds: list) -> str:
+    """Run the commands at once; their stderr in order, or raise with a failed one's."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errs = [proc.communicate()[1] for proc in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+    return "".join(errs)
 
 
 def build() -> str:

@@ -9,8 +9,9 @@ writes at ``positions[b]``, the mask ``kv_pos <= positions[b] + i``; a fused w4 
 token and at most 8 rows through the two suffix kernels, K6, as JAX does). The engine's
 step is eager and reads the device once per chunk. Greedy rows equal single-request
 ``generate`` token for token. Beam requests ride the beam lane (``submit_beam``,
-``runtime/beam_lane.py``); speculative decoding (``draft_params``) is not ported yet and
-raises.
+``runtime/beam_lane.py``); with ``draft_params`` the engine speculates, k draft
+proposals a round checked by one target verify (``decode_spec_chunk``, greedy, and
+``decode_spec_chunk_sampled``).
 
 The bookkeeping (``Request`` :521, ``seed_history`` :493, ``_find_stop`` :506, the request
 metrics :576-595, ``_emit_first_token`` :597, ``_postprocess_chunk_row`` :636) is shared

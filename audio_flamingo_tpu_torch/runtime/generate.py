@@ -270,17 +270,22 @@ def start_decode(st: DecodeState, spec: DecodeSpec, first_logits: torch.Tensor,
     begin(st, spec, tok, true_len, logits)
 
 
-def decode_body(lm, cfg: Qwen2Config, spec: DecodeSpec, st: DecodeState) -> None:
+def decode_body(lm, cfg: Qwen2Config, spec: DecodeSpec, st: DecodeState,
+                model_step: Callable[[DecodeState], torch.Tensor] | None = None) -> None:
     """One step of JAX's ``decode_loop`` body (audio_flamingo_tpu/runtime/generate.py
     :154-179), in place on ``st``: decode ``tok`` at ``position``, the n-gram ban over the
     prompt and the tokens so far, the EOS floor, the repetition penalty over the same,
     sample, EOS for finished rows, write token ``step + 1`` (and its logprob), then ``done
-    |= eos | stop``. Reads nothing back to the host."""
+    |= eos | stop``. Reads nothing back to the host. ``model_step(st)`` -> [B, vocab] f32
+    logits replaces the LM's ``decode_step`` (the AF2 stack's, models/flamingo.py)."""
     if spec.max_new_tokens < 2:   # a step writes token step + 1
         raise ValueError("a sequence of one token has no decode step")
     sp = spec.sampling
     b = st.tok.shape[0]
-    _, logits = decode_step(lm, cfg, st.cache, st.tok, st.position)
+    if model_step is None:
+        _, logits = decode_step(lm, cfg, st.cache, st.tok, st.position)
+    else:
+        logits = model_step(st)
     st.logits.copy_(logits)
     hist = None
     if sp.repetition_penalty != 1.0:
@@ -412,17 +417,6 @@ def hold(key: tuple, make: Callable[[], object]) -> tuple[object, bool]:
     return graph, True
 
 
-def held_graph(lm, cfg: Qwen2Config, spec: DecodeSpec, batch: int, capacity: int,
-               dtype: torch.dtype, device: torch.device) -> tuple[DecodeGraph, bool]:
-    """The held captured decode step of this key over a bf16/f32 ``KVCache`` (``hold``)
-    and whether it was captured now."""
-    def make():
-        cache = qwen2.init_cache(cfg, batch, capacity, dtype, device)
-        generator = None if spec.sampling.greedy else torch.Generator(device=device)
-        return DecodeGraph(lm, cfg, spec, new_state(cfg, spec, cache, generator))
-    return hold(graph_key(lm, cfg, spec, batch, capacity, dtype, device), make)
-
-
 def release_graphs() -> int:
     """Drop every held captured step and its cache (freed once no open stream uses it);
     returns the bytes they held."""
@@ -440,27 +434,32 @@ def held_bytes() -> dict:
     return out
 
 
-class _Decoder:
-    """A generate's decode: the held captured step on the card, a new state stepped
-    eagerly on the CPU (or, for a single token, which takes no step, anywhere)."""
+class Decoder:
+    """A generate's decode: on the card the held captured step of ``key`` (``hold``; made
+    by ``make_state`` and ``body``), else a state of its own stepped eagerly (so too for a
+    single token, which takes no step). ``body(lm, cfg, spec, state)`` is the step:
+    ``decode_body`` for the LM alone, ``models/flamingo.decode_body`` for the AF1/AF2
+    stack. ``make_state(generator)`` makes a state; a sampled captured step draws from a
+    generator of its own, loaded from and stored back to the caller's."""
 
-    def __init__(self, model: af3.AF3Model, cfg: AF3Config, spec: DecodeSpec, batch: int,
-                 capacity: int, device: torch.device, generator: torch.Generator | None):
+    def __init__(self, lm, cfg, spec: DecodeSpec, key: tuple,
+                 make_state: Callable[[torch.Generator | None], object], device: torch.device,
+                 generator: torch.Generator | None, body: Callable = decode_body):
         self.generator, self.capture_s = generator, 0.0
-        dtype = compute_dtype(model.lm)
         with torch.inference_mode():
             if device.type == "cuda" and spec.max_new_tokens > 1:
                 t0 = time.perf_counter()
-                self.graph, captured = held_graph(model.lm, cfg.lm, spec, batch, capacity,
-                                                  dtype, device)
+                self.graph, captured = hold(key, lambda: DecodeGraph(
+                    lm, cfg, spec,
+                    make_state(None if spec.sampling.greedy else torch.Generator(device=device)),
+                    body))
                 self.capture_s = time.perf_counter() - t0 if captured else 0.0
                 self.graph.busy = True
                 self.state = self.graph.state
             else:
                 self.graph = None
-                cache = qwen2.init_cache(cfg.lm, batch, capacity, dtype, device)
-                self.state = new_state(cfg.lm, spec, cache, generator)
-        self._body = lambda: decode_body(model.lm, cfg.lm, spec, self.state)
+                self.state = make_state(generator)
+        self._body = lambda: body(lm, cfg, spec, self.state)
 
     @torch.inference_mode()
     def step(self) -> None:
@@ -469,7 +468,7 @@ class _Decoder:
         else:
             self._body()
 
-    def __enter__(self) -> "_Decoder":
+    def __enter__(self) -> "Decoder":
         return self
 
     def started(self) -> None:
@@ -481,6 +480,18 @@ class _Decoder:
         if self.graph is not None:
             self.graph.store_generator(self.generator)
             self.graph.busy = False
+
+
+def _lm_decoder(model: af3.AF3Model, cfg: AF3Config, spec: DecodeSpec, batch: int,
+                capacity: int, device: torch.device,
+                generator: torch.Generator | None) -> Decoder:
+    """The LM's decode over a bf16/f32 ``KVCache``."""
+    dtype = compute_dtype(model.lm)
+    return Decoder(model.lm, cfg.lm, spec,
+                   graph_key(model.lm, cfg.lm, spec, batch, capacity, dtype, device),
+                   lambda g: new_state(cfg.lm, spec, qwen2.init_cache(cfg.lm, batch, capacity,
+                                                                      dtype, device), g),
+                   device, generator)
 
 
 def _capacity(t: int, true_len: int, max_new_tokens: int, capacity: int) -> int:
@@ -524,7 +535,7 @@ def generate(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
     capacity = _capacity(t, true_len, max_new_tokens, capacity)
     spec = DecodeSpec(max_new_tokens, eos_token_id, sampling, stop_sequences, return_logprobs)
 
-    with _Decoder(model, cfg, spec, b, capacity, device, generator) as dec:
+    with _lm_decoder(model, cfg, spec, b, capacity, device, generator) as dec:
         st = dec.state
         t0 = time.perf_counter()
         _, first_logits = prefill(model, cfg, token_ids, mels, capacity,
@@ -638,7 +649,7 @@ def generate_stream(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor
     spec = DecodeSpec(max_new_tokens, eos_token_id,
                       sampling._replace(no_repeat_ngram_size=0))
     # inference mode is entered around each device section, never held across a yield
-    with _Decoder(model, cfg, spec, b, capacity, token_ids.device, generator) as dec:
+    with _lm_decoder(model, cfg, spec, b, capacity, token_ids.device, generator) as dec:
         st = dec.state
         _, logits = prefill(model, cfg, token_ids, mels, capacity, prompt_len=prompt_len,
                             cache=st.cache)

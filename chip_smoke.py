@@ -5,10 +5,10 @@
 
 Phases, each line stamped with elapsed seconds:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: every csrc/*.cu in one nvcc call (seconds; ptxas's registers, spilled bytes
-     and static shared memory of every kernel, the bf16 flash kernels, the w4a16 and
-     enc_mlp routes' kernels, the persistent w4 suffix kernel and the 3xTF32 log-mel
-     required);
+  2. build: every csrc/*.cu by its own nvcc process, all at once, then one link (seconds;
+     ptxas's registers, spilled bytes and static shared memory of every kernel, the bf16
+     flash kernels, the w4a16 and enc_mlp routes' kernels, the persistent w4 suffix
+     kernel and the 3xTF32 log-mel required);
   3. kernels against their plain PyTorch versions, with their time (CUDA events, median),
      the plain version's time, one PyTorch library call's time as a yardstick where one
      computes the same function, and the bound:
@@ -90,8 +90,8 @@ Phases, each line stamped with elapsed seconds:
         TTFT, K3 ms per step, pool bytes and peak memory; a second run gives the same ids,
         replays the first chunk's K3 launches against the plain version, runs one chunk
         under torch.cuda.set_sync_debug_mode("error") and bounds each chunk's temporaries;
-        a third (bf16 pool) keeps every K3 launch's inputs: their plain time and bounds
-        summed, and all of them replayed in one CUDA graph (K3's device time in the serving path, beside
+        a third (bf16 pool, 24 tokens a request) keeps every K3 launch's inputs: their
+        plain time and bounds summed, and all of them replayed in one CUDA graph (K3's device time in the serving path, beside
         the CUDA-events figure, which includes the host's gaps);
      c. prefix caching: two requests with one system prompt and clip; the second hits the
         shared pages and skips the encoder; both TTFTs;
@@ -262,6 +262,35 @@ Phases, each line stamped with elapsed seconds:
      c. f32 card against CPU at small size: a 2-layer TTSConfig at d 256, synthesize_chunk
         within 1e-4 with and without a speaker; RVQ codes equal and decode within 1e-5;
         Griffin-Lim from one injected phase, 4 rounds, within 1e-4 from the same magnitude.
+ 15. the AF1/AF2 family (models/clap.py, models/flamingo.py, api.AudioFlamingo2), after
+     every earlier model is freed; no kernel of its own (the CLAP mel, the HTSAT tower, the
+     audio-transform and xattn products are plain torch, as JAX's are plain XLA), the LM's
+     products on K4 (int8) or K5 (fused w4):
+     a. AF2 at full width as bench.py's bench_clap builds it (AF2Config(): HTSAT-base with
+        fusion, 36 xattn blocks; Qwen2.5-3B as an int8 tree from random_quantized_lm; the
+        fusion stacks and the tower bf16, random from a seed on the card, the xattn gates
+        set nonzero): AudioFlamingo2.generate, 32 greedy tokens, on a 30 s 48 kHz clip (3
+        windows, bucket 4) and bench_clap's 5-minute clip (30 windows), each twice (ids
+        identical, the step captured once), 145 K4 launches a step and none of K5 or K6;
+        the captured decode against the eager step function from the same prefill (ids
+        equal); sampled (top-p 0.9, temperature 0.7) twice from one seed (equal) and a
+        second 30 s clip right after the first through the same captured step (equal to its
+        own eager run, unequal to the first clip's: the media buffer is refilled); the TTFT
+        split into mel, tower and prefill by CUDA events; decode tok/s replayed and eager;
+        one eager step's 145 K4 launches re-run against the plain version and each 3B shape
+        timed alone beside its bound, plain version and torch._weight_int8pack_mm; two
+        replays under torch.profiler (K4's and cuBLAS's shares); peak memory;
+     b. the same fusion stacks and tower with the LM as a fused-w4 tree (a bf16 3B made on
+        the card, quantize_lm_params_w4): generate on the 30 s clip twice, 144 K5 and 1 K4
+        launches a step, no K6 (the suffixes cannot run between xattn blocks), one eager
+        step's K5 launches re-run against the plain version, each shape timed beside its
+        bound, plain version and torch._weight_int4pack_mm;
+     c. f32 card against CPU at full width, 2 + 2 layers: the HTSAT-base tower's embeds on
+        one fusion window, flamingo logits (float, int8 and fused-w4 trees) within 1e-4 of
+        max|logit| and greedy ids token-exact;
+     d. AF1 at OPT-IML-1.3B's widths (AF1Config.make()), 2 layers, f32: greedy generate
+        token-exact and logits_with_media_mask on 4 media x 4 windows ('last') within 1e-4
+        of max|logit|, card against CPU.
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -1156,9 +1185,14 @@ def profile_replays(graph, tag: str, replays: int, kernel_groups: dict = DECODE_
             ordered[g].append(e.time_range.elapsed_us() / 1e3)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     span = (t1 - t0) / 1e3
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     return dict(groups={g: (n / replays, ms / replays) for g, (n, ms) in groups.items()},
                 replays=replays, ordered=ordered, kernels=len(kernels) / replays,
-                busy_ms=busy / replays, span_ms=span / replays, busy_share=busy / span)
+                busy_ms=busy / replays, span_ms=span / replays, busy_share=busy / span,
+                by_name={k: (n / replays, ms / replays) for k, (n, ms) in by_name.items()})
 
 
 def copy_state(dst, src) -> None:
@@ -1928,6 +1962,9 @@ def serve(engine, specs, max_new_tokens: int) -> tuple:
     return results, time.perf_counter() - t0
 
 
+THIRD_RUN_TOKENS = 12   # 8b's third run (the K3 row's launches), short to keep the script in its limit
+
+
 def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
     """8b. The mixed workload on PagedEngine at full width (bf16 LM, random weights),
     bench.py's engine settings, greedy, 48 tokens each: a warm-up instance, the measured
@@ -1935,8 +1972,9 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
     with the first chunk's K3 launches replayed against the plain version, the second
     under sync-debug "error", and every chunk's peak memory over its start, and (bf16 pool
     only, the kernels line's K3 row; the int8 pool's took about 100 s and was cut to make
-    room for phase 12) a third whose every K3 launch is timed in the path and kept, so that
-    the plain version's time and the bound are summed over the same launches (kept inputs
+    room for phase 12) a third of THIRD_RUN_TOKENS tokens a request (its ids the first
+    run's first ones) whose every K3 launch is timed in the path and kept, so that the
+    plain version's time and the bound are summed over the same launches (kept inputs
     hold memory, so neither the measured run nor the second keeps them all)."""
     from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
 
@@ -2018,7 +2056,7 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
         c.reset()
     pa.LAUNCHES.timing = pa.LAUNCHES.capture = True
     fa.LAUNCHES.timing = fa.LAUNCHES.capture = True   # K2's serving row
-    third, _ = serve(make(), specs, 48)
+    third, _ = serve(make(), specs, THIRD_RUN_TOKENS)
     pa.LAUNCHES.timing = pa.LAUNCHES.capture = False
     full = dict(launches=pa.LAUNCHES.count, steps=probe.steps, ms=pa.LAUNCHES.device_ms())
     fa.LAUNCHES.timing = fa.LAUNCHES.capture = False
@@ -2035,7 +2073,8 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
         f"inputs: max|o-plain| {k2['err']:.3e} (at {k2['ratio']:.3f} of its limit), "
         f"plain {k2['plain_ms']:.1f} ms, SDPA {k2['library_ms']:.2f} ms, bound "
         f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}), summed")
-    check(third == results, f"paged {name}: greedy ids differ in the third run")
+    check(third == {rid: ids[:THIRD_RUN_TOKENS] for rid, ids in results.items()},
+          f"paged {name}: greedy ids differ in the third run")
     check(full["launches"] == lm_cfg.num_layers * full["steps"] == len(pa.LAUNCHES.inputs),
           f"paged {name}: third run {full['launches']} K3 launches for {full['steps']} steps")
     full.update(launch_sums(pa, pa.LAUNCHES.inputs))
@@ -4198,8 +4237,9 @@ def captured_k4_checks(k4, inputs: list, tag: str = "12d") -> list:
 def k4_launch_timing(k4, captured: list) -> dict:
     """Per distinct shape of the captured K4 launches (x's K, the products' N, the output
     dtype, m), one launch timed: with the wrapper, as device time (one call in a CUDA graph,
-    its own launch included), the plain version's and torch._weight_int8pack_mm's (a
-    grouped launch: its products' summed), the bound; and how many launches had it."""
+    its own launch included), the plain version's, torch._weight_int8pack_mm's with its call
+    and as device time the same way (a grouped launch: its products' summed), the bound; and
+    how many launches had it."""
     timing = {}
     for x, prods, od in captured:
         key = (x.shape[1], tuple(w.shape[1] for w, _ in prods), str(od).split(".")[-1],
@@ -4207,15 +4247,16 @@ def k4_launch_timing(k4, captured: list) -> dict:
         if key in timing:
             timing[key]["count"] += 1
             continue
+        libs = [int8pack_call(x, w, sc)[0] for w, sc in prods]
         if len(prods) > 1:
             r = k4_group_case(k4, x, [{"w_q": w, "scale": sc} for w, sc in prods], od, True)
             r["plain_ms"] = sum(time_ms(lambda w=w, sc=sc: k4.w8a16_matmul_reference(
                 x, w, sc, od), 5, 1) for w, sc in prods)
-            libs = [int8pack_call(x, w, sc)[0] for w, sc in prods]
             r["library_ms"] = sum(time_ms(f, 5, 1) for f in libs) if all(libs) else None
-            del libs
         else:
             r = k4_case(k4, x, *prods[0], od, True)
+        r["library_graph_ms"] = sum(graph_ms(f) for f in libs) if all(libs) else None
+        del libs
         r["count"] = 1
         timing[key] = r
     k4.LAUNCHES.reset()
@@ -4720,7 +4761,7 @@ def spec_dense_phase(model, fa, wav) -> dict:
 
 
 SPEC_ENGINE = dict(num_slots=8, capacity=1024, chunk=16, eos_token_id=ENGINE["eos_token_id"])
-SPEC_MAX_NEW = 64      # bench_spec_engine's 256 tokens a request, cut to fit the run
+SPEC_MAX_NEW = 32      # bench_spec_engine's 256 tokens a request, cut to fit the run (64 before phase 15)
 
 
 def spec_engine_phase(pa, k4) -> dict:
@@ -5371,6 +5412,545 @@ def f32_voice_card_vs_cpu_phase() -> dict:
     return r
 
 
+AF2_TOKENS = 32          # greedy tokens of each AF2 generate (15a, 15b)
+AF2_GATE = 0.5           # 15's random xattn gates: a zero gate makes its block an identity
+AF2_SR = 48_000
+AF2_PROMPT = "What do you hear?"
+CUBLAS = ("nvjet", "gemm", "gemv", "xmma", "cutlass")   # cuBLAS kernel name parts
+
+
+def clip48(seconds: int, seed: int, tone: float | None) -> np.ndarray:
+    """A 48 kHz clip from a seed: a tone plus noise, or bench_clap's normal x 0.1."""
+    rng = np.random.default_rng(seed)
+    n = seconds * AF2_SR
+    if tone is None:
+        return (rng.normal(size=n) * 0.1).astype(np.float32)
+    t = np.arange(n) / AF2_SR
+    return (0.3 * np.sin(2 * np.pi * tone * t) + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+def set_gates(model, value: float) -> None:
+    with torch.no_grad():
+        for block in model.xattn:
+            block.alpha_xattn.fill_(value)
+            block.alpha_dense.fill_(value)
+
+
+def liven(model, seed: int, linear: float, embed: float) -> None:
+    """Make a random 2 + 2-layer flamingo model lively, as the CPU tests' ``_lively``
+    (tests/test_torch_flamingo.py) does: gates drawn from U(0.5, 1.5) and U(-1, 1), every
+    LM layer linear times ``linear``, the token embedding times ``embed`` (OPT's position
+    embedding x 30). Greedy ids then vary and depend on the audio; a random LM otherwise
+    repeats one token. At the 3B's widths the tests' factors (3, 30) still repeat one
+    token (the tied head then favours the last prompt token): 15c takes (10, 3)."""
+    rng = np.random.default_rng(seed)
+    lm = model.lm
+    with torch.no_grad():
+        for block in model.xattn:
+            block.alpha_xattn.fill_(float(rng.uniform(0.5, 1.5)))
+            block.alpha_dense.fill_(float(rng.uniform(-1.0, 1.0)))
+        for layer in lm.layers:
+            for lin in layer.modules():
+                if isinstance(lin, torch.nn.Linear):
+                    lin.weight.mul_(linear)
+        if hasattr(lm, "pos_embed"):
+            lm.embed.mul_(embed)
+            lm.pos_embed.mul_(30.0)
+        else:
+            lm.embed_tokens.mul_(embed)
+            if lm.lm_head is not None:
+                lm.lm_head.mul_(embed)
+
+
+def af2_inputs(af2, wav) -> dict:
+    """AudioFlamingo2.generate's inputs, built as it builds them (processor, tower, the
+    prompt right-padded with EOS to its bucket), with the CUDA-event ms of the processor
+    (the CLAP mel; the tokenizer runs on the host meanwhile) and of the tower."""
+    from audio_flamingo_tpu_torch.config import bucket_tokens
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    batch = af2.processor(messages=[{"role": "user", "content": f"<sound>{AF2_PROMPT}"}],
+                          audios=[wav])
+    ids = torch.as_tensor(batch["ids"], dtype=torch.long, device="cuda")
+    ev[1].record()
+    wins = af2.encode_audio(batch["mels"], batch["is_longer"])
+    ev[2].record()
+    torch.cuda.synchronize()
+    t = ids.shape[1]
+    bucket = bucket_tokens(t)
+    ids = torch.cat([ids, torch.full((1, bucket - t), af2.eos_token_id, dtype=torch.long,
+                                     device="cuda")], dim=1)
+    return dict(ids=ids, wins=wins, plen=t if bucket != t else None, windows=wins.shape[2],
+                mel_ms=ev[0].elapsed_time(ev[1]), tower_ms=ev[1].elapsed_time(ev[2]))
+
+
+def af2_eager(af2, inp: dict, sampling=None, seed: int = 0, keep_step: int | None = None,
+              counters: dict | None = None) -> dict:
+    """The api's decode with the step run eagerly (models/flamingo.decode_body on a state
+    of its own, no graph) from the same prefill: ids, ms per step; with ``keep_step`` the
+    inputs and launch counts of ``counters`` in that step."""
+    from audio_flamingo_tpu_torch.models import flamingo
+    from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
+    sampling = sampling or SamplingParams()
+    counters = counters or {}
+    spec = gen.DecodeSpec(AF2_TOKENS, af2.eos_token_id, sampling)
+    ids, wins, plen = inp["ids"], inp["wins"], inp["plen"]
+    b, t = ids.shape
+    true_len = plen or t
+    capacity = gen._capacity(t, true_len, AF2_TOKENS, 0)
+    g = None if sampling.greedy else torch.Generator(device="cuda").manual_seed(seed)
+    kept, counts, step_i = {}, {}, [0]
+    with torch.inference_mode():
+        st = flamingo.new_state(af2.model, af2.cfg, spec, b, capacity,
+                                (b, wins.shape[1] * wins.shape[2], wins.shape[-1]), None,
+                                torch.device("cuda"), g)
+        _, media, logits = flamingo.prefill(af2.model, af2.cfg, ids, wins, capacity,
+                                            prompt_len=plen, cache=st.cache)
+        st.media.copy_(media)
+        gen.start_decode(st, spec, logits, ids, true_len, g)
+
+        def step():
+            keep = step_i[0] == keep_step
+            before = {n: c.count for n, c in counters.items()}
+            for c in counters.values():
+                c.inputs.clear()
+                c.capture = keep
+            flamingo.decode_body(af2.model, af2.cfg, spec, st)
+            for n, c in counters.items():
+                c.capture = False
+                if keep:
+                    kept[n], counts[n] = list(c.inputs), c.count - before[n]
+            step_i[0] += 1
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = gen.run_decode(st, AF2_TOKENS, step)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / max(steps, 1) * 1e3
+    return dict(ids=st.out[0].tolist(), ms=ms, steps=steps, inputs=kept, counts=counts)
+
+
+def af2_prefill_ms(af2, inp: dict) -> float:
+    """flamingo.prefill on the api's inputs, CUDA events around it (the audio transform, the
+    36 xattn blocks and the LM over the bucket, the head at the last real row)."""
+    from audio_flamingo_tpu_torch.models import flamingo
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    capacity = gen._capacity(inp["ids"].shape[1], inp["plen"] or inp["ids"].shape[1],
+                             AF2_TOKENS, 0)
+    torch.cuda.synchronize()
+    ev[0].record()
+    flamingo.prefill(af2.model, af2.cfg, inp["ids"], inp["wins"], capacity,
+                     prompt_len=inp["plen"])
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def held_flamingo_graph():
+    """The most recently used captured flamingo decode step that runtime/generate holds."""
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
+    graphs = [g for k, g in gen._HELD.items() if k[0] == "flamingo"]
+    check(bool(graphs), "no captured flamingo decode step is held")
+    return graphs[-1]
+
+
+def af2_generate(af2, wav, counters: dict, **kw) -> dict:
+    """One AudioFlamingo2.generate, every counter read from 0 just before it and just
+    after; the wall time split into processor, tower, ttft and decode."""
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = af2.generate(sound=wav, prompt=AF2_PROMPT, max_new_tokens=AF2_TOKENS, **kw)
+    wall = time.perf_counter() - t0
+    out = af2.last_output
+    return dict(text=text, ids=out.tokens[0].tolist(), wall=wall, proc=af2.last_processor_s,
+                tower=af2.last_tower_s, ttft=out.ttft_s, decode_s=out.decode_s,
+                steps=out.decode_steps, capture_s=out.capture_s,
+                tps=out.decode_steps / out.decode_s if out.decode_s > 0 else float("nan"),
+                counts={n: c.count for n, c in counters.items()},
+                finite=bool(torch.isfinite(out.first_logits).all()))
+
+
+def k5_launch_timing(k5, captured: list) -> dict:
+    """Per distinct shape of the captured K5 launches (m, K, N, dtype): held against the
+    plain version, one launch timed with the wrapper and as device time (one call in a CUDA
+    graph), the plain version's time, torch._weight_int4pack_mm's with its call and as
+    device time the same way, and the bound; and how many launches had it."""
+    timing = {}
+    for x, w_p, gscale, layer in captured:
+        wl, gl = (w_p, gscale) if layer is None else (w_p[layer], gscale[layer])
+        k, n, group = k5_shape(wl, gl)
+        dn = str(x.dtype).split(".")[-1]
+        key = (x.shape[0], k, n, dn)
+        if key in timing:
+            timing[key]["count"] += 1
+            continue
+        call = ((lambda: k5.w4a16_matmul(x, w_p, gscale)) if layer is None else
+                (lambda: k5.w4a16_matmul_stacked(x, w_p, gscale, layer)))
+        r = w4_compare(call(), k5.w4a16_matmul_reference(x, wl, gl))
+        r["ms"] = time_ms(call)
+        r["graph_ms"] = graph_ms(call)
+        r["plain_ms"] = time_ms(lambda: k5.w4a16_matmul_reference(x, wl, gl), 5, 1)
+        lib, r["library_why"] = int4pack_call(x, wl, gl)
+        r["library_ms"] = time_ms(lib, 5, 1) if lib else None
+        r["library_graph_ms"] = graph_ms(lib) if lib else None
+        del lib
+        r["bound_ms"], r["bound_by"] = w4_bound_ms([(k, n, group)], x.shape[0], dn)
+        r["count"] = 1
+        timing[key] = r
+    k5.LAUNCHES.reset()
+    return timing
+
+
+def shape_rows(timing: dict, kind: str) -> dict:
+    """The kernels line's per-shape rows of k4_launch_timing / k5_launch_timing."""
+    out = {}
+    for key, r in timing.items():
+        name = (f"[{key[3]},{key[0]}]x[{key[0]},{'|'.join(map(str, key[1]))}]->{key[2]}"
+                if kind == "K4" else f"[{key[0]},{key[1]}]x[{key[1]},{key[2]}] {key[3]}")
+        out[name] = {n: r.get(n) for n in ("count", "ms", "graph_ms", "plain_ms", "library_ms",
+                                           "library_graph_ms", "bound_ms", "bound_by", "err",
+                                           "ratio")}
+    return out
+
+
+def log_shapes(tag: str, kind: str, timing: dict) -> None:
+    for name, r in shape_rows(timing, kind).items():
+        lib = ("null" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms with its call, {r['library_graph_ms']:.4f} ms device")
+        log(f"{tag} {kind} {name} x{r['count']}: max|y-plain| {r['err']:.3e} (at "
+            f"{r['ratio']:.3f} of the limit); {r['ms']:.4f} ms with the wrapper, "
+            f"{r['graph_ms']:.4f} ms device (one call in a graph), plain {r['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+
+def af2_int8_phase(k4, k5, k6) -> dict:
+    """15a. AF2 at full width (AF2Config(): HTSAT-base with fusion, 3 audio-transform layers
+    at 512, 36 xattn blocks of 32 heads; Qwen2.5-3B as an int8 tree from
+    random_quantized_lm), the fusion stacks and the tower in bf16 from a seed, as bench.py's
+    bench_clap builds it, the xattn gates set to AF2_GATE. AudioFlamingo2.generate, greedy,
+    32 tokens, on a 30 s clip (3 windows, bucket 4) twice (the first captures the decode
+    step, the second replays it) and on the 5-minute clip of bench_clap (30 windows):
+    identical ids, K4 launches per generate (145 a step: q|k|v, o, gate|up, down in 36
+    layers and the tied head; the 128-row prefill the same), no K5 or K6; the captured
+    decode against the eager step function (models/flamingo.decode_body) on the same
+    prefill: ids equal; sampled (top-p 0.9, temperature 0.7) twice from one seed: equal;
+    a second 30 s clip right after the first through the same captured step, sampled: its
+    ids equal its own eager run and differ from the first clip's (the media buffer is
+    refilled); TTFT split into mel, tower and prefill (CUDA events); decode tok/s replayed
+    and eager; one eager step's 145 K4 launches re-run against the plain version, each
+    3B shape timed alone beside its bound, plain version and torch._weight_int8pack_mm;
+    two replays profiled (K4 and cuBLAS shares); peak memory."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo2
+    from audio_flamingo_tpu_torch.config import AF2Config
+    from audio_flamingo_tpu_torch.models import clap, flamingo, qwen2
+    from audio_flamingo_tpu_torch.ops.quant import random_quantized_lm
+    from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
+    t_phase = time.perf_counter()
+    cfg = AF2Config()
+    n_layers = cfg.lm.num_layers
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    qlm = qwen2.quantized_lm(random_quantized_lm(g, cfg.lm, "cuda"), torch.bfloat16, "cuda")
+    model = flamingo.init_fusion(cfg, qlm, g, "cuda", torch.bfloat16)
+    set_gates(model, AF2_GATE)
+    tower = clap.build(cfg.clap, "cuda", torch.bfloat16)
+    clap.init_(tower, g)
+    af2 = AudioFlamingo2._assemble(cfg, model, tower, None, torch.device("cuda"))
+    torch.cuda.synchronize()
+    # a decode step reads every LM weight once (the tied int8 embedding as the head)
+    lm_bytes = sum(v.numel() * v.element_size() for v in qlm.state_dict().values())
+    xa_bytes = sum(p.numel() * p.element_size() for p in model.xattn.parameters())
+    log(f"15a AF2 at full width: int8 Qwen2.5-3B ({lm_bytes / 1e9:.3f} GB), "
+        f"{len(model.xattn)} xattn blocks ({xa_bytes / 1e9:.3f} GB bf16), "
+        f"{sum(p.numel() for p in tower.parameters()) / 1e6:.1f} M HTSAT-base params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    counters = {"K4": k4.LAUNCHES, "K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A, "K6B": k6.LAUNCHES_B}
+    wav_a, wav_b = clip48(30, 1, 440.0), clip48(30, 2, 880.0)
+    wav_5m = clip48(300, 0, None)
+    step_k4 = k4_step_launches(n_layers)
+    runs = {}
+    for name, wav in (("30 s #1", wav_a), ("30 s #2", wav_a), ("5 min #1", wav_5m),
+                      ("5 min #2", wav_5m)):
+        r = af2_generate(af2, wav, counters)
+        warm = int(r["capture_s"] > 0)
+        want = step_k4 * (1 + r["steps"] + warm)    # the 128-row prefill: one step's shapes
+        check(r["counts"]["K4"] == want and r["counts"]["K5"] == 0
+              and r["counts"]["K6A"] + r["counts"]["K6B"] == 0 and r["finite"],
+              f"15a {name}: launches {r['counts']} (K4 should be {want}: {step_k4} x (the "
+              f"prefill + {r['steps']} steps + {warm} warm-up)), finite logits {r['finite']}")
+        runs[name] = r
+        log(f"15a generate {name}: ids {r['ids'][:8]}...; call {r['wall'] * 1e3:.1f} ms = "
+            f"processor {r['proc'] * 1e3:.1f} + tower {r['tower'] * 1e3:.1f} + ttft "
+            f"{r['ttft'] * 1e3:.1f} + decode {r['decode_s'] * 1e3:.1f} ms; user TTFT "
+            f"{(r['proc'] + r['tower'] + r['ttft']) * 1e3:.1f} ms; decode {r['tps']:.1f} tok/s "
+            f"({r['steps']} steps replayed; capture {r['capture_s']:.2f} s outside ttft and "
+            f"decode); K4 launches {r['counts']['K4']}")
+    for clip in ("30 s", "5 min"):
+        check(runs[f"{clip} #1"]["ids"] == runs[f"{clip} #2"]["ids"],
+              f"15a {clip}: greedy ids differ between runs")
+        check(runs[f"{clip} #1"]["capture_s"] > 0 and runs[f"{clip} #2"]["capture_s"] == 0,
+              f"15a {clip}: the decode step was not captured once and replayed")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the captured step against the eager one, and one eager step's K4 launches
+    inp_a = af2_inputs(af2, wav_a)
+    eager = af2_eager(af2, inp_a, keep_step=1, counters={"K4": k4.LAUNCHES})
+    check(eager["ids"] == runs["30 s #2"]["ids"],
+          f"15a: eager ids {eager['ids'][:8]} != captured {runs['30 s #2']['ids'][:8]}")
+    check(eager["counts"]["K4"] == step_k4, f"15a: one eager step launched "
+                                             f"{eager['counts']['K4']} K4, not {step_k4}")
+    worst = captured_k4_checks(k4, eager["inputs"]["K4"], tag="15a")
+    timing = k4_launch_timing(k4, eager["inputs"]["K4"])
+    log_shapes("15a", "K4", timing)
+    step_bound = sum(r["count"] * r["bound_ms"] for r in timing.values())
+    k4_step_ms = sum(r["count"] * r["graph_ms"] for r in timing.values())
+
+    # sampled: one seed twice, then a second clip through the same captured step
+    sp = SamplingParams(greedy=False, temperature=0.7, top_p=0.9)
+    sampled = [af2_generate(af2, wav, counters, sampling=sp, seed=3)
+               for wav in (wav_a, wav_a, wav_b)]
+    check(sampled[0]["ids"] == sampled[1]["ids"], "15a: sampled generate from one seed differs")
+    check(sampled[2]["capture_s"] == 0, "15a: the second clip did not reuse the captured step")
+    eager_b = af2_eager(af2, af2_inputs(af2, wav_b), sampling=sp, seed=3)
+    check(eager_b["ids"] == sampled[2]["ids"],
+          f"15a: the second clip's captured ids {sampled[2]['ids'][:8]} != its own eager run "
+          f"{eager_b['ids'][:8]}")
+    check(sampled[2]["ids"] != sampled[0]["ids"],
+          "15a: both clips gave one sampled answer: the check of the media buffer saw nothing")
+    log(f"15a sampled (top-p 0.9, temperature 0.7, seed 3): one clip twice equal "
+        f"({sampled[0]['ids'][:6]}...); a second 30 s clip through the same captured step "
+        f"{sampled[2]['ids'][:6]}... equals its own eager run and differs from the first")
+
+    # TTFT split by CUDA events, both clips, warm
+    split = {}
+    for clip, wav in (("30 s", wav_a), ("5 min", wav_5m)):
+        inp = af2_inputs(af2, wav)
+        split[clip] = dict(mel_ms=inp["mel_ms"], tower_ms=inp["tower_ms"],
+                           prefill_ms=af2_prefill_ms(af2, inp), windows=inp["windows"],
+                           rows=inp["ids"].shape[1])
+        s = split[clip]
+        log(f"15a TTFT split, {clip} ({s['windows']} windows, {s['rows']}-row prompt), CUDA "
+            f"events: mel {s['mel_ms']:.2f} ms, tower {s['tower_ms']:.2f} ms, prefill "
+            f"{s['prefill_ms']:.2f} ms, sum {s['mel_ms'] + s['tower_ms'] + s['prefill_ms']:.2f} ms")
+
+    # two replays of the 30 s clip's captured step profiled, from a fresh start (a replay
+    # past the last token would write past the state's out)
+    af2_generate(af2, wav_a, counters)
+    graph = held_flamingo_graph()
+    st, t = graph.state, inp_a["ids"].shape[1]
+    with torch.inference_mode():
+        _, media, logits = flamingo.prefill(af2.model, cfg, inp_a["ids"], inp_a["wins"],
+                                            st.cache.capacity, prompt_len=inp_a["plen"],
+                                            cache=st.cache)
+        st.media.copy_(media)
+        gen.start_decode(st, graph.spec, logits, inp_a["ids"], inp_a["plen"] or t, None)
+    prof = profile_replays(graph, "15a", 2, {"K4": DECODE_KERNELS["K4"], "cuBLAS": CUBLAS})
+    del graph, st
+    warm = runs["30 s #2"]
+    step_ms = 1e3 / warm["tps"]
+    log(f"15a decode step (int8 3B + 36 bf16 xattn blocks): {step_ms:.3f} ms replayed "
+        f"({warm['tps']:.1f} tok/s), {eager['ms']:.3f} ms eager; bound {(lm_bytes + xa_bytes) / PEAK_BYTES * 1e3:.3f} ms "
+        f"({lm_bytes / 1e9:.3f} GB of int8 LM + {xa_bytes / 1e9:.3f} GB of xattn weights at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s); K4 launches of one step summed alone {k4_step_ms:.3f} ms "
+        f"device against their bound {step_bound:.3f} ms; one replay under torch.profiler: "
+        f"{prof['kernels']:g} kernels, K4 {prof['groups']['K4'][0]:g} ({prof['groups']['K4'][1]:.3f} ms), "
+        f"cuBLAS (the xattn and audio products, attention) {prof['groups']['cuBLAS'][0]:g} "
+        f"({prof['groups']['cuBLAS'][1]:.3f} ms), busy {prof['busy_ms']:.3f} of "
+        f"{prof['span_ms']:.3f} ms ({prof['busy_share'] * 100:.1f} %); peak memory {peak:.2f} GiB")
+    check(prof["groups"]["K4"][0] == step_k4,
+          f"15a: torch.profiler sees {prof['groups']['K4'][0]} K4 kernels in one replay")
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1])[:10]
+    log("15a one replay's kernels by device time: " + "; ".join(
+        f"{name[:70]} x{n:g} {ms:.3f} ms" for name, (n, ms) in top))
+    res = dict(runs=runs, eager=eager, timing=timing, worst=worst, split=split, prof=prof,
+               peak=peak, step_ms=step_ms, sampled=[s["ids"] for s in sampled],
+               lm_bytes=lm_bytes, xa_bytes=xa_bytes,
+               k4_launches=runs["30 s #2"]["counts"]["K4"])
+    del eager["inputs"]
+    return dict(res, af2=af2, s=time.perf_counter() - t_phase)
+
+
+def af2_w4_phase(af2, k4, k5, k6, w4_state_seed: int = 1) -> dict:
+    """15b. The same fusion stacks and tower with the LM as a fused-w4 tree: a bf16
+    Qwen2.5-3B made on the card from a seed, quantize_lm_params_w4 on the card (what
+    load(quantize_lm="int4") calls), the float LM freed. AudioFlamingo2.generate on the 30 s
+    clip twice, greedy, 32 tokens: identical ids, per step 144 K5 (qkv, o, gate|up, down in
+    36 layers; the 128-row prefill the same) and 1 K4 (the int8 head), no K6 (the suffixes
+    cannot run between xattn blocks); one eager step's K5 launches re-run against the plain
+    version, each 3B shape timed alone beside its bound, plain version and
+    torch._weight_int4pack_mm."""
+    import dataclasses as dc
+
+    from audio_flamingo_tpu_torch.models import flamingo, qwen2
+    from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
+
+    t_phase = time.perf_counter()
+    cfg = af2.cfg
+    n_layers = cfg.lm.num_layers
+    with torch.device("meta"):
+        flm = qwen2.Qwen2(cfg.lm, dtype=torch.bfloat16)
+    flm = flm.to_empty(device="cuda").requires_grad_(False)
+    qwen2.init_(flm, torch.Generator(device="cuda").manual_seed(w4_state_seed))
+    t0 = time.perf_counter()
+    qlm = qwen2.quantized_lm(quantize_lm_params_w4(flm.state_dict()), torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del flm
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(qwen2.split_stacked_w4(qlm.layers) is not None, "15b: the w4 tree is not fused")
+    w4 = dc.replace(af2, model=flamingo.FlamingoModel(af2.model.audio_transform,
+                                                      af2.model.xattn, qlm),
+                    history=[], last_output=None)
+    counters = {"K4": k4.LAUNCHES, "K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A, "K6B": k6.LAUNCHES_B}
+    wav = clip48(30, 1, 440.0)
+    runs = []
+    for i in range(2):
+        r = af2_generate(w4, wav, counters)
+        n = 1 + r["steps"] + int(r["capture_s"] > 0)
+        check(r["counts"]["K5"] == 4 * n_layers * n and r["counts"]["K4"] == n
+              and r["counts"]["K6A"] == r["counts"]["K6B"] == 0 and r["finite"],
+              f"15b generate #{i + 1}: launches {r['counts']} (want K5 {4 * n_layers} and K4 1 "
+              f"x {n}, no K6)")
+        runs.append(r)
+        log(f"15b w4 generate #{i + 1}: ids {r['ids'][:8]}...; user TTFT "
+            f"{(r['proc'] + r['tower'] + r['ttft']) * 1e3:.1f} ms (ttft {r['ttft'] * 1e3:.1f}); "
+            f"decode {r['tps']:.1f} tok/s ({r['steps']} steps, capture {r['capture_s']:.2f} s); "
+            f"launches {r['counts']}")
+    check(runs[0]["ids"] == runs[1]["ids"], "15b: greedy ids differ between runs")
+    eager = af2_eager(w4, af2_inputs(w4, wav), keep_step=1,
+                      counters={"K5": k5.LAUNCHES, "K6A": k6.LAUNCHES_A, "K6B": k6.LAUNCHES_B})
+    check(eager["ids"] == runs[1]["ids"], "15b: eager ids differ from the captured run's")
+    check(eager["counts"]["K5"] == 4 * n_layers and eager["counts"]["K6A"] == 0,
+          f"15b: one eager step launched {eager['counts']}")
+    worst = captured_w4_checks(k5, k6, {"K5": eager["inputs"]["K5"], "K6A": [], "K6B": []})
+    timing = k5_launch_timing(k5, eager["inputs"]["K5"])
+    log_shapes("15b", "K5", timing)
+    step_bound = sum(r["count"] * r["bound_ms"] for r in timing.values())
+    k5_step_ms = sum(r["count"] * r["graph_ms"] for r in timing.values())
+    log(f"15b: quantize_lm_params_w4 of the bf16 3B on the card {quant_s:.1f} s; one step's "
+        f"{4 * n_layers} K5 launches alone {k5_step_ms:.3f} ms device against their bound "
+        f"{step_bound:.3f} ms; decode {1e3 / runs[1]['tps']:.3f} ms per step replayed, "
+        f"{eager['ms']:.3f} ms eager; K6 launches in the flamingo path: 0")
+    del eager["inputs"], w4, qlm
+    return dict(runs=runs, timing=timing, worst=worst["K5"], eager_ms=eager["ms"],
+                k5_launches=runs[1]["counts"]["K5"], k4_launches=runs[1]["counts"]["K4"],
+                s=time.perf_counter() - t_phase)
+
+
+def af2_f32_card_vs_cpu_phase() -> dict:
+    """15c, 15d. f32 card against CPU at full width and 2 + 2 layers. 15c: the full
+    HTSAT-base tower on one window's 4-channel mel with is_longer (the fusion branch), embeds
+    within 1e-4; an AF2 of 2 LM layers at the 3B's widths and vocab with its 2 xattn blocks
+    (made lively): flamingo.logits on the float LM and on its int8 and fused-w4 trees
+    (quantized on the CPU, the trees moved) within 1e-4 of max|logit|, greedy generate
+    token-exact (the card's step captured). 15d: AF1 at OPT-IML-1.3B's widths
+    (AF1Config.make()) with 2 LM layers: greedy generate token-exact and
+    logits_with_media_mask on 4 media x 4 windows in 'last' mode within 1e-4 of max|logit|.
+    Both models are made lively (``liven``), and the CPU's greedy ids must not repeat one
+    token, so that the token-exact check can see a wrong cache slot, position or media.
+    cuDNN's TF32 is off for the tower's f32 convs."""
+    import copy
+    import dataclasses as dc
+
+    from audio_flamingo_tpu_torch.config import AF1Config, AF2Config, OPTConfig, Qwen2Config
+    from audio_flamingo_tpu_torch.models import clap, flamingo, qwen2
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+    from audio_flamingo_tpu_torch.ops.quant4 import quantize_lm_params_w4
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # the HTSAT convs in full f32
+    rng = np.random.default_rng(15)
+    res = {}
+    try:
+        cfg = AF2Config(lm=dc.replace(Qwen2Config.qwen25_3b(), num_layers=2))
+        gen_cpu = torch.Generator().manual_seed(15)
+        tower = clap.build(cfg.clap, "cpu", torch.float32)
+        clap.init_(tower, gen_cpu)
+        mels = torch.as_tensor((rng.standard_normal((1, 4, 1001, 64)) * 10 - 40)
+                               .astype(np.float32))
+        longer = torch.tensor([True])
+        want = tower.encode(mels, longer)["embeds"]
+        got = copy.deepcopy(tower).cuda().encode(mels.cuda(), longer.cuda())["embeds"].cpu()
+        res["tower"] = float((got - want).abs().max())
+        check(res["tower"] <= 1e-4, f"15c: HTSAT-base embeds card vs CPU {res['tower']:.3e}")
+        del tower
+
+        model = flamingo.init(cfg, gen_cpu, "cpu", torch.float32)
+        liven(model, 15, linear=10.0, embed=3.0)
+        ids = torch.as_tensor(rng.integers(0, cfg.lm.vocab_size, (1, 24)))
+        wins = torch.as_tensor(rng.standard_normal((1, 1, 4, 512)).astype(np.float32))
+        state = model.lm.state_dict()
+        trees = {"float": None, "int8": quantize_lm_params(state),
+                 "w4": quantize_lm_params_w4(state)}
+        for name, tree in trees.items():
+            cpu = model if tree is None else flamingo.FlamingoModel(
+                model.audio_transform, model.xattn, qwen2.quantized_lm(tree, torch.float32, "cpu"))
+            card = copy.deepcopy(cpu).cuda()
+            lg_h = flamingo.logits(cpu, cfg, ids, wins)
+            lg_c = flamingo.logits(card, cfg, ids.cuda(), wins.cuda()).cpu()
+            scale = float(lg_h.abs().max())
+            err = float((lg_c - lg_h).abs().max())
+            out_h = flamingo.generate(cpu, cfg, ids, wins, max_new_tokens=8).tokens
+            out_c = flamingo.generate(card, cfg, ids.cuda(), wins.cuda(), max_new_tokens=8).tokens
+            res[name] = dict(err=err, scale=scale, ids=out_h[0].tolist(),
+                             equal=torch.equal(out_c.cpu(), out_h))
+            check(len(set(res[name]["ids"])) > 1,
+                  f"15c {name}: the CPU's greedy ids {res[name]['ids']} repeat one token")
+            check(err <= 1e-4 * scale, f"15c {name}: logits card vs CPU {err:.3e} (max|logit| "
+                                       f"{scale:.2f})")
+            check(res[name]["equal"],
+                  f"15c {name}: greedy ids card {out_c[0].tolist()} vs CPU {out_h[0].tolist()}")
+            del card
+        del model, trees, state
+
+        cfg1 = AF1Config.make(lm=dc.replace(OPTConfig(), num_layers=2))
+        af1 = flamingo.init(cfg1, torch.Generator().manual_seed(16), "cpu", torch.float32)
+        liven(af1, 16, linear=3.0, embed=3.0)
+        card = copy.deepcopy(af1).cuda()
+        ids = torch.as_tensor(rng.integers(0, cfg1.lm.vocab_size, (1, 24)))
+        wins = torch.as_tensor(rng.standard_normal((1, 4, 4, 512)).astype(np.float32))
+        idx = torch.as_tensor(np.repeat(np.arange(1, 5), 6)[None])
+        lg_h = flamingo.logits_with_media_mask(af1, cfg1, ids, wins, idx, 4, mode="last")
+        lg_c = flamingo.logits_with_media_mask(card, cfg1, ids.cuda(), wins.cuda(), idx.cuda(),
+                                               4, mode="last").cpu()
+        scale = float(lg_h.abs().max())
+        err = float((lg_c - lg_h).abs().max())
+        out_h = flamingo.generate(af1, cfg1, ids, wins, max_new_tokens=8).tokens
+        out_c = flamingo.generate(card, cfg1, ids.cuda(), wins.cuda(), max_new_tokens=8).tokens
+        res["af1"] = dict(err=err, scale=scale, ids=out_h[0].tolist(),
+                          equal=torch.equal(out_c.cpu(), out_h))
+        check(len(set(res["af1"]["ids"])) > 1,
+              f"15d AF1: the CPU's greedy ids {res['af1']['ids']} repeat one token")
+        check(err <= 1e-4 * scale, f"15d AF1 logits_with_media_mask card vs CPU {err:.3e}")
+        check(res["af1"]["equal"], f"15d AF1 greedy ids card {out_c[0].tolist()} vs CPU "
+                                   f"{out_h[0].tolist()}")
+        del af1, card
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    res["s"] = time.perf_counter() - t0
+    log("15c f32 card vs CPU (full width, 2 + 2 layers): HTSAT-base embeds max|d| "
+        f"{res['tower']:.3e} (limit 1e-4); flamingo logits and greedy ids, "
+        + "; ".join(f"{n}: {res[n]['err']:.3e} of max|logit| {res[n]['scale']:.2f}, ids "
+                    f"{res[n]['ids']} equal" for n in ("float", "int8", "w4"))
+        + f". 15d AF1 (OPT-IML-1.3B widths, 2 layers): logits_with_media_mask (4 media x 4 "
+          f"windows, 'last') {res['af1']['err']:.3e} of {res['af1']['scale']:.2f}, greedy ids "
+          f"{res['af1']['ids']} equal; 15c + 15d took {res['s']:.1f} s")
+    return res
+
+
 def serve_any(engine, specs, max_new_tokens: int) -> dict:
     """``serve`` on any device (the CPU's engines need no synchronization)."""
     from audio_flamingo_tpu_torch.runtime.engine import Request
@@ -5433,7 +6013,7 @@ def main() -> int:
     if _build.build_seconds is None:
         log(f"build: {path} was already built; ptxas's report below is that build's")
     else:
-        log(f"build: {path} in {_build.build_seconds:.1f}s (one nvcc call)")
+        log(f"build: {path} in {_build.build_seconds:.1f}s (an nvcc process a source, at once)")
     ptxas = ptxas_report(_build.build_log)
     for r in ptxas:
         log(f"  ptxas: {r['kernel']}: {r['registers']} registers, {r['stack_bytes']} bytes of "
@@ -5673,6 +6253,19 @@ def main() -> int:
     phase14_s += f32_14["s"]
     log(f"14: phase 14 took {phase14_s:.1f} s (14a {voc14['s']:.1f}, 14b {voice14['s']:.1f}, "
         f"14c {f32_14['s']:.1f})")
+    # 15a-15d. AF2 at full width: the int8 3B on K4, the fused-w4 3B on K5 (no K6), f32
+    # card against CPU (AF2 at 2 + 2 layers, AF1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    af2_15 = af2_int8_phase(k4, k5, k6)
+    w4_15 = af2_w4_phase(af2_15.pop("af2"), k4, k5, k6)
+    log(f"15: released the held captured steps ({gen.release_graphs() / 2**20:.1f} MiB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_15 = af2_f32_card_vs_cpu_phase()
+    gen.release_graphs()
+    log(f"15: phase 15 took {af2_15['s'] + w4_15['s'] + f32_15['s']:.1f} s (15a "
+        f"{af2_15['s']:.1f}, 15b {w4_15['s']:.1f}, 15c + 15d {f32_15['s']:.1f})")
 
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
@@ -5745,6 +6338,10 @@ def main() -> int:
         "max_abs_err_m4": max(r["worst"]["K5"][0] for r in f32_12["w4"].values()),
         "m4_bf16": {k: (v if k != "bound" else list(v))
                     for k, v in f32_12["w4"]["bfloat16"]["timing"]["K5"].items()},
+        "launches_phase15": {"15b AF2 fused-w4 3B, api.generate 30 s clip (32 tokens)":
+                             w4_15["k5_launches"]},
+        "max_abs_err_15b": w4_15["worst"][0],
+        "af2_3b_15b": shape_rows(w4_15["timing"], "K5"),
         "ptxas": w4_ptxas,
     })
     for name, key, line in (("w4_suffix_a", "K6A", 225), ("w4_suffix_b", "K6B", 288)):
@@ -5904,6 +6501,11 @@ def main() -> int:
                     {n: r[n] for n in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")}
                     for k, r in f32_12["k4"]["bfloat16"]["timing"].items()},
+        "launches_phase15": {"15a AF2 int8 3B, api.generate 30 s clip (32 tokens, the step "
+                             "replayed)": af2_15["k4_launches"],
+                             "15b AF2 fused-w4 3B (the int8 head)": w4_15["k4_launches"]},
+        "max_abs_err_15a": af2_15["worst"][0],
+        "af2_3b_15a": shape_rows(af2_15["timing"], "K4"),
         "ptxas": k4_ptxas,
     })
     for name, p in paged.items():
@@ -6006,7 +6608,17 @@ def main() -> int:
         "(torch._weight_int8pack_mm; a grouped launch: its products' calls summed), bound_ms; "
         "the round's sums weight each shape by its count. launches_phase14 "
         "(flash_attention_fwd): K2's launches in one 14b run, counted from 0 just before it "
-        "and read just after (the encoder's 32 and the prefill's 28; no other kernel ran).")
+        "and read just after (the encoder's 32 and the prefill's 28; no other kernel ran). "
+        "launches_phase15 (w8a16_matmul, w4a16_matmul): each kernel's launches in one warm "
+        "AudioFlamingo2.generate of phase 15 (AF2Config(), the 30 s clip, 32 greedy tokens), "
+        "counted from 0 just before it and read just after (a run that replays the captured "
+        "step; the capture's warm-up step counts its own); af2_3b_15a / af2_3b_15b: one eager "
+        "decode step's K4 (int8 3B) and K5 (fused-w4 3B) launches by shape, each re-run "
+        "against the plain version (err, ratio; max_abs_err_15a / _15b the largest) and one "
+        "launch of each shape timed alone: ms with the wrapper, graph_ms device time of one "
+        "call in a CUDA graph, plain_ms, library_ms (torch._weight_int8pack_mm / "
+        "torch._weight_int4pack_mm on the same codes; a grouped K4 launch: its products' "
+        "calls summed), bound_ms, count = the launches of that shape in the step.")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")

@@ -123,3 +123,29 @@ def test_compiled_library_keeps_its_report(tmp_path, monkeypatch):
     os.remove(path + ".log")
     again = _build.compile_library("gcc", flags, [str(src)], "libunit")
     assert again[0] == path and again[1] is not None and "kept report" in again[2]
+
+
+def test_compiled_library_builds_each_source_then_links(tmp_path, monkeypatch):
+    """Every source is compiled by its own process with ``-c`` (started together), then
+    one link makes the library; the report holds each source's stderr in order."""
+    import ctypes
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    srcs = []
+    for name, value in (("one", 1), ("two", 2)):
+        src = tmp_path / f"{name}.c"
+        src.write_text(f'#warning "from {name}"\nint af_{name}(void) {{ return {value}; }}\n')
+        srcs.append(str(src))
+    calls = []
+    run = _build._run
+    monkeypatch.setattr(_build, "_run", lambda cmds: calls.append(cmds) or run(cmds))
+    path, seconds, log = _build.compile_library("gcc", ("-O1", "-shared", "-fPIC"), srcs,
+                                                "libtwo")
+    compiles, links = calls
+    assert [cmd[-1] for cmd in compiles] == srcs
+    assert all("-c" in cmd and "-shared" not in cmd for cmd in compiles)
+    assert len(links) == 1 and "-shared" in links[0]
+    assert links[0][-2:] == [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert log.index("from one") < log.index("from two")
+    lib = ctypes.CDLL(path)
+    assert (lib.af_one(), lib.af_two()) == (1, 2)
+    assert not [p for p in os.listdir(tmp_path / "build") if p.endswith(".o")]
