@@ -19,7 +19,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.config import (NOT_PORTED, AF2Config, AF3Config,
+from audio_flamingo_tpu_torch.config import (AF2Config, AF3Config,
                                              ClapAudioConfig, ClapMelConfig, GatedXAttnConfig,
                                              OPTConfig, Qwen2Config, WhisperEncoderConfig,
                                              asdict, bucket_tokens)
@@ -396,11 +396,10 @@ class AudioFlamingo2:
         (``models/flamingo.generate``; the step captured on the card). The run's ids,
         prefill logits and timings are kept in ``last_output``, the processor's and the
         tower's times in ``last_processor_s`` and ``last_tower_s``. think=True appends the
-        thinking instruction after the audio marker. Beam search (num_beams > 1) is not
-        ported for this family yet and raises."""
-        if num_beams > 1:
-            raise NotImplementedError(NOT_PORTED.format(
-                "AF1/AF2 beam search (AudioFlamingo2.generate with num_beams > 1)", beam.XATTN))
+        thinking instruction after the audio marker. num_beams > 1 runs beam search
+        (``runtime/beam.generate_beam_xattn``, the step captured on the card) on the exact,
+        unpadded prompt, as JAX does, and answers with the best beam cut after its first
+        EOS (``last_output`` is None then)."""
         audios = None
         text = prompt
         if sound is not None:
@@ -426,6 +425,17 @@ class AudioFlamingo2:
                                dtype=flamingo.compute_dtype(self.model), device=device)
         gen.sync(device)
         self.last_processor_s, self.last_tower_s = t1 - t0, time.perf_counter() - t1
+        if num_beams > 1:
+            seqs, _ = beam.generate_beam_xattn(
+                self.model, self.cfg, ids, wins, num_beams=num_beams,
+                max_new_tokens=max_new_tokens, eos_token_id=self.eos_token_id,
+                length_penalty=length_penalty, early_stopping=early_stopping,
+                min_new_tokens=sampling.min_new_tokens)
+            seq = seqs[0, 0].tolist()
+            if self.eos_token_id in seq:
+                seq = seq[: seq.index(self.eos_token_id) + 1]
+            self.last_output = None
+            return self._answer(seq, text, audios, chat)
         t = ids.shape[1]
         bucket = bucket_tokens(t)
         prompt_len = None
@@ -438,8 +448,11 @@ class AudioFlamingo2:
                                 generator=torch.Generator(device=device).manual_seed(seed),
                                 prompt_len=prompt_len)
         self.last_output = out
-        answer = self.processor.tokenizer.decode(out.tokens[0, : int(out.lengths[0])].tolist(),
-                                                 skip_special=True)
+        return self._answer(out.tokens[0, : int(out.lengths[0])].tolist(), text, audios, chat)
+
+    def _answer(self, ids: list, text: str, audios, chat: bool) -> str:
+        """Detokenize the answer and, in a chat, keep the turn."""
+        answer = self.processor.tokenizer.decode(ids, skip_special=True)
         if chat:
             self.history.append({"role": "user", "content": text, "audios": audios or []})
             self.history.append({"role": "assistant", "content": answer})

@@ -12,6 +12,18 @@
 // every one attending the same past (`lengths[b]` keys); the block's own triangle is merged
 // outside the kernel (`merge_block_tokens`).
 //
+// Head dims: every kernel is a template over hd (kD), built at 64 (AF1's OPT: 32 KV heads of
+// 64, g = 1, q scaled before the product so scale = 1) and 128 (the Qwen2 LMs); the C entry
+// dispatches on hd and refuses any other. At 64 the V pass's mappings are remapped so that
+// every thread works and none writes past hd: on the tensor cores the 8 warps are 4 column
+// groups of 16 x 2 key halves (warp w: columns 16 (w % 4) .., keys 32 (w / 4) .. of each
+// 64-key step; the upper half's accumulators join the lower's through shared memory before
+// the write); on the CUDA cores a thread is (column pair, phase) over 32 pairs x 8 phases
+// (kT = 1: every 8th key, the 8 phases added in order; kT = 8: one head tile a thread). An
+// int8 row of 64 values is staged unpadded (rows 64 bytes apart). At g = 1 (OPT's decode)
+// a head tile of 8 query rows holds 1: the score mma's n = 8 columns carry 1 live query and
+// 3 of every 4 p-forming threads idle; the bound is bytes either way.
+//
 // Layout: q [B, nkv, g, hd] contiguous; pools [L, NB, BS, nkv, hd] contiguous, the layer
 // chosen inside the kernel by a pointer offset (the stacked pool is never sliced or
 // copied); scales [L, NB, BS, nkv]; block_tables [B, MP] int32 (-1 = unmapped) and
@@ -103,7 +115,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kHD = 128;      // head dim the kernel takes
+constexpr int kHDMin = 64;    // the head dims the kernels are built for: OPT's
+constexpr int kHDMax = 128;   // and Qwen2's
 constexpr int kMaxG = 64;     // query rows per KV head (decode heads, or verify tokens x heads)
 constexpr int kTile = 8;      // query rows a head tile
 constexpr int kC = 64;        // keys a ring step
@@ -171,45 +184,48 @@ constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value &&
 constexpr int kPT = kC + 8;   // p^T row stride (bf16): its B fragments hit 32 banks
 
 // A staged row: the head's hd values, then 16 bytes (ldmatrix: rows 16 mod 128 bytes
-// apart) or 64 (the CUDA cores' interleaved 16-byte reads: 64 mod 128) of padding.
-template <typename TQ, typename TKV> __host__ __device__ constexpr int row_bytes() {
-  return kHD * (int)sizeof(TKV) + (kMma<TQ, TKV> ? 16 : kPad);
+// apart) or enough to put rows 64 mod 128 bytes apart (the CUDA cores' interleaved 16-byte
+// reads): 64 bytes, none for an int8 row of 64 values.
+template <typename TQ, typename TKV, int kD> __host__ __device__ constexpr int row_bytes() {
+  return kD * (int)sizeof(TKV) +
+         (kMma<TQ, TKV> ? 16 : (kD * (int)sizeof(TKV)) % 128 == kPad ? 0 : kPad);
 }
 
 // One ring slot: 64 rows of K (pass 1) or V (pass 2), then (pass 2) the step's scores
 // [64][8 kT], then the step's int8 scales [64]. kT head tiles of 8 query rows.
-template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int stage_bytes() {
-  return kC * row_bytes<TQ, TKV>() + kC * kTile * kT * 4 + kC * 4;
+template <typename TQ, typename TKV, int kT, int kD> __host__ __device__ constexpr int stage_bytes() {
+  return kC * row_bytes<TQ, TKV, kD>() + kC * kTile * kT * 4 + kC * 4;
 }
-template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int stage_scores() {
-  return kC * row_bytes<TQ, TKV>();
+template <typename TQ, typename TKV, int kT, int kD> __host__ __device__ constexpr int stage_scores() {
+  return kC * row_bytes<TQ, TKV, kD>();
 }
-template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int stage_scales() {
-  return kC * row_bytes<TQ, TKV>() + kC * kTile * kT * 4;
+template <typename TQ, typename TKV, int kT, int kD> __host__ __device__ constexpr int stage_scales() {
+  return kC * row_bytes<TQ, TKV, kD>() + kC * kTile * kT * 4;
 }
 // The score pass's slot: kT = 1 keeps the V pass's layout (the decode kernel as it was);
 // kT = 8 holds K rows and scales only.
-template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int kstage_bytes() {
-  return kT == 1 ? stage_bytes<TQ, TKV, kT>() : kC * row_bytes<TQ, TKV>() + kC * 4;
+template <typename TQ, typename TKV, int kT, int kD> __host__ __device__ constexpr int kstage_bytes() {
+  return kT == 1 ? stage_bytes<TQ, TKV, kT, kD>() : kC * row_bytes<TQ, TKV, kD>() + kC * 4;
 }
-template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr int kstage_scales() {
-  return kT == 1 ? stage_scales<TQ, TKV, kT>() : kC * row_bytes<TQ, TKV>();
+template <typename TQ, typename TKV, int kT, int kD> __host__ __device__ constexpr int kstage_scales() {
+  return kT == 1 ? stage_scales<TQ, TKV, kT, kD>() : kC * row_bytes<TQ, TKV, kD>();
 }
-constexpr int kQRow = kHD + 8;   // staged bf16 q row (kT > 1): B fragments hit 32 banks
+// the staged bf16 q row (kT > 1): its B fragments hit 32 banks
+template <int kD> __host__ __device__ constexpr int q_row() { return kD + 8; }
 
-// q as the score pass holds it: f32 rows (CUDA cores), bf16 rows of kQRow (tensor cores,
+// q as the score pass holds it: f32 rows (CUDA cores), bf16 rows of q_row (tensor cores,
 // kT > 1), nothing (tensor cores, kT = 1: registers); then the warps' page maxima.
-template <typename TQ, typename TKV, int kT> __host__ __device__ constexpr size_t q_smem() {
-  return kMma<TQ, TKV> ? (kT == 1 ? (size_t)kTile * kHD * 4 : (size_t)kTile * kT * kQRow * 2)
-                       : (size_t)kTile * kT * kHD * 4;
+template <typename TQ, typename TKV, int kT, int kD> __host__ __device__ constexpr size_t q_smem() {
+  return kMma<TQ, TKV> ? (kT == 1 ? (size_t)kTile * kD * 4 : (size_t)kTile * kT * q_row<kD>() * 2)
+                       : (size_t)kTile * kT * kD * 4;
 }
-template <typename TQ, typename TKV, int kT> size_t score_smem() {
-  return (size_t)kStages * kstage_bytes<TQ, TKV, kT>() + q_smem<TQ, TKV, kT>() +
+template <typename TQ, typename TKV, int kT, int kD> size_t score_smem() {
+  return (size_t)kStages * kstage_bytes<TQ, TKV, kT, kD>() + q_smem<TQ, TKV, kT, kD>() +
          (size_t)kWarps * kTile * kT * 4;
 }
-template <typename TQ, typename TKV, int kT> size_t attend_smem(int pages_per_part) {
+template <typename TQ, typename TKV, int kT, int kD> size_t attend_smem(int pages_per_part) {
   constexpr int kG = kTile * kT;
-  return (size_t)kStages * stage_bytes<TQ, TKV, kT>() + kC * kG * 4 +
+  return (size_t)kStages * stage_bytes<TQ, TKV, kT, kD>() + kC * kG * 4 +
          (size_t)(pages_per_part + 1) * kG * 4 + kWarps * kG * 4;
 }
 
@@ -243,18 +259,18 @@ __device__ __forceinline__ int row_pages(int len, int BS, int MP) {
 // Step c (keys c * 64 ..) of page `page` of head kvh: its 64 rows of `pool` by 16-byte
 // cp.async copies (rows past BS zero-filled) and, with scales, the rows' int8 scales at
 // byte `scales_at` of the slot (past BS: 0). All threads take part; the caller commits.
-template <typename TQ, typename TKV, bool kQuant>
+template <typename TQ, typename TKV, bool kQuant, int kD>
 __device__ __forceinline__ void stage_rows(unsigned char* slot, int scales_at, const TKV* pool,
                                            const float* scales, int page, int c, int BS,
                                            int nkv, int kvh) {
-  constexpr int kRow = row_bytes<TQ, TKV>();
-  constexpr int kCh = kHD * (int)sizeof(TKV) / 16;
+  constexpr int kRow = row_bytes<TQ, TKV, kD>();
+  constexpr int kCh = kD * (int)sizeof(TKV) / 16;
   const size_t row0 = (size_t)page * BS;
   for (int i = threadIdx.x; i < kC * kCh; i += kThreads) {
     const int t = i / kCh, ch = i % kCh;
     const int kt = c * kC + t;
     const bool in = kt < BS;
-    const size_t src = ((row0 + (in ? kt : 0)) * nkv + kvh) * kHD;
+    const size_t src = ((row0 + (in ? kt : 0)) * nkv + kvh) * kD;
     cp_async16(slot + t * kRow + 16 * ch, reinterpret_cast<const uint4*>(pool + src) + ch, in);
   }
   if (kQuant && threadIdx.x < kC) {
@@ -268,17 +284,18 @@ __device__ __forceinline__ void stage_rows(unsigned char* slot, int scales_at, c
 }
 
 // Pass 1: the scores of one page of one (row, kv head) and the page's max per query row.
-template <typename TQ, typename TKV, bool kQuant, int kT>
+template <typename TQ, typename TKV, bool kQuant, int kT, int kD>
 __global__ void __launch_bounds__(kThreads)
 score_kernel(Layer<TQ, TKV> a, Scratch sc) {
-  constexpr int kRow = row_bytes<TQ, TKV>();
+  constexpr int kRow = row_bytes<TQ, TKV, kD>();
   constexpr int kE = 16 / (int)sizeof(TKV);                 // values in 16 bytes
-  constexpr int kN = kHD * (int)sizeof(TKV) / 16 / 4;       // 16-byte reads a quarter
+  constexpr int kN = kD * (int)sizeof(TKV) / 16 / 4;       // 16-byte reads a quarter
   constexpr int kG = kTile * kT;                            // query rows the block can hold
-  constexpr int kSlot = kstage_bytes<TQ, TKV, kT>();
+  constexpr int kSlot = kstage_bytes<TQ, TKV, kT, kD>();
+  constexpr int kQRow = q_row<kD>();
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + kStages * kSlot);                  // q_smem
-  float* red = reinterpret_cast<float*>(smem + kStages * kSlot + q_smem<TQ, TKV, kT>());
+  float* red = reinterpret_cast<float*>(smem + kStages * kSlot + q_smem<TQ, TKV, kT, kD>());
   __nv_bfloat16* qsb = reinterpret_cast<__nv_bfloat16*>(qs);   // [kG][kQRow] (kT > 1)
   const int j = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -291,7 +308,7 @@ score_kernel(Layer<TQ, TKV> a, Scratch sc) {
   const size_t bk = (size_t)b * a.nkv + kvh;
 
   auto fetch = [&](int c) {
-    stage_rows<TQ, TKV, kQuant>(smem + (c % kStages) * kSlot, kstage_scales<TQ, TKV, kT>(), a.k,
+    stage_rows<TQ, TKV, kQuant, kD>(smem + (c % kStages) * kSlot, kstage_scales<TQ, TKV, kT, kD>(), a.k,
                                 a.ks, page, c, a.BS, a.nkv, kvh);
   };
 #pragma unroll
@@ -299,28 +316,28 @@ score_kernel(Layer<TQ, TKV> a, Scratch sc) {
     if (i < nc) fetch(i);
     cp_async_commit();
   }
-  const TQ* qb = a.q + bk * g * kHD;
+  const TQ* qb = a.q + bk * g * kD;
   // tensor cores, kT = 1: q as the B fragments of S = K q^T, 8 k-steps of 16 dims (head =
   // lane / 4, zero past g), in registers; kT > 1: q in bf16 rows in shared memory, each
   // head tile's fragments read there; CUDA cores: q in f32 in shared memory
-  uint32_t qf[kHD / 16][2];
+  uint32_t qf[kD / 16][2];
   if constexpr (kMma<TQ, TKV> && kT == 1) {
     const int gq = lane >> 2, tq = lane & 3;
-    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(qb + min(gq, g - 1) * kHD);
+    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(qb + min(gq, g - 1) * kD);
 #pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk) {
+    for (int kk = 0; kk < kD / 16; ++kk) {
       qf[kk][0] = gq < g ? qrow[8 * kk + tq] : 0u;
       qf[kk][1] = gq < g ? qrow[8 * kk + tq + 4] : 0u;
     }
   } else if constexpr (kMma<TQ, TKV>) {
     const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qb);
-    for (int i = tid; i < kG * kHD / 2; i += kThreads) {
-      const int h = i / (kHD / 2);
-      reinterpret_cast<uint32_t*>(qsb + h * kQRow)[i % (kHD / 2)] = h < g ? q32[i] : 0u;
+    for (int i = tid; i < kG * kD / 2; i += kThreads) {
+      const int h = i / (kD / 2);
+      reinterpret_cast<uint32_t*>(qsb + h * kQRow)[i % (kD / 2)] = h < g ? q32[i] : 0u;
     }
   } else {
-    for (int i = tid; i < kG * kHD; i += kThreads)
-      qs[i] = i < g * kHD ? to_f32(qb[i]) : 0.f;
+    for (int i = tid; i < kG * kD; i += kThreads)
+      qs[i] = i < g * kD ? to_f32(qb[i]) : 0.f;
   }
 
   const int t = tid >> 2, qd = tid & 3;
@@ -341,7 +358,7 @@ score_kernel(Layer<TQ, TKV> a, Scratch sc) {
         const unsigned char* arow = slot + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow
                                     + (lane >> 4) * 16;
 #pragma unroll
-        for (int kk = 0; kk < kHD / 16; ++kk) {
+        for (int kk = 0; kk < kD / 16; ++kk) {
           uint32_t af[4];
           ldmatrix_x4(af, arow + 32 * kk);
           if constexpr (kT == 1) {
@@ -394,7 +411,7 @@ score_kernel(Layer<TQ, TKV> a, Scratch sc) {
     }
     const int kt = c * kC + t;
     const bool live = kt < a.BS && j * a.BS + kt < len;
-    const float ksc = kQuant ? reinterpret_cast<const float*>(slot + kstage_scales<TQ, TKV, kT>())[t]
+    const float ksc = kQuant ? reinterpret_cast<const float*>(slot + kstage_scales<TQ, TKV, kT, kD>())[t]
                              : 1.f;
     float* out = sc.scores + (((bk * a.MP + j) * nc + c) * kC + t) * g;
     // a head tile of 8 query rows at a time: 8 partial dots in registers
@@ -418,7 +435,7 @@ score_kernel(Layer<TQ, TKV> a, Scratch sc) {
 #pragma unroll
               for (int e = 0; e < kE; e += 4) {
                 const float4 qv =
-                    *reinterpret_cast<const float4*>(qs + (h0 + gi) * kHD + ch * kE + e);
+                    *reinterpret_cast<const float4*>(qs + (h0 + gi) * kD + ch * kE + e);
                 part[gi] = fmaf(qv.x, kf[e], part[gi]);
                 part[gi] = fmaf(qv.y, kf[e + 1], part[gi]);
                 part[gi] = fmaf(qv.z, kf[e + 2], part[gi]);
@@ -462,16 +479,27 @@ score_kernel(Layer<TQ, TKV> a, Scratch sc) {
 
 // Pass 2: the online softmax over one part's pages from the scores and V, then the
 // part's triple (or the output), and the merge of the parts by the last one to finish.
-template <typename TQ, typename TKV, bool kQuant, int kT>
+template <typename TQ, typename TKV, bool kQuant, int kT, int kD>
 __global__ void __launch_bounds__(kThreads)
 attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict__ tickets,
               float* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out) {
-  constexpr int kRow = row_bytes<TQ, TKV>();
+  constexpr int kRow = row_bytes<TQ, TKV, kD>();
   constexpr int kG = kTile * kT;
-  constexpr int kSlot = stage_bytes<TQ, TKV, kT>();
+  constexpr int kSlot = stage_bytes<TQ, TKV, kT, kD>();
+  // P.V on the tensor cores: warp w owns output columns 16 (w % kColWarps) .. + 15 over
+  // key half w / kColWarps of each step (at hd 64 two warps share a column group, each
+  // taking 32 of the 64 keys, and the upper half's sums join the lower's at the end). On
+  // the CUDA cores: thread (column pair cp, phase or tile group ph), kPairs pairs and
+  // kPhases phases (4 at hd 128, 8 at 64).
+  constexpr int kColWarps = kD / 16;
+  constexpr int kKeySplit = kWarps / kColWarps;
+  constexpr int kPairs = kD / 2;
+  constexpr int kPhases = kThreads / kPairs;
+  static_assert(kKeySplit * kColWarps == kWarps && kPhases * kPairs == kThreads &&
+                (kT == 1 || kT % kPhases == 0), "the P.V mappings cover the block");
   // accumulators: tensor cores [head tile][column half][2]; CUDA cores, kT = 1: [row][2]
-  // over every 4th key; kT > 1: [tile ph, ph + 4][row][2] over every key
-  constexpr int kAcc = kMma<TQ, TKV> ? kT : (kT == 1 ? 1 : 2);
+  // over every kPhases-th key; kT > 1: [tiles ph, ph + kPhases, ..][row][2] over every key
+  constexpr int kAcc = kMma<TQ, TKV> ? kT : (kT == 1 ? 1 : kT / kPhases);
   extern __shared__ __align__(128) unsigned char smem[];
   float* pr = reinterpret_cast<float*>(smem + kStages * kSlot);   // [64][kG]
   float* pm = pr + kC * kG;                                   // [pages_per_part + 1][kG]
@@ -485,7 +513,7 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
   const int live_parts = (n_pages + pages_per_part - 1) / pages_per_part;
   if (n_pages == 0) {   // no key: o = 0, m = NEG_INF, l = 0
     if (part == 0) {
-      for (int i = tid; i < g * kHD; i += kThreads) o[bk * g * kHD + i] = 0.f;
+      for (int i = tid; i < g * kD; i += kThreads) o[bk * g * kD + i] = 0.f;
       if (tid < g) {
         m_out[bk * g + tid] = kNegInf;
         l_out[bk * g + tid] = 0.f;
@@ -500,11 +528,11 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
 
   auto fetch = [&](int q) {   // ring step q: page j0 + q / nc, keys (q % nc) * 64 ..
     unsigned char* slot = smem + (q % kStages) * kSlot;
-    stage_rows<TQ, TKV, kQuant>(slot, stage_scales<TQ, TKV, kT>(), a.v, a.vs,
+    stage_rows<TQ, TKV, kQuant, kD>(slot, stage_scales<TQ, TKV, kT, kD>(), a.v, a.vs,
                                 max(table[j0 + q / nc], 0), q % nc, a.BS, a.nkv, kvh);
     const float* src = sc.scores + ((bk * a.MP + j0 + q / nc) * nc + q % nc) * kC * g;
     for (int i = tid; i < kC * g / 4; i += kThreads)
-      cp_async16(slot + stage_scores<TQ, TKV, kT>() + 16 * i, src + 4 * i, true);
+      cp_async16(slot + stage_scores<TQ, TKV, kT, kD>() + 16 * i, src + 4 * i, true);
   };
   const int n = np * nc;
 #pragma unroll
@@ -539,8 +567,8 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
   __nv_bfloat16* pT = reinterpret_cast<__nv_bfloat16*>(pr);
 
   const int t = tid >> 2, hq = tid & 3;          // p: key t, rows hq + 4 h
-  const int cp = tid & 63, ph = tid >> 6;        // P.V: columns 2 cp, 2 cp + 1; key phase or
-                                                 // tile group ph
+  const int cp = tid % kPairs, ph = tid / kPairs;   // P.V: columns 2 cp, 2 cp + 1; key
+                                                    // phase or tile group ph
   float lp[2 * kT];
 #pragma unroll
   for (int h = 0; h < 2 * kT; ++h) lp[h] = 0.f;
@@ -558,9 +586,9 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
     const unsigned char* slot = smem + (q % kStages) * kSlot;
     const int jj = q / nc;
     const bool first = q % nc == 0;   // a page starts: rescale by exp(m_prev - m_new)
-    const float* s_in = reinterpret_cast<const float*>(slot + stage_scores<TQ, TKV, kT>());
+    const float* s_in = reinterpret_cast<const float*>(slot + stage_scores<TQ, TKV, kT, kD>());
     const float vsc =
-        kQuant ? reinterpret_cast<const float*>(slot + stage_scales<TQ, TKV, kT>())[t] : 1.f;
+        kQuant ? reinterpret_cast<const float*>(slot + stage_scales<TQ, TKV, kT, kD>())[t] : 1.f;
 #pragma unroll
     for (int h = 0; h < 2 * kT; ++h) {
       const int gi = hq + 4 * h;
@@ -596,9 +624,11 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
         }
       }
       const unsigned char* vrow = slot + ((lane & 7) + ((lane >> 4) & 1) * 8) * kRow
-                                  + (16 * warp + ((lane >> 3) & 1) * 8) * 2;
+                                  + (16 * (warp % kColWarps) + ((lane >> 3) & 1) * 8) * 2;
+      constexpr int kSteps = kC / 16 / kKeySplit;   // k-steps of 16 keys a warp takes
 #pragma unroll
-      for (int kk = 0; kk < kC / 16; ++kk) {
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const int kk = (warp / kColWarps) * kSteps + ks;
         uint32_t af[4];
         ldmatrix_x4_trans(af, vrow + 16 * kk * kRow);
 #pragma unroll
@@ -630,8 +660,8 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
         }
       }
 #pragma unroll 4
-      for (int i = 0; i < kC / 4; ++i) {
-        const int tk = ph + 4 * i;
+      for (int i = 0; i < kC / kPhases; ++i) {
+        const int tk = ph + kPhases * i;
         const float2 v = unpack2(vcol + tk * kRow, TKV());
         const float4 p0 = *reinterpret_cast<const float4*>(pr + tk * kG);
         const float4 p1 = *reinterpret_cast<const float4*>(pr + tk * kG + 4);
@@ -643,11 +673,11 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
         }
       }
     } else {
-      // thread (column pair, group ph): head tiles ph and ph + 4, every key in order
+      // thread (column pair, group ph): head tiles ph, ph + kPhases, .., every key in order
       if (first) {
 #pragma unroll
         for (int u = 0; u < kAcc; ++u) {
-          const int h0 = kTile * (ph + 4 * u);
+          const int h0 = kTile * (ph + kPhases * u);
 #pragma unroll
           for (int gi = 0; gi < kTile; ++gi) {
             if (h0 + gi < g) {
@@ -663,7 +693,7 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
         const float2 v = unpack2(vcol + tk * kRow, TKV());
 #pragma unroll
         for (int u = 0; u < kAcc; ++u) {
-          const int tile = ph + 4 * u;
+          const int tile = ph + kPhases * u;
           if (tile < nt) {
             const float4 p0 = *reinterpret_cast<const float4*>(pr + tk * kG + kTile * tile);
             const float4 p1 = *reinterpret_cast<const float4*>(pr + tk * kG + kTile * tile + 4);
@@ -681,15 +711,25 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
   cp_async_wait<0>();
   __syncthreads();   // every step consumed: the ring's slots take the phases' sums
 
-  // the 4 key phases' accumulators (CUDA cores, kT = 1), then l: the threads' partial
-  // sums over the warp's keys (shuffles), then over the warps in order
-  float* xc = reinterpret_cast<float*>(smem);   // [4][8][128]
+  // the key phases' accumulators (CUDA cores, kT = 1) or the upper key half's (tensor
+  // cores, hd 64), then l: the threads' partial sums over the warp's keys (shuffles), then
+  // over the warps in order
+  float* xc = reinterpret_cast<float*>(smem);   // [kPhases][8][hd] or [4 warps][kT][32][4]
   if constexpr (!kMma<TQ, TKV> && kT == 1) {
 #pragma unroll
     for (int gi = 0; gi < kTile; ++gi)
       if (gi < g)
-        *reinterpret_cast<float2*>(xc + (ph * kTile + gi) * kHD + 2 * cp) =
+        *reinterpret_cast<float2*>(xc + (ph * kTile + gi) * kD + 2 * cp) =
             make_float2(acc[0][gi][0], acc[0][gi][1]);
+  }
+  if constexpr (kMma<TQ, TKV> && kKeySplit > 1) {
+    if (warp >= kColWarps) {
+#pragma unroll
+      for (int tt = 0; tt < kT; ++tt)
+        if (tt < nt)
+          *reinterpret_cast<float4*>(xc + (((warp - kColWarps) * kT + tt) * 32 + lane) * 4) =
+              make_float4(acc[tt][0][0], acc[tt][0][1], acc[tt][1][0], acc[tt][1][1]);
+    }
   }
 #pragma unroll
   for (int h = 0; h < 2 * kT; ++h) {
@@ -701,34 +741,49 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
   }
   __syncthreads();
   const bool single = live_parts == 1;
-  float* o_dst = single ? o + bk * g * kHD : sc.o_part + (bk * parts + part) * g * kHD;
+  float* o_dst = single ? o + bk * g * kD : sc.o_part + (bk * parts + part) * g * kD;
   if constexpr (kMma<TQ, TKV>) {
+    // warps of the lower key half write their columns (never past hd), the upper half's
+    // sums added first
     const int gq = lane >> 2, tq = lane & 3;
+    if (warp < kColWarps) {
 #pragma unroll
-    for (int tt = 0; tt < kT; ++tt) {
+      for (int tt = 0; tt < kT; ++tt) {
+        if (tt < nt) {
+          if constexpr (kKeySplit > 1) {
+            const float4 u = *reinterpret_cast<const float4*>(xc + ((warp * kT + tt) * 32 + lane) * 4);
+            acc[tt][0][0] += u.x;
+            acc[tt][0][1] += u.y;
+            acc[tt][1][0] += u.z;
+            acc[tt][1][1] += u.w;
+          }
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int h = kTile * tt + 2 * tq + e;
-        if (tt < nt && h < g) {
-          o_dst[h * kHD + 16 * warp + gq] = acc[tt][0][e];
-          o_dst[h * kHD + 16 * warp + gq + 8] = acc[tt][1][e];
+          for (int e = 0; e < 2; ++e) {
+            const int h = kTile * tt + 2 * tq + e;
+            if (h < g) {
+              o_dst[h * kD + 16 * warp + gq] = acc[tt][0][e];
+              o_dst[h * kD + 16 * warp + gq + 8] = acc[tt][1][e];
+            }
+          }
         }
       }
     }
   } else if constexpr (kT == 1) {
-    for (int i = tid; i < g * kHD; i += kThreads) {
-      const int gi = i / kHD, col = i % kHD;
-      o_dst[i] = ((xc[(0 * kTile + gi) * kHD + col] + xc[(1 * kTile + gi) * kHD + col]) +
-                  xc[(2 * kTile + gi) * kHD + col]) + xc[(3 * kTile + gi) * kHD + col];
+    for (int i = tid; i < g * kD; i += kThreads) {
+      const int gi = i / kD, col = i % kD;
+      float x = xc[gi * kD + col];
+#pragma unroll
+      for (int p = 1; p < kPhases; ++p) x += xc[(p * kTile + gi) * kD + col];   // in order
+      o_dst[i] = x;
     }
   } else {
 #pragma unroll
     for (int u = 0; u < kAcc; ++u) {
-      const int h0 = kTile * (ph + 4 * u);
+      const int h0 = kTile * (ph + kPhases * u);
 #pragma unroll
       for (int gi = 0; gi < kTile; ++gi)
         if (h0 + gi < g)
-          *reinterpret_cast<float2*>(o_dst + (h0 + gi) * kHD + 2 * cp) =
+          *reinterpret_cast<float2*>(o_dst + (h0 + gi) * kD + 2 * cp) =
               make_float2(acc[u][gi][0], acc[u][gi][1]);
     }
   }
@@ -781,14 +836,14 @@ attend_kernel(Layer<TQ, TKV> a, Scratch sc, int pages_per_part, int* __restrict_
     }
   }
   __syncthreads();
-  const float4* op = reinterpret_cast<const float4*>(sc.o_part + bk * parts * g * kHD);
-  float4* o4 = reinterpret_cast<float4*>(o + bk * g * kHD);
-  for (int i = tid; i < g * kHD / 4; i += kThreads) {
-    const int gi = 4 * i / kHD;
+  const float4* op = reinterpret_cast<const float4*>(sc.o_part + bk * parts * g * kD);
+  float4* o4 = reinterpret_cast<float4*>(o + bk * g * kD);
+  for (int i = tid; i < g * kD / 4; i += kThreads) {
+    const int gi = 4 * i / kD;
     float4 acc_o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 16
     for (int s = 0; s < live_parts; ++s) {
-      const float4 v = __ldcg(op + (size_t)s * g * kHD / 4 + i);
+      const float4 v = __ldcg(op + (size_t)s * g * kD / 4 + i);
       const float w = wgt[s * kG + gi];
       acc_o.x = fmaf(v.x, w, acc_o.x);
       acc_o.y = fmaf(v.y, w, acc_o.y);
@@ -809,7 +864,7 @@ template <typename K> cudaError_t raise_smem_limit(K kernel) {
 
 // The shared-memory limit of a pair's two kernels, raised once per device to the card's
 // maximum (so that a launch captured in a CUDA graph makes no attribute call).
-template <typename TQ, typename TKV, bool kQuant, int kT>
+template <typename TQ, typename TKV, bool kQuant, int kT, int kD>
 cudaError_t configure() {
   static bool configured[64] = {false};
   int dev = 0;
@@ -817,8 +872,8 @@ cudaError_t configure() {
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    err = raise_smem_limit(score_kernel<TQ, TKV, kQuant, kT>);
-    if (err == cudaSuccess) err = raise_smem_limit(attend_kernel<TQ, TKV, kQuant, kT>);
+    err = raise_smem_limit(score_kernel<TQ, TKV, kQuant, kT, kD>);
+    if (err == cudaSuccess) err = raise_smem_limit(attend_kernel<TQ, TKV, kQuant, kT, kD>);
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
@@ -827,15 +882,15 @@ cudaError_t configure() {
 
 // attend_kernel's blocks an SM for the pair and head tiles, at MP table entries a part (its
 // most shared memory).
-template <typename TQ, typename TKV, bool kQuant, int kT>
+template <typename TQ, typename TKV, bool kQuant, int kT, int kD>
 int attend_occupancy(int MP, int* blocks) {
-  const cudaError_t err = configure<TQ, TKV, kQuant, kT>();
+  const cudaError_t err = configure<TQ, TKV, kQuant, kT, kD>();
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, attend_kernel<TQ, TKV, kQuant, kT>, kThreads, attend_smem<TQ, TKV, kT>(MP));
+      blocks, attend_kernel<TQ, TKV, kQuant, kT, kD>, kThreads, attend_smem<TQ, TKV, kT, kD>(MP));
 }
 
-template <typename TQ, typename TKV, bool kQuant, int kT>
+template <typename TQ, typename TKV, bool kQuant, int kT, int kD>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
            const void* v_scale, const void* tables, const void* lengths, void* o, void* m,
            void* l, float* scratch, long long scratch_floats, int* tickets, int B, int nkv,
@@ -843,23 +898,27 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
            cudaStream_t stream) {
   const int nc = (BS + kC - 1) / kC;
   const int per_part = (MP + parts - 1) / parts;
-  const size_t smem1 = score_smem<TQ, TKV, kT>(), smem2 = attend_smem<TQ, TKV, kT>(per_part);
+  const size_t smem1 = score_smem<TQ, TKV, kT, kD>(), smem2 = attend_smem<TQ, TKV, kT, kD>(per_part);
   if (smem1 + 16 > kSmemLimit || smem2 + 16 > kSmemLimit) return (int)cudaErrorInvalidValue;
-  static_assert(kT != 1 || 4 * kTile * kHD * 4 <= kStages * stage_bytes<TQ, TKV, kT>(),
+  static_assert(kT != 1 || kThreads / (kD / 2) * kTile * kD * 4 <=
+                               kStages * stage_bytes<TQ, TKV, kT, kD>(),
                 "the phases' sums fit in the ring");
-  if ((long long)parts * kTile * kT * 8 > (long long)kStages * stage_bytes<TQ, TKV, kT>())
+  static_assert(!kMma<TQ, TKV> || kD == kHDMax ||
+                    kWarps * kT * 32 * 4 * 4 <= kStages * stage_bytes<TQ, TKV, kT, kD>(),
+                "the upper key half's sums fit in the ring");
+  if ((long long)parts * kTile * kT * 8 > (long long)kStages * stage_bytes<TQ, TKV, kT, kD>())
     return (int)cudaErrorInvalidValue;   // the merge's weights and l's live in the ring
   const long long bkg = (long long)B * nkv * g;
   const long long pmax_floats = (bkg * MP + 3) / 4 * 4;   // the parts' o stay 16-byte aligned
-  const long long need = bkg * MP * nc * kC + pmax_floats + bkg * parts * (kHD + 2);
+  const long long need = bkg * MP * nc * kC + pmax_floats + bkg * parts * (kD + 2);
   if (scratch_floats < need) return (int)cudaErrorInvalidValue;
-  cudaError_t err = configure<TQ, TKV, kQuant, kT>();
+  cudaError_t err = configure<TQ, TKV, kQuant, kT, kD>();
   if (err != cudaSuccess) return (int)err;
   const size_t layer_scales = (size_t)layer * NB * BS * nkv;
   Layer<TQ, TKV> a;
   a.q = static_cast<const TQ*>(q);
-  a.k = static_cast<const TKV*>(k_pool) + layer_scales * kHD;
-  a.v = static_cast<const TKV*>(v_pool) + layer_scales * kHD;
+  a.k = static_cast<const TKV*>(k_pool) + layer_scales * kD;
+  a.v = static_cast<const TKV*>(v_pool) + layer_scales * kD;
   a.ks = kQuant ? static_cast<const float*>(k_scale) + layer_scales : nullptr;
   a.vs = kQuant ? static_cast<const float*>(v_scale) + layer_scales : nullptr;
   a.tables = static_cast<const int*>(tables);
@@ -874,49 +933,83 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
   sc.scores = scratch;
   sc.pmax = sc.scores + bkg * MP * nc * kC;
   sc.o_part = sc.pmax + pmax_floats;
-  sc.m_part = sc.o_part + bkg * parts * kHD;
+  sc.m_part = sc.o_part + bkg * parts * kD;
   sc.l_part = sc.m_part + bkg * parts;
-  score_kernel<TQ, TKV, kQuant, kT><<<dim3(MP, nkv, B), kThreads, smem1, stream>>>(a, sc);
+  score_kernel<TQ, TKV, kQuant, kT, kD><<<dim3(MP, nkv, B), kThreads, smem1, stream>>>(a, sc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attend_kernel<TQ, TKV, kQuant, kT><<<dim3(parts, nkv, B), kThreads, smem2, stream>>>(
+  attend_kernel<TQ, TKV, kQuant, kT, kD><<<dim3(parts, nkv, B), kThreads, smem2, stream>>>(
       a, sc, per_part, tickets, static_cast<float*>(o), static_cast<float*>(m),
       static_cast<float*>(l));
   return (int)cudaGetLastError();
 }
 
 // g <= 8 query rows a KV head: one head tile (the decode kernels); up to kMaxG: eight.
-template <typename TQ, typename TKV, bool kQuant>
+template <typename TQ, typename TKV, bool kQuant, int kD>
 int launch_rows(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
                 const void* v_scale, const void* tables, const void* lengths, void* o, void* m,
                 void* l, float* scratch, long long scratch_floats, int* tickets, int B,
                 int nkv, int g, int NB, int BS, int MP, int layer, int parts, float scale,
                 cudaStream_t stream) {
   if (g <= kTile)
-    return launch<TQ, TKV, kQuant, 1>(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o,
+    return launch<TQ, TKV, kQuant, 1, kD>(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o,
                                       m, l, scratch, scratch_floats, tickets, B, nkv, g, NB,
                                       BS, MP, layer, parts, scale, stream);
-  return launch<TQ, TKV, kQuant, kMaxG / kTile>(q, k_pool, v_pool, k_scale, v_scale, tables,
+  return launch<TQ, TKV, kQuant, kMaxG / kTile, kD>(q, k_pool, v_pool, k_scale, v_scale, tables,
                                                 lengths, o, m, l, scratch, scratch_floats,
                                                 tickets, B, nkv, g, NB, BS, MP, layer, parts,
                                                 scale, stream);
 }
 
-template <typename TQ, typename TKV, bool kQuant>
+template <typename TQ, typename TKV, bool kQuant, int kD>
 int occupancy_rows(int g, int MP, int* blocks) {
-  return g <= kTile ? attend_occupancy<TQ, TKV, kQuant, 1>(MP, blocks)
-                    : attend_occupancy<TQ, TKV, kQuant, kMaxG / kTile>(MP, blocks);
+  return g <= kTile ? attend_occupancy<TQ, TKV, kQuant, 1, kD>(MP, blocks)
+                    : attend_occupancy<TQ, TKV, kQuant, kMaxG / kTile, kD>(MP, blocks);
+}
+
+// The (q dtype, pool dtype) pairs at one head dim.
+template <int kD>
+int launch_pair(int q_dtype, int kv_dtype, const void* q, const void* k_pool,
+                const void* v_pool, const void* k_scale, const void* v_scale,
+                const void* tables, const void* lengths, void* o, void* m, void* l,
+                float* sf, long long scratch_floats, int* tk, int B, int nkv, int g, int NB,
+                int BS, int MP, int layer, int parts, float scale, cudaStream_t s) {
+#define AF_PAGED_ARGS q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o, m, l, sf, \
+                      scratch_floats, tk, B, nkv, g, NB, BS, MP, layer, parts, scale, s
+  if (q_dtype == 0 && kv_dtype == 0) return launch_rows<float, float, false, kD>(AF_PAGED_ARGS);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return launch_rows<float, __nv_bfloat16, false, kD>(AF_PAGED_ARGS);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch_rows<__nv_bfloat16, __nv_bfloat16, false, kD>(AF_PAGED_ARGS);
+  if (q_dtype == 0 && kv_dtype == 2) return launch_rows<float, int8_t, true, kD>(AF_PAGED_ARGS);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return launch_rows<__nv_bfloat16, int8_t, true, kD>(AF_PAGED_ARGS);
+#undef AF_PAGED_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int kD>
+int occupancy_pair(int q_dtype, int kv_dtype, int g, int MP, int* blocks) {
+  if (q_dtype == 0 && kv_dtype == 0) return occupancy_rows<float, float, false, kD>(g, MP, blocks);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return occupancy_rows<float, __nv_bfloat16, false, kD>(g, MP, blocks);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return occupancy_rows<__nv_bfloat16, __nv_bfloat16, false, kD>(g, MP, blocks);
+  if (q_dtype == 0 && kv_dtype == 2) return occupancy_rows<float, int8_t, true, kD>(g, MP, blocks);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return occupancy_rows<__nv_bfloat16, int8_t, true, kD>(g, MP, blocks);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q_dtype: 0 = f32, 1 = bf16; kv_dtype: 0 = f32, 1 = bf16, 2 = int8 with f32 scales (a
 // bf16 pool may serve f32 queries). g: query rows a KV head, 1 .. 64 (a verify's tokens x
-// heads). The pools hold L layers of NB pages; `layer` selects
-// one inside the kernels. parts (1 .. MP) splits each row's MP table entries over that
-// many blocks of ceil(MP / parts) entries. scratch: scratch_floats f32, at least
-// B nkv g MP ceil(BS / 64) 64 + round_up(B nkv g MP, 4) + B nkv g parts (hd + 2) (16-byte
-// aligned); tickets: B nkv int32, zero, left zero. Two launches.
+// heads); hd: 64 or 128, anything else is refused. The pools hold L layers of NB pages;
+// `layer` selects one inside the kernels. parts (1 .. MP) splits each row's MP table
+// entries over that many blocks of ceil(MP / parts) entries. scratch: scratch_floats f32,
+// at least B nkv g MP ceil(BS / 64) 64 + round_up(B nkv g MP, 4) + B nkv g parts (hd + 2)
+// (16-byte aligned); tickets: B nkv int32, zero, left zero. Two launches.
 extern "C" int af_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                   const void* k_scale, const void* v_scale,
                                   const void* tables, const void* lengths, void* o, void* m,
@@ -924,41 +1017,27 @@ extern "C" int af_paged_attention(const void* q, const void* k_pool, const void*
                                   int kv_dtype, int B, int nkv, int g, int hd, int NB, int BS,
                                   int MP, int layer, int parts, long long scratch_floats,
                                   float scale, void* stream) {
-  if (B <= 0 || nkv <= 0 || g <= 0 || g > kMaxG || hd != kHD || NB <= 0 || BS <= 0 ||
-      MP <= 0 || layer < 0 || parts < 1 || parts > MP || scratch == nullptr ||
-      tickets == nullptr || (B > 65535) || (nkv > 65535) || (MP > 65535))
+  if (B <= 0 || nkv <= 0 || g <= 0 || g > kMaxG || (hd != kHDMin && hd != kHDMax) ||
+      NB <= 0 || BS <= 0 || MP <= 0 || layer < 0 || parts < 1 || parts > MP ||
+      scratch == nullptr || tickets == nullptr || (B > 65535) || (nkv > 65535) || (MP > 65535))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sf = static_cast<float*>(scratch);
   int* tk = static_cast<int*>(tickets);
-#define AF_PAGED_ARGS q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o, m, l, sf, \
-                      scratch_floats, tk, B, nkv, g, NB, BS, MP, layer, parts, scale, s
-  if (q_dtype == 0 && kv_dtype == 0) return launch_rows<float, float, false>(AF_PAGED_ARGS);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return launch_rows<float, __nv_bfloat16, false>(AF_PAGED_ARGS);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch_rows<__nv_bfloat16, __nv_bfloat16, false>(AF_PAGED_ARGS);
-  if (q_dtype == 0 && kv_dtype == 2) return launch_rows<float, int8_t, true>(AF_PAGED_ARGS);
-  if (q_dtype == 1 && kv_dtype == 2)
-    return launch_rows<__nv_bfloat16, int8_t, true>(AF_PAGED_ARGS);
-#undef AF_PAGED_ARGS
-  return (int)cudaErrorInvalidValue;
+  return (hd == kHDMin ? launch_pair<kHDMin> : launch_pair<kHDMax>)(
+      q_dtype, kv_dtype, q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o, m, l, sf,
+      scratch_floats, tk, B, nkv, g, NB, BS, MP, layer, parts, scale, s);
 }
 
 // blocks: how many attend_kernel blocks of the (q_dtype, kv_dtype) pair at g query rows a
-// KV head an SM of the current device holds (its threads, registers and shared memory at
-// MP entries a part, the most a part can have): the occupancy the wrapper chooses its
-// parts by (ops/kernels/paged_attention.kernel_parts). Returns a cudaError_t.
-extern "C" int af_paged_attention_occupancy(int q_dtype, int kv_dtype, int g, int MP,
+// KV head and head dim hd an SM of the current device holds (its threads, registers and
+// shared memory at MP entries a part, the most a part can have): the occupancy the
+// wrapper chooses its parts by (ops/kernels/paged_attention.kernel_parts). Returns a
+// cudaError_t.
+extern "C" int af_paged_attention_occupancy(int q_dtype, int kv_dtype, int g, int hd, int MP,
                                             int* blocks) {
-  if (MP <= 0 || g <= 0 || g > kMaxG || blocks == nullptr) return (int)cudaErrorInvalidValue;
-  if (q_dtype == 0 && kv_dtype == 0) return occupancy_rows<float, float, false>(g, MP, blocks);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return occupancy_rows<float, __nv_bfloat16, false>(g, MP, blocks);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return occupancy_rows<__nv_bfloat16, __nv_bfloat16, false>(g, MP, blocks);
-  if (q_dtype == 0 && kv_dtype == 2) return occupancy_rows<float, int8_t, true>(g, MP, blocks);
-  if (q_dtype == 1 && kv_dtype == 2)
-    return occupancy_rows<__nv_bfloat16, int8_t, true>(g, MP, blocks);
-  return (int)cudaErrorInvalidValue;
+  if (MP <= 0 || g <= 0 || g > kMaxG || (hd != kHDMin && hd != kHDMax) || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return hd == kHDMin ? occupancy_pair<kHDMin>(q_dtype, kv_dtype, g, MP, blocks)
+                      : occupancy_pair<kHDMax>(q_dtype, kv_dtype, g, MP, blocks);
 }

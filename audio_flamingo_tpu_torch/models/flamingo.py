@@ -220,10 +220,16 @@ def _lm_forward_with_xattn(model: FlamingoModel, cfg: AF2Config, embeds: torch.T
             x = qwen2._layer_forward(x, lm, i, lcfg, cos, sin, mask, cache, False, slots)
     if cache is not None:
         cache.advance(s)
+    return final_norm(model, cfg, x)
+
+
+def final_norm(model: FlamingoModel, cfg: AF2Config, x: torch.Tensor) -> torch.Tensor:
+    """The LM's norm after its last layer (OPT's LayerNorm, Qwen2's RMSNorm)."""
+    lm = model.lm
     if is_opt(cfg):
         return opt.final_norm(lm, x)
     final = lm.ln_f_w if isinstance(lm, qwen2.QuantQwen2) else lm.norm.weight
-    return rms_norm(x, final, lcfg.rms_norm_eps)
+    return rms_norm(x, final, cfg.lm.rms_norm_eps)
 
 
 def _positions(b: int, t: int, device) -> torch.Tensor:

@@ -98,9 +98,11 @@ def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 
 
 def _layer_forward(x: torch.Tensor, lm: OPT, i: int, cfg: OPTConfig, mask,
-                   cache: KVCache | None = None, slots: torch.Tensor | None = None):
+                   cache: KVCache | None = None, slots: torch.Tensor | None = None,
+                   attend=None):
     """Layer i on x [b, s, d]; with a cache this step's K/V is written at ``slots`` and
-    attention spans the whole cache (``mask`` [b, 1, s, capacity])."""
+    attention spans the whole cache (``mask`` [b, 1, s, capacity]). ``attend(q, k, v)`` ->
+    [b, s, nh, hd] replaces both (the engines' caches: q comes scaled, attend at scale 1)."""
     b, s, d = x.shape
     nh = cfg.num_heads
     hd = d // nh
@@ -110,12 +112,15 @@ def _layer_forward(x: torch.Tensor, lm: OPT, i: int, cfg: OPTConfig, mask,
     q = (_linear(h, lp.q) * (hd ** -0.5)).reshape(b, s, nh, hd)
     k = _linear(h, lp.k).reshape(b, s, nh, hd)
     v = _linear(h, lp.v).reshape(b, s, nh, hd)
-    if cache is not None:
-        ck, cv = cache.k[i], cache.v[i]
-        ck.index_copy_(1, slots, k.to(ck.dtype))
-        cv.index_copy_(1, slots, v.to(cv.dtype))
-        k, v = ck.to(q.dtype), cv.to(q.dtype)
-    attn = gqa_attention(q, k, v, mask=mask, scale=1.0)
+    if attend is not None:
+        attn = attend(q, k, v).to(x.dtype)
+    else:
+        if cache is not None:
+            ck, cv = cache.k[i], cache.v[i]
+            ck.index_copy_(1, slots, k.to(ck.dtype))
+            cv.index_copy_(1, slots, v.to(cv.dtype))
+            k, v = ck.to(q.dtype), cv.to(q.dtype)
+        attn = gqa_attention(q, k, v, mask=mask, scale=1.0)
     x = residual + _linear(attn.reshape(b, s, d), lp.o)
     if not cfg.do_layer_norm_before:
         x = layer_norm(x, lp.ln1.weight, lp.ln1.bias)

@@ -545,13 +545,19 @@ def forward_attend(lm: Qwen2 | QuantQwen2, cfg: Qwen2Config, x: torch.Tensor, co
                                         sin=sin, attend=attend_layer(i))
     else:
         for i in range(cfg.num_layers):
-            ln1, ln2 = layer_norm_weights(lm, i)
-            q, k, v = qkv_proj(rms_norm(x, ln1, eps), lm, cfg, i)
-            q, k = apply_rope(q, k, cos, sin)
-            attn = attend_layer(i)(q, k, v).reshape(b, s, -1).to(x.dtype)
-            x = x + o_proj(attn, lm, i)
-            x = x + mlp_forward(rms_norm(x, ln2, eps), lm, cfg, i)
+            x = layer_attend(x, lm, i, cfg, cos, sin, attend_layer(i))
     return rms_norm(x, lm.ln_f_w if quantized else lm.norm.weight, eps)
+
+
+def layer_attend(x: torch.Tensor, lm, i: int, cfg: Qwen2Config, cos, sin, attend) -> torch.Tensor:
+    """Layer i on x [b, s, d] with its attention through ``attend(q, k, v)`` -> [b, s, nh,
+    hd] (which writes the caller's cache)."""
+    b, s, _ = x.shape
+    ln1, ln2 = layer_norm_weights(lm, i)
+    q, k, v = qkv_proj(rms_norm(x, ln1, cfg.rms_norm_eps), lm, cfg, i)
+    q, k = apply_rope(q, k, cos, sin)
+    x = x + o_proj(attend(q, k, v).reshape(b, s, -1).to(x.dtype), lm, i)
+    return x + mlp_forward(rms_norm(x, ln2, cfg.rms_norm_eps), lm, cfg, i)
 
 
 def forward(lm: Qwen2 | QuantQwen2, cfg: Qwen2Config, embeds: torch.Tensor,

@@ -150,7 +150,7 @@ def load_library(path: str | None = None) -> ctypes.CDLL:
         fn.argtypes = [ptr] * 12 + [i32] * 11 + [i64, ctypes.c_float, ptr]
         fn = lib.af_paged_attention_occupancy
         fn.restype = i32
-        fn.argtypes = [i32] * 4 + [ptr]
+        fn.argtypes = [i32] * 5 + [ptr]
         fn = lib.af_flash_attention_a8
         fn.restype = i32
         fn.argtypes = [ptr] * 5 + [i32] * 12 + [i64] * 6 + [ptr]

@@ -33,7 +33,7 @@ from audio_flamingo_tpu_torch.ops.kernels import _build
 from audio_flamingo_tpu_torch.ops.kernels.launches import LaunchCounter
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (64, 128)   # csrc kHDMin, kHDMax: OPT's and Qwen2's head dims
 KERNEL_MAX_GROUP = 64     # query rows a KV head: decode heads, or a verify's tokens x heads
 KEYS_PER_STEP = 64         # csrc kC: keys a ring step, the scores' page padding unit
 TICKETS = 4096             # (row, kv head) pairs a launch may have (one int ticket each)
@@ -73,6 +73,15 @@ def _check(q, k_pool, v_pool, block_tables, lengths, layer_idx, k_scale, v_scale
         raise ValueError(f"paged_attention operands on different devices: {devices}")
 
 
+def check_kernel_shape(hd: int, g: int) -> None:
+    """The CUDA kernel's shapes: hd in ``KERNEL_HEAD_DIMS`` (a template instantiation
+    each) and at most ``KERNEL_MAX_GROUP`` query rows a KV head; anything else raises."""
+    if hd not in KERNEL_HEAD_DIMS or not 1 <= g <= KERNEL_MAX_GROUP:
+        raise ValueError(f"the CUDA kernel takes hd in {KERNEL_HEAD_DIMS} and 1 .. "
+                         f"KERNEL_MAX_GROUP = {KERNEL_MAX_GROUP} query rows a KV head, got "
+                         f"hd = {hd}, g = {g}")
+
+
 def parts_for(b: int, nkv: int, max_pages: int, sms: int, blocks_per_sm: int) -> int:
     """The parts a row's table is split into for the V pass: whole entries each, as few
     per part as keep the B nkv MP entries of a full table at about ``blocks_per_sm``
@@ -82,11 +91,12 @@ def parts_for(b: int, nkv: int, max_pages: int, sms: int, blocks_per_sm: int) ->
 
 
 @functools.lru_cache(maxsize=None)
-def _attend_blocks_per_sm(index: int, q_code: int, kv_code: int, g: int, max_pages: int) -> int:
+def _attend_blocks_per_sm(index: int, q_code: int, kv_code: int, g: int, hd: int,
+                         max_pages: int) -> int:
     lib = _build.load_library()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = lib.af_paged_attention_occupancy(q_code, kv_code, g, max_pages,
+        err = lib.af_paged_attention_occupancy(q_code, kv_code, g, hd, max_pages,
                                                ctypes.byref(blocks))
     if err != 0 or blocks.value < 1:
         raise RuntimeError(f"paged_attention occupancy query failed with CUDA error {err} "
@@ -95,13 +105,14 @@ def _attend_blocks_per_sm(index: int, q_code: int, kv_code: int, g: int, max_pag
 
 
 def kernel_parts(b: int, nkv: int, max_pages: int, device: torch.device,
-                 q_dtype: torch.dtype, kv_dtype: torch.dtype, g: int = 1) -> int:
-    """``parts_for`` on this card, at the V pass's occupancy for the dtype pair and the
-    group's head tiles (g <= 8: one; up to 64: eight) as the CUDA side reports it
-    (threads, registers, shared memory)."""
+                 q_dtype: torch.dtype, kv_dtype: torch.dtype, g: int = 1,
+                 hd: int = 128) -> int:
+    """``parts_for`` on this card, at the V pass's occupancy for the dtype pair, the
+    group's head tiles (g <= 8: one; up to 64: eight) and the head dim as the CUDA side
+    reports it (threads, registers, shared memory)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     bps = _attend_blocks_per_sm(index, _DTYPE_CODES[q_dtype], _DTYPE_CODES[kv_dtype],
-                                min(g, 9), max_pages)
+                                min(g, 9), hd, max_pages)
     return parts_for(b, nkv, max_pages, sm_count(device), bps)
 
 
@@ -359,7 +370,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     block_tables [B, MP] int (-1 = unmapped); lengths [B] tokens already in pages (the
     current token excluded). o is unnormalized: merge with ``merge_current_token`` (or a
     verify's folded tokens with ``merge_block_tokens``) or divide by l. The kernel takes
-    hd = 128 and g <= ``KERNEL_MAX_GROUP`` query rows a KV head, each live page's K and V
+    hd = 64 or 128 and g <= ``KERNEL_MAX_GROUP`` query rows a KV head, each live page's K and V
     read once for all g rows; the stacked pool is read in place at the layer's offset,
     never sliced into a copy."""
     _check(q, k_pool, v_pool, block_tables, lengths, layer_idx, k_scale, v_scale)
@@ -371,10 +382,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda (kernel) or cpu (plain), not {q.device}")
     b, nkv, g, hd = q.shape
-    if hd != KERNEL_HEAD_DIM or g > KERNEL_MAX_GROUP:
-        raise ValueError(f"the CUDA kernel takes hd = {KERNEL_HEAD_DIM} and at most "
-                         f"KERNEL_MAX_GROUP = {KERNEL_MAX_GROUP} query rows a KV head, got "
-                         f"hd = {hd}, g = {g}")
+    check_kernel_shape(hd, g)
     quantized = k_pool.dtype == torch.int8
     pools = [k_pool, v_pool] + ([k_scale, v_scale] if quantized else [])
     if not all(p.is_contiguous() for p in pools):
@@ -391,7 +399,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     lens = lengths.to(torch.int32).contiguous()
     mp = tables.shape[1]
     pl = plan(b, nkv, g, hd, bs, mp,
-              kernel_parts(b, nkv, mp, q.device, q.dtype, k_pool.dtype, g))
+              kernel_parts(b, nkv, mp, q.device, q.dtype, k_pool.dtype, g, hd))
     o = torch.empty((b, nkv, g, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((b, nkv, g), dtype=torch.float32, device=q.device)
     l = torch.empty((b, nkv, g), dtype=torch.float32, device=q.device)

@@ -33,8 +33,14 @@ the old slots and the candidates that may not finish tie near NEG. Where JAX div
 constant, XLA multiplies by its f32 reciprocal, and so does the body.
 
 ``beam_open`` / ``beam_advance`` are the engines' pausable pair (``runtime/beam_lane.py``):
-chunks only partition the steps, so a request's result equals ``generate_beam``'s. The
-AF1/AF2 variants wait for the AF1/AF2 family and raise.
+chunks only partition the steps, so a request's result equals ``generate_beam``'s.
+
+The AF1/AF2 family (``generate_beam_xattn``, ``beam_open_xattn``, ``beam_advance_xattn``)
+runs the same body over the flamingo stack's decode step (``models/flamingo.decode_step``):
+the transformed media are expanded across the beams once, into a buffer of the state
+(``BeamState.media``, row b * K + k), and never reordered, since every beam of a prompt
+attends the same media. On the card that step is captured as well (``xattn_beam_body``),
+its key holding the media's shape.
 """
 
 from __future__ import annotations
@@ -46,13 +52,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config, Qwen2Config
-from audio_flamingo_tpu_torch.models import af3, qwen2
+from audio_flamingo_tpu_torch.config import AF2Config, AF3Config, Qwen2Config
+from audio_flamingo_tpu_torch.models import af3, flamingo, qwen2
 from audio_flamingo_tpu_torch.ops.sampling import apply_no_repeat_ngram
 from audio_flamingo_tpu_torch.runtime import generate as gen
 
 NEG = -1.0e9
-XATTN = "7, the AF1/AF2 family"
 
 
 class BeamSpec(NamedTuple):
@@ -87,6 +92,7 @@ class BeamState:
     hist: torch.Tensor       # [B * K, capacity] int64: prompt and generated ids at their
                              # positions, for the n-gram ban ([B * K, 1] without it)
     generator: torch.Generator | None = None
+    media: torch.Tensor | None = None   # AF1/AF2: [B * K, S, d_audio], row b * K + k
 
     def nbytes(self) -> dict:
         """Bytes of the cache and of the rest of the state."""
@@ -94,7 +100,7 @@ class BeamState:
                     if isinstance(t, torch.Tensor))
         rest = sum(t.numel() * t.element_size() for t in (
             self.i, self.t, self.logits, self.run_seq, self.run_sc, self.fin_seq, self.fin_sc,
-            self.is_fin, self.heur_ok, self.alive, self.hist))
+            self.is_fin, self.heur_ok, self.alive, self.hist, self.media) if t is not None)
         return dict(cache=cache, state=rest)
 
 
@@ -120,37 +126,52 @@ def _recip(c: float) -> float:
     return float(np.float32(1.0) / np.float32(c))
 
 
-def new_beam_state(cfg: Qwen2Config, spec: BeamSpec, batch: int, capacity: int,
+def new_beam_state(cfg: Qwen2Config | AF2Config, spec: BeamSpec, batch: int, capacity: int,
                    dtype: torch.dtype, device: torch.device,
-                   generator: torch.Generator | None = None) -> BeamState:
-    """A state of ``batch`` prompts, not alive (no step changes it until ``begin``)."""
+                   generator: torch.Generator | None = None,
+                   media_shape: tuple | None = None) -> BeamState:
+    """A state of ``batch`` prompts, not alive (no step changes it until ``begin``). For
+    the AF1/AF2 stack ``cfg`` is its ``AF2Config`` and ``media_shape`` (S, d_audio) the
+    transformed media's, a zeroed buffer of B * K rows."""
     k = spec.num_beams
     long = dict(dtype=torch.long, device=device)
     seq = torch.zeros((batch, k, spec.max_new_tokens), **long)
     width = capacity if spec.no_repeat_ngram_size > 0 else 1
+    if media_shape is None:
+        cache = qwen2.init_cache(cfg, batch * k, capacity, dtype, device)
+        vocab, media = cfg.vocab_size, None
+    else:
+        cache = flamingo._init_cache(cfg, batch * k, capacity, dtype, device)
+        vocab = cfg.lm.vocab_size
+        media = torch.zeros((batch * k, *media_shape), dtype=dtype, device=device)
     return BeamState(
-        i=torch.zeros((), **long), t=torch.zeros((), **long),
-        cache=qwen2.init_cache(cfg, batch * k, capacity, dtype, device),
-        logits=torch.zeros((batch * k, cfg.vocab_size), dtype=torch.float32, device=device),
+        i=torch.zeros((), **long), t=torch.zeros((), **long), cache=cache,
+        logits=torch.zeros((batch * k, vocab), dtype=torch.float32, device=device),
         run_seq=seq, run_sc=torch.zeros((batch, k), device=device), fin_seq=seq.clone(),
         fin_sc=torch.zeros((batch, k), device=device),
         is_fin=torch.zeros((batch, k), dtype=torch.bool, device=device),
         heur_ok=torch.ones((batch, 1), dtype=torch.bool, device=device),
         alive=torch.zeros((), dtype=torch.bool, device=device),
-        hist=torch.zeros((batch * k, width), **long), generator=generator)
+        hist=torch.zeros((batch * k, width), **long), generator=generator, media=media)
 
 
 def begin(st: BeamState, spec: BeamSpec, first_logits: torch.Tensor, cache: qwen2.KVCache,
-          prompt_len: int, prompt_tokens: torch.Tensor) -> None:
+          prompt_len: int, prompt_tokens: torch.Tensor,
+          media: torch.Tensor | None = None) -> None:
     """JAX's ``beam_state_init`` into ``st``: the prefill's B-row cache copied to every
     beam's row, its logits [B, V] to every beam, beam 0 at score 0 and the rest at NEG,
-    nothing finished, alive. ``prompt_tokens`` [B, T] (T may include bucket padding)."""
+    nothing finished, alive. ``prompt_tokens`` [B, T] (T may include bucket padding).
+    ``media`` [B, S, d] (AF1/AF2): copied to every beam's row of the state's buffer."""
     b, k = st.run_sc.shape
     capacity = st.cache.capacity
     if cache.capacity != capacity or prompt_tokens.shape[1] > capacity:
         raise ValueError(f"a prefill of {cache.capacity} slots for a beam cache of {capacity}")
+    if (media is None) != (st.media is None):
+        raise ValueError("an AF1/AF2 beam state takes the prefill's media, an AF3 one none")
     for dst, src in ((st.cache.k, cache.k), (st.cache.v, cache.v)):
         dst.view(dst.shape[0], b, k, *dst.shape[2:]).copy_(src[:, :, None])
+    if media is not None:
+        st.media.view(b, k, *st.media.shape[1:]).copy_(media[:, None])
     st.cache.rewind(prompt_len)
     st.logits.view(b, k, -1).copy_(first_logits[:, None])
     pad = spec.eos_token_id if spec.eos_token_id >= 0 else 0
@@ -169,7 +190,8 @@ def begin(st: BeamState, spec: BeamSpec, first_logits: torch.Tensor, cache: qwen
         st.hist.view(b, k, -1)[:, :, : prompt_tokens.shape[1]] = prompt_tokens.long()[:, None]
 
 
-def beam_body(lm, cfg: Qwen2Config, spec: BeamSpec, st: BeamState) -> None:
+def beam_body(lm, cfg: Qwen2Config, spec: BeamSpec, st: BeamState,
+              model_step=None) -> None:
     """One step of JAX's beam ``while_loop`` body (audio_flamingo_tpu/runtime/beam.py
     :110-199), in place on ``st`` and gated on ``st.alive``: f32 log-softmax, the n-gram
     ban over ``hist``, the EOS floor and the temperature; the top-2K candidates over
@@ -177,7 +199,8 @@ def beam_body(lm, cfg: Qwen2Config, spec: BeamSpec, st: BeamState) -> None:
     merge of finished beams through a top-K of 3K; the cache rows reordered by surviving
     parent and ``cur_tok`` decoded at ``t + i`` (``generate.decode_step``, JAX's
     ``_af3_decode_fn``); the history reordered; the early-stop heuristic and ``alive``.
-    Reads nothing back to the host."""
+    Reads nothing back to the host. ``model_step(cache, tokens, position)`` -> [B * K, V]
+    f32 logits replaces the LM's decode step (``xattn_beam_body``)."""
     k = spec.num_beams
     k2 = 2 * k
     eos, max_new, pen = spec.eos_token_id, spec.max_new_tokens, spec.length_penalty
@@ -244,7 +267,10 @@ def beam_body(lm, cfg: Qwen2Config, spec: BeamSpec, st: BeamState) -> None:
     cache.index.copy_(slot[0])
     cache.host_index = min(cache.host_index, cache.capacity - 1)   # the host's copy, clamped alike
     saved = [buf.index_select(2, slot) for buf in (cache.k, cache.v)]
-    _, new_logits = gen.decode_step(lm, cfg, cache, cur_tok.view(-1), t + i)
+    if model_step is None:
+        _, new_logits = gen.decode_step(lm, cfg, cache, cur_tok.view(-1), t + i)
+    else:
+        new_logits = model_step(cache, cur_tok.view(-1), t + i)
     for buf, old in zip((cache.k, cache.v), saved):
         buf.index_copy_(2, slot, torch.where(go, buf.index_select(2, slot), old))
     cache.index.copy_(torch.where(go, cache.index, index0))
@@ -277,48 +303,67 @@ def beam_body(lm, cfg: Qwen2Config, spec: BeamSpec, st: BeamState) -> None:
     st.alive.copy_(go & new_alive)
 
 
-def held_beam_graph(lm, cfg: Qwen2Config, spec: BeamSpec, batch: int, capacity: int,
-                    dtype: torch.dtype, device: torch.device) -> tuple[gen.DecodeGraph, bool]:
+def xattn_beam_body(model: flamingo.FlamingoModel, cfg: AF2Config, spec: BeamSpec,
+                    st: BeamState) -> None:
+    """``beam_body`` over the AF1/AF2 stack: each step decodes through the gated xattn
+    blocks against the state's media buffer (JAX ``beam_advance_xattn``'s decode_fn)."""
+    beam_body(model, cfg, spec, st, model_step=lambda cache, tok, pos: flamingo.decode_step(
+        model, cfg, cache, st.media, tok, pos)[1])
+
+
+def held_beam_graph(lm, cfg: Qwen2Config | AF2Config, spec: BeamSpec, batch: int,
+                    capacity: int, dtype: torch.dtype, device: torch.device,
+                    media_shape: tuple | None = None) -> tuple[gen.DecodeGraph, bool]:
     """The held captured beam step of this key (``generate.hold``: captured now if there
     is none, or if the held one is in use) and whether it was captured now. The capture's
-    warm-up step runs on a state that is not alive, so it changes nothing."""
-    key = ("beam",) + gen.graph_key(lm, cfg, spec, batch, capacity, dtype, device)
+    warm-up step runs on a state that is not alive, so it changes nothing. With
+    ``media_shape`` ``lm`` is a ``FlamingoModel`` and ``cfg`` its ``AF2Config``."""
+    key = (("beam", media_shape)
+           + gen.graph_key(lm, cfg, spec, batch, capacity, dtype, device))
+    body = beam_body if media_shape is None else xattn_beam_body
 
     def make():
         generator = torch.Generator(device=device) if spec.do_sample else None
-        state = new_beam_state(cfg, spec, batch, capacity, dtype, device, generator)
-        return gen.DecodeGraph(lm, cfg, spec, state, body=beam_body)
+        state = new_beam_state(cfg, spec, batch, capacity, dtype, device, generator,
+                               media_shape)
+        return gen.DecodeGraph(lm, cfg, spec, state, body=body)
     return gen.hold(key, make)
 
 
 class BeamSearch:
     """One beam search over ``batch`` prompts: its state and the step that advances it,
     the held captured step on the card and the eager body elsewhere. ``steps`` counts
-    the steps run; no more than ``max_new_tokens`` are."""
+    the steps run; no more than ``max_new_tokens`` are. ``model`` is an ``AF3Model``, or a
+    ``FlamingoModel`` with its ``AF2Config`` and ``media_shape`` (S, d_audio)."""
 
-    def __init__(self, model: af3.AF3Model, cfg: AF3Config, spec: BeamSpec, batch: int,
+    def __init__(self, model, cfg: AF3Config | AF2Config, spec: BeamSpec, batch: int,
                  capacity: int, device: torch.device,
-                 generator: torch.Generator | None = None):
-        self.lm, self.cfg, self.spec = model.lm, cfg.lm, spec
+                 generator: torch.Generator | None = None, media_shape: tuple | None = None):
+        if media_shape is None:
+            self.lm, self.cfg, self.body = model.lm, cfg.lm, beam_body
+            dtype = gen.compute_dtype(model.lm)
+        else:
+            self.lm, self.cfg, self.body = model, cfg, xattn_beam_body
+            dtype = flamingo.compute_dtype(model)
+        self.spec = spec
         self.generator, self.capture_s, self.steps = generator, 0.0, 0
-        dtype = gen.compute_dtype(model.lm)
         with torch.inference_mode():
             if device.type == "cuda":
                 t0 = time.perf_counter()
                 self.graph, captured = held_beam_graph(self.lm, self.cfg, spec, batch, capacity,
-                                                       dtype, device)
+                                                       dtype, device, media_shape)
                 self.capture_s = time.perf_counter() - t0 if captured else 0.0
                 self.graph.busy = True
                 self.state = self.graph.state
             else:
                 self.graph = None
                 self.state = new_beam_state(self.cfg, spec, batch, capacity, dtype, device,
-                                            generator)
+                                            generator, media_shape)
 
     @torch.inference_mode()
     def begin(self, first_logits: torch.Tensor, cache: qwen2.KVCache, prompt_len: int,
-              prompt_tokens: torch.Tensor) -> None:
-        begin(self.state, self.spec, first_logits, cache, prompt_len, prompt_tokens)
+              prompt_tokens: torch.Tensor, media: torch.Tensor | None = None) -> None:
+        begin(self.state, self.spec, first_logits, cache, prompt_len, prompt_tokens, media)
         if self.graph is not None:
             self.graph.load_generator(self.generator)
         self.steps = 0
@@ -331,7 +376,7 @@ class BeamSearch:
             if self.graph is not None:
                 self.graph.replay()
             else:
-                beam_body(self.lm, self.cfg, self.spec, self.state)
+                self.body(self.lm, self.cfg, self.spec, self.state)
         self.steps += n
         return n
 
@@ -373,18 +418,20 @@ def _generator(spec: BeamSpec, generator, device) -> torch.Generator | None:
     return generator
 
 
-def beam_loop(model: af3.AF3Model, cfg: AF3Config, first_logits: torch.Tensor,
+def beam_loop(model, cfg: AF3Config | AF2Config, first_logits: torch.Tensor,
               cache: qwen2.KVCache, spec: BeamSpec, *, prompt_len: int,
               prompt_tokens: torch.Tensor, num_return_sequences: int = 1,
-              generator: torch.Generator | None = None):
-    """Beam search to the end from a prefill: first_logits [B, V], its B-row cache.
-    Returns (sequences [B, R, max_new], scores [B, R])."""
+              generator: torch.Generator | None = None, media: torch.Tensor | None = None):
+    """Beam search to the end from a prefill: first_logits [B, V], its B-row cache (and,
+    for the AF1/AF2 stack, its transformed media [B, S, d]). Returns (sequences [B, R,
+    max_new], scores [B, R])."""
     if num_return_sequences > spec.num_beams:
         raise ValueError("num_return_sequences must be <= num_beams")
     device = first_logits.device
     with BeamSearch(model, cfg, spec, first_logits.shape[0], cache.capacity, device,
-                    _generator(spec, generator, device)) as search:
-        search.begin(first_logits, cache, prompt_len, prompt_tokens)
+                    _generator(spec, generator, device),
+                    None if media is None else tuple(media.shape[1:])) as search:
+        search.begin(first_logits, cache, prompt_len, prompt_tokens, media)
         search.run()
         return search.result(num_return_sequences)
 
@@ -423,6 +470,51 @@ def generate_beam(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
 
 
 @torch.inference_mode()
+def generate_beam_xattn(model: flamingo.FlamingoModel, cfg: AF2Config,
+                        token_ids: torch.Tensor, window_embeds: torch.Tensor, *,
+                        num_beams: int, max_new_tokens: int, eos_token_id: int,
+                        capacity: int = 0, length_penalty: float = 1.0, early_stopping=False,
+                        min_new_tokens: int = 0, num_return_sequences: int = 1,
+                        media_mode: str = "last", no_repeat_ngram_size: int = 0,
+                        do_sample: bool = False, temperature: float = 1.0,
+                        generator: torch.Generator | None = None,
+                        prompt_len: int | None = None):
+    """AF1/AF2 (gated-xattn) beam search (JAX :288): ``generate_beam``'s bookkeeping over
+    the flamingo prefill and decode step. token_ids [B, T], window_embeds [B, n_media, wpm,
+    d_audio] -> (sequences [B, R, max_new_tokens], scores [B, R]). The media are
+    transformed once and expanded across the beams, never reordered. ``media_mode`` is
+    JAX's prefill option (it acts only with a media mask, which beams do not take);
+    ``prompt_len``: the true length of a bucket-padded prompt (the engines' lane)."""
+    t = token_ids.shape[1]
+    true_len = t if prompt_len is None else int(prompt_len)
+    capacity = _check_capacity(t, true_len, max_new_tokens, capacity)
+    spec = _spec(num_beams, max_new_tokens, eos_token_id, length_penalty, early_stopping,
+                 min_new_tokens, no_repeat_ngram_size, do_sample, temperature)
+    cache, media, logits0 = flamingo.prefill(model, cfg, token_ids, window_embeds, capacity,
+                                             media_mode=media_mode, prompt_len=prompt_len)
+    return beam_loop(model, cfg, logits0, cache, spec, prompt_len=true_len,
+                     prompt_tokens=token_ids, num_return_sequences=num_return_sequences,
+                     generator=generator, media=media)
+
+
+def _open(model, cfg, token_ids: torch.Tensor, prompt_len: int, spec: BeamSpec,
+          capacity: int, generator, media_shape, prefill) -> BeamSearch:
+    """A search begun from ``prefill(capacity, prompt_len or None)`` -> (cache, media or
+    None, first logits); closed again if the prefill fails."""
+    t = token_ids.shape[1]
+    device = token_ids.device
+    search = BeamSearch(model, cfg, spec, token_ids.shape[0], capacity, device,
+                        _generator(spec, generator, device), media_shape)
+    try:
+        cache, media, logits0 = prefill(capacity, prompt_len if prompt_len != t else None)
+        search.begin(logits0, cache, prompt_len, token_ids, media)
+    except BaseException:
+        search.close()
+        raise
+    return search
+
+
+@torch.inference_mode()
 def beam_open(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
               mels: torch.Tensor | None, prompt_len: int, *, num_beams: int,
               max_new_tokens: int, eos_token_id: int, capacity: int,
@@ -434,21 +526,39 @@ def beam_open(model: af3.AF3Model, cfg: AF3Config, token_ids: torch.Tensor,
     [1, T] may be right-padded to a bucket with ``prompt_len`` the true length. The step
     options are given here, where JAX gives them to ``beam_advance``: the captured step
     holds them. Close the search (``BeamSearch.close``) when it is done."""
-    t = token_ids.shape[1]
-    capacity = _check_capacity(t, prompt_len, max_new_tokens, capacity)
+    capacity = _check_capacity(token_ids.shape[1], prompt_len, max_new_tokens, capacity)
     spec = _spec(num_beams, max_new_tokens, eos_token_id, length_penalty, early_stopping,
                  min_new_tokens, no_repeat_ngram_size, do_sample, temperature)
-    device = token_ids.device
-    search = BeamSearch(model, cfg, spec, token_ids.shape[0], capacity, device,
-                        _generator(spec, generator, device))
-    try:
-        cache, logits0 = gen.prefill(model, cfg, token_ids, mels, capacity,
-                                     prompt_len=prompt_len if prompt_len != t else None)
-        search.begin(logits0, cache, prompt_len, token_ids)
-    except BaseException:
-        search.close()
-        raise
-    return search
+
+    def prefill(cap, plen):
+        cache, logits0 = gen.prefill(model, cfg, token_ids, mels, cap, prompt_len=plen)
+        return cache, None, logits0
+    return _open(model, cfg, token_ids, prompt_len, spec, capacity, generator, None, prefill)
+
+
+@torch.inference_mode()
+def beam_open_xattn(model: flamingo.FlamingoModel, cfg: AF2Config, token_ids: torch.Tensor,
+                    window_embeds: torch.Tensor, prompt_len: int, *, num_beams: int,
+                    max_new_tokens: int, eos_token_id: int, capacity: int,
+                    length_penalty: float = 1.0, early_stopping=False,
+                    min_new_tokens: int = 0, no_repeat_ngram_size: int = 0,
+                    do_sample: bool = False, temperature: float = 1.0,
+                    media_mode: str = "last",
+                    generator: torch.Generator | None = None) -> BeamSearch:
+    """``beam_open`` for the AF1/AF2 stack (JAX :391): the prefill transforms the
+    request's window embeddings [1, n_media, wpm, d_audio] once and the search's state
+    holds them expanded across the beams (JAX returns them beside the state as
+    ``media_k``)."""
+    capacity = _check_capacity(token_ids.shape[1], prompt_len, max_new_tokens, capacity)
+    spec = _spec(num_beams, max_new_tokens, eos_token_id, length_penalty, early_stopping,
+                 min_new_tokens, no_repeat_ngram_size, do_sample, temperature)
+    n_media, wpm = window_embeds.shape[1], window_embeds.shape[2]
+
+    def prefill(cap, plen):
+        return flamingo.prefill(model, cfg, token_ids, window_embeds, cap,
+                                media_mode=media_mode, prompt_len=plen)
+    return _open(model, cfg, token_ids, prompt_len, spec, capacity, generator,
+                 (n_media * wpm, cfg.audio_embed_dim), prefill)
 
 
 def beam_advance(search: BeamSearch, chunk: int) -> BeamSearch:
@@ -459,19 +569,5 @@ def beam_advance(search: BeamSearch, chunk: int) -> BeamSearch:
     return search
 
 
-def generate_beam_xattn(*args, **kwargs):
-    """AF1/AF2 (gated cross-attention) beam search of the JAX package."""
-    raise NotImplementedError(NOT_PORTED.format("AF1/AF2 beam search (generate_beam_xattn)",
-                                                XATTN))
-
-
-def beam_open_xattn(*args, **kwargs):
-    """AF1/AF2 beam lane prefill of the JAX package."""
-    raise NotImplementedError(NOT_PORTED.format("the AF1/AF2 beam lane (beam_open_xattn)",
-                                                XATTN))
-
-
-def beam_advance_xattn(*args, **kwargs):
-    """AF1/AF2 beam lane step of the JAX package."""
-    raise NotImplementedError(NOT_PORTED.format("the AF1/AF2 beam lane (beam_advance_xattn)",
-                                                XATTN))
+# the AF1/AF2 search advances as the AF3 one does: its state holds the media (JAX :419)
+beam_advance_xattn = beam_advance

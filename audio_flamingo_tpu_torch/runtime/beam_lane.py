@@ -11,9 +11,11 @@ engine's own decode chunks. Chunk boundaries only partition the steps, so the em
 - Prompts are right-padded to the engines' token buckets with the true length given, so
   on the card requests of one capacity and options share one captured step.
 - One host read of ``alive`` and ``i`` per request per round.
-
-The AF1/AF2 family (``family="xattn"``, ``window_embeds``) waits for its models and
-raises.
+- The AF1/AF2 family (``family="xattn"``: ``runtime/flamingo_engine.FlamingoEngine`` and
+  ``runtime/paged_flamingo_engine.PagedFlamingoEngine``) takes ``window_embeds``, padded by
+  the engine's ``pad_windows`` to its fixed media shape as its own admission pads them,
+  and runs ``beam.beam_open_xattn`` / ``beam_advance_xattn``; results equal
+  ``beam.generate_beam_xattn``'s on the same padded prompt and windows.
 """
 
 from __future__ import annotations
@@ -24,13 +26,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from audio_flamingo_tpu_torch.config import NOT_PORTED, bucket_tokens
+from audio_flamingo_tpu_torch.config import bucket_tokens
 from audio_flamingo_tpu_torch.device import resolve_device
 from audio_flamingo_tpu_torch.runtime import beam as beam_mod
-
-
-def _xattn(what: str) -> NotImplementedError:
-    return NotImplementedError(NOT_PORTED.format(what, beam_mod.XATTN))
 
 
 @dataclass
@@ -40,7 +38,7 @@ class BeamRequest:
     request_id: str
     ids: np.ndarray                       # [1, T]
     mels: object = None                   # AF3 family
-    window_embeds: object = None          # AF1/AF2 (xattn) family: not ported yet
+    window_embeds: object = None          # AF1/AF2 (xattn) family: [1, n_media, wpm, d]
     num_beams: int = 4
     max_new_tokens: int = 64
     length_penalty: float = 1.0
@@ -50,6 +48,7 @@ class BeamRequest:
     no_repeat_ngram_size: int = 0
     do_sample: bool = False
     temperature: float = 1.0
+    media_mode: str = "last"              # AF1/AF2: the prefill's media mode (JAX's)
     seed: int = 0                         # a sampled request's generator seed
 
 
@@ -57,21 +56,22 @@ class BeamRequest:
 class BeamLane:
     """Advances admitted beam requests one bounded chunk of steps per round."""
 
-    model: object                         # the port's AF3 model (AF3Model)
+    model: object                         # the port's AF3Model, or a FlamingoModel (xattn)
     cfg: object
     eos_token_id: int
     chunk: int = 8
     family: str = "af3"                   # "af3" | "xattn"
     max_active: int = 1
     device: torch.device | str | None = None
+    pad_windows: object = None            # xattn: callable(numpy windows) -> padded tensor
 
     queue: deque = field(default_factory=deque)
     active: list = field(default_factory=list)    # [request, beam.BeamSearch]
     finished: dict = field(default_factory=dict)  # id -> (sequences [R, L], scores [R])
 
     def __post_init__(self):
-        if self.family != "af3":
-            raise _xattn("the AF1/AF2 beam lane (family='xattn')")
+        if self.family not in ("af3", "xattn"):
+            raise ValueError(f"family is 'af3' or 'xattn', not {self.family!r}")
         self.device = resolve_device(self.device)
 
     @property
@@ -79,8 +79,10 @@ class BeamLane:
         return bool(self.queue or self.active)
 
     def submit(self, req: BeamRequest) -> None:
-        if req.window_embeds is not None:
-            raise _xattn("AF1/AF2 beam requests (window_embeds)")
+        audio, other = (("mels", "window_embeds") if self.family == "af3"
+                        else ("window_embeds", "mels"))
+        if getattr(req, other) is not None:
+            raise ValueError(f"a {self.family} lane takes {audio}, not {other}")
         if req.num_beams <= 1:
             raise ValueError("use the engine's normal path for num_beams=1")
         if req.num_return_sequences > req.num_beams:
@@ -97,14 +99,21 @@ class BeamLane:
         capacity = -(-(bucket + req.max_new_tokens) // 128) * 128
         generator = (torch.Generator(device=self.device).manual_seed(req.seed)
                      if req.do_sample else None)
-        mels = None if req.mels is None else torch.as_tensor(req.mels, device=self.device)
-        search = beam_mod.beam_open(
-            self.model, self.cfg, torch.as_tensor(ids, device=self.device), mels, t,
-            num_beams=req.num_beams, max_new_tokens=req.max_new_tokens,
-            eos_token_id=self.eos_token_id, capacity=capacity,
-            length_penalty=req.length_penalty, early_stopping=req.early_stopping,
-            min_new_tokens=req.min_new_tokens, no_repeat_ngram_size=req.no_repeat_ngram_size,
-            do_sample=req.do_sample, temperature=req.temperature, generator=generator)
+        opts = dict(num_beams=req.num_beams, max_new_tokens=req.max_new_tokens,
+                    eos_token_id=self.eos_token_id, capacity=capacity,
+                    length_penalty=req.length_penalty, early_stopping=req.early_stopping,
+                    min_new_tokens=req.min_new_tokens,
+                    no_repeat_ngram_size=req.no_repeat_ngram_size, do_sample=req.do_sample,
+                    temperature=req.temperature, generator=generator)
+        ids = torch.as_tensor(ids, device=self.device)
+        if self.family == "af3":
+            mels = None if req.mels is None else torch.as_tensor(req.mels, device=self.device)
+            search = beam_mod.beam_open(self.model, self.cfg, ids, mels, t, **opts)
+        else:
+            wins = (self.pad_windows(req.window_embeds) if self.pad_windows is not None
+                    else torch.as_tensor(req.window_embeds, device=self.device))
+            search = beam_mod.beam_open_xattn(self.model, self.cfg, ids, wins, t,
+                                              media_mode=req.media_mode, **opts)
         self.active.append([req, search])
 
     def step(self) -> bool:
@@ -116,7 +125,7 @@ class BeamLane:
             return False
         for entry in list(self.active):
             req, search = entry
-            beam_mod.beam_advance(search, self.chunk)
+            beam_mod.beam_advance(search, self.chunk)   # either family's search
             # one host read per round, the engines' cadence
             alive, i = torch.stack([search.state.alive.long(), search.state.i]).tolist()
             if not alive or i >= req.max_new_tokens:
@@ -127,13 +136,14 @@ class BeamLane:
         return True
 
 
-def attach_beam_lane(engine, family: str = "af3") -> BeamLane:
+def attach_beam_lane(engine, family: str = "af3", pad_windows=None) -> BeamLane:
     """The engine's beam lane, attached at first use; it shares the engine's model,
-    config, EOS id, chunk and device."""
+    config, EOS id, chunk and device (and, for the xattn family, its ``pad_windows``)."""
     lane = getattr(engine, "beam_lane", None)
     if lane is None:
         lane = BeamLane(model=engine.model, cfg=engine.cfg, eos_token_id=engine.eos_token_id,
-                        chunk=engine.chunk, family=family, device=engine.device)
+                        chunk=engine.chunk, family=family, device=engine.device,
+                        pad_windows=pad_windows)
         engine.beam_lane = lane
     return lane
 

@@ -90,12 +90,15 @@ def decode_chunk(lm, cfg: Qwen2Config, cache: SlotCache, tokens: torch.Tensor,
                  done: torch.Tensor, generator: torch.Generator | None, rows: RowSampling,
                  min_left: torch.Tensor, hist: torch.Tensor | None = None, *, chunk: int,
                  eos_token_id: int, mixed_sampling: bool = False, want_logprobs: bool = False,
-                 use_min_new: bool = False, use_penalty: bool = False, ngram_ns: tuple = ()):
+                 use_min_new: bool = False, use_penalty: bool = False, ngram_ns: tuple = (),
+                 step=None):
     """Advance every slot ``chunk`` steps, reading nothing back to the host. rows: per-row
     sampling parameters; min_left [B]: tokens still under the EOS floor; hist [B, H]:
     prompt + generated ids (-1 elsewhere) for the repetition penalty and the n-gram ban,
     kept across chunks (row b holds lengths[b] + 1 ids: the cache lags by the token not
-    yet forwarded). A done row keeps its length and emits EOS.
+    yet forwarded). A done row keeps its length and emits EOS. ``step(cache, tokens)`` ->
+    (cache, logits [B, V] f32), writing at ``cache.lengths``, replaces the LM's step (the
+    AF1/AF2 stack's, ``runtime/flamingo_engine.py``).
 
     Returns (cache, tokens [B], done [B], out [B, chunk], logprobs [B, chunk] f32, hist)."""
     b = tokens.shape[0]
@@ -105,9 +108,12 @@ def decode_chunk(lm, cfg: Qwen2Config, cache: SlotCache, tokens: torch.Tensor,
     if hist is None:
         hist = torch.full((b, 8), -1, dtype=torch.long, device=device)   # processors off
     for i in range(chunk):
-        x = qwen2.embed(lm, tokens[:, None])
-        h, cache = _rows_forward(lm, cfg, x, cache.lengths, cache)
-        logits = qwen2.unembed(lm, h[:, 0])
+        if step is None:
+            x = qwen2.embed(lm, tokens[:, None])
+            h, cache = _rows_forward(lm, cfg, x, cache.lengths, cache)
+            logits = qwen2.unembed(lm, h[:, 0])
+        else:
+            cache, logits = step(cache, tokens)
         nxt, lp_val, hist = engine_row_step(
             generator, logits, hist, cache.lengths + 1, rows, done, min_left, i,
             eos_token_id=eos_token_id, mixed_sampling=mixed_sampling,
@@ -544,8 +550,7 @@ class BatchEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.cache = init_slot_cache(self.cfg.lm, self.num_slots, self.capacity,
-                                     gen.compute_dtype(self.model.lm), self.device)
+        self.cache = self._new_cache()
         # per-row prompt + generated ids (-1 = empty) for the history processors
         self.hist = torch.full((self.num_slots, self.capacity), -1, dtype=torch.long,
                                device=self.device)
@@ -566,6 +571,10 @@ class BatchEngine:
             self.d_cache = init_slot_cache(self.draft_cfg, self.num_slots, self.capacity,
                                            gen.compute_dtype(self.draft_params), self.device)
 
+    def _new_cache(self) -> SlotCache:
+        return init_slot_cache(self.cfg.lm, self.num_slots, self.capacity,
+                               gen.compute_dtype(self.model.lm), self.device)
+
     def submit(self, req: Request) -> None:
         if req.ids.shape[1] > self.capacity:
             raise ValueError(f"prompt ({req.ids.shape[1]} tokens) exceeds the slot capacity "
@@ -584,6 +593,14 @@ class BatchEngine:
     def finished_beams(self) -> dict:
         return beam_lane.finished_beams(self)
 
+    def _prefill(self, slot: int, req: Request, ids: torch.Tensor,
+                 prompt_len: int | None) -> torch.Tensor:
+        """Prefill a request's bucket-padded ids into row ``slot`` -> first-token logits."""
+        mels = None if req.mels is None else torch.as_tensor(req.mels, device=self.device)
+        self.cache, logits = prefill_into_slot(self.model, self.cfg, self.cache, slot, ids,
+                                               mels, prompt_len=prompt_len)
+        return logits
+
     def _fill_slots(self) -> None:
         for slot in range(self.num_slots):
             if slot in self.active or not self.queue:
@@ -598,9 +615,7 @@ class BatchEngine:
                                  device=self.device)
                 ids = torch.cat([ids, pad], dim=1)
                 prompt_len = t
-            mels = None if req.mels is None else torch.as_tensor(req.mels, device=self.device)
-            self.cache, logits = prefill_into_slot(self.model, self.cfg, self.cache, slot, ids,
-                                                   mels, prompt_len=prompt_len)
+            logits = self._prefill(slot, req, ids, prompt_len)
             first, finished, req_sampling = _emit_first_token(self, req, logits)
             if finished:
                 self.cache.lengths[slot] = 0
@@ -624,8 +639,7 @@ class BatchEngine:
             beam_lane.step_beam_lane(self)
             return
         if speculating(self):
-            out, valid = spec_step(self, self.model.lm, self.cfg.lm, decode_spec_chunk,
-                                   decode_spec_chunk_sampled)
+            out, valid = self._spec_chunk()
             row_tokens = [out[s][valid[s]].tolist() for s in range(self.num_slots)]
             lp, budget = None, self.spec_rounds * (self.spec_k + 1)
         else:
@@ -649,6 +663,15 @@ class BatchEngine:
                 self.cache.lengths[slot] = 0
         beam_lane.step_beam_lane(self)
 
+    def _spec_chunk(self):
+        """One speculative chunk over every slot -> (out, valid), read once."""
+        return spec_step(self, self.model.lm, self.cfg.lm, decode_spec_chunk,
+                         decode_spec_chunk_sampled)
+
+    def _step_fn(self):
+        """The decode step the plain chunk runs: None for the LM's own (``decode_chunk``)."""
+        return None
+
     def _decode_chunk(self):
         """The plain chunk over every slot -> (row tokens, logprobs), read once."""
         min_left = np.zeros((self.num_slots,), np.int64)
@@ -663,7 +686,7 @@ class BatchEngine:
             chunk=self.chunk, eos_token_id=self.eos_token_id,
             mixed_sampling=any(not (r.sampling or self.sampling).greedy for r in reqs),
             want_logprobs=any(r.logprobs for r in reqs), use_min_new=bool(min_left.any()),
-            use_penalty=use_pen, ngram_ns=ngram_ns)
+            use_penalty=use_pen, ngram_ns=ngram_ns, step=self._step_fn())
         out = out.cpu().numpy()   # the chunk's one host read
         return [out[s].tolist() for s in range(self.num_slots)], lp.cpu().numpy()
 

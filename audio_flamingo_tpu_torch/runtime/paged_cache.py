@@ -61,9 +61,11 @@ class PagedKV:
 
 def init_paged(cfg: Qwen2Config, batch: int, num_blocks: int, block_size: int,
                max_blocks_per_seq: int, dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> PagedKV:
-    """dtype=torch.int8 gives an int8 pool with per-token scales: half the page bytes."""
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.resolved_head_dim())
+               device: torch.device | str = "cpu", kv_heads: tuple | None = None) -> PagedKV:
+    """dtype=torch.int8 gives an int8 pool with per-token scales: half the page bytes.
+    ``kv_heads`` (nkv, hd) replaces the config's (OPT keeps every head a KV head)."""
+    nkv, hd = kv_heads or (cfg.num_kv_heads, cfg.resolved_head_dim())
+    shape = (cfg.num_layers, num_blocks, block_size, nkv, hd)
     scales = None
     if dtype == torch.int8:
         scales = torch.ones(shape[:-1], dtype=torch.float32, device=device)
@@ -169,11 +171,13 @@ def paged_decode_chunk(lm, cfg: Qwen2Config, cache: PagedKV, tokens: torch.Tenso
                        hist: torch.Tensor | None = None, *, chunk: int, eos_token_id: int,
                        mixed_sampling: bool = False, want_logprobs: bool = False,
                        use_min_new: bool = False, use_penalty: bool = False,
-                       ngram_ns: tuple = ()):
+                       ngram_ns: tuple = (), step=None):
     """Advance every row ``chunk`` steps through its pages, reading nothing back to the
     host. rows: per-row sampling parameters; min_left [B]: tokens still under the EOS
     floor; hist [B, H]: prompt + generated ids (-1 elsewhere) for the repetition penalty
-    and the n-gram ban. A done row keeps its length and emits EOS.
+    and the n-gram ban. A done row keeps its length and emits EOS. ``step(cache, tokens)``
+    -> (cache with lengths + 1, logits) replaces ``paged_decode_step`` (the AF1/AF2 stack's,
+    ``runtime/paged_flamingo_engine.py``).
 
     Returns (cache, tokens [B], done [B], out [B, chunk], logprobs [B, chunk] f32, hist)."""
     b = tokens.shape[0]
@@ -184,7 +188,8 @@ def paged_decode_chunk(lm, cfg: Qwen2Config, cache: PagedKV, tokens: torch.Tenso
         hist = torch.full((b, 8), -1, dtype=torch.long, device=device)   # processors off
     for i in range(chunk):
         lengths = cache.lengths
-        cache, logits = paged_decode_step(lm, cfg, cache, tokens)
+        cache, logits = (paged_decode_step(lm, cfg, cache, tokens) if step is None
+                         else step(cache, tokens))
         nxt, lp_val, hist = engine_row_step(
             generator, logits, hist, lengths + 1, rows, done, min_left, i,
             eos_token_id=eos_token_id, mixed_sampling=mixed_sampling,
@@ -335,11 +340,13 @@ def paged_restore_pages(cache: PagedKV, k_pages, v_pages, ks_pages, vs_pages,
 @torch.inference_mode()
 def paged_prefill_suffix(lm, cfg: Qwen2Config, cache: PagedKV, prefix_page_ids: torch.Tensor,
                          suffix_embeds: torch.Tensor, prompt_len: int, *, n_prefix_pages: int,
-                         suffix_len: int):
+                         suffix_len: int, forward=None, unembed=None):
     """Prefill only a prompt's suffix against prefix K/V already in pages (prefix caching
     and chunked prefill). prefix_page_ids: [n_prefix_pages] pages holding tokens
     [0, n_prefix_pages * block); suffix_embeds [1, suffix_len, d] from that boundary on;
     prompt_len: the true prompt length (the logits come from position prompt_len - 1).
+    ``forward(embeds, positions, kv)`` -> final-normed hidden states (advancing kv) and
+    ``unembed`` replace the LM's (the AF1/AF2 stack's, ``runtime/paged_flamingo_engine``).
 
     Returns (suffix K, suffix V [L, 1, suffix_len, nkv, hd] in the embeddings' dtype, for
     ``paged_install_pages``, and the last prompt token's logits [1, vocab] f32)."""
@@ -359,10 +366,13 @@ def paged_prefill_suffix(lm, cfg: Qwen2Config, cache: PagedKV, prefix_page_ids: 
     kv.k[:, 0, :prefix_len] = k_pref.reshape(n_layers, prefix_len, nkv, hd).to(dtype)
     kv.v[:, 0, :prefix_len] = v_pref.reshape(n_layers, prefix_len, nkv, hd).to(dtype)
     pos = (prefix_len + torch.arange(suffix_len, device=cache.k.device))[None]
-    # an empty prefix is a fresh prefill, which may take the flash kernel
-    h, kv = qwen2.forward(lm, cfg, suffix_embeds, pos, cache=kv,
-                          is_prefill=n_prefix_pages == 0)
-    logits = qwen2.unembed(lm, h[:, prompt_len - 1 - prefix_len])
+    if forward is None:
+        # an empty prefix is a fresh prefill, which may take the flash kernel
+        h, kv = qwen2.forward(lm, cfg, suffix_embeds, pos, cache=kv,
+                              is_prefill=n_prefix_pages == 0)
+    else:
+        h = forward(suffix_embeds, pos, kv)
+    logits = (unembed or (lambda x: qwen2.unembed(lm, x)))(h[:, prompt_len - 1 - prefix_len])
     return kv.k[:, :, prefix_len:], kv.v[:, :, prefix_len:], logits
 
 

@@ -196,9 +196,7 @@ class PagedEngine:
         self.swapped: dict[str, dict] = {}    # request_id -> host-side K/V pages
         self.preemptions = 0
         self.request_metrics: dict[str, dict] = {}
-        self.cache = init_paged(self.cfg.lm, self.num_rows, self.num_blocks, self.block_size,
-                                self.max_blocks_per_seq,
-                                self.kv_dtype or _model_dtype(self.model), self.device)
+        self.cache = self._new_pool()
         self.allocator = BlockAllocator(self.num_blocks, reserve=1)   # block 0 = trash page
         self.store = PrefixStore() if self.prefix_cache else None
         # tables and lengths are host state, shipped to the device once per chunk
@@ -217,6 +215,11 @@ class PagedEngine:
         # per-row prompt + generated ids (-1 = empty) for the history processors
         self.hist = torch.full((self.num_rows, self.capacity), -1, dtype=torch.long,
                                device=self.device)
+
+    def _new_pool(self):
+        return init_paged(self.cfg.lm, self.num_rows, self.num_blocks, self.block_size,
+                          self.max_blocks_per_seq, self.kv_dtype or _model_dtype(self.model),
+                          self.device)
 
     @property
     def capacity(self) -> int:
@@ -356,15 +359,7 @@ class PagedEngine:
             audio_pos = np.empty((0,), np.int64)
             n_hit = 0
             if self.store is not None:
-                ids_np = np.asarray(req.ids[0])
-                audio_pos = np.nonzero(ids_np == self.cfg.audio_token_id)[0]
-                mels_digest = first_audio = None
-                if req.mels is not None:
-                    raw = torch.as_tensor(req.mels).detach().cpu().contiguous()
-                    mels_digest = hashlib.blake2b(raw.view(torch.uint8).numpy().tobytes(),
-                                                  digest_size=16).digest()
-                    first_audio = int(audio_pos[0]) if audio_pos.size else None
-                keys = _block_keys(ids_np, bs, mels_digest, first_audio)
+                keys, audio_pos = self._prefix_keys(req)
                 run = min(self.store.longest_run(keys), (t - 1) // bs)
                 n_hit = 1 << (run.bit_length() - 1) if run > 0 else 0
 
@@ -386,24 +381,48 @@ class PagedEngine:
             held: list[bytes] = list(keys[:n_hit])
             prefix_pages = self.store.acquire(held) if n_hit else []
             blocks = self._alloc(n_prompt - n_hit)
-            mels = self._mels(req)
-            ids = self._padded_ids(req, bucket)
-            if n_hit:
-                # skip the encoder when every audio token lies inside the reused prefix
-                mels_arg = mels if audio_pos.size and int(audio_pos[-1]) >= start0 else None
-                emb = _suffix_embeds(self.model, self.cfg, ids, mels_arg, start=start0)
-                sub_k, sub_v, logits = paged_prefill_suffix(
-                    self.model.lm, self.cfg.lm, self.cache, prefix_pages, emb, t,
-                    n_prefix_pages=n_hit, suffix_len=bucket - start0)
-                paged_install_pages(self.cache, sub_k, sub_v, blocks)
-            else:
-                # prefill at the bucket: pages past the prompt stay unmapped
-                sub_cache, logits = prefill(self.model, self.cfg, ids, mels, bucket,
-                                            prompt_len=t if bucket != t else None)
-                paged_install_pages(self.cache, sub_cache.k, sub_cache.v, blocks)
+            logits = self._prefill_pages(row, req, bucket, n_hit, prefix_pages, blocks,
+                                         audio_pos)
             table_pages = prefix_pages + blocks
             self._register_prompt_blocks(keys, n_hit, t, table_pages, blocks, held)
             self._activate(row, req, table_pages, blocks, held, logits, bucket)
+
+    def _prefix_keys(self, req: Request) -> tuple[list[bytes], np.ndarray]:
+        """The prompt's block keys (ids, and the mel digest from the first audio
+        placeholder's block on) and its audio placeholders' positions."""
+        ids_np = np.asarray(req.ids[0])
+        audio_pos = np.nonzero(ids_np == self.cfg.audio_token_id)[0]
+        mels_digest = first_audio = None
+        if req.mels is not None:
+            raw = torch.as_tensor(req.mels).detach().cpu().contiguous()
+            mels_digest = hashlib.blake2b(raw.view(torch.uint8).numpy().tobytes(),
+                                          digest_size=16).digest()
+            first_audio = int(audio_pos[0]) if audio_pos.size else None
+        return _block_keys(ids_np, self.block_size, mels_digest, first_audio), audio_pos
+
+    def _prefill_pages(self, row: int, req: Request, bucket: int, n_hit: int,
+                       prefix_pages: list[int], blocks: list[int],
+                       audio_pos: np.ndarray) -> torch.Tensor:
+        """Prefill a prompt into its own pages ``blocks`` (after ``n_hit`` shared prefix
+        pages) at its bucket -> the last prompt token's logits [1, V]."""
+        t = req.ids.shape[1]
+        start0 = n_hit * self.block_size
+        mels = self._mels(req)
+        ids = self._padded_ids(req, bucket)
+        if n_hit:
+            # skip the encoder when every audio token lies inside the reused prefix
+            mels_arg = mels if audio_pos.size and int(audio_pos[-1]) >= start0 else None
+            emb = _suffix_embeds(self.model, self.cfg, ids, mels_arg, start=start0)
+            sub_k, sub_v, logits = paged_prefill_suffix(
+                self.model.lm, self.cfg.lm, self.cache, prefix_pages, emb, t,
+                n_prefix_pages=n_hit, suffix_len=bucket - start0)
+            paged_install_pages(self.cache, sub_k, sub_v, blocks)
+        else:
+            # prefill at the bucket: pages past the prompt stay unmapped
+            sub_cache, logits = prefill(self.model, self.cfg, ids, mels, bucket,
+                                        prompt_len=t if bucket != t else None)
+            paged_install_pages(self.cache, sub_cache.k, sub_cache.v, blocks)
+        return logits
 
     def _preempt_row(self, row: int) -> None:
         """Swap a starved row's pages to the host and requeue it at the front: pool
@@ -464,15 +483,21 @@ class PagedEngine:
         held = list(keys[:n_hit])
         prefix_pages = self.store.acquire(held) if n_hit else []
         own = self._alloc((ce - start0) // bs)
+        self.prefilling = dict(req=req, row=row, t=t, n_hit=n_hit, keys=keys, held=held,
+                               prefix_pages=prefix_pages, own=own, done=start0, ce=ce,
+                               bucket=bucket,
+                               **self._chunk_inputs(req, row, bucket, start0, audio_pos))
+        return True
+
+    def _chunk_inputs(self, req: Request, row: int, bucket: int, start0: int,
+                      audio_pos: np.ndarray) -> dict:
+        """What a chunked prefill keeps for its chunks: the prompt's input embeddings (the
+        encoder runs once, here, unless every audio token lies in the reused prefix)."""
         ids = self._padded_ids(req, bucket)
         mels_arg = (self._mels(req) if req.mels is not None
-                    and (n_hit == 0 or (audio_pos.size and int(audio_pos[-1]) >= start0))
+                    and (start0 == 0 or (audio_pos.size and int(audio_pos[-1]) >= start0))
                     else None)
-        emb = _suffix_embeds(self.model, self.cfg, ids, mels_arg, start=0)
-        self.prefilling = dict(req=req, row=row, t=t, n_hit=n_hit, keys=keys, held=held,
-                               prefix_pages=prefix_pages, own=own, emb=emb, done=start0, ce=ce,
-                               bucket=bucket)
-        return True
+        return dict(emb=_suffix_embeds(self.model, self.cfg, ids, mels_arg, start=0))
 
     def _prefill_step(self) -> None:
         """Advance the chunked prefill in flight by one chunk, as a suffix prefill
@@ -485,10 +510,7 @@ class PagedEngine:
         end = min(start + self.prefill_chunk, ce)
         table_pages = st["prefix_pages"] + st["own"]
         n_pref = start // bs
-        sub_k, sub_v, logits = paged_prefill_suffix(
-            self.model.lm, self.cfg.lm, self.cache, table_pages[:n_pref],
-            st["emb"][:, start:end], st["t"] if end >= st["t"] else end,
-            n_prefix_pages=n_pref, suffix_len=end - start)
+        sub_k, sub_v, logits = self._prefill_chunk(st, start, end, table_pages[:n_pref])
         paged_install_pages(self.cache, sub_k, sub_v, table_pages[n_pref: end // bs])
         st["done"] = end
         if end < st["t"]:
@@ -499,6 +521,14 @@ class PagedEngine:
         blocks, held = st["own"], st["held"]
         self._register_prompt_blocks(st["keys"], st["n_hit"], t, table_pages, blocks, held)
         self._activate(row, req, table_pages, blocks, held, logits, st["bucket"])
+
+    def _prefill_chunk(self, st: dict, start: int, end: int, prefix_pages: list[int]):
+        """Chunk [start, end) of the chunked prefill in flight against its pages before
+        ``start`` -> (chunk K, V, logits at the chunk's last real token)."""
+        return paged_prefill_suffix(
+            self.model.lm, self.cfg.lm, self.cache, prefix_pages, st["emb"][:, start:end],
+            st["t"] if end >= st["t"] else end, n_prefix_pages=len(prefix_pages),
+            suffix_len=end - start)
 
     def _step_budget(self) -> int:
         """The most tokens a row can emit (and write K/V for) in one decode chunk."""
@@ -563,8 +593,7 @@ class PagedEngine:
         self.cache.lengths = torch.as_tensor(self.lengths_np, device=self.device)
         budget = self._step_budget()
         if speculating(self):
-            out, valid = spec_step(self, self.model.lm, self.cfg.lm, paged_decode_spec_chunk,
-                                   paged_decode_spec_chunk_sampled)
+            out, valid = self._spec_chunk()
             row_tokens = [out[r][valid[r]].tolist() for r in range(self.num_rows)]
             lp = None
         else:
@@ -580,6 +609,15 @@ class PagedEngine:
                 self._finish_row(row)
         beam_lane.step_beam_lane(self)
 
+    def _spec_chunk(self):
+        """One speculative chunk over every row -> (out, valid), read once."""
+        return spec_step(self, self.model.lm, self.cfg.lm, paged_decode_spec_chunk,
+                         paged_decode_spec_chunk_sampled)
+
+    def _step_fn(self):
+        """The decode step the plain chunk runs: None for ``paged_decode_step``."""
+        return None
+
     def _decode_chunk(self):
         """The plain chunk over every row -> (row tokens, logprobs), read once."""
         min_left = np.zeros((self.num_rows,), np.int64)
@@ -594,7 +632,7 @@ class PagedEngine:
             chunk=self.chunk, eos_token_id=self.eos_token_id,
             mixed_sampling=any(not (r.sampling or self.sampling).greedy for r in reqs),
             want_logprobs=any(r.logprobs for r in reqs), use_min_new=bool(min_left.any()),
-            use_penalty=use_pen, ngram_ns=ngram_ns)
+            use_penalty=use_pen, ngram_ns=ngram_ns, step=self._step_fn())
         out = out.cpu().numpy()   # the chunk's one host read
         return [out[r].tolist() for r in range(self.num_rows)], lp.cpu().numpy()
 

@@ -82,15 +82,17 @@ Phases, each line stamped with elapsed seconds:
         int8 pools and q bf16 over bf16 and int8 pools, timed with its plain version and
         bound at those rows and at the engine's mixed rows, with the wrapper and as device
         time (10 calls in a CUDA graph, replayed) beside the bound;
-     b. bench.py's mixed workload (3 x 500 and 3 x 3800 random ids, 48 greedy tokens
+     b. bench.py's mixed workload (3 x 500 and 3 x 3800 random ids, 32 greedy tokens
         each, plus a 30 s clip through the processor) on PagedEngine with its settings (4
         rows, 88 x 128-token pages, 32 pages per row, chunks of 16), with a bf16 and an
-        int8 pool, each after a warm-up instance: every request finishes, the pool comes
-        back, 28 K3 launches per decode step and no other attention inside decode, tok/s,
-        TTFT, K3 ms per step, pool bytes and peak memory; a second run gives the same ids,
-        replays the first chunk's K3 launches against the plain version, runs one chunk
-        under torch.cuda.set_sync_debug_mode("error") and bounds each chunk's temporaries;
-        a third (bf16 pool, 24 tokens a request) keeps every K3 launch's inputs: their
+        int8 pool, each after a warm-up instance (16 tokens a request): every request
+        finishes, the pool comes back, 28 K3 launches per decode step and no other
+        attention inside decode, tok/s, TTFT, K3 ms per step, pool bytes and peak memory; a
+        second run gives the same ids, holds the first chunk's K3 launches to the plain
+        version (all of a step's launches in one plain call) and replays them in one CUDA
+        graph, runs one chunk under torch.cuda.set_sync_debug_mode("error") and bounds
+        each chunk's temporaries; a third (bf16 pool, 8 tokens a request) keeps every K3
+        launch's inputs: their
         plain time and bounds summed, and all of them replayed in one CUDA graph (K3's device time in the serving path, beside
         the CUDA-events figure, which includes the host's gaps);
      c. prefix caching: two requests with one system prompt and clip; the second hits the
@@ -200,7 +202,7 @@ Phases, each line stamped with elapsed seconds:
      b. the beam lane on PagedEngine (8b's settings, lane chunk 8) beside two requests of
         500 random ids: the lane equals generate_beam on the same bucket-padded prompt bit
         for bit, the normal ids equal a run without the lane;
-     c. bench.py's mixed workload without the clip (3 x 500 + 3 x 3800 ids, 48 greedy
+     c. bench.py's mixed workload without the clip (3 x 500 + 3 x 3800 ids, 32 greedy
         tokens) on BatchEngine (4 slots of 4096, chunk 16) and on PagedEngine, each after a
         warm-up instance: tok/s, TTFT, 28 K2 launches per prefill, requests with equal ids;
      d. f32 card against CPU, full width, 2 + 2 layers: the beam (K 4, every beam, ids
@@ -270,8 +272,8 @@ Phases, each line stamped with elapsed seconds:
         fusion, 36 xattn blocks; Qwen2.5-3B as an int8 tree from random_quantized_lm; the
         fusion stacks and the tower bf16, random from a seed on the card, the xattn gates
         set nonzero): AudioFlamingo2.generate, 32 greedy tokens, on a 30 s 48 kHz clip (3
-        windows, bucket 4) and bench_clap's 5-minute clip (30 windows), each twice (ids
-        identical, the step captured once), 145 K4 launches a step and none of K5 or K6;
+        windows, bucket 4) twice (ids identical, the step captured once) and bench_clap's
+        5-minute clip (30 windows) once, 145 K4 launches a step and none of K5 or K6;
         the captured decode against the eager step function from the same prefill (ids
         equal); sampled (top-p 0.9, temperature 0.7) twice from one seed (equal) and a
         second 30 s clip right after the first through the same captured step (equal to its
@@ -291,6 +293,36 @@ Phases, each line stamped with elapsed seconds:
      d. AF1 at OPT-IML-1.3B's widths (AF1Config.make()), 2 layers, f32: greedy generate
         token-exact and logits_with_media_mask on 4 media x 4 windows ('last') within 1e-4
         of max|logit|, card against CPU.
+ 16. the AF1/AF2 serving engines (runtime/flamingo_engine.py, runtime/paged_flamingo_engine.py),
+     the AF2 beam (runtime/beam.generate_beam_xattn) and K3 at OPT's head dim 64, after
+     every earlier model is freed:
+     a. K3 at hd 64 (AF1's pools [24, 56, 128, 32, 64], scale 1) against its plain version:
+        g = 1 over f32, bf16 and int8 pools with f32 and bf16 q, a current token merged;
+        g' = 5 (a k = 4 verify) over bf16/bf16, bf16/int8 and f32/f32 with its block merged
+        (merge_block_tokens); rows {400, 1500, 1, 0} at layers 0 and 23, two launches
+        bit-identical; each shape timed at the engine's rows with the wrapper and as device
+        time beside its plain version and bound; a CUDA call at hd 96 refused;
+     b. AF2 at full width (15a's build) behind bench_xattn_engines' settings and requests
+        (3 x (400, 1500 random ids), 30 windows each, 32 greedy tokens): FlamingoEngine (4
+        slots of 2048), PagedFlamingoEngine (4 rows, 56 pages of 128) on a bf16 and an int8
+        pool; each a warm-up instance, then the six requests twice (ids equal): tok/s, TTFT
+        from submit, per decode step 145 K4 and 36 K3 (paged) launches counted inside the
+        chunks; every K3 launch of the second paged runs held to the plain version right
+        after its chunk, and (bf16 pool) the first chunk's launches replayed in one CUDA
+        graph beside their bounds and the plain version timed on each; the slot and paged
+        engines' ids compared (they need not agree at bf16);
+     c. AF1 at full width (AF1Config.make with xattn every second layer, OPT-IML-1.3B's
+        widths, bf16 from a seed) behind PagedFlamingoEngine on a bf16 and an int8 pool, as
+        16b: 24 K3 launches a step at hd 64, every one held to the plain version;
+     d. the AF2 beam: AudioFlamingo2.generate(num_beams=4, 32 tokens) on a 30 s clip twice
+        (one answer, the step captured once), the captured step against the eager one from
+        one prefill (the search's sequences, scores and flags equal), ms a step beside the
+        bound, 145 K4 launches a step;
+     e. f32 card against CPU at full width, 2 + 2 layers, lively (liven): AF2 on both
+        engines (f32 and int8 pools) and AF1 on the paged engine (K3 at hd 64), three
+        requests each, ids token-exact and varying; a speculative run on AF2's slot and
+        f32-pool paged engines and AF1's, with a random 2-layer Qwen2 draft at the 0.5B's
+        widths, equal to the plain run; the AF2 beam (K 4) equal card vs CPU.
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -1694,20 +1726,35 @@ def paged_compare(pa, args: tuple, k_cur=None, v_cur=None) -> dict:
                                  scale=scale)
     o_p, m_p, l_p = pa.paged_attention_plain(q, k, v, tables, lengths, layer, k_scale=ks,
                                              v_scale=vs, scale=scale)
+    r = k3_held(pa, q.dtype, (o, m, l), (o_p, m_p, l_p))
+    if k_cur is not None:
+        merged = pa.merge_current_token(q, k_cur, v_cur, o, m, l, scale=scale)
+        merged_p = pa.merge_current_token(q, k_cur, v_cur, o_p, m_p, l_p, scale=scale)
+        err, ratio = _k3_within(q.dtype, merged, merged_p)
+        r.update(merged_err=err, ratio=max(r["ratio"], ratio))
+    return r
+
+
+def _k3_within(q_dtype, x, ref) -> tuple:
+    """(max |x - ref|, its ratio to K3's limit for q's dtype)."""
+    diff = (x - ref).abs()
+    if q_dtype == torch.float32:
+        return diff.max().item(), diff.max().item() / (PAGED_F32_TOL * ref.abs().max().item()
+                                                         + 1e-30)
+    rel, floor = PAGED_BF16_TOL
+    return diff.max().item(), (diff / (rel * ref.abs() + floor)).max().item()
+
+
+def k3_held(pa, q_dtype, got: tuple, plain: tuple) -> dict:
+    """K3's (o, m, l) against the plain version's, as paged_compare holds them: o/l on rows
+    with keys within K3's limit, m and l within PAGED_F32_TOL relative, rows with no key
+    exactly (0, NEG_INF, 0). Returns o_err, err, ratio (its largest over its limit)."""
+    (o, m, l), (o_p, m_p, l_p) = got, plain
     keys = l_p > 0
-
-    def held(x, ref):
-        diff = (x - ref).abs()
-        if q.dtype == torch.float32:
-            return diff.max().item(), diff.max().item() / (PAGED_F32_TOL * ref.abs().max().item()
-                                                             + 1e-30)
-        rel, floor = PAGED_BF16_TOL
-        return diff.max().item(), (diff / (rel * ref.abs() + floor)).max().item()
-
     r = dict(o_err=(o - o_p).abs().max().item(), ratio=0.0, err=0.0)
     if bool(keys.any()):
-        err, ratio = held((o / l.clamp(min=1e-30)[..., None])[keys],
-                          (o_p / l_p.clamp(min=1e-30)[..., None])[keys])
+        err, ratio = _k3_within(q_dtype, (o / l.clamp(min=1e-30)[..., None])[keys],
+                                (o_p / l_p.clamp(min=1e-30)[..., None])[keys])
         # m relative to max(|m|, 1): a row's max score can sit near 0 at O(1) scores
         stat = max(((m - m_p).abs() / m_p.abs().clamp(min=1.0))[keys].max().item(),
                    ((l - l_p).abs() / l_p.clamp(min=1e-30))[keys].max().item())
@@ -1715,11 +1762,6 @@ def paged_compare(pa, args: tuple, k_cur=None, v_cur=None) -> dict:
     empty = ~keys
     check(bool((o[empty] == 0).all() and (l[empty] == 0).all()
                and (m[empty] == pa.NEG_INF).all()), "K3: a row with no key is not (0, NEG_INF, 0)")
-    if k_cur is not None:
-        merged = pa.merge_current_token(q, k_cur, v_cur, o, m, l, scale=scale)
-        merged_p = pa.merge_current_token(q, k_cur, v_cur, o_p, m_p, l_p, scale=scale)
-        err, ratio = held(merged, merged_p)
-        r.update(merged_err=err, ratio=max(r["ratio"], ratio))
     return r
 
 
@@ -1871,20 +1913,14 @@ class ChunkProbe:
         return out
 
     def _replay(self, launches, path_ms: float, steps: int) -> dict:
+        """The chunk's K3 launches held to the plain version (k3_hold_batched), replayed in
+        one CUDA graph (device ms) beside their bounds; the plain version is timed on each
+        launch in the third run only (the kernels line's row)."""
         counter = self.pa.LAUNCHES
         timing, counter.timing = counter.timing, False
-        tot = dict(launches=len(launches), steps=steps, path_ms=path_ms, ms=0.0, err=0.0,
-                   ratio=0.0, o_err=0.0)
-        for args in launches:
-            r = paged_compare(self.pa, args)
-            check(r["ratio"] <= 1.0, f"main-path K3 launch: at {r['ratio']:.3f} of its limit")
-            for key in ("err", "ratio", "o_err"):
-                tot[key] = max(tot[key], r[key])
-            q, k, v, tables, lengths, layer, ks, vs, scale = args
-            kw = dict(k_scale=ks, v_scale=vs, scale=scale)
-            tot["ms"] += time_ms(lambda: self.pa.paged_attention(q, k, v, tables, lengths, layer,
-                                                                 **kw), 3, 1)
-        tot.update(launch_sums(self.pa, launches))
+        tot = dict(steps=steps, path_ms=path_ms,
+                   **k3_hold_batched(self.pa, launches, "main-path K3 launch"))
+        tot.update(ms=launches_graph_ms(self.pa, launches), **launch_bounds(launches))
         counter.timing = timing
         return tot
 
@@ -1899,19 +1935,26 @@ def launches_graph_ms(pa, launches) -> float:
     return graph_ms(run, reps=3)
 
 
-def launch_sums(pa, launches) -> dict:
-    """K3's plain version timed on each captured launch's inputs (one call each), and the
-    launches' bounds, summed: plain_ms, bound_ms, bound_by."""
-    tot, by = dict(plain_ms=0.0, bound_ms=0.0), set()
+def launch_bounds(launches) -> dict:
+    """The captured K3 launches' bounds, summed: bound_ms, bound_by."""
+    tot, by = dict(bound_ms=0.0), set()
     for q, k, v, tables, lengths, layer, ks, vs, scale in launches:
-        tot["plain_ms"] += time_ms(lambda: pa.paged_attention_plain(
-            q, k, v, tables, lengths, layer, k_scale=ks, v_scale=vs, scale=scale), 1, 0)
         b_ms, b_by = paged_bound_ms(lengths.tolist(), k.shape[2], tables.shape[1],
                                     tuple(q.shape), q.dtype, k.dtype)
         tot["bound_ms"] += b_ms
         by.add(b_by)
     tot["bound_by"] = "operations" if by == {"operations"} else "bytes"
     return tot
+
+
+def launch_sums(pa, launches) -> dict:
+    """K3's plain version timed on each captured launch's inputs (one call each), and the
+    launches' bounds, summed: plain_ms, bound_ms, bound_by."""
+    plain = 0.0
+    for q, k, v, tables, lengths, layer, ks, vs, scale in launches:
+        plain += time_ms(lambda: pa.paged_attention_plain(
+            q, k, v, tables, lengths, layer, k_scale=ks, v_scale=vs, scale=scale), 1, 0)
+    return dict(plain_ms=plain, **launch_bounds(launches))
 
 
 def k2_launch_sums(fa, launches) -> dict:
@@ -1962,12 +2005,15 @@ def serve(engine, specs, max_new_tokens: int) -> tuple:
     return results, time.perf_counter() - t0
 
 
-THIRD_RUN_TOKENS = 12   # 8b's third run (the K3 row's launches), short to keep the script in its limit
+THIRD_RUN_TOKENS = 8    # 8b's third run (the K3 row's launches), short to keep the script in its limit
+WARM_TOKENS = 16        # the warm-up instances' tokens (8b, 12c): they measure nothing
+SERVE_TOKENS = 32       # 8b's and 12c's measured runs (bench.py's mixed workload asks 48,
+                        # the script's before phase 16)
 
 
 def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
     """8b. The mixed workload on PagedEngine at full width (bf16 LM, random weights),
-    bench.py's engine settings, greedy, 48 tokens each: a warm-up instance, the measured
+    bench.py's engine settings, greedy, SERVE_TOKENS each: a warm-up instance, the measured
     run (K2 and K3 launches counted from 0 and timed), a second run on a fresh engine
     with the first chunk's K3 launches replayed against the plain version, the second
     under sync-debug "error", and every chunk's peak memory over its start, and (bf16 pool
@@ -1982,14 +2028,14 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
     name = "int8" if kv_dtype is torch.int8 else "bf16"
     specs = mixed_workload(model, wav)
     make = lambda: PagedEngine(model=model.model, cfg=model.cfg, kv_dtype=kv_dtype, **ENGINE)
-    serve(make(), specs[:2], 48)                               # warm-up instance
+    serve(make(), specs[:2], WARM_TOKENS)                      # warm-up instance
     for c in (fa.LAUNCHES, pa.LAUNCHES):
         c.reset()
         c.timing = True
     probe.reset()
     torch.cuda.reset_peak_memory_stats()
     eng = make()
-    results, wall = serve(eng, specs, 48)
+    results, wall = serve(eng, specs, SERVE_TOKENS)
     peak = torch.cuda.max_memory_allocated() / 2**30
     k3_ms, k2_ms = pa.LAUNCHES.device_ms(), fa.LAUNCHES.device_ms()
     run = dict(wall=wall, tokens=sum(len(v) for v in results.values()), steps=probe.steps,
@@ -2026,7 +2072,7 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
     pa.LAUNCHES.reset()
     pa.LAUNCHES.timing = True
     eng2 = make()
-    again, wall2 = serve(eng2, specs, 48)
+    again, wall2 = serve(eng2, specs, SERVE_TOKENS)
     pa.LAUNCHES.timing = False
     pa.LAUNCHES.reset()
     rep = probe.replay
@@ -2040,12 +2086,12 @@ def paged_engine_phase(model, fa, pa, probe, wav, kv_dtype) -> dict:
         f"chunk's peak over its start {probe.mem_delta / 1e6:.2f} MB at most (chunks 1 on; "
         f"one layer's pool "
         f"{layer_bytes / 1e6:.1f} MB); chunk 1 ran under sync-debug 'error' without a host "
-        f"sync; chunk 0's {rep['launches']} K3 launches ({rep['steps']} steps) replayed: "
-        f"max|o/l - plain| {rep['err']:.3e} (at {rep['ratio']:.3f} of its limit); in the path "
-        f"{rep['path_ms']:.3f} ms = {rep['path_ms'] / rep['steps']:.3f} ms per step, replayed "
-        f"{rep['ms']:.3f} ms, plain {rep['plain_ms']:.3f} ms, bound {rep['bound_ms']:.4f} ms "
-        f"= {rep['bound_ms'] / rep['steps']:.4f} ms per step ({rep['bound_by']}), library "
-        f"{PAGED_NO_LIBRARY}")
+        f"sync; chunk 0's {rep['launches']} K3 launches ({rep['steps']} steps) re-run and held "
+        f"to the plain version: max|o/l - plain| {rep['err']:.3e} (at {rep['ratio']:.3f} of "
+        f"its limit); in the path {rep['path_ms']:.3f} ms = {rep['path_ms'] / rep['steps']:.3f} "
+        f"ms per step, replayed in one CUDA graph {rep['ms']:.3f} ms, bound "
+        f"{rep['bound_ms']:.4f} ms = {rep['bound_ms'] / rep['steps']:.4f} ms per step "
+        f"({rep['bound_by']}), library {PAGED_NO_LIBRARY}")
 
     if name != "bf16":
         del eng, eng2
@@ -4147,7 +4193,7 @@ def beam_lane_phase(model, ref: dict) -> dict:
 
 
 def slot_engine_phase(model, fa, wav) -> dict:
-    """12c. bench.py's mixed workload (3 prompts of 500 and 3 of 3800 random ids, 48 greedy
+    """12c. bench.py's mixed workload (3 prompts of 500 and 3 of 3800 random ids, 32 greedy
     tokens each) on BatchEngine (4 slots of 4096, chunk 16) and on PagedEngine (8b's
     settings), each after a warm-up instance, in this run: aggregate tok/s, TTFT from
     submit, K2's launches (28 per prefill), how many requests give the same ids."""
@@ -4159,11 +4205,11 @@ def slot_engine_phase(model, fa, wav) -> dict:
             "paged": lambda: PagedEngine(model=model.model, cfg=model.cfg, **ENGINE)}
     res = {}
     for name, mk in make.items():
-        serve(mk(), specs[:2], 48)                               # warm-up instance
+        serve(mk(), specs[:2], WARM_TOKENS)                      # warm-up instance
         fa.LAUNCHES.reset()
         eng = mk()
         fa.LAUNCHES.timing = fa.LAUNCHES.capture = name == "slot"
-        out, wall = serve(eng, specs, 48)
+        out, wall = serve(eng, specs, SERVE_TOKENS)
         fa.LAUNCHES.timing = fa.LAUNCHES.capture = False
         tokens = sum(len(v) for v in out.values())
         ttft = sorted(m["ttft_s"] for m in eng.request_metrics.values())
@@ -4181,7 +4227,7 @@ def slot_engine_phase(model, fa, wav) -> dict:
               f"12c {name}: {res[name]['k2']} K2 launches for {len(specs)} prefills")
         del eng
     same = sum(res["slot"]["out"][r] == res["paged"]["out"][r] for r in res["slot"]["out"])
-    log("12c mixed workload (3 x 500 + 3 x 3800 ids, 48 greedy tokens): " + "; ".join(
+    log(f"12c mixed workload (3 x 500 + 3 x 3800 ids, {SERVE_TOKENS} greedy tokens): " + "; ".join(
         f"{n} engine {r['tokens']} tokens in {r['wall']:.3f} s = {r['tps']:.1f} tok/s, TTFT "
         f"median {statistics.median(r['ttft']):.3f} s max {r['ttft'][-1]:.3f} s, K2 {r['k2']}"
         for n, r in res.items()) + f"; {same} of {len(specs)} requests give the same ids on "
@@ -4761,7 +4807,8 @@ def spec_dense_phase(model, fa, wav) -> dict:
 
 
 SPEC_ENGINE = dict(num_slots=8, capacity=1024, chunk=16, eos_token_id=ENGINE["eos_token_id"])
-SPEC_MAX_NEW = 32      # bench_spec_engine's 256 tokens a request, cut to fit the run (64 before phase 15)
+SPEC_MAX_NEW = 16      # bench_spec_engine's 256 tokens a request, cut to fit the run (64 before
+                       # phase 15, 32 before phase 16)
 
 
 def spec_engine_phase(pa, k4) -> dict:
@@ -5680,8 +5727,7 @@ def af2_int8_phase(k4, k5, k6) -> dict:
     wav_5m = clip48(300, 0, None)
     step_k4 = k4_step_launches(n_layers)
     runs = {}
-    for name, wav in (("30 s #1", wav_a), ("30 s #2", wav_a), ("5 min #1", wav_5m),
-                      ("5 min #2", wav_5m)):
+    for name, wav in (("30 s #1", wav_a), ("30 s #2", wav_a), ("5 min #1", wav_5m)):
         r = af2_generate(af2, wav, counters)
         warm = int(r["capture_s"] > 0)
         want = step_k4 * (1 + r["steps"] + warm)    # the 128-row prefill: one step's shapes
@@ -5696,11 +5742,12 @@ def af2_int8_phase(k4, k5, k6) -> dict:
             f"{(r['proc'] + r['tower'] + r['ttft']) * 1e3:.1f} ms; decode {r['tps']:.1f} tok/s "
             f"({r['steps']} steps replayed; capture {r['capture_s']:.2f} s outside ttft and "
             f"decode); K4 launches {r['counts']['K4']}")
-    for clip in ("30 s", "5 min"):
-        check(runs[f"{clip} #1"]["ids"] == runs[f"{clip} #2"]["ids"],
-              f"15a {clip}: greedy ids differ between runs")
-        check(runs[f"{clip} #1"]["capture_s"] > 0 and runs[f"{clip} #2"]["capture_s"] == 0,
-              f"15a {clip}: the decode step was not captured once and replayed")
+    # one 5-minute run (its own captured step; a second was cut to make room for phase 16)
+    check(runs["30 s #1"]["ids"] == runs["30 s #2"]["ids"], "15a 30 s: greedy ids differ "
+                                                             "between runs")
+    check(runs["30 s #1"]["capture_s"] > 0 and runs["30 s #2"]["capture_s"] == 0
+          and runs["5 min #1"]["capture_s"] > 0,
+          "15a: the decode step was not captured once a clip length and replayed")
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     # the captured step against the eager one, and one eager step's K4 launches
@@ -5951,6 +5998,556 @@ def af2_f32_card_vs_cpu_phase() -> dict:
     return res
 
 
+AF1_K3 = dict(n_layers=24, nb=56, block=128, nkv=32, hd=64, mp=16)   # OPT-IML-1.3B's pools
+AF1_K3_GROUPS = (1, 5)    # decode (g = 1: OPT has one query head a KV head) and a k = 4 verify
+AF1_K3_PAIRS = ((torch.float32, "float32"), (torch.float32, "bfloat16"), (torch.float32, "int8"),
+                (torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"))
+
+
+def k3_hd64_phase(pa) -> dict:
+    """16a. K3 at OPT's head dim 64 (AF1's paged engine): q [4, 32, g, 64] for g = 1
+    (decode) and g' = 5 (a k = 4 verify folded into the group axis), scale 1 (OPT scales q
+    before the product), stacked pools [24, 56, 128, 32, 64] with shuffled tables; rows of
+    {400, 1500, 1, 0} checked at layers 0 and 23 against the plain version, g = 1 with a
+    current token merged, g' = 5 with its 5-token block merged by merge_block_tokens; every
+    dtype pair at g = 1, bf16/bf16, bf16/int8 and f32/f32 at g' = 5; two launches
+    bit-identical; each shape timed at the engine's rows {416, 1516, 416, 1516} with the
+    wrapper and as device time (one call in a CUDA graph) beside the plain version and the
+    bound. A CUDA call at hd 96 is refused."""
+    c = AF1_K3
+    n_layers, nb, block, nkv, hd, mp = (c[k] for k in ("n_layers", "nb", "block", "nkv", "hd",
+                                                       "mp"))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    perm = (torch.randperm(nb - 1, generator=gen, device="cuda") + 1).int()
+
+    def tables_for(lengths):
+        t = torch.full((len(lengths), mp), -1, dtype=torch.int32, device="cuda")
+        ptr = 0
+        for row, n in enumerate(lengths):
+            pages = -(-n // block)
+            t[row, :pages] = perm[ptr:ptr + pages]
+            ptr += pages
+        return t, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+    shape = (n_layers, nb, block, nkv, hd)
+    kf = torch.randn(shape, generator=gen, device="cuda") * 0.5
+    vf = torch.randn(shape, generator=gen, device="cuda")
+    k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.009 + 0.001
+    vs = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.018 + 0.002
+    check_rows, mixed = [400, 1500, 1, 0], [416, 1516, 416, 1516]
+    tables_c, lengths_c = tables_for(check_rows)
+    tables_m, lengths_m = tables_for(mixed)
+    results = {}
+    for q_dtype, kv_name in AF1_K3_PAIRS:
+        if kv_name == "int8":
+            pools = (k8, v8, ks, vs)
+        else:
+            dt = getattr(torch, kv_name)
+            pools = (kf.to(dt), vf.to(dt), None, None)
+        qn = str(q_dtype).split(".")[-1]
+        for g in AF1_K3_GROUPS:
+            if g > 1 and (q_dtype, kv_name) not in ((torch.bfloat16, "bfloat16"),
+                                                    (torch.bfloat16, "int8"),
+                                                    (torch.float32, "float32")):
+                continue
+            q = (torch.randn((4, nkv, g, hd), generator=gen, device="cuda") * 0.125).to(q_dtype)
+            worst = dict(err=0.0, ratio=0.0, o_err=0.0, merged_err=0.0)
+            for layer in (0, n_layers - 1):
+                args = (q, pools[0], pools[1], tables_c, lengths_c, layer, pools[2], pools[3],
+                        1.0)
+                if g == 1:
+                    k_cur = torch.randn((4, nkv, hd), generator=gen, device="cuda") * 0.5
+                    v_cur = torch.randn((4, nkv, hd), generator=gen, device="cuda")
+                    r = paged_compare(pa, args, k_cur, v_cur)
+                    worst["merged_err"] = max(worst["merged_err"], r["merged_err"])
+                else:
+                    r = paged_compare(pa, args)
+                    o, m, l = pa.paged_attention(*args[:6], k_scale=args[6], v_scale=args[7],
+                                                 scale=1.0)
+                    o_p, m_p, l_p = pa.paged_attention_plain(*args[:6], k_scale=args[6],
+                                                             v_scale=args[7], scale=1.0)
+                    fold = lambda x: x.reshape(4, nkv, g, 1, *x.shape[3:]).transpose(1, 2)
+                    qg = fold(q.float())
+                    kb = torch.randn((4, g, nkv, hd), generator=gen, device="cuda") * 0.5
+                    vb = torch.randn((4, g, nkv, hd), generator=gen, device="cuda")
+                    got = pa.merge_block_tokens(qg, kb, vb, fold(o), fold(m), fold(l), scale=1.0)
+                    ref = pa.merge_block_tokens(qg, kb, vb, fold(o_p), fold(m_p), fold(l_p),
+                                                scale=1.0)
+                    diff = (got - ref).abs()
+                    lim = (PAGED_F32_TOL * ref.abs().max() if q_dtype == torch.float32
+                           else PAGED_BF16_TOL[0] * ref.abs() + PAGED_BF16_TOL[1])
+                    check(bool((diff <= lim).all()), f"16a K3 hd 64 g' {g} {qn}/{kv_name}: the "
+                          f"merged block is off by {diff.max().item():.3e}")
+                    worst["merged_err"] = max(worst["merged_err"], diff.max().item())
+                check(r["ratio"] <= 1.0, f"16a K3 hd 64 g {g} q {qn} pool {kv_name} layer "
+                                         f"{layer}: at {r['ratio']:.3f} of its limit")
+                for key in ("err", "ratio", "o_err"):
+                    worst[key] = max(worst[key], r[key])
+                first = pa.paged_attention(*args[:6], k_scale=args[6], v_scale=args[7], scale=1.0)
+                again = pa.paged_attention(*args[:6], k_scale=args[6], v_scale=args[7], scale=1.0)
+                check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                      f"16a K3 hd 64 g {g} {qn}/{kv_name}: two launches differ")
+            args = (q, pools[0], pools[1], tables_m, lengths_m, 5)
+            call = lambda: pa.paged_attention(*args, k_scale=pools[2], v_scale=pools[3],
+                                              scale=1.0)
+            plain = lambda: pa.paged_attention_plain(*args, k_scale=pools[2], v_scale=pools[3],
+                                                     scale=1.0)
+            r = dict(worst, ms=time_ms(call), plain_ms=time_ms(plain, 3, 1),
+                     graph_ms=graph_ms(call), library_ms=None)
+            r["bound_ms"], r["bound_by"] = paged_bound_ms(mixed, block, mp, tuple(q.shape),
+                                                          q_dtype, pools[0].dtype)
+            parts = pa.kernel_parts(4, nkv, mp, q.device, q.dtype, pools[0].dtype, g, hd)
+            log(f"16a K3 hd 64 g={g} q {qn:8s} pool {kv_name:8s}: max|o/l - plain| "
+                f"{r['err']:.3e} (at {r['ratio']:.3f} of its limit), merged "
+                f"{r['merged_err']:.3e}, two launches bit-identical; {parts} parts; rows "
+                f"{mixed}: {r['ms']:.4f} ms with the wrapper, {r['graph_ms']:.4f} ms device "
+                f"(one call in a graph), plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                f"{r['bound_ms'] / r['graph_ms'] * 100:.2f} % of the bound as device time")
+            results[(qn, kv_name, g)] = r
+        del pools
+    q96 = torch.zeros((1, 1, 1, 96), device="cuda")
+    pool96 = torch.zeros((1, 128, 1, 96), device="cuda")
+    try:
+        pa.paged_attention(q96, pool96, pool96, torch.zeros((1, 1), dtype=torch.int32,
+                                                            device="cuda"),
+                           torch.ones((1,), dtype=torch.int32, device="cuda"))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "16a: K3 took a CUDA call at hd 96")
+    del kf, vf, k8, v8, ks, vs
+    torch.cuda.empty_cache()
+    return results
+
+
+XATTN_TOKENS = 32      # new tokens a request in 16b / 16c (bench_xattn_engines asks 64)
+XATTN_WPM = 30         # media windows a request: bench_xattn_engines' 5-minute buffer
+XATTN_EOS = {"af2": 151_645, "af1": 2}
+SLOT_XATTN = dict(num_slots=4, capacity=2048, chunk=16)
+PAGED_XATTN = dict(num_rows=4, num_blocks=56, block_size=128, max_blocks_per_seq=16, chunk=16)
+
+
+def xattn_workload(vocab: int, d_audio: int, seed: int) -> list:
+    """bench_xattn_engines' requests (bench.py:952-1070): 3 x (400, 1500 random ids),
+    interleaved, each with 30 media windows of normal x 0.1."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(3):
+        for tag, t in (("s", 400), ("l", 1500)):
+            wins = (rng.normal(size=(1, 1, XATTN_WPM, d_audio)) * 0.1).astype(np.float32)
+            reqs.append((f"{tag}{i}", rng.integers(0, vocab, (1, t)).astype(np.int32), wins))
+    return reqs
+
+
+def k3_hold_batched(pa, launches: list, tag: str) -> dict:
+    """Every kept K3 launch re-run through the kernel on its inputs and held against the
+    plain version on the same inputs (k3_held). The plain version is evaluated for all the
+    launches of one decode step at once: their layers' pools addressed through one flat
+    [L NB, BS, nkv, hd] view, each launch's table entries shifted to its layer's pages
+    (rows are independent in the plain version, so every row is its own launch's plain
+    result). Returns the largest err and ratio."""
+    worst = dict(err=0.0, ratio=0.0, launches=len(launches))
+    groups: list = []
+    for args in launches:     # one group per decode step (the step's lengths tensor)
+        if groups and args[4] is groups[-1][0][4] and args[1] is groups[-1][0][1]:
+            groups[-1].append(args)
+        else:
+            groups.append([args])
+    for grp in groups:
+        q0, k, v, _, _, _, ks, vs, scale = grp[0]
+        nb = k.shape[1]
+        got = [pa.paged_attention(q, k, v, t, ln, layer, k_scale=ks, v_scale=vs, scale=scale)
+               for q, _, _, t, ln, layer, _, _, _ in grp]
+        flat = lambda p: None if p is None else p.view(-1, *p.shape[2:])
+        plain = pa.paged_attention_plain(
+            torch.cat([a[0] for a in grp]), flat(k), flat(v),
+            torch.cat([torch.where(a[3] >= 0, a[3] + a[5] * nb, a[3]) for a in grp]),
+            torch.cat([a[4] for a in grp]), k_scale=flat(ks), v_scale=flat(vs), scale=scale)
+        r = k3_held(pa, q0.dtype, tuple(torch.cat(x) for x in zip(*got)), plain)
+        check(r["ratio"] <= 1.0, f"{tag}: a K3 launch at {r['ratio']:.3f} of its limit")
+        worst["err"], worst["ratio"] = max(worst["err"], r["err"]), max(worst["ratio"],
+                                                                        r["ratio"])
+    return worst
+
+
+class XattnProbe:
+    """Stands in for the engines' chunk loops (runtime/engine.decode_chunk and
+    runtime/paged_engine.paged_decode_chunk, which the AF1/AF2 engines run with their own
+    step) while an engine serves: counts chunks, decode steps and the K3 and K4 launches
+    made inside them. With ``replay`` every chunk's K3 launches are kept and, right after
+    the chunk (before any page can be handed to another row), held against the plain
+    version (k3_hold_batched); the chunk ``graph_chunk``'s launches are also replayed in
+    one CUDA graph (their device time) beside their bounds and, with ``time_plain``, the
+    plain version's time on each, summed."""
+
+    def __init__(self, pa, k4):
+        from audio_flamingo_tpu_torch.runtime import engine as engine_mod
+        from audio_flamingo_tpu_torch.runtime import paged_engine as pe_mod
+
+        self.pa, self.k4 = pa, k4
+        self.sites = [(engine_mod, "decode_chunk"), (pe_mod, "paged_decode_chunk")]
+        self.reset()
+
+    def reset(self, replay: bool = False, graph_chunk: int | None = None,
+              time_plain: bool = False, tag: str = ""):
+        self.chunks = self.steps = self.k3 = self.k4_count = 0
+        self.replay, self.graph_chunk, self.tag = replay, graph_chunk, tag
+        self.time_plain = time_plain
+        self.hold = dict(err=0.0, ratio=0.0, launches=0)
+        self.graph = None
+
+    def __enter__(self):
+        self.real = [getattr(mod, name) for mod, name in self.sites]
+        for (mod, name), real in zip(self.sites, self.real):
+            setattr(mod, name, self._wrap(real))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), real in zip(self.sites, self.real):
+            setattr(mod, name, real)
+
+    def _wrap(self, real):
+        def chunk_loop(*args, chunk: int, **kw):
+            index = self.chunks
+            self.chunks += 1
+            self.steps += chunk
+            c3 = self.pa.LAUNCHES
+            n3, n4 = c3.count, self.k4.LAUNCHES.count
+            keep = self.replay or index == self.graph_chunk
+            c3.inputs.clear()
+            c3.capture = keep
+            try:
+                out = real(*args, chunk=chunk, **kw)
+            finally:
+                c3.capture = False
+            self.k3 += c3.count - n3
+            self.k4_count += self.k4.LAUNCHES.count - n4
+            if keep:
+                launches = list(c3.inputs)
+                c3.inputs.clear()
+                if self.replay:
+                    r = k3_hold_batched(self.pa, launches, self.tag)
+                    self.hold = dict(err=max(self.hold["err"], r["err"]),
+                                     ratio=max(self.hold["ratio"], r["ratio"]),
+                                     launches=self.hold["launches"] + r["launches"])
+                if index == self.graph_chunk:
+                    self.graph = dict(launches=len(launches), steps=chunk, plain_ms=None,
+                                      graph_ms=launches_graph_ms(self.pa, launches))
+                    self.graph.update(launch_sums(self.pa, launches) if self.time_plain
+                                      else launch_bounds(launches))
+            return out
+        return chunk_loop
+
+
+def xattn_serve(make, reqs, probe, max_new: int = XATTN_TOKENS, **probe_kw) -> dict:
+    """A new engine (``make()``) serves the requests to the end: ids, wall seconds, tok/s,
+    each request's TTFT from its submit, and the probe's chunk steps and launches."""
+    from audio_flamingo_tpu_torch.runtime.flamingo_engine import FlamingoRequest
+
+    eng = make()
+    probe.reset(**probe_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, ids, wins in reqs:
+        eng.submit(FlamingoRequest(request_id=rid, ids=ids.copy(), window_embeds=wins,
+                                   max_new_tokens=max_new))
+    results = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(set(results) == {r[0] for r in reqs} and not eng.active and not eng.queue,
+          f"{probe.tag}: not every request finished: {sorted(results)}")
+    tokens = sum(len(v) for v in results.values())
+    return dict(ids=dict(results), wall=wall, tokens=tokens, tps=tokens / wall,
+                ttft=sorted(m["ttft_s"] for m in eng.request_metrics.values()),
+                steps=probe.steps, chunks=probe.chunks, k3=probe.k3, k4=probe.k4_count,
+                hold=probe.hold, graph=probe.graph,
+                preemptions=getattr(eng, "preemptions", 0))
+
+
+def xattn_engine_runs(name: str, make, reqs, probe, n_layers: int, k4_step: int,
+                      paged: bool, timed: bool = False) -> dict:
+    """One engine configuration: a warm-up instance on two requests, the measured run,
+    then a second run whose every K3 launch (paged) is held against the plain version and
+    whose first chunk's K3 launches are timed in one CUDA graph beside their bounds (and,
+    if ``timed``, the plain version's time on each). Ids equal across the runs; per
+    decode step K3 = the LM's layers (paged) or 0, K4 = k4_step (0 for a float LM)."""
+    xattn_serve(make, reqs[:2], probe, tag=f"{name} warm-up")
+    run = xattn_serve(make, reqs, probe, tag=name)
+    again = xattn_serve(make, reqs, probe, replay=paged, graph_chunk=0 if paged else None,
+                        time_plain=timed, tag=f"{name} replay")
+    check(run["ids"] == again["ids"], f"{name}: ids differ between two runs")
+    for r in (run, again):
+        check(r["k3"] == (n_layers * r["steps"] if paged else 0)
+              and r["k4"] == k4_step * r["steps"],
+              f"{name}: {r['k3']} K3 and {r['k4']} K4 launches over {r['steps']} decode steps "
+              f"(want {n_layers if paged else 0} and {k4_step} a step)")
+    g, hold = again["graph"], again["hold"]
+    extra = ("" if not paged else
+             f"; every K3 launch of the second run ({hold['launches']}) held to the plain "
+             f"version: max|o/l - plain| {hold['err']:.3e} (at {hold['ratio']:.3f} of its "
+             f"limit)")
+    if g is not None:
+        extra += (f"; its first chunk's {g['launches']} K3 launches in one CUDA graph "
+                  f"{g['graph_ms']:.3f} ms ({g['graph_ms'] / g['steps']:.4f} ms a step) against "
+                  f"their bound {g['bound_ms']:.4f} ms ({g['bound_by']})"
+                  + ("" if g["plain_ms"] is None else f", plain {g['plain_ms']:.1f} ms"))
+    log(f"{name}: {run['tokens']} tokens in {run['wall']:.2f} s = {run['tps']:.1f} tok/s, TTFT "
+        f"from submit median {statistics.median(run['ttft']):.3f} s max {run['ttft'][-1]:.3f} s; "
+        f"{run['steps']} decode steps in {run['chunks']} chunks, per step {run['k3'] // max(run['steps'], 1)} K3 "
+        f"and {run['k4'] // max(run['steps'], 1)} K4; preemptions {run['preemptions']}; ids equal "
+        f"over two runs{extra}")
+    return dict(run=run, again=again)
+
+
+def xattn_engines_phase(pa, k4) -> dict:
+    """16b, 16d. AF2 at full width (15a's build: AF2Config(), HTSAT-base, 36 xattn blocks,
+    the int8 Qwen2.5-3B from random_quantized_lm, the fusion stacks and tower bf16 from a
+    seed, gates AF2_GATE) behind the AF1/AF2 engines with bench_xattn_engines' settings and
+    requests (XATTN_TOKENS greedy tokens each): FlamingoEngine (4 slots of 2048), then
+    PagedFlamingoEngine (4 rows, 56 pages of 128, 16 a row) on a bf16 and an int8 pool
+    (xattn_engine_runs); the slot and paged engines' ids compared (the slot engine's
+    attention is plain torch, the paged K3: they need not agree at bf16). 16d: the beam,
+    AudioFlamingo2.generate(num_beams=4) on a 30 s clip twice (one answer, the beam step
+    captured once), the captured step against the eager one from one prefill (every
+    state tensor equal after the search), ms a step beside its bound, K4 launches a step."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo2
+    from audio_flamingo_tpu_torch.config import AF2Config
+    from audio_flamingo_tpu_torch.models import clap, flamingo, qwen2
+    from audio_flamingo_tpu_torch.ops.quant import random_quantized_lm
+    from audio_flamingo_tpu_torch.runtime import beam
+    from audio_flamingo_tpu_torch.runtime.flamingo_engine import FlamingoEngine
+    from audio_flamingo_tpu_torch.runtime.paged_flamingo_engine import PagedFlamingoEngine
+
+    t_phase = time.perf_counter()
+    cfg = AF2Config()
+    n_layers = cfg.lm.num_layers
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qlm = qwen2.quantized_lm(random_quantized_lm(g, cfg.lm, "cuda"), torch.bfloat16, "cuda")
+    model = flamingo.init_fusion(cfg, qlm, g, "cuda", torch.bfloat16)
+    set_gates(model, AF2_GATE)
+    tower = clap.build(cfg.clap, "cuda", torch.bfloat16)
+    clap.init_(tower, g)
+    af2 = AudioFlamingo2._assemble(cfg, model, tower, None, torch.device("cuda"))
+    reqs = xattn_workload(150_000, cfg.audio_embed_dim, seed=0)
+    common = dict(eos_token_id=XATTN_EOS["af2"], n_media=1, windows_per_media=XATTN_WPM)
+    makes = {
+        "16b AF2 FlamingoEngine": (lambda: FlamingoEngine(model=model, cfg=cfg, **SLOT_XATTN,
+                                                          **common), False),
+        "16b AF2 PagedFlamingoEngine bf16 pool": (lambda: PagedFlamingoEngine(
+            model=model, cfg=cfg, **PAGED_XATTN, **common), True),
+        "16b AF2 PagedFlamingoEngine int8 pool": (lambda: PagedFlamingoEngine(
+            model=model, cfg=cfg, kv_dtype=torch.int8, **PAGED_XATTN, **common), True)}
+    res = {}
+    with XattnProbe(pa, k4) as probe:
+        for name, (make, paged) in makes.items():
+            res[name] = xattn_engine_runs(name, make, reqs, probe, n_layers,
+                                          k4_step_launches(n_layers), paged,
+                                          timed="bf16" in name)
+    slot_ids = res["16b AF2 FlamingoEngine"]["run"]["ids"]
+    paged_ids = res["16b AF2 PagedFlamingoEngine bf16 pool"]["run"]["ids"]
+    agree = {rid: common_prefix(slot_ids[rid], paged_ids[rid]) for rid in slot_ids}
+    log(f"16b slot against paged (bf16): tokens in common from the start per request {agree} "
+        f"of {XATTN_TOKENS} (plain attention against K3 in bf16; they need not agree)")
+
+    # 16d. the beam at full width
+    wav = clip48(30, 1, 440.0)
+    answers, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers.append(af2.generate(sound=wav, prompt=AF2_PROMPT, max_new_tokens=XATTN_TOKENS,
+                                    num_beams=4))
+        walls.append(time.perf_counter() - t0)
+    check(answers[0] == answers[1], f"16d: two beam answers differ: {answers}")
+    inp = af2_inputs(af2, wav)
+    t = inp["plen"] or inp["ids"].shape[1]
+    ids = inp["ids"][:, :t]
+    capacity = -(-(t + XATTN_TOKENS) // 128) * 128
+    opts = dict(num_beams=4, max_new_tokens=XATTN_TOKENS, eos_token_id=af2.eos_token_id,
+                capacity=capacity)
+    search = beam.beam_open_xattn(model, cfg, ids, inp["wins"], t, **opts)
+    check(search.graph is not None and search.capture_s == 0,
+          "16d: the beam did not reuse the step the api captured")
+    k4.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = search.advance(XATTN_TOKENS)
+    torch.cuda.synchronize()
+    graph_step_ms = (time.perf_counter() - t0) / steps * 1e3
+    check(k4.LAUNCHES.count == k4_step_launches(n_layers) * steps,
+          f"16d: {k4.LAUNCHES.count} K4 launches over {steps} replayed beam steps")
+    captured = {n: getattr(search.state, n).clone() for n in ("run_seq", "run_sc", "fin_seq",
+                                                              "fin_sc", "is_fin", "alive", "i")}
+    search.close()
+    spec = beam._spec(4, XATTN_TOKENS, af2.eos_token_id, 1.0, False, 0, 0, False, 1.0)
+    media_shape = (inp["wins"].shape[1] * inp["wins"].shape[2], cfg.audio_embed_dim)
+    with torch.inference_mode():
+        st = beam.new_beam_state(cfg, spec, 1, capacity, torch.bfloat16, torch.device("cuda"),
+                                 None, media_shape)
+        cache, media, logits = flamingo.prefill(model, cfg, ids, inp["wins"], capacity)
+        beam.begin(st, spec, logits, cache, t, ids, media)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            beam.xattn_beam_body(model, cfg, spec, st)
+        torch.cuda.synchronize()
+        eager_step_ms = (time.perf_counter() - t0) / steps * 1e3
+    same = all(torch.equal(getattr(st, n), v) for n, v in captured.items())
+    check(same, "16d: the captured beam step and the eager one end in different states")
+    lm_bytes = sum(v.numel() * v.element_size() for v in qlm.state_dict().values())
+    xa_bytes = sum(p.numel() * p.element_size() for p in model.xattn.parameters())
+    cache_bytes = st.cache.k.numel() * st.cache.k.element_size() * 2
+    bound_ms = (lm_bytes + xa_bytes + 2 * cache_bytes) / PEAK_BYTES * 1e3
+    log(f"16d AF2 beam (K 4, {XATTN_TOKENS} tokens, 30 s clip, {t}-token prompt, capacity "
+        f"{capacity}): api answers equal ({walls[0]:.2f} s with the capture, {walls[1]:.2f} s "
+        f"replayed); the captured step {graph_step_ms:.3f} ms a step, eager {eager_step_ms:.3f} "
+        f"ms, every state tensor equal after {steps} steps; bound {bound_ms:.3f} ms a step "
+        f"(int8 LM {lm_bytes / 1e9:.3f} GB + xattn {xa_bytes / 1e9:.3f} GB + the K-row cache "
+        f"read and written by the reorder, {cache_bytes / 1e6:.1f} MB); "
+        f"{k4_step_launches(n_layers)} K4 launches a step")
+    del st, cache, search
+    return dict(res=res, agree=agree, beam=dict(graph_ms=graph_step_ms, eager_ms=eager_step_ms,
+                                                bound_ms=bound_ms, walls=walls, steps=steps),
+                s=time.perf_counter() - t_phase)
+
+
+def af1_engine_phase(pa) -> dict:
+    """16c. AF1 at full width: AF1Config.make with xattn before every second layer (32
+    heads), OPT-IML-1.3B's widths (24 layers, 32 heads of 64), the LM and the fusion stacks
+    bf16 from a seed, gates AF2_GATE, behind PagedFlamingoEngine with 16b's settings and
+    requests (ids from OPT's vocabulary) on a bf16 and an int8 pool (xattn_engine_runs): K3
+    at hd 64, g 1, scale 1, 24 launches a decode step, every one held against the plain
+    version."""
+    from audio_flamingo_tpu_torch.config import AF1Config, GatedXAttnConfig
+    from audio_flamingo_tpu_torch.models import flamingo
+    from audio_flamingo_tpu_torch.ops.kernels import w8a16_matmul as k4
+    from audio_flamingo_tpu_torch.runtime.paged_flamingo_engine import PagedFlamingoEngine
+
+    t_phase = time.perf_counter()
+    cfg = AF1Config.make(xattn=GatedXAttnConfig(cross_every_n_layers=2, num_heads=32))
+    model = flamingo.init(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
+                          torch.bfloat16)
+    set_gates(model, AF2_GATE)
+    reqs = xattn_workload(cfg.lm.vocab_size, cfg.audio_embed_dim, seed=1)
+    res = {}
+    with XattnProbe(pa, k4) as probe:
+        for name, kv in (("16c AF1 PagedFlamingoEngine bf16 pool", None),
+                         ("16c AF1 PagedFlamingoEngine int8 pool", torch.int8)):
+            make = lambda: PagedFlamingoEngine(model=model, cfg=cfg, kv_dtype=kv, **PAGED_XATTN,
+                                               eos_token_id=XATTN_EOS["af1"], n_media=1,
+                                               windows_per_media=XATTN_WPM)
+            res[name] = xattn_engine_runs(name, make, reqs, probe, cfg.lm.num_layers, 0, True,
+                                          timed=kv is None)
+    del model
+    return dict(res=res, s=time.perf_counter() - t_phase)
+
+
+def xattn_f32_card_vs_cpu_phase() -> dict:
+    """16e. f32 card against CPU at full width, 2 + 2 layers, the models made lively
+    (liven, as 15c and 15d): AF2 (the 3B's widths) on FlamingoEngine and on
+    PagedFlamingoEngine with an f32 and an int8 pool, AF1 (OPT-IML-1.3B's widths, K3 at hd
+    64) on PagedFlamingoEngine with both pools; three requests each (ids token-exact card
+    against CPU, the CPU's not one repeated token); a speculative run on each engine's
+    f32-pool configuration (AF2 slot and paged, AF1 paged) with a random 2-layer Qwen2
+    draft at the 0.5B's widths (the target's vocabulary), its ids the plain engine's; and
+    generate_beam_xattn (K 4) on AF2, sequences equal."""
+    import copy
+    import dataclasses as dc
+
+    from audio_flamingo_tpu_torch.config import AF1Config, AF2Config, OPTConfig, Qwen2Config
+    from audio_flamingo_tpu_torch.models import flamingo, qwen2
+    from audio_flamingo_tpu_torch.runtime import beam
+    from audio_flamingo_tpu_torch.runtime.flamingo_engine import FlamingoEngine, FlamingoRequest
+    from audio_flamingo_tpu_torch.runtime.paged_flamingo_engine import PagedFlamingoEngine
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    cfg2 = AF2Config(lm=dc.replace(Qwen2Config.qwen25_3b(), num_layers=2))
+    af2 = flamingo.init(cfg2, torch.Generator().manual_seed(16), "cpu", torch.float32)
+    liven(af2, 16, linear=10.0, embed=3.0)
+    cfg1 = AF1Config.make(lm=dc.replace(OPTConfig(), num_layers=2))
+    af1 = flamingo.init(cfg1, torch.Generator().manual_seed(17), "cpu", torch.float32)
+    liven(af1, 17, linear=3.0, embed=3.0)
+
+    def draft_for(vocab: int):
+        dcfg = dc.replace(Qwen2Config.qwen25_0_5b(), num_layers=2, vocab_size=vocab)
+        with torch.device("meta"):
+            d = qwen2.Qwen2(dcfg, dtype=torch.float32)
+        d = d.to_empty(device="cpu").eval().requires_grad_(False)
+        qwen2.init_(d, torch.Generator().manual_seed(vocab))
+        return d, dcfg
+
+    models = {"af2": (cfg2, af2, draft_for(cfg2.lm.vocab_size)),
+              "af1": (cfg1, af1, draft_for(cfg1.lm.vocab_size))}
+    on_card = {k: (copy.deepcopy(m).cuda(), copy.deepcopy(d[0]).cuda())
+               for k, (_, m, d) in models.items()}
+    small = dict(n_media=1, windows_per_media=4, eos_token_id=-1)
+    slot = dict(num_slots=2, capacity=256, chunk=4)
+    paged = dict(num_rows=2, num_blocks=40, block_size=16, max_blocks_per_seq=16, chunk=4)
+    spec = dict(spec_k=3, spec_rounds=2, spec_guard=False)
+    engines = [("af2", "FlamingoEngine", FlamingoEngine, slot),
+               ("af2", "PagedFlamingoEngine f32 pool", PagedFlamingoEngine, paged),
+               ("af2", "PagedFlamingoEngine int8 pool", PagedFlamingoEngine,
+                dict(paged, kv_dtype=torch.int8)),
+               ("af1", "PagedFlamingoEngine f32 pool", PagedFlamingoEngine, paged),
+               ("af1", "PagedFlamingoEngine int8 pool", PagedFlamingoEngine,
+                dict(paged, kv_dtype=torch.int8))]
+    reqs = {k: [(f"r{i}", rng.integers(0, cfg.lm.vocab_size, (1, t)).astype(np.int32),
+                 rng.standard_normal((1, 1, 4, cfg.audio_embed_dim)).astype(np.float32))
+                for i, t in enumerate((20, 33, 47))] for k, (cfg, _, _) in models.items()}
+
+    def serve_on(eng, which):
+        for rid, ids, wins in reqs[which]:
+            eng.submit(FlamingoRequest(request_id=rid, ids=ids.copy(), window_embeds=wins,
+                                       max_new_tokens=8))
+        return eng.run_until_done()
+
+    res = {}
+    for which, name, cls, kw in engines:
+        cfg, model, (draft, dcfg) = models[which]
+        card, card_draft = on_card[which]
+        out = {}
+        for dev, m, d in (("cpu", model, draft), ("cuda", card, card_draft)):
+            plain = serve_on(cls(model=m, cfg=cfg, device=dev, **small, **kw), which)
+            if "int8" in name:     # the int8 pools' verify: the CPU tests and 16b's pools
+                out[dev] = (plain, plain, 1)
+                continue
+            sp_kw = dict(kw, preempt=False) if cls is PagedFlamingoEngine else kw
+            eng = cls(model=m, cfg=cfg, device=dev, draft_params=d, draft_cfg=dcfg, **small,
+                      **sp_kw, **spec)
+            out[dev] = (plain, serve_on(eng, which), eng.spec_stats["round_slots"])
+        (cpu, cpu_spec, slots), (crd, crd_spec, _) = out["cpu"], out["cuda"]
+        tag = f"16e {which.upper()} {name}"
+        check(len({t for v in cpu.values() for t in v}) > 2,
+              f"{tag}: the CPU's ids repeat one token: {cpu}")
+        check(crd == cpu, f"{tag}: ids card {crd} vs CPU {cpu}")
+        check(cpu_spec == cpu and crd_spec == crd and slots > 0,
+              f"{tag}: speculative ids (CPU {cpu_spec}, card {crd_spec}) differ from the plain "
+              f"engine's")
+        res.setdefault("engines", {})[f"{which.upper()} {name}"] = cpu
+    cfg, model, _ = models["af2"]
+    ids, wins = reqs["af2"][1][1], reqs["af2"][1][2]
+    got = [beam.generate_beam_xattn(m, cfg, torch.as_tensor(ids, device=dev).long(),
+                                    torch.as_tensor(wins, device=dev), num_beams=4,
+                                    max_new_tokens=8, eos_token_id=-1)
+           for dev, m in (("cpu", model), ("cuda", on_card["af2"][0]))]
+    check(torch.equal(got[0][0], got[1][0].cpu()) and
+          float((got[0][1] - got[1][1].cpu()).abs().max()) <= 1e-4,
+          f"16e AF2 beam: card {got[1][0].tolist()} vs CPU {got[0][0].tolist()}")
+    res["beam"] = got[0][0][0].tolist()
+    res["s"] = time.perf_counter() - t0
+    log("16e f32 card vs CPU (full width, 2 + 2 layers, lively): ids token-exact on "
+        + "; ".join(f"{n} {ids_['r0']}" for n, ids_ in res["engines"].items())
+        + f"; a speculative run with a 2-layer draft equal to the plain run on AF2's slot and "
+          f"f32-pool paged engines and AF1's; the AF2 beam (K 4) equal, best {res['beam']}; "
+          f"{res['s']:.1f} s")
+    del on_card
+    return res
+
+
 def serve_any(engine, specs, max_new_tokens: int) -> dict:
     """``serve`` on any device (the CPU's engines need no synchronization)."""
     from audio_flamingo_tpu_torch.runtime.engine import Request
@@ -6043,13 +6640,20 @@ def main() -> int:
           "the redesigned K6 (one persistent kernel) and K1 (3xTF32) kernels were not compiled")
     k3_ptxas = [r for r in ptxas if r["kernel"].startswith(("score_kernel", "attend_kernel"))]
     k9_ptxas = [r for r in ptxas if r["kernel"].startswith(("ln_qkv_kernel", "out_ln_kernel"))]
-    check({"score_kernel<1>", "attend_kernel<1>", "score_kernel<8>", "attend_kernel<8>",
-           "ln_qkv_kernel", "out_ln_kernel"} <= {r["kernel"] for r in k3_ptxas + k9_ptxas},
-          "the redesigned K3 (decode and folded verify groups) and K9 kernels were not compiled")
-    # the verify's eight head tiles (<8>) must not spill; the decode kernels (<1>) keep the
-    # report they had before them (one CUDA-core pair's V pass: 20 bytes, PERF.md)
-    check(all(r["spill_bytes"] == 0 for r in k3_ptxas if r["kernel"].endswith("<8>")),
+    check({f"{k}<{t},{hd}>" for k in ("score_kernel", "attend_kernel") for t in (1, 8)
+           for hd in pa.KERNEL_HEAD_DIMS} | {"ln_qkv_kernel", "out_ln_kernel"}
+          <= {r["kernel"] for r in k3_ptxas + k9_ptxas},
+          "the redesigned K3 (decode and folded verify groups, hd 64 and 128) and K9 kernels "
+          "were not compiled")
+    # K3's kernels are named <head tiles, head dim>. The verify's eight head tiles at hd 128
+    # (<8,128>) must not spill; the decode kernels (<1,128>) keep the report they had before
+    # them (one CUDA-core pair's V pass: 20 bytes, PERF.md); the hd-64 kernels' spills are
+    # logged (the AF1 path runs <1,64>)
+    check(all(r["spill_bytes"] == 0 for r in k3_ptxas if r["kernel"].endswith("<8,128>")),
           f"a K3 verify kernel spills: {[r for r in k3_ptxas if r['spill_bytes']]}")
+    log("K3 hd-64 kernels' spilled bytes (an entry per dtype pair): "
+        + ", ".join(f"{r['kernel']} {r['spill_bytes']}" for r in k3_ptxas
+                    if r["kernel"].endswith(",64>")))
 
     # 3. kernels against their plain versions
     res = kernel_phase(fa)
@@ -6266,6 +6870,24 @@ def main() -> int:
     gen.release_graphs()
     log(f"15: phase 15 took {af2_15['s'] + w4_15['s'] + f32_15['s']:.1f} s (15a "
         f"{af2_15['s']:.1f}, 15b {w4_15['s']:.1f}, 15c + 15d {f32_15['s']:.1f})")
+    # 16a-16e. the AF1/AF2 serving engines, the AF2 beam and K3 at OPT's head dim 64, after
+    # every earlier model is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    hd64_16 = k3_hd64_phase(pa)
+    s16a = time.perf_counter() - t16
+    eng16 = xattn_engines_phase(pa, k4)
+    log(f"16: released the held captured steps ({gen.release_graphs() / 2**20:.1f} MiB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    af1_16 = af1_engine_phase(pa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_16 = xattn_f32_card_vs_cpu_phase()
+    gen.release_graphs()
+    log(f"16: phase 16 took {time.perf_counter() - t16:.1f} s (16a {s16a:.1f}, 16b + 16d "
+        f"{eng16['s']:.1f}, 16c {af1_16['s']:.1f}, 16e {f32_16['s']:.1f})")
 
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
@@ -6395,7 +7017,36 @@ def main() -> int:
         "verify_13c_chunk": {p: {n: r[n] for n in ("chunk_launches", "path_ms", "graph_ms",
                                                    "plain_ms", "bound_ms", "bound_by", "err")}
                              for p, r in engines13["paged"].items()},
-        "ptxas": k3_ptxas,
+        "launches_phase16": {n: r["run"]["k3"] for n, r in eng16["res"].items()
+                             if "Paged" in n},
+        "max_abs_err_16b": max(r["again"]["hold"]["err"] for n, r in eng16["res"].items()
+                               if "Paged" in n),
+        "af2_16b_chunk": {k: eng16["res"]["16b AF2 PagedFlamingoEngine bf16 pool"]["again"]
+                          ["graph"][k] for k in ("launches", "graph_ms", "plain_ms", "bound_ms",
+                                                 "bound_by")},
+        "ptxas": [r for r in k3_ptxas if r["kernel"].endswith(",128>")],
+    })
+    af1 = af1_16["res"]["16c AF1 PagedFlamingoEngine bf16 pool"]
+    g64 = af1["again"]["graph"]
+    kernels.append({
+        "name": "paged_attention_hd64",
+        "route": "cuda",
+        "source": "audio_flamingo_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "audio_flamingo_tpu/ops/pallas/paged_attention.py:116",
+        "launches": af1["run"]["k3"],
+        "max_abs_err": max([r["err"] for r in hd64_16.values()]
+                           + [r["again"]["hold"]["err"] for r in af1_16["res"].values()]),
+        "ms": g64["graph_ms"],
+        "plain_ms": g64["plain_ms"],
+        "bound_ms": g64["bound_ms"],
+        "bound_by": g64["bound_by"],
+        "library_ms": None,
+        "timed_launches": g64["launches"],
+        "launches_phase16": {n: r["run"]["k3"] for n, r in af1_16["res"].items()},
+        "shapes_16a": {f"[4,32,{k[2]},64] q {k[0]} pool {k[1]}": {
+            n: r[n] for n in ("err", "ratio", "ms", "graph_ms", "plain_ms", "bound_ms",
+                              "bound_by")} for k, r in hd64_16.items()},
+        "ptxas": [r for r in k3_ptxas if r["kernel"].endswith(",64>")],
     })
     rep7, run7 = stage2["replay"], stage2["run"]
     kernels.append({
@@ -6506,6 +7157,7 @@ def main() -> int:
                              "15b AF2 fused-w4 3B (the int8 head)": w4_15["k4_launches"]},
         "max_abs_err_15a": af2_15["worst"][0],
         "af2_3b_15a": shape_rows(af2_15["timing"], "K4"),
+        "launches_phase16": {n: r["run"]["k4"] for n, r in eng16["res"].items()},
         "ptxas": k4_ptxas,
     })
     for name, p in paged.items():
@@ -6618,7 +7270,20 @@ def main() -> int:
         "launch of each shape timed alone: ms with the wrapper, graph_ms device time of one "
         "call in a CUDA graph, plain_ms, library_ms (torch._weight_int8pack_mm / "
         "torch._weight_int4pack_mm on the same codes; a grouped K4 launch: its products' "
-        "calls summed), bound_ms, count = the launches of that shape in the step.")
+        "calls summed), bound_ms, count = the launches of that shape in the step. "
+        "launches_phase16 (paged_attention, paged_attention_hd64, w8a16_matmul): each kernel's "
+        "launches inside the decode chunks of phase 16's measured runs (16b AF2 on "
+        "FlamingoEngine and PagedFlamingoEngine, 16c AF1 on PagedFlamingoEngine), counted from "
+        "0 at each run's start; paged_attention max_abs_err_16b and af2_16b_chunk: every K3 "
+        "launch of 16b's second paged runs held to the plain version, and their first "
+        "chunk's launches replayed in one CUDA graph (graph_ms), the plain version timed on "
+        "each (plain_ms) and their bounds, summed. paged_attention_hd64 (K3 at OPT's head dim "
+        "64, g 1, AF1's paged engine on a bf16 pool, 16c): launches = the measured run's "
+        "count; ms, plain_ms, bound_ms = the second run's first chunk's timed_launches "
+        "replayed in one CUDA graph (device time), the plain version timed on each, their "
+        "bounds, summed; max_abs_err = the largest |o/l - plain| of 16a and of every launch "
+        "of 16c's second runs (both pools); shapes_16a: each hd-64 shape alone at the "
+        "engine's rows (ms with the wrapper, graph_ms one call in a CUDA graph).")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")

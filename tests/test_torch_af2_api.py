@@ -180,9 +180,14 @@ def test_think_puts_the_instruction_after_the_audio(models, with_audio):
 
 
 def test_beams_raise_until_ported(models):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="AF1/AF2"):
-        tm.generate(sound=TONE, num_beams=2, max_new_tokens=2)
+    """Beams are served now (runtime/beam.generate_beam_xattn on the exact prompt): the
+    same answer as JAX's for num_beams = 2 and 3, the best beam cut at its first EOS."""
+    jm, tm = models
+    for kw in (dict(num_beams=2), dict(num_beams=3, length_penalty=1.5)):
+        want = jm.generate(sound=NOISE, prompt="Describe.", max_new_tokens=6, **kw)
+        got = tm.generate(sound=NOISE, prompt="Describe.", max_new_tokens=6, **kw)
+        assert got == want
+        assert tm.last_output is None
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-card rule")

@@ -252,6 +252,23 @@ def test_api_generate_num_beams_matches_jax():
 
 
 def test_af1_af2_beam_variants_raise():
-    for fn in (beam.generate_beam_xattn, beam.beam_open_xattn, beam.beam_advance_xattn):
-        with pytest.raises(NotImplementedError, match="7, the AF1/AF2 family"):
-            fn()
+    """The AF1/AF2 variants are ported (tests/test_torch_beam_xattn.py holds them to
+    JAX's); they refuse what the AF3 ones refuse."""
+    from audio_flamingo_tpu_torch.models import flamingo
+
+    cfg = C.AF2Config(lm=C.Qwen2Config(vocab_size=64, hidden_size=32, intermediate_size=64,
+                                       num_layers=1, num_heads=4, num_kv_heads=2),
+                      xattn=C.GatedXAttnConfig(num_heads=4, ffn_mult=2),
+                      num_audio_transform_layers=1, audio_embed_dim=16)
+    model = flamingo.init(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    ids, wins = torch.zeros((1, 5), dtype=torch.long), torch.zeros((1, 1, 2, 16))
+    with pytest.raises(ValueError, match="early_stopping"):
+        beam.generate_beam_xattn(model, cfg, ids, wins, num_beams=2, max_new_tokens=3,
+                                 eos_token_id=1, early_stopping="sometimes")
+    with pytest.raises(ValueError, match="num_return_sequences"):
+        beam.generate_beam_xattn(model, cfg, ids, wins, num_beams=2, max_new_tokens=3,
+                                 eos_token_id=1, num_return_sequences=3)
+    with pytest.raises(ValueError, match="cannot take"):
+        beam.beam_open_xattn(model, cfg, ids, wins, 5, num_beams=2, max_new_tokens=3,
+                             eos_token_id=1, capacity=6)
+    assert beam.beam_advance_xattn is beam.beam_advance

@@ -36,7 +36,8 @@ def _csrc_constant(source: str, name: str) -> int:
 
 def test_k3_constants_match_the_source():
     assert _csrc_constant("paged_attention.cu", "kC") == pa.KEYS_PER_STEP
-    assert _csrc_constant("paged_attention.cu", "kHD") == pa.KERNEL_HEAD_DIM
+    assert (_csrc_constant("paged_attention.cu", "kHDMin"),
+            _csrc_constant("paged_attention.cu", "kHDMax")) == pa.KERNEL_HEAD_DIMS
     assert _csrc_constant("paged_attention.cu", "kMaxG") == pa.KERNEL_MAX_GROUP
 
 

@@ -303,7 +303,7 @@ def test_unported_options_and_the_device_rule(model_b, monkeypatch):
                        draft_cfg=cfg.lm, preempt=False)
     assert spec.d_cache is not None and spec._step_budget() == 4 * (4 + 1)
     eng = PagedEngine(model=model, cfg=cfg, device="cpu", **PREFIX)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):   # the AF1/AF2 lane
+    with pytest.raises(ValueError, match="window_embeds"):   # AF1/AF2 windows: the xattn lane's
         eng.submit_beam(BeamRequest(request_id="b", ids=np.zeros((1, 4), np.int32),
                                     window_embeds=np.zeros((1, 1, 4, 16), np.float32)))
     with pytest.raises(ValueError, match="capacity"):

@@ -182,14 +182,18 @@ def test_batch_engine_metrics_and_refusals(models):
     assert spec.d_cache is not None and engine.speculating(spec)
     with pytest.raises(ValueError, match="capacity"):
         eng.submit(engine.Request(request_id="x", ids=np.zeros((1, 200), np.int32)))
-    with pytest.raises(NotImplementedError, match="7, the AF1/AF2 family"):
+    with pytest.raises(ValueError, match="window_embeds"):   # AF1/AF2 windows: the xattn lane's
         eng.submit_beam(BeamRequest(request_id="b", ids=np.zeros((1, 4), np.int32),
                                     window_embeds=np.zeros((1, 1, 4, 16), np.float32)))
     with pytest.raises(ValueError, match="num_beams=1"):
         eng.submit_beam(BeamRequest(request_id="b", ids=np.zeros((1, 4), np.int32),
                                     num_beams=1))
-    with pytest.raises(NotImplementedError, match="7, the AF1/AF2 family"):
-        BeamLane(model=model, cfg=cfg, eos_token_id=EOS, family="xattn", device="cpu")
+    lane = BeamLane(model=model, cfg=cfg, eos_token_id=EOS, family="xattn", device="cpu")
+    with pytest.raises(ValueError, match="mels"):             # an xattn lane takes windows
+        lane.submit(BeamRequest(request_id="b", ids=np.zeros((1, 4), np.int32),
+                                mels=np.zeros((1, 1, 3000, 128), np.float32)))
+    with pytest.raises(ValueError, match="family"):
+        BeamLane(model=model, cfg=cfg, eos_token_id=EOS, family="vision", device="cpu")
 
 
 @pytest.fixture(scope="module")
