@@ -10,10 +10,13 @@
   ``mm_projector`` variants), torch layouts, as ``load`` reads from safetensors.
 - ``qwen2_state_from_hf(sd, cfg)``: a plain HF Qwen2 CausalLM state dict (a speculative
   draft, ``api.load_draft``) into ``Qwen2``'s names (JAX ``io/hf_import.import_qwen2``
-  :57); ``lm_params_from_jax`` carries a JAX draft's parameters (float or quantized).
+  :57); ``lm_params_from_jax`` carries a JAX draft's parameters (float or quantized), and
+  ``lm_params_to_jax`` goes back; both carry LoRA adapters (``models/lora.py``).
 - Voice: ``tts_params_from_jax`` (``models/tts.TTSHead``), ``vocoder_params_from_jax``
   (``audio/neural_vocoder.Vocoder``; the layouts move here, once) and
   ``rvq_params_from_jax`` (``audio/rvq.RVQ``'s buffers).
+- CLAP text (``models/clap_text``): ``clap_text_params_from_jax`` / ``clap_text_params_to_jax``;
+  a bare OPT LM: ``opt_params_from_jax``.
 - AF1/AF2: ``af2_params_from_jax(params, cfg)`` (the fusion stacks and the LM:
   ``lm_params_from_jax`` for a Qwen2, float or quantized, and the OPT mapping) into
   ``models/flamingo.FlamingoModel``'s names, and ``clap_params_from_jax(params, cfg)``
@@ -34,6 +37,8 @@ import torch
 from audio_flamingo_tpu_torch.config import (AF2Config, AF3Config, ClapAudioConfig, OPTConfig,
                                              Qwen2Config)
 from audio_flamingo_tpu_torch.models.qwen2 import flatten
+from audio_flamingo_tpu_torch.models.lora import MODULES as LORA_MODULES
+from audio_flamingo_tpu_torch.ops.lora import LORA_NAMES, MLP_TARGETS
 
 
 def _t(x) -> torch.Tensor:
@@ -104,13 +109,58 @@ def params_from_jax(params: dict, cfg: AF3Config) -> dict[str, torch.Tensor]:
 
 def lm_params_from_jax(lm: dict, cfg: Qwen2Config, prefix: str = "") -> dict[str, torch.Tensor]:
     """The JAX Qwen2 tree -> the port's LM state dict (names under ``prefix``): a float
-    tree into ``Qwen2``'s names and torch layout, a quantized tree as it is."""
+    tree into ``Qwen2``'s names and torch layout, a quantized tree as it is. LoRA adapters
+    (``models/lora.py``) cross too: stacked in a quantized tree, one layer's slice on each
+    float linear (``layers.{i}.q_proj.lora_a``; load them into a model that ``add_lora``
+    gave adapters)."""
     if _is_quantized(lm):
         if not isinstance(lm["embed"], dict):
             raise ValueError("a quantized LM tree needs its int8 embedding "
                              "(quantize_lm_params with quantize_embed=True)")
         return {k: _as_tensor(v) for k, v in flatten(lm, prefix).items()}
-    return _from_jax(_flat_tree(lm), _qwen2_names(cfg), prefix)
+    return _qwen2_from_flat(_flat_tree(lm), cfg, prefix)
+
+
+def _qwen2_from_flat(flat: dict, cfg: Qwen2Config, prefix: str) -> dict[str, torch.Tensor]:
+    """A float Qwen2 tree's flat names -> ``Qwen2``'s state dict, adapters included. JAX
+    wraps the float mlp entries in {"w": ...} dicts once an mlp target has adapters."""
+    flat = {(k[:-2] if k.startswith("layers.mlp.") and k.endswith(".w") else k): v
+            for k, v in flat.items()}
+    sd = _from_jax(flat, _qwen2_names(cfg), prefix)
+    for target, module in LORA_MODULES.items():
+        node = f"layers.mlp.{target}" if target in MLP_TARGETS else f"layers.{target}"
+        if node + ".lora_a" not in flat:
+            continue
+        for leaf in LORA_NAMES:
+            arr = np.asarray(flat[f"{node}.{leaf}"], np.float32)
+            for i in range(cfg.num_layers):
+                sd[f"{prefix}layers.{i}.{module}.{leaf}"] = torch.from_numpy(np.array(arr[i]))
+    return sd
+
+
+def lm_params_to_jax(state: dict, cfg: Qwen2Config, prefix: str = "") -> dict[str, np.ndarray]:
+    """The port's LM state dict (names under ``prefix``) -> the JAX Qwen2 tree's flat
+    names: a float LM in JAX's layout (f32) with its adapters stacked on the layers (the
+    mlp entries wrapped in {"w": ...} once an mlp target has adapters, as JAX's
+    ``add_lora`` leaves them), a quantized tree as it is (codes and scales unchanged)."""
+    lm = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+    if "embed.w_q" in lm:
+        return {k: (v.detach().cpu().numpy() if not v.is_floating_point() else _to_jax(v, "same"))
+                for k, v in lm.items()}
+    out = _names_to_jax(lm, _qwen2_names(cfg))
+    wrapped = False
+    for target, module in LORA_MODULES.items():
+        if f"layers.0.{module}.lora_a" not in lm:
+            continue
+        wrapped |= target in MLP_TARGETS
+        node = f"layers.mlp.{target}" if target in MLP_TARGETS else f"layers.{target}"
+        for leaf in LORA_NAMES:
+            out[f"{node}.{leaf}"] = np.stack([_to_jax(lm[f"layers.{i}.{module}.{leaf}"], "same")
+                                              for i in range(cfg.num_layers)])
+    if wrapped:
+        for target in MLP_TARGETS:
+            out[f"layers.mlp.{target}.w"] = out.pop(f"layers.mlp.{target}")
+    return out
 
 
 _TOWER_PREFIXES = ("audio_tower.", "model.audio_tower.", "model.sound_tower.",
@@ -366,7 +416,7 @@ def af2_params_from_jax(params: dict, cfg: AF2Config) -> dict[str, torch.Tensor]
     elif "embed.w_q" in lm:
         sd.update({"lm." + k: _as_tensor(v) for k, v in lm.items()})
     else:
-        sd.update(_from_jax(lm, _qwen2_names(cfg.lm), "lm."))
+        sd.update(_qwen2_from_flat(lm, cfg.lm, "lm."))
     return sd
 
 
@@ -377,11 +427,8 @@ def af2_params_to_jax(state: dict, cfg: AF2Config) -> dict[str, np.ndarray]:
     lm = {k[3:]: v for k, v in state.items() if k.startswith("lm.")}
     if isinstance(cfg.lm, OPTConfig):
         tree = _names_to_jax(lm, _opt_names(cfg.lm))
-    elif "embed.w_q" in lm:
-        tree = {k: (v.cpu().numpy() if not v.is_floating_point() else _to_jax(v, "same"))
-                for k, v in lm.items()}
     else:
-        tree = _names_to_jax(lm, _qwen2_names(cfg.lm))
+        tree = lm_params_to_jax(lm, cfg.lm)
     out.update({"lm." + k: v for k, v in tree.items()})
     return out
 
@@ -434,3 +481,37 @@ def clap_params_from_jax(params: dict, cfg: ClapAudioConfig) -> dict[str, torch.
 def clap_params_to_jax(state: dict, cfg: ClapAudioConfig) -> dict[str, np.ndarray]:
     """``ClapAudioTower``'s state dict -> the JAX tower tree's flat names (f32)."""
     return _names_to_jax(state, _clap_names(cfg))
+
+
+def _clap_text_names(cfg) -> list:
+    """``models/clap_text.ClapTextTower``'s names against JAX's clap_text tree."""
+    names = [(n, n, None, "same") for n in ("word_emb", "pos_emb", "type_emb")]
+    names += [("ln_emb.weight", "ln_emb_w", None, "same"), ("ln_emb.bias", "ln_emb_b", None, "same")]
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        for n in ("q", "k", "v", "o", "fc1", "fc2"):
+            names += [(p + n + ".weight", f"layers.{n}.w", i, "linear"),
+                      (p + n + ".bias", f"layers.{n}.b", i, "same")]
+        for n in ("ln_attn", "ln_out"):
+            names += [(p + n + ".weight", f"layers.{n}_w", i, "same"),
+                      (p + n + ".bias", f"layers.{n}_b", i, "same")]
+    names += [("pooler.weight", "pooler.w", None, "linear"), ("pooler.bias", "pooler.b", None, "same")]
+    for n in ("fc1", "fc2"):
+        names += [(f"proj_{n}.weight", f"projection.{n}.w", None, "linear"),
+                  (f"proj_{n}.bias", f"projection.{n}.b", None, "same")]
+    return names
+
+
+def clap_text_params_from_jax(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """JAX's CLAP text tower params (nested or flat) -> ``ClapTextTower``'s state dict."""
+    return _from_jax(_flat_tree(params), _clap_text_names(cfg))
+
+
+def clap_text_params_to_jax(state: dict, cfg) -> dict[str, np.ndarray]:
+    """``ClapTextTower``'s state dict -> the JAX tree's flat names (f32)."""
+    return _names_to_jax(state, _clap_text_names(cfg))
+
+
+def opt_params_from_jax(params: dict, cfg: OPTConfig) -> dict[str, torch.Tensor]:
+    """JAX's OPT params (nested or flat) -> ``models/opt.OPT``'s state dict."""
+    return _from_jax(_flat_tree(params), _opt_names(cfg))

@@ -34,6 +34,10 @@ leaves stacked on [L], linears [in, out]): int8 ``{w_q, scale}`` linears
 head. A fused w4 tree decodes one token at two suffix calls per layer (K6,
 ``ops/kernels/w4_suffix.py``) under the JAX condition: a cache, one position, at most 8
 rows, no sliding layer and ``suffix_supported``.
+
+LoRA / QLoRA adapters (``models/lora.py``) sit on the float linears or in the quantized tree;
+every linear of either layout adds ``(x a) b s`` after its product and before its bias
+(``_flinear``, ``_finish``), the grouped K4 launch (q|k|v, gate|up) included.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from audio_flamingo_tpu_torch.ops.kernels.flash_attention import flash_attention
 from audio_flamingo_tpu_torch.ops.kernels.flash_attention_a8 import flash_attention_a8
 from audio_flamingo_tpu_torch.ops.kernels.w4_suffix import (MAX_ROWS, suffix_supported,
                                                             w4_suffix_a, w4_suffix_b)
-from audio_flamingo_tpu_torch.ops.mlp import swiglu_mlp
+from audio_flamingo_tpu_torch.ops.lora import lora_delta
 from audio_flamingo_tpu_torch.ops.norms import Norm, rms_norm
 from audio_flamingo_tpu_torch.ops.quant import (div127, mm_f32, q_matmul, q_matmul_a8q,
                                                 q_matmul_group,
@@ -203,11 +207,14 @@ class TensorTree(nn.Module):
         for key, value in tree.items():
             if isinstance(value, dict):
                 self.add_module(key, TensorTree(value))
+            elif key.startswith("lora_"):
+                # LoRA adapters (models/lora.py) are parameters, so that training can reach them
+                self.register_parameter(key, nn.Parameter(value, requires_grad=False))
             else:
                 self.register_buffer(key, value)
 
     def __contains__(self, key: str) -> bool:
-        return key in self._modules or key in self._buffers
+        return key in self._modules or key in self._buffers or key in self._parameters
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -247,13 +254,13 @@ def unflatten(state: dict) -> dict:
 
 def cast_quantized(tree: dict, compute_dtype: torch.dtype, device) -> dict:
     """A quantized tree on ``device``: float leaves in ``compute_dtype`` except the scales
-    ('scale', 'gscale'), which stay f32 (the JAX ``_cast_f32_leaves`` rule); integer codes
-    as they are."""
+    ('scale', 'gscale') and LoRA adapters ('lora_*'), which stay f32 (the JAX
+    ``_cast_f32_leaves`` rule); integer codes as they are."""
     out = {}
     for key, value in tree.items():
         if isinstance(value, dict):
             out[key] = cast_quantized(value, compute_dtype, device)
-        elif key in ("scale", "gscale"):
+        elif key in ("scale", "gscale") or key.startswith("lora_"):
             out[key] = value.to(device=device, dtype=torch.float32)
         elif value.is_floating_point():
             out[key] = value.to(device=device, dtype=compute_dtype)
@@ -280,19 +287,38 @@ def split_stacked_w4(layers: TensorTree) -> dict | None:
     return big or None
 
 
+def _finish(y: torch.Tensor, x: torch.Tensor, p: TensorTree, layer: int) -> torch.Tensor:
+    """A stacked linear's product y of x, then its LoRA adapters' delta (in f32, cast to
+    y's dtype) and its bias, in JAX ``_linear``'s order."""
+    if "lora_a" in p:
+        y = y + lora_delta(x, p, layer).to(y.dtype)
+    return y + p["b"][layer].to(y.dtype) if "b" in p else y
+
+
 def _qlinear(x: torch.Tensor, p: TensorTree, layer: int) -> torch.Tensor:
-    """Layer ``layer`` of a stacked quantized linear (int4 or int8), bias included."""
+    """Layer ``layer`` of a stacked quantized linear (int4 or int8), adapters and bias
+    included."""
     if "w_p" in p:
-        return q4_matmul_stacked(x, p, layer)
-    y = q_matmul(x, {"w_q": p["w_q"][layer], "scale": p["scale"][layer]})
-    return y + p["b"][layer].to(x.dtype) if "b" in p else y
+        y = q4_matmul_stacked(x, {"w_p": p["w_p"], "gscale": p["gscale"]}, layer)
+    else:
+        y = q_matmul(x, {"w_q": p["w_q"][layer], "scale": p["scale"][layer]})
+    return _finish(y, x, p, layer)
 
 
 def _qlinears(x: torch.Tensor, ps: list, layer: int) -> list[torch.Tensor]:
     """Layer ``layer`` of stacked int8 linears that share x (q|k|v, gate|up) through
-    ``q_matmul_group`` (one K4 launch at decode sizes), each bias added after."""
+    ``q_matmul_group`` (one K4 launch at decode sizes); each product's adapters and bias
+    are added after it."""
     ys = q_matmul_group(x, [{"w_q": p["w_q"][layer], "scale": p["scale"][layer]} for p in ps])
-    return [y + p["b"][layer].to(x.dtype) if "b" in p else y for y, p in zip(ys, ps)]
+    return [_finish(y, x, p, layer) for y, p in zip(ys, ps)]
+
+
+def _flinear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """A float linear: the product in x's dtype, the adapters' delta, then the bias."""
+    y = F.linear(x, lin.weight)
+    if hasattr(lin, "lora_a"):
+        y = y + lora_delta(x, lin).to(y.dtype)
+    return y if lin.bias is None else y + lin.bias
 
 
 def _int8(*ps) -> bool:
@@ -311,11 +337,8 @@ def qkv_proj(hn: torch.Tensor, lm, cfg: Qwen2Config, i: int):
     b, s, _ = hn.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
     if isinstance(lm, Qwen2):
-        def proj(lin):
-            y = F.linear(hn, lin.weight)
-            return y if lin.bias is None else y + lin.bias
         layer = lm.layers[i]
-        q, k, v = proj(layer.q_proj), proj(layer.k_proj), proj(layer.v_proj)
+        q, k, v = (_flinear(hn, lin) for lin in (layer.q_proj, layer.k_proj, layer.v_proj))
     elif "qkv" in lm.layers:
         y = _qlinear(hn, lm.layers["qkv"], i)
         q, k, v = y[..., : nh * hd], y[..., nh * hd: (nh + nkv) * hd], y[..., (nh + nkv) * hd:]
@@ -328,7 +351,7 @@ def qkv_proj(hn: torch.Tensor, lm, cfg: Qwen2Config, i: int):
 
 def o_proj(attn2d: torch.Tensor, lm, i: int) -> torch.Tensor:
     if isinstance(lm, Qwen2):
-        return F.linear(attn2d, lm.layers[i].o_proj.weight)
+        return _flinear(attn2d, lm.layers[i].o_proj)
     return _qlinear(attn2d, lm.layers["o"], i)
 
 
@@ -336,8 +359,8 @@ def mlp_forward(hn: torch.Tensor, lm, cfg: Qwen2Config, i: int) -> torch.Tensor:
     """SwiGLU MLP of layer i under either layout."""
     if isinstance(lm, Qwen2):
         layer = lm.layers[i]
-        return swiglu_mlp(hn, layer.gate_proj.weight, layer.up_proj.weight,
-                          layer.down_proj.weight)
+        act = F.silu(_flinear(hn, layer.gate_proj)) * _flinear(hn, layer.up_proj)
+        return _flinear(act, layer.down_proj)
     mlp = lm.layers["mlp"]
     if "gateup" in mlp:
         f = cfg.intermediate_size
@@ -425,11 +448,12 @@ def _attend(q, k, v, cache: KVCache | Q8KVCache | None, layer_idx: int, mask,
 
 
 def _qlinear_a8(xq_xs, x: torch.Tensor, p: TensorTree, layer: int) -> torch.Tensor:
-    """Layer ``layer`` of a stacked int8 linear on pre-quantized activations (w8a8), bias
-    added in x.dtype (JAX ``_linear_shared_a8``)."""
+    """Layer ``layer`` of a stacked int8 linear on pre-quantized activations (w8a8); the
+    adapters' delta (of the float x) and the bias are added in x.dtype (JAX
+    ``_linear_shared_a8``)."""
     y = q_matmul_a8q(*xq_xs, {"w_q": p["w_q"][layer], "scale": p["scale"][layer]},
                      out_dtype=x.dtype)
-    return y + p["b"][layer].to(x.dtype) if "b" in p else y
+    return _finish(y, x, p, layer)
 
 
 def _linear_a8(x: torch.Tensor, p: TensorTree, layer: int) -> torch.Tensor:

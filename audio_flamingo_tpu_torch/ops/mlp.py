@@ -1,18 +1,14 @@
-"""Feed-forward blocks on torch Linear-layout weights ([out, in]).
+"""The GELU / ReLU feed-forward block on torch Linear-layout weights ([out, in]).
 
-SwiGLU (Qwen2): down(silu(gate(x)) * up(x)), no biases. GELU MLP (Whisper): exact GELU,
-biased. Each product is rounded to x.dtype before the bias add, as in the JAX package.
+Exact GELU, biased (Whisper, CLAP, the Flamingo LM). Each product is rounded to x.dtype
+before the bias add, as in the JAX package. Qwen2's SwiGLU is ``models/qwen2.mlp_forward``,
+where each linear can carry LoRA adapters.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-
-
-def swiglu_mlp(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
-               down: torch.Tensor) -> torch.Tensor:
-    return F.linear(F.silu(F.linear(x, gate)) * F.linear(x, up), down)
 
 
 def gelu_mlp(x: torch.Tensor, fc1: torch.Tensor, fc1_b: torch.Tensor, fc2: torch.Tensor,

@@ -5,11 +5,17 @@ A checkpoint is ``<path>/step_<n>/train_state.pt``, written by ``torch.save``: t
 parameters (by state-dict name), the optimizer state and the step. Frozen weights are not
 written: they are the ones the run started from, so ``restore`` loads into a state built
 on the same starting model, as the JAX ``restore`` fills a template.
+
+``AsyncCheckpointer`` writes the same files on a background thread (JAX's is orbax's):
+its ``save`` copies the state to host memory before it returns, so the steps that run
+while the file is written, which update the parameters in place, cannot reach it.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -23,17 +29,33 @@ def _step_dir(path: str, step: int | None) -> str:
     return os.path.join(os.path.abspath(path), f"step_{step}" if step is not None else "latest")
 
 
-def save(path: str, state, step: int | None = None) -> None:
-    """Write a TrainState's hot parameters, optimizer state and step (atomically: a
-    temporary file renamed into place)."""
+def _payload(state, copy: bool) -> dict:
+    """What a checkpoint holds: the hot parameters, the optimizer state and the step;
+    with ``copy``, every tensor copied to host memory (a snapshot later steps cannot
+    change)."""
+    def host(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to("cpu", copy=True) if copy else t.detach()
+
     params = dict(state.model.named_parameters())
-    hot = {n: p.detach() for n, p in params.items() if p.requires_grad}
+    opt = {k: ({n: host(t) for n, t in v.items()} if isinstance(v, dict) else v)
+           for k, v in state.opt_state.items()}
+    return {"hot": {n: host(p) for n, p in params.items() if p.requires_grad},
+            "opt_state": opt, "step": state.step}
+
+
+def _write(path: str, step: int | None, payload: dict) -> None:
+    """torch.save atomically: a temporary file renamed into place."""
     out_dir = _step_dir(path, step)
     os.makedirs(out_dir, exist_ok=True)
     target = os.path.join(out_dir, STATE_FILE)
-    tmp = f"{target}.tmp{os.getpid()}"
-    torch.save({"hot": hot, "opt_state": state.opt_state, "step": state.step}, tmp)
+    tmp = f"{target}.tmp{os.getpid()}.{threading.get_ident()}"
+    torch.save(payload, tmp)
     os.replace(tmp, target)
+
+
+def save(path: str, state, step: int | None = None) -> None:
+    """Write a TrainState's hot parameters, optimizer state and step."""
+    _write(path, step, _payload(state, copy=False))
 
 
 def restore(path: str, state, step: int | None = None):
@@ -95,3 +117,29 @@ def import_safetensors(path: str, template: dict[str, torch.Tensor]) -> dict[str
              if arr.dtype == np.uint16 else torch.from_numpy(arr))
         out[name] = t.to(device=ref.device, dtype=ref.dtype).reshape(ref.shape)
     return out
+
+
+class AsyncCheckpointer:
+    """Checkpoints that overlap the next steps: ``save`` snapshots the state to host memory
+    and returns, one background thread writes the snapshots in order (``save``'s layout,
+    which ``restore`` and ``latest_step`` read); ``wait`` blocks until every write is on
+    disk and raises a failed write's error; ``close`` waits, then stops the thread."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoint")
+        self._pending: list[Future] = []
+
+    def save(self, path: str, state, step: int) -> None:
+        payload = _payload(state, copy=True)
+        self._pending.append(self._pool.submit(_write, path, step, payload))
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown(wait=True)

@@ -18,6 +18,7 @@ import torch
 
 from audio_flamingo_tpu_torch.config import NOT_PORTED, AF3Config
 from audio_flamingo_tpu_torch.models import af3, qwen2, whisper_encoder
+from audio_flamingo_tpu_torch.ops import lora
 from audio_flamingo_tpu_torch.train.stages import Stage, trainable_mask
 
 
@@ -97,22 +98,33 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
-def make_optimizer(stage: Stage, model: af3.AF3Model, *, weight_decay: float = 0.01,
+def make_optimizer(stage: Stage, model: torch.nn.Module, *, weight_decay: float = 0.01,
                    warmup_steps: int = 100, total_steps: int = 10_000,
                    grad_clip: float = 1.0, lora_only: bool = False) -> AdamW:
     """Set each parameter's requires_grad from the stage's mask and build the optimizer
-    over the hot ones. A hot quantized LM (int8 or int4 codes) or int8 encoder raises."""
-    if lora_only:
-        raise NotImplementedError(NOT_PORTED.format("lora_only (LoRA / QLoRA)",
-                                                    "8, training"))
-    if stage.train_lm and isinstance(model.lm, qwen2.QuantQwen2):
+    over the hot ones, named as ``model`` names them (an AF3Model, or a part of one such as
+    its LM, which then trains whole, as JAX's mask trains a subtree). ``lora_only``: the
+    mask is AND-ed with ``ops/lora.lora_mask``, so only the LoRA adapters train (JAX
+    :36-42); over a quantized LM that is QLoRA, the base codes getting no gradient and no
+    optimizer state. A stage that trains a quantized LM without ``lora_only`` raises, as
+    does one that trains an int8 encoder."""
+    if (stage.train_lm and isinstance(getattr(model, "lm", model), qwen2.QuantQwen2)
+            and not lora_only):
         raise NotImplementedError(
-            f"stage {stage.name!r} trains the LM, whose weights are quantized codes; "
-            + NOT_PORTED.format("training a quantized LM (QLoRA)", "8, training"))
-    if stage.train_encoder and isinstance(model.encoder, whisper_encoder.QuantWhisperEncoder):
+            f"stage {stage.name!r} trains the LM, whose weights are quantized codes, which "
+            "cannot train: give the LM LoRA adapters (models/lora.add_lora) and pass "
+            "lora_only=True (QLoRA), or train a float LM")
+    if (stage.train_encoder and not lora_only
+            and isinstance(getattr(model, "encoder", None),
+                           whisper_encoder.QuantWhisperEncoder)):
         raise ValueError(f"stage {stage.name!r} trains the encoder, whose layers are int8 "
                          "codes (a8_encoder); train the float encoder")
     mask = trainable_mask(model, stage)
+    if lora_only:
+        mask = {name: hot and lora.is_lora(name) for name, hot in mask.items()}
+        if not any(mask.values()):
+            raise ValueError(f"lora_only: stage {stage.name!r} leaves no LoRA adapter hot "
+                             "(add_lora first, on a part the stage trains)")
     hot = []
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])
@@ -128,6 +140,11 @@ def init_state(model: af3.AF3Model, stage: Stage, **opt_kwargs) -> tuple[TrainSt
 
 
 def _hot_dtype(model: af3.AF3Model, opt: AdamW) -> torch.dtype:
+    """The dtype a step computes in: the hot weights', or, with only LoRA adapters hot
+    (f32 beside a base in any dtype), the LM's."""
+    if opt.hot and all(lora.is_lora(n) for n in opt.hot):
+        lm = model.lm
+        return lm.dtype if isinstance(lm, qwen2.QuantQwen2) else lm.norm.weight.dtype
     params = dict(model.named_parameters())
     dtypes = {params[n].dtype for n in opt.hot}
     if len(dtypes) != 1:

@@ -113,7 +113,7 @@ Phases, each line stamped with elapsed seconds:
      b. AF3 stage 2 at full width through train/loop.run: bf16 encoder and adaptor hot,
         the 7B LM frozen in int8 (quantize_lm_params on the card), remat="full" and flash
         on both towers, ce_chunk 256, batch 4 of one 30 s clip and ~64 answer tokens
-        from BatchBuilder (bucket 1024), warmup 1, 5 steps, twice from the same weights:
+        from BatchBuilder (bucket 1024), warmup 1, 3 steps, twice from the same weights:
         finite losses, per-step losses of the two runs within 1e-3, the frozen LM
         bit-identical, the hot weights moved, 60 K7 and 120 K2 launches per step; ms per
         step, tokens/s, audio-s/s, K7's and K2's device time per step beside their
@@ -303,7 +303,7 @@ Phases, each line stamped with elapsed seconds:
         bit-identical; each shape timed at the engine's rows with the wrapper and as device
         time beside its plain version and bound; a CUDA call at hd 96 refused;
      b. AF2 at full width (15a's build) behind bench_xattn_engines' settings and requests
-        (3 x (400, 1500 random ids), 30 windows each, 32 greedy tokens): FlamingoEngine (4
+        (3 x (400, 1500 random ids), 30 windows each, 16 greedy tokens): FlamingoEngine (4
         slots of 2048), PagedFlamingoEngine (4 rows, 56 pages of 128) on a bf16 and an int8
         pool; each a warm-up instance, then the six requests twice (ids equal): tok/s, TTFT
         from submit, per decode step 145 K4 and 36 K3 (paged) launches counted inside the
@@ -314,7 +314,7 @@ Phases, each line stamped with elapsed seconds:
      c. AF1 at full width (AF1Config.make with xattn every second layer, OPT-IML-1.3B's
         widths, bf16 from a seed) behind PagedFlamingoEngine on a bf16 and an int8 pool, as
         16b: 24 K3 launches a step at hd 64, every one held to the plain version;
-     d. the AF2 beam: AudioFlamingo2.generate(num_beams=4, 32 tokens) on a 30 s clip twice
+     d. the AF2 beam: AudioFlamingo2.generate(num_beams=4, 16 tokens) on a 30 s clip twice
         (one answer, the step captured once), the captured step against the eager one from
         one prefill (the search's sequences, scores and flags equal), ms a step beside the
         bound, 145 K4 launches a step;
@@ -323,6 +323,28 @@ Phases, each line stamped with elapsed seconds:
         requests each, ids token-exact and varying; a speculative run on AF2's slot and
         f32-pool paged engines and AF1's, with a random 2-layer Qwen2 draft at the 0.5B's
         widths, equal to the plain run; the AF2 beam (K 4) equal card vs CPU.
+ 17. LoRA / QLoRA and GRPO training (models/lora.py, train/grpo.py), after every earlier
+     model is freed:
+     a. QLoRA-7B, bench_train_mm's second recipe: the int8 7B made on the card (a bf16
+        model from a seed, quantize_lm_params), rank-16 adapters on the 7 targets, flash
+        and remat "full", the recipe's tiny encoder and no mels, batch 4 x 1024 random ids,
+        ce_chunk 256, the port's AdamW at 1e-4 over the adapters (make_optimizer with
+        lora_only); one warm and three timed steps: ms a step, tokens/s, peak, K2 and K7 a
+        step beside their bounds; the base bit-identical, lora_b off zero, step 0's loss
+        the base's; every K2 and K7 launch of one step re-run against its plain version;
+        the adapters through save_lora and load_lora into the bare base, 8 greedy tokens
+        through the captured step (K4 plus the deltas) against the eager step, one step's
+        113 K4 launches re-run against the plain version;
+     b. GRPO-1.5B, bench_grpo: a bf16 Qwen2.5-1.5B policy with the full encoder, the
+        reference's LM in int8, PagedEngine (8 rows, 80 pages of 128, prefix cache),
+        G = 8 rollouts of 750 <sound> + 64 text ids with a 30 s mel, 32 new tokens
+        (temperature 1, top-k 50): rollout tok/s, one chunk's K3 launches at g = 6 held
+        to the plain version; one grpo_step(trainable="lm", offload_pool=True): the pool
+        restored bit-identical, the first ratio 1, the towers unchanged and the LM moved,
+        the engine on the policy's tensors; the update's seconds, peak, K2 and K7;
+     c. f32 card against CPU at full width, 2 + 2 layers, 1 x 128 tokens: a QLoRA step's
+        loss and adapter gradients (the 7B's widths) and grpo_loss with its LM gradients
+        (the 1.5B's widths) within 1e-4.
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -1862,10 +1884,10 @@ class ChunkProbe:
         self.real_chunk, self.real_gqa = pe.paged_decode_chunk, qwen2.gqa_attention
         self.reset()
 
-    def reset(self, memory=False, sync_chunk=None, replay_chunk=None):
+    def reset(self, memory=False, sync_chunk=None, replay_chunk=None, plain_step=False):
         self.chunks, self.steps, self.gqa, self.gqa_in_chunks = 0, 0, 0, 0
         self.memory, self.sync_chunk, self.replay_chunk = memory, sync_chunk, replay_chunk
-        self.mem_delta, self.replay = 0, None
+        self.mem_delta, self.replay, self.plain_step = 0, None, plain_step
 
     def __enter__(self):
         self.pe.paged_decode_chunk = self
@@ -1915,12 +1937,17 @@ class ChunkProbe:
     def _replay(self, launches, path_ms: float, steps: int) -> dict:
         """The chunk's K3 launches held to the plain version (k3_hold_batched), replayed in
         one CUDA graph (device ms) beside their bounds; the plain version is timed on each
-        launch in the third run only (the kernels line's row)."""
+        launch in the third run only (the kernels line's row), or with ``plain_step`` on
+        each launch of the chunk's first step, times its steps (``plain_ms``)."""
         counter = self.pa.LAUNCHES
         timing, counter.timing = counter.timing, False
         tot = dict(steps=steps, path_ms=path_ms,
                    **k3_hold_batched(self.pa, launches, "main-path K3 launch"))
         tot.update(ms=launches_graph_ms(self.pa, launches), **launch_bounds(launches))
+        if self.plain_step:
+            first = [a for a in launches if a[4] is launches[0][4]]
+            tot["plain_step_ms"] = launch_sums(self.pa, first)["plain_ms"]
+            tot["plain_ms"] = tot["plain_step_ms"] * len(launches) / len(first)
         counter.timing = timing
         return tot
 
@@ -2313,6 +2340,7 @@ K7_BF16_TOL = (2.0 ** -7, 2.0 ** -7)  # bf16: |d - plain| <= 2^-7 |plain| + 2^-7
 TRAIN_F32_TOL = 1e-4                # 9c, f32 card vs CPU: loss, grad norm, grads, the step's change
 STAGE2_LOSS_RTOL = 1e-3             # 9b: two runs from one seed, each step's loss, relative
 STAGE2_WORDS = "describe the sound of music and speech".split()   # the random tokenizer's corpus
+STAGE2_STEPS = 3                     # 9b: steps a run (5 before phase 17 needed the room)
 
 
 def k7_bound_ms(q_shape, k_shape, causal: bool, q_offset: int, dtype: str,
@@ -2433,6 +2461,33 @@ def k7_phase(fa) -> dict:
     return results
 
 
+def k7_launch_sums(fa, captured: list, tag: str) -> dict:
+    """Every captured K7 launch re-run and held to its plain backward (k7_compare), and the
+    kernel, its plain version and SDPA's backward timed on its inputs: summed kernel_ms,
+    plain_ms, library_ms and bound_ms, with the largest error."""
+    rep = dict(err=0.0, ratio=0.0, kernel_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    for q, k, v, o, lse, do, g_lse, kw in captured:
+        def k7():
+            return fa.flash_attention_backward(q, k, v, o, lse, do, g_lse, **kw)
+
+        def plain():
+            return fa.flash_attention_backward_reference(q, k, v, o, lse, do, g_lse, **kw)
+
+        r = k7_compare(k7(), plain())
+        rep["err"], rep["ratio"] = max(rep["err"], r["err"]), max(rep["ratio"], r["ratio"])
+        rep["kernel_ms"] += time_ms(k7, 5, 1)
+        rep["plain_ms"] += time_ms(plain, 3, 1)
+        rep["library_ms"] += time_ms(sdpa_backward_call(q, k, v, do, kw), 3, 1)
+        b_ms, b_by = k7_bound_ms(tuple(q.shape), tuple(k.shape), kw["causal"], kw["q_offset"],
+                                 str(q.dtype).split(".")[-1], g_lse is not None)
+        rep["bound_ms"] += b_ms
+        bound_by.add(b_by)
+    rep["bound_by"] = "operations" if bound_by == {"operations"} else "bytes"
+    check(rep["ratio"] <= 1.0, f"{tag} at {rep['ratio']:.3f} of its limit")
+    return rep
+
+
 def stage2_example(rng):
     """One row of AF3 stage 2: a 30 s clip (a tone at a drawn pitch plus noise), a prompt
     with <sound>, and an answer of 56 words of the random tokenizer's corpus (about 64
@@ -2467,7 +2522,7 @@ def stage2_phase(fa) -> dict:
     """9b. AF3 stage 2 at full width through the port's train/loop.run: a bf16 encoder and
     adaptor hot, the 7B LM frozen in int8 (quantize_lm_params on the card, as
     load(quantize_lm=True)), remat="full" and flash on both towers, ce_chunk 256, batch
-    4 from BatchBuilder, warmup 1, 5 steps; twice from the same weights."""
+    4 from BatchBuilder, warmup 1, STAGE2_STEPS steps; twice from the same weights."""
     from audio_flamingo_tpu_torch.api import AudioFlamingo
     from audio_flamingo_tpu_torch.config import AF3Config
     from audio_flamingo_tpu_torch.models import af3, qwen2
@@ -2499,7 +2554,7 @@ def stage2_phase(fa) -> dict:
     matmul_f32_backward_check(qlm)
     hot0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     lm0 = {n: t.clone() for n, t in qlm.state_dict().items()}
-    run_cfg = loop.TrainRunConfig(stage="2_encoder_tuning", batch_size=4, num_steps=5,
+    run_cfg = loop.TrainRunConfig(stage="2_encoder_tuning", batch_size=4, num_steps=STAGE2_STEPS,
                                   log_every=1, warmup_steps=1, ce_chunk=256)
     steps = run_cfg.num_steps
     builder = BatchBuilder(processor=m.processor)
@@ -2587,27 +2642,8 @@ def stage2_phase(fa) -> dict:
           f"captured {len(captured)} K7 and {len(k2_captured)} K2 launches, not 60 and 120")
     k2_rep = k2_launch_sums(fa, k2_captured)
     del k2_captured
-    rep = dict(err=0.0, ratio=0.0, kernel_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    bound_by = set()
-    for q, k, v, o, lse, do, g_lse, kw in captured:
-        def k7():
-            return fa.flash_attention_backward(q, k, v, o, lse, do, g_lse, **kw)
-
-        def plain():
-            return fa.flash_attention_backward_reference(q, k, v, o, lse, do, g_lse, **kw)
-
-        r = k7_compare(k7(), plain())
-        rep["err"], rep["ratio"] = max(rep["err"], r["err"]), max(rep["ratio"], r["ratio"])
-        rep["kernel_ms"] += time_ms(k7, 5, 1)
-        rep["plain_ms"] += time_ms(plain, 3, 1)
-        rep["library_ms"] += time_ms(sdpa_backward_call(q, k, v, do, kw), 3, 1)
-        b_ms, b_by = k7_bound_ms(tuple(q.shape), tuple(k.shape), kw["causal"], kw["q_offset"],
-                                 "bfloat16")
-        rep["bound_ms"] += b_ms
-        bound_by.add(b_by)
-    rep["bound_by"] = "operations" if bound_by == {"operations"} else "bytes"
+    rep = k7_launch_sums(fa, captured, "a stage-2 K7 launch")
     del captured
-    check(rep["ratio"] <= 1.0, f"a stage-2 K7 launch at {rep['ratio']:.3f} of its limit")
     tokens = 4 * 1024
     step = statistics.median(r1["step_s"][1:])
     log(f"stage 2 K7 launches of one step replayed on their own inputs (60, bf16): "
@@ -3613,7 +3649,7 @@ def k4_phase(k4, qlm) -> dict:
 
 
 def decode_loop_run(name, lm, cfg, make_cache, steps: int, batch: int, counters: dict,
-                    groups: dict, spec=None, timed_runs: int = 2) -> dict:
+                    groups: dict, spec=None, timed_runs: int = 2, keep_inputs=()) -> dict:
     """bench.py's decode body (embed -> forward -> unembed -> argmax, ``steps`` times from
     token 0 at position 0 on an empty cache) as the module's step function, through the
     captured step against the eager one (graph_against_eager: ids, logits, launches per
@@ -3628,7 +3664,7 @@ def decode_loop_run(name, lm, cfg, make_cache, steps: int, batch: int, counters:
         gen.begin(st, spec, torch.zeros((batch,), dtype=torch.long, device=st.tok.device), 0)
 
     return graph_against_eager(name, lm, cfg, spec, make_cache, start, steps, counters,
-                               groups=groups, timed_runs=timed_runs)
+                               keep_inputs=keep_inputs, groups=groups, timed_runs=timed_runs)
 
 
 def timed_decode(name, lm, cfg, make_cache, steps: int, batch: int, counters: dict,
@@ -6123,7 +6159,8 @@ def k3_hd64_phase(pa) -> dict:
     return results
 
 
-XATTN_TOKENS = 32      # new tokens a request in 16b / 16c (bench_xattn_engines asks 64)
+XATTN_TOKENS = 16      # new tokens a request in 16b-16d (bench_xattn_engines asks 64; 32
+#                        before phase 17 needed the room)
 XATTN_WPM = 30         # media windows a request: bench_xattn_engines' 5-minute buffer
 XATTN_EOS = {"af2": 151_645, "af1": 2}
 SLOT_XATTN = dict(num_slots=4, capacity=2048, chunk=16)
@@ -6548,6 +6585,565 @@ def xattn_f32_card_vs_cpu_phase() -> dict:
     return res
 
 
+# ------------------------------------------------------------------ 17. LoRA / QLoRA and GRPO
+QLORA_RANK = 16           # bench_train_mm's second recipe: rank-16 adapters on all 7 targets
+QLORA_BATCH = (4, 1024)   # 4 x 1024 random ids, labels equal to the ids
+QLORA_STEPS = 3           # timed steps after one warm step
+QLORA_DECODE = 8          # greedy tokens of the adapted int8 7B, captured against eager
+GRPO_G = 8                # bench_grpo: G = 8 rollouts of one prompt
+GRPO_NEW = 32             # tokens a rollout (bench_grpo: 128 for the rollout, 64 for the step)
+GRPO_LOGITS_BAND = 2.0 ** -6  # bf16 engine prefill vs the dense forward, max|diff| / max|logit|
+GRPO_ENGINE = dict(num_rows=8, num_blocks=80, block_size=128, max_blocks_per_seq=8, chunk=16,
+                   eos_token_id=-1, prefix_cache=True)
+
+
+def flash_launch_rows(fa, k2_launches: dict, k2_ms: float, k7_launches: dict,
+                      k7_ms: float) -> dict:
+    """K2's and K7's launches of one step by shape ({(q, k, causal): count}) and their
+    device ms (CUDA events) -> the path rows: count, ms, bound, and the plain version's
+    and SDPA's time on one launch of each shape (random inputs at that shape) times its
+    count (17b, whose update's launches are not captured)."""
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for name, launches, ms in (("K2", k2_launches, k2_ms), ("K7", k7_launches, k7_ms)):
+        tot = dict(count=sum(launches.values()), ms=ms, bound_ms=0.0, plain_ms=0.0,
+                   library_ms=0.0)
+        by = set()
+        for (qs, ks, causal), n in launches.items():
+            q = torch.randn(qs, generator=gen, device="cuda", dtype=torch.bfloat16)
+            k = torch.randn(ks, generator=gen, device="cuda", dtype=torch.bfloat16)
+            v = torch.randn(ks, generator=gen, device="cuda", dtype=torch.bfloat16)
+            # the LM's causal launches at the default scale, the encoder's at 1 (q pre-scaled)
+            kw = dict(causal=causal, scale=qs[-1] ** -0.5 if causal else 1.0, q_offset=0)
+            if name == "K2":
+                b_ms, b_by = attention_bound_ms(qs, ks, causal, 0, "bfloat16")
+                plain = time_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), 2, 1)
+                lib = time_ms(sdpa_call(q, k, v, kw), 3, 1)
+            else:
+                o, lse = fa.flash_attention_lse(q, k, v, **kw)
+                do = torch.randn_like(q)
+                b_ms, b_by = k7_bound_ms(qs, ks, causal, 0, "bfloat16")
+                plain = time_ms(lambda: fa.flash_attention_backward_reference(
+                    q, k, v, o, lse, do, None, **kw), 2, 1)
+                lib = time_ms(sdpa_backward_call(q, k, v, do, kw), 3, 1)
+            tot["bound_ms"] += n * b_ms
+            tot["plain_ms"] += n * plain
+            tot["library_ms"] += n * lib
+            by.add(b_by)
+        tot["bound_by"] = "operations" if by == {"operations"} else "bytes"
+        rows[name] = tot
+    torch.cuda.empty_cache()
+    return rows
+
+
+def qlora_phase(fa, k4) -> dict:
+    """17a. QLoRA-7B at full width, bench_train_mm's second recipe: the int8 Qwen2.5-7B made
+    on the card as phase 9 makes it (quantize_lm_params of a bf16 model from a seed), rank-16
+    adapters on q, k, v, o, gate, up, down, use_flash and remat "full", the recipe's tiny
+    encoder and adaptor and no mels, batch 4 x 1024 random ids with labels equal to the ids,
+    ce_chunk 256, the port's AdamW at 1e-4 over the adapters (make_optimizer(lora_only=True));
+    one warm step, then three timed. Held: every base code and scale bit-identical after the
+    steps, lora_b off zero, finite losses, step 0's loss equal to the base's without adapters
+    within phase 9's bf16 band, every K2 and K7 launch of one step re-run against its plain
+    version; then the adapters through save_lora and load_lora into the bare base, and 8
+    greedy tokens of the adapted LM through the captured step (K4 plus the deltas) against
+    the eager step, one step's 113 K4 launches re-run against the plain version."""
+    from audio_flamingo_tpu_torch.config import AF3Config, WhisperEncoderConfig
+    from audio_flamingo_tpu_torch.models import adaptor, af3, qwen2, whisper_encoder
+    from audio_flamingo_tpu_torch.models import lora
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+    from audio_flamingo_tpu_torch.train.stages import Stage
+    from audio_flamingo_tpu_torch.train.train_step import init_state, loss_and_grads, train_step
+
+    t_phase = time.perf_counter()
+    full = AF3Config()
+    lm_cfg = dataclasses.replace(full.lm, use_flash=True, remat="full")
+    enc_cfg = WhisperEncoderConfig(num_mel_bins=16, d_model=64, num_layers=2, num_heads=4,
+                                   ffn_dim=128)
+    cfg = AF3Config(encoder=enc_cfg, lm=lm_cfg)
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        float_lm = qwen2.Qwen2(lm_cfg, dtype=torch.bfloat16)
+    float_lm = float_lm.to_empty(device="cuda").requires_grad_(False)
+    qwen2.init_(float_lm, gen_)
+    qlm = qwen2.quantized_lm(quantize_lm_params(float_lm.state_dict()), torch.bfloat16, "cuda")
+    del float_lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = af3.build(cfg, "cuda", torch.bfloat16, lm=qlm)
+    whisper_encoder.init_(model.encoder, enc_cfg, gen_)
+    adaptor.init_(model.adaptor, gen_)
+    base0 = {n: t.clone() for n, t in qlm.state_dict().items()}
+    log(f"17a: the int8 7B made on the card (bf16 from a seed, quantize_lm_params) in "
+        f"{time.perf_counter() - t0:.1f}s, {sum(t.numel() * t.element_size() for t in base0.values()) / 1e9:.2f} GB")
+    rng = np.random.default_rng(0)
+    b, t = QLORA_BATCH
+    ids = torch.from_numpy(rng.integers(0, 150_000, (b, t))).cuda()
+    batch = {"ids": ids, "labels": ids, "mels": None}
+    with torch.no_grad():
+        base_loss = af3.loss(model, cfg, ids, ids, None, ce_chunk=256).item()
+    lora.add_lora(torch.Generator(device="cuda").manual_seed(3), model, rank=QLORA_RANK)
+    stage = Stage("qlora", train_encoder=False, train_adaptor=False, train_lm=True, lr=1e-4)
+    state, opt = init_state(model, stage, lora_only=True, warmup_steps=0, total_steps=10_000)
+    n_adapt = sum(p.numel() for n, p in model.named_parameters() if n in opt.hot)
+    check(len(opt.hot) == 14 and all(".lora_" in n for n in opt.hot),
+          f"17a: the hot set is not the 7 targets' lora_a and lora_b: {opt.hot}")
+    log(f"17a: rank-{QLORA_RANK} adapters on 7 targets x 28 layers, {n_adapt / 1e6:.2f} M "
+        f"f32 parameters hot; the base's {len(base0)} tensors frozen (no gradient, no state)")
+    for c in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(1 + QLORA_STEPS):
+        timed = i == 1
+        for c in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+            c.reset()
+            c.timing = timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, cfg=cfg, opt=opt, ce_chunk=256)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+        if timed:
+            k2_n, k7_n = dict(fa.LAUNCHES.shapes), dict(fa.BWD_LAUNCHES.shapes)
+            k2_ms, k7_ms = fa.LAUNCHES.device_ms(), fa.BWD_LAUNCHES.device_ms()
+    for c in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+        c.timing = False
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = statistics.median(times[1:])
+    check(all(np.isfinite(losses)), f"17a: losses {losses}")
+    dl = abs(losses[0] - base_loss) / abs(base_loss)
+    check(dl <= STAGE2_LOSS_RTOL, f"17a: step 0's loss {losses[0]} != the base's {base_loss} "
+                                  f"({dl:.2e} relative)")
+    check(all(torch.equal(t_, base0[n]) for n, t_ in qlm.state_dict().items() if n in base0),
+          "17a: a base code or scale changed")
+    moved = max(lora.adapters(model)[n]["lora_b"].abs().max().item() for n in lora.DEFAULT_TARGETS)
+    check(moved > 0, "17a: lora_b did not move")
+    lm_q, lm_k = (b, t, lm_cfg.num_heads, 128), (b, t, lm_cfg.num_kv_heads, 128)
+    want = {(lm_q, lm_k, True): 2 * lm_cfg.num_layers}
+    check(k2_n == want and k7_n == {(lm_q, lm_k, True): lm_cfg.num_layers},
+          f"17a: K2 {k2_n}, K7 {k7_n} launches in a step, not 56 and 28")
+    # one more step's launches kept and re-run against the plain versions
+    for c in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+        c.reset()
+        c.capture = True
+    loss_and_grads(model, batch, cfg=cfg, opt=opt, ce_chunk=256)
+    k2_cap, k7_cap = list(fa.LAUNCHES.inputs), list(fa.BWD_LAUNCHES.inputs)
+    for c in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+        c.capture = False
+        c.reset()
+    k2_rep = k2_launch_sums(fa, k2_cap)
+    k7_rep = k7_launch_sums(fa, k7_cap, "a 17a K7 launch")
+    del k2_cap, k7_cap
+    tokens = b * t
+    log(f"17a QLoRA-7B step (batch {b} x {t}, median of {QLORA_STEPS} after a warm step): "
+        f"{step_s * 1e3:.1f} ms = {tokens / step_s:.1f} tokens/s; losses "
+        f"{[round(x, 5) for x in losses]} (the base without adapters {base_loss:.5f}, "
+        f"{dl:.2e} relative); peak {peak:.2f} GiB; K2 {sum(k2_n.values())} launches "
+        f"{k2_ms:.3f} ms a step (bound {k2_rep['bound_ms']:.3f} ms, plain {k2_rep['plain_ms']:.1f}, "
+        f"SDPA {k2_rep['library_ms']:.3f}; every launch within {k2_rep['ratio']:.3f} of its "
+        f"limit), K7 {sum(k7_n.values())} launches {k7_ms:.3f} ms a step (bound "
+        f"{k7_rep['bound_ms']:.3f} ms, plain {k7_rep['plain_ms']:.1f}, SDPA backward "
+        f"{k7_rep['library_ms']:.3f}; within {k7_rep['ratio']:.3f} of its limit); the base "
+        f"bit-identical, largest |lora_b| {moved:.3e}")
+    del state, opt
+    # the adapters shipped: save_lora, then load_lora into the bare base
+    trained = {n: {k: v.detach().clone() for k, v in a.items()}
+               for n, a in lora.adapters(model).items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "adapters.safetensors")
+        lora.save_lora(path, qlm)                 # the LM's adapters: names layers/...
+        size = os.path.getsize(path)
+        bare = qwen2.QuantQwen2(qwen2.unflatten(
+            {n: t_ for n, t_ in qlm.state_dict().items() if ".lora_" not in n}))
+        lora.load_lora(path, bare)
+    del model, qlm
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(torch.equal(lora.adapters(bare)[n][k], v) for n, a in trained.items()
+              for k, v in a.items()), "17a: load_lora did not give back the trained adapters")
+    log(f"17a: save_lora wrote {size / 1e6:.1f} MB; load_lora into the bare int8 base gave "
+        f"back every adapter bit for bit")
+    dec = decode_loop_run("17a adapted int8 7B decode, bf16 cache c1024", bare, lm_cfg,
+                          lambda: qwen2.init_cache(lm_cfg, 1, 1024, torch.bfloat16, "cuda"),
+                          QLORA_DECODE, 1, {"K4": k4.LAUNCHES}, {"K4": ("K4",)},
+                          keep_inputs=("K4",))
+    per_step = k4_step_launches(lm_cfg.num_layers)
+    check(dec["counts"]["K4"] == per_step, f"17a: K4 launches a step {dec['counts']['K4']} "
+                                          f"!= {per_step}")
+    step_inputs = dec["inputs"]["K4"][:per_step]
+    worst = captured_k4_checks(k4, step_inputs, "17a")
+    timing = k4_launch_timing(k4, step_inputs)
+    k4_row = dict(count=per_step, ms=dec["prof"]["groups"]["K4"][1],
+                  plain_ms=sum(r["plain_ms"] * r["count"] for r in timing.values()),
+                  library_ms=sum(r["library_ms"] * r["count"] for r in timing.values()
+                                 if r["library_ms"] is not None),
+                  bound_ms=sum(r["bound_ms"] * r["count"] for r in timing.values()),
+                  bound_by="bytes", err=worst[0], ratio=worst[1],
+                  step_ms=dec["graph_ms"], eager_ms=dec["eager_ms"])
+    log(f"17a: the adapted int8 7B's decode step: {dec['graph_ms']:.3f} ms captured, "
+        f"{dec['eager_ms']:.3f} ms eager; K4 {per_step} launches {k4_row['ms']:.3f} ms of device "
+        f"time a step (profiled replay; bound {k4_row['bound_ms']:.3f} ms, plain "
+        f"{k4_row['plain_ms']:.3f}, _weight_int8pack_mm {k4_row['library_ms']:.3f}), one "
+        f"step's launches within {worst[1]:.3f} of their limit (max|y - plain| {worst[0]:.3e})")
+    del bare, dec, step_inputs
+    gen.release_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {name: dict(count=sum(n.values()), ms=ms, bound_ms=rep["bound_ms"],
+                       bound_by=rep["bound_by"], plain_ms=rep["plain_ms"],
+                       library_ms=rep["library_ms"], err=rep["err"], ratio=rep["ratio"])
+            for name, n, ms, rep in (("K2", k2_n, k2_ms, k2_rep), ("K7", k7_n, k7_ms, k7_rep))}
+    s = time.perf_counter() - t_phase
+    log(f"17a: took {s:.1f} s")
+    return dict(step_s=step_s, tokens_s=tokens / step_s, peak=peak, losses=losses,
+                base_loss=base_loss, rows=rows, k4=k4_row, s=s)
+
+
+def grpo_phase(fa, pa) -> dict:
+    """17b. GRPO-1.5B at full width, bench_grpo: a bf16 Qwen2.5-1.5B policy (28 layers, 1536
+    wide, 12 / 2 heads) with the full bf16 encoder and adaptor; the reference shares the
+    towers and holds its LM in int8 (quantize_lm_params); PagedEngine(num_rows=8,
+    num_blocks=80, block_size=128, max_blocks_per_seq=8, chunk=16, prefix_cache=True),
+    sampling at temperature 1.0, top-k 50; G = 8 rollouts of one prompt (750 <sound> ids
+    and 64 text ids, a 30 s mel), 32 new tokens (the bench: 128 and 64); one warm rollout,
+    one timed with no probe on (the rate), one probed with one chunk's K3 launches (g = 6)
+    held to paged_attention_plain, then one grpo_step(trainable="lm", offload_pool=True)
+    with the port's AdamW (the bench's is optax.adafactor). Held: the pool bit-identical
+    after restore_pool, the first update's ratio 1 on every generated token, the encoder and
+    adaptor unchanged, a nonzero gradient and the LM moved past its weight decay, the
+    engine's LM tensors the policy's, and the engine's prefill of a new prompt giving the
+    policy's first-token logits within GRPO_LOGITS_BAND; the update's K2 and K7 launches
+    counted and timed."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config
+    from audio_flamingo_tpu_torch.models import af3, qwen2
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+    from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
+    from audio_flamingo_tpu_torch.runtime import paged_engine as pe_mod
+    from audio_flamingo_tpu_torch.train import grpo
+    from audio_flamingo_tpu_torch.train.stages import MF_STAGES
+    from audio_flamingo_tpu_torch.train.train_step import global_norm, make_optimizer
+
+    t_phase = time.perf_counter()
+    full = AF3Config()
+    cfg = AF3Config(encoder=dataclasses.replace(full.encoder, use_flash=True),
+                    lm=dataclasses.replace(Qwen2Config.qwen25_1_5b(), use_flash=True,
+                                           remat="full"))
+    m = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.bfloat16, device="cuda")
+    cfg, model = m.cfg, m.model
+    ref = af3.AF3Model(model.encoder, model.adaptor, qwen2.quantized_lm(
+        quantize_lm_params(model.lm.state_dict()), torch.bfloat16, "cuda"))
+    rng = np.random.default_rng(0)
+    ntok, text = 750, 64
+    ids = np.full((1, ntok + text), cfg.audio_token_id, np.int64)
+    ids[0, ntok:] = rng.integers(1000, 150_000, text)
+    mels = (rng.normal(size=(1, 1, 3000, 128)) * 0.1).astype(np.float32)
+    prompt = {"ids": ids, "mels": mels}
+    gcfg = grpo.GRPOConfig(group_size=GRPO_G, max_new_tokens=GRPO_NEW, temperature=1.0,
+                           top_k=50)
+    engine = pe_mod.PagedEngine(model=model, cfg=cfg, device="cuda",
+                                sampling=SamplingParams(greedy=False, temperature=1.0, top_k=50),
+                                **GRPO_ENGINE)
+    roll = grpo.make_engine_rollout(engine)
+    roll(ids, mels, gcfg, -1)                                  # warm every bucket
+    # the rollout's rate: one run with no probe and no per-launch timing
+    hits0 = engine.store.hits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, lengths = roll(ids, mels, gcfg, -1)
+    torch.cuda.synchronize()
+    dt_roll = time.perf_counter() - t0
+    gen_tok, hits = int(lengths.sum()), engine.store.hits - hits0
+    # one more, probed: its K3 launches counted and timed, the first chunk held and replayed
+    with ChunkProbe(pe_mod, qwen2, pa) as probe:
+        probe.reset(replay_chunk=0, plain_step=True)
+        pa.LAUNCHES.reset()
+        pa.LAUNCHES.timing = True
+        full_ids, gen_mask, _ = roll(ids, mels, gcfg, -1)
+        k3_roll, k3_shapes = pa.LAUNCHES.count, dict(pa.LAUNCHES.shapes)
+        pa.LAUNCHES.timing = False
+        pa.LAUNCHES.reset()
+        rep = probe.replay
+    g = cfg.lm.num_heads // cfg.lm.num_kv_heads
+    check(g == 6 and k3_shapes and all(k[2] == g for k in k3_shapes),
+          f"17b: K3 launched at {k3_shapes}, not at g = 6")
+    check(rep is not None and rep["launches"] > 0 and rep["ratio"] <= 1.0,
+          f"17b: one rollout chunk's K3 launches not held: {rep}")
+    log(f"17b rollout: {gen_tok} tokens of G = {GRPO_G} rows in {dt_roll:.3f} s = "
+        f"{gen_tok / dt_roll:.1f} tok/s (paged engine, prefix hits {hits}, no probe); a probed "
+        f"rollout: K3 {k3_roll} launches at g = {g} ({k3_shapes}); the first chunk's {rep['launches']} "
+        f"launches ({rep['steps']} steps) held to paged_attention_plain (max|o/l - plain| "
+        f"{rep['err']:.3e}, {rep['ratio']:.3f} of the limit), {rep['path_ms']:.3f} ms in the "
+        f"path (events), {rep['ms']:.3f} ms replayed in one graph, bound {rep['bound_ms']:.4f} "
+        f"ms ({rep['bound_by']}), plain {rep['plain_ms']:.1f} ms (a step's launches timed "
+        f"alone, {rep['plain_step_ms']:.1f} ms, times the steps)")
+    check(bool(gen_mask.any()) and tuple(full_ids.shape) == (GRPO_G, ids.shape[1] + GRPO_NEW),
+          f"17b: rollout shapes {tuple(full_ids.shape)}")
+    # the step
+    opt = make_optimizer(MF_STAGES["mf_3_grpo"], model.lm, warmup_steps=0)
+    opt_state = opt.init(model.lm)
+    decay = 1.0 - opt.learning_rate(0) * opt.weight_decay
+    towers0 = {n: t_.clone() for n, t_ in model.state_dict().items() if not n.startswith("lm.")}
+    lm0 = {n: t_.clone() for n, t_ in model.lm.state_dict().items()}
+    seen = dict(pool=None, restored=None, ratio=[], update=None, g_norm=None)
+
+    class SeenOpt:
+        """The optimizer, with the hot gradients' global norm kept."""
+
+        def __getattr__(self, name):
+            return getattr(opt, name)
+
+        def update(self, grads, state_, module):
+            seen["g_norm"] = global_norm(grads[n] for n in opt.hot).item()
+            return opt.update(grads, state_, module)
+
+    real = dict(offload=engine.offload_pool, restore=engine.restore_pool,
+                terms=grpo._loss_terms, update=grpo._grpo_update)
+
+    def offload():
+        seen["pool"] = {n: getattr(engine.cache, n).clone() for n in ("k", "v")}
+        real["offload"]()
+
+    def restore():
+        real["restore"]()
+        seen["restored"] = all(torch.equal(getattr(engine.cache, n), t_)
+                               for n, t_ in seen["pool"].items())
+
+    def terms(model_, ref_logp, cfg_, ids_, mels_, mask, adv, old, gc_):
+        loss, ratio = real["terms"](model_, ref_logp, cfg_, ids_, mels_, mask, adv, old, gc_)
+        seen["ratio"].append((ratio, mask[:, 1:].clone()))
+        return loss, ratio
+
+    def update(*a, **kw):
+        for c in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+            c.reset()
+            c.timing = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real["update"](*a, **kw)
+        torch.cuda.synchronize()
+        seen["update"] = dict(s=time.perf_counter() - t0,
+                              peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                              k2=dict(fa.LAUNCHES.shapes), k7=dict(fa.BWD_LAUNCHES.shapes),
+                              k2_ms=fa.LAUNCHES.device_ms(), k7_ms=fa.BWD_LAUNCHES.device_ms())
+        for c in (fa.LAUNCHES, fa.BWD_LAUNCHES):
+            c.timing = False
+            c.reset()
+        return out
+
+    engine.offload_pool, engine.restore_pool = offload, restore
+    grpo._loss_terms, grpo._grpo_update = terms, update
+    try:
+        t0 = time.perf_counter()
+        _, opt_state, metrics = grpo.grpo_step(
+            model, ref, SeenOpt(), opt_state, cfg, [prompt],
+            lambda txt: len(set(txt.split())) / max(len(txt.split()), 1), gcfg, -1, None,
+            lambda toks: " ".join(str(x) for x in toks), rollout_fn=roll, trainable="lm",
+            offload_pool=True)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    finally:
+        engine.offload_pool, engine.restore_pool = real["offload"], real["restore"]
+        grpo._loss_terms, grpo._grpo_update = real["terms"], real["update"]
+    up = seen["update"]
+    check(seen["restored"] is True, "17b: the pool after restore_pool differs from the pool "
+                                   "before offload_pool")
+    ratio, mask = seen["ratio"][0]
+    check(bool((ratio[mask] == 1).all()), f"17b: the first update's ratio is not 1 on every "
+          f"generated token: {ratio[mask].min().item()}..{ratio[mask].max().item()}")
+    check(all(torch.equal(t_, towers0[n]) for n, t_ in model.state_dict().items()
+              if n in towers0), "17b: the encoder or adaptor changed")
+    g_norm = seen["g_norm"]
+    check(g_norm is not None and np.isfinite(g_norm) and g_norm > 0,
+          f"17b: the hot gradients' norm is {g_norm}")
+    # moved: off the pure weight-decay step p (1 - lr wd) in the tensor's dtype
+    lm_moved = sum(not torch.equal(t_, (lm0[n].float() * decay).to(t_.dtype))
+                   for n, t_ in model.lm.state_dict().items() if n in opt.hot)
+    check(lm_moved > 0, "17b: the LM did not move past its weight decay")
+    check(engine.model is model and all(
+        a.data_ptr() == b_.data_ptr() for a, b_ in zip(engine.model.lm.parameters(),
+                                                       model.lm.parameters())),
+          "17b: the engine's LM tensors are not the policy's")
+    # one new prompt (no prefix hit) through the engine's own prefill into its pool: its
+    # first-token logits against the policy's dense forward
+    probe_ids = rng.integers(1000, 150_000, (1, 64)).astype(np.int32)
+    first, real_emit = {}, pe_mod._emit_first_token
+    pe_mod._emit_first_token = (lambda e, r, lg: first.__setitem__(r.request_id, lg.float())
+                                or real_emit(e, r, lg))
+    try:
+        hits0 = engine.store.hits
+        serve_any(engine, [("probe", probe_ids, None)], 1)
+    finally:
+        pe_mod._emit_first_token = real_emit
+    with torch.no_grad():
+        dense = af3.logits(model, cfg, torch.from_numpy(probe_ids).long().cuda())[0, -1].float()
+    eng_rel = ((first["probe"].reshape(-1) - dense).abs().max() / dense.abs().max()).item()
+    check(engine.store.hits == hits0 and eng_rel <= GRPO_LOGITS_BAND,
+          f"17b: the engine's first-token logits {eng_rel:.3e} of max|logit| off the policy's "
+          f"(band {GRPO_LOGITS_BAND}; prefix hits {engine.store.hits - hits0})")
+    check(np.isfinite(metrics["loss"]), f"17b: GRPO loss {metrics['loss']}")
+    enc_q = (GRPO_G, 1500, cfg.encoder.num_heads, cfg.encoder.d_model // cfg.encoder.num_heads)
+    log(f"17b GRPO step (G = {GRPO_G}, {GRPO_NEW} new tokens, trainable lm, offload_pool): "
+        f"{step_s:.2f} s in all, the update {up['s']:.2f} s (peak {up['peak']:.2f} GiB); loss "
+        f"{metrics['loss']:.5f}, mean reward {metrics['mean_reward']:.4f}; the first ratio 1 on "
+        f"all {int(mask.sum())} generated tokens; the pool restored bit-identical; the towers "
+        f"unchanged, {lm_moved} LM tensors moved past the weight decay (hot gradients' norm "
+        f"{g_norm:.3e}); the engine holds the policy's tensors, and its prefill of a new prompt "
+        f"gives the policy's first-token logits within {eng_rel:.3e} of max|logit| (band "
+        f"{GRPO_LOGITS_BAND}); the update's K2 {up['k2']} ({up['k2_ms']:.3f} ms), K7 {up['k7']} "
+        f"({up['k7_ms']:.3f} ms)")
+    rows = flash_launch_rows(fa, up["k2"], up["k2_ms"], up["k7"], up["k7_ms"])
+    # one rollout chunk's K3 plain time: each launch of the chunk's first step timed alone,
+    # times the chunk's steps
+    k3_row = dict(launches=rep["launches"], steps=rep["steps"], path_ms=rep["path_ms"],
+                  graph_ms=rep["ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+                  err=rep["err"], ratio=rep["ratio"], plain_ms=rep["plain_ms"],
+                  rollout_launches=k3_roll)
+    del engine, roll, m, model, ref, towers0, lm0, opt_state, seen, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    s = time.perf_counter() - t_phase
+    log(f"17b: took {s:.1f} s")
+    return dict(rollout_tps=gen_tok / dt_roll, rollout_s=dt_roll, update_s=up["s"],
+                step_s=step_s, peak=up["peak"], rows=rows, k3=k3_row, s=s,
+                loss=metrics["loss"], enc_q=enc_q)
+
+
+def f32_train17_card_vs_cpu_phase(fa) -> dict:
+    """17c. f32 card against CPU at full width, 2 + 2 layers, 1 x 128 tokens: a QLoRA step's
+    loss and adapter gradients (the 7B's widths, the int8 LM by quantize_lm_params,
+    rank-16 adapters with lora_b off zero), and grpo_loss and its LM gradients (the 1.5B's
+    widths, float, G = 2 rows of one fixed rollout, the same ids, advantages and
+    off-policy logprobs on both sides), within 1e-4 (the loss relative, a gradient relative
+    to its tensor's largest). The weights are made (and the LM quantized) on the card and
+    copied to the CPU, so both sides hold the same tensors; the card runs K2 and K7, the
+    CPU their plain versions."""
+    from audio_flamingo_tpu_torch.config import AF3Config, Qwen2Config, WhisperEncoderConfig
+    from audio_flamingo_tpu_torch.models import adaptor, af3, qwen2, whisper_encoder
+    from audio_flamingo_tpu_torch.models import lora
+    from audio_flamingo_tpu_torch.ops.quant import quantize_lm_params
+    from audio_flamingo_tpu_torch.train import grpo
+    from audio_flamingo_tpu_torch.train.stages import Stage
+    from audio_flamingo_tpu_torch.train.train_step import init_state, loss_and_grads
+
+    t_phase = time.perf_counter()
+    enc_cfg = WhisperEncoderConfig(num_mel_bins=16, d_model=64, num_layers=2, num_heads=4,
+                                   ffn_dim=128)
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(0, 150_000, (1, 128)))
+    res = {}
+    # QLoRA at the 7B's widths
+    lm_cfg = dataclasses.replace(AF3Config().lm, num_layers=2, use_flash=True, remat="full")
+    cfg = AF3Config(encoder=enc_cfg, lm=lm_cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.device("meta"):
+        float_lm = qwen2.Qwen2(lm_cfg, dtype=torch.float32)
+    float_lm = float_lm.to_empty(device="cuda").requires_grad_(False)
+    qwen2.init_(float_lm, g)
+    card_lm = qwen2.quantized_lm(quantize_lm_params(float_lm.state_dict()), torch.float32,
+                                 "cuda")
+    del float_lm
+    lora.add_lora(g, card_lm, rank=QLORA_RANK)
+    with torch.no_grad():
+        for leaves in lora.adapters(card_lm).values():
+            leaves["lora_b"].normal_(0.0, 0.01, generator=g)
+    tree = qwen2.unflatten({n: t.cpu() for n, t in card_lm.state_dict().items()})
+    models = {"cpu": af3.build(cfg, "cpu", torch.float32,
+                               lm=qwen2.quantized_lm(tree, torch.float32, "cpu")),
+              "card": af3.build(cfg, "cuda", torch.float32, lm=card_lm)}
+    whisper_encoder.init_(models["card"].encoder, enc_cfg, g)
+    adaptor.init_(models["card"].adaptor, g)
+    models["cpu"].encoder.load_state_dict(models["card"].encoder.state_dict())
+    models["cpu"].adaptor.load_state_dict(models["card"].adaptor.state_dict())
+    stage = Stage("qlora", train_encoder=False, train_adaptor=False, train_lm=True, lr=1e-4)
+    out = {}
+    for side, model in models.items():
+        dev = "cuda" if side == "card" else "cpu"
+        _, opt = init_state(model, stage, lora_only=True)
+        fa.LAUNCHES.reset()
+        fa.BWD_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, {"ids": ids.to(dev), "labels": ids.to(dev),
+                                             "mels": None}, cfg=cfg, opt=opt, ce_chunk=256)
+        out[side] = dict(loss=loss.item(), grads={n: x.cpu() for n, x in grads.items()},
+                         s=time.perf_counter() - t0, k2=fa.LAUNCHES.count,
+                         k7=fa.BWD_LAUNCHES.count)
+    c, p = out["card"], out["cpu"]
+    dl = abs(c["loss"] - p["loss"]) / abs(p["loss"])
+    dg = max(((c["grads"][n] - x).abs().max() / x.abs().max()).item()
+             for n, x in p["grads"].items())
+    check(c["k2"] == 4 and c["k7"] == 2 and p["k2"] == p["k7"] == 0,
+          f"17c QLoRA: launches card K2 {c['k2']} K7 {c['k7']}, CPU {p['k2']} {p['k7']}")
+    log(f"17c f32 QLoRA step at the 7B's widths, 2 layers, 1 x 128: loss CPU {p['loss']:.6f} "
+        f"card {c['loss']:.6f} ({dl:.2e} rel); {len(p['grads'])} adapter gradients within "
+        f"{dg:.2e} of their largest; CPU {p['s']:.1f}s, card {c['s']:.3f}s")
+    check(dl <= TRAIN_F32_TOL and dg <= TRAIN_F32_TOL,
+          f"17c QLoRA card vs CPU: loss {dl:.2e}, grads {dg:.2e} > {TRAIN_F32_TOL}")
+    res["qlora"] = dict(loss=dl, grads=dg)
+    del models, card_lm, tree, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    # GRPO at the 1.5B's widths
+    lm_cfg = dataclasses.replace(Qwen2Config.qwen25_1_5b(), num_layers=2, use_flash=True,
+                                 remat="full")
+    cfg = AF3Config(encoder=enc_cfg, lm=lm_cfg)
+    card = af3.build(cfg, "cuda", torch.float32)
+    af3.init_(card, cfg, torch.Generator(device="cuda").manual_seed(1))
+    cpu = af3.build(cfg, "cpu", torch.float32)
+    cpu.load_state_dict(card.state_dict())
+    gcfg = grpo.GRPOConfig(group_size=2, max_new_tokens=16)
+    full = ids.expand(2, 128).clone()
+    full[1, 112:] = torch.from_numpy(rng.integers(0, 150_000, 16))
+    gen_mask = torch.zeros((2, 128), dtype=torch.bool)
+    gen_mask[0, 112:] = True
+    gen_mask[1, 112:125] = True
+    with torch.no_grad():
+        lp = grpo._token_logp(cpu, cfg, full, None)
+    old = lp + torch.from_numpy(rng.normal(size=lp.shape).astype(np.float32)) * 0.3
+    ref_lp = lp + torch.from_numpy(rng.normal(size=lp.shape).astype(np.float32)) * 0.2
+    adv = torch.tensor([1.0, -1.0])
+    out = {}
+    for side, model in (("cpu", cpu), ("card", card)):
+        dev = "cuda" if side == "card" else "cpu"
+        wrt = dict(model.lm.named_parameters())
+        for x in wrt.values():
+            x.requires_grad_(True)
+        fa.LAUNCHES.reset()
+        fa.BWD_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        loss = grpo.grpo_loss(model, ref_lp.to(dev), cfg, full.to(dev), None, gen_mask.to(dev),
+                              adv.to(dev), old.to(dev), gcfg)
+        grads = torch.autograd.grad(loss, list(wrt.values()))
+        out[side] = dict(loss=loss.item(), grads={n: x.cpu() for n, x in zip(wrt, grads)},
+                         s=time.perf_counter() - t0, k2=fa.LAUNCHES.count,
+                         k7=fa.BWD_LAUNCHES.count)
+        for x in wrt.values():
+            x.requires_grad_(False)
+    c, p = out["card"], out["cpu"]
+    dl = abs(c["loss"] - p["loss"]) / abs(p["loss"])
+    dg = max(((c["grads"][n] - x).abs().max() / x.abs().max()).item()
+             for n, x in p["grads"].items())
+    check(c["k2"] == 4 and c["k7"] == 2 and p["k2"] == p["k7"] == 0,
+          f"17c GRPO: launches card K2 {c['k2']} K7 {c['k7']}, CPU {p['k2']} {p['k7']}")
+    log(f"17c f32 grpo_loss at the 1.5B's widths, 2 layers, G = 2 x 128, off-policy logprobs: "
+        f"loss CPU {p['loss']:.6f} card {c['loss']:.6f} ({dl:.2e} rel); {len(p['grads'])} LM "
+        f"gradients within {dg:.2e} of their largest; CPU {p['s']:.1f}s, card {c['s']:.3f}s")
+    check(dl <= TRAIN_F32_TOL and dg <= TRAIN_F32_TOL,
+          f"17c GRPO card vs CPU: loss {dl:.2e}, grads {dg:.2e} > {TRAIN_F32_TOL}")
+    res["grpo"] = dict(loss=dl, grads=dg)
+    del cpu, card, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t_phase
+    log(f"17c: took {res['s']:.1f} s")
+    return res
+
+
 def serve_any(engine, specs, max_new_tokens: int) -> dict:
     """``serve`` on any device (the CPU's engines need no synchronization)."""
     from audio_flamingo_tpu_torch.runtime.engine import Request
@@ -6655,12 +7251,20 @@ def main() -> int:
         + ", ".join(f"{r['kernel']} {r['spill_bytes']}" for r in k3_ptxas
                     if r["kernel"].endswith(",64>")))
 
+    # seconds each phase took, logged at the end (PERF.md section 5)
+    marks = [("build", T0)]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     # 3. kernels against their plain versions
+    mark("3")
     res = kernel_phase(fa)
     fe = WhisperMelFrontend(MelConfig(num_mel_bins=128))
     mel_res = log_mel_phase(lm, fe)
     long_res = long_attention_phase(fa)
 
+    mark("4")
     # 4. the 30 s main path at full AF3 width
     cfg = with_flash(AF3Config(), True)
     model = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.bfloat16, device="cuda")
@@ -6736,6 +7340,7 @@ def main() -> int:
     log(f"peak GPU memory since from_random {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del plain
 
+    mark("5")
     # 5. a 10-minute file, in to answer out
     warm = ten_minute_phase(model, fa, lm)
     wav10 = warm.pop("wav")
@@ -6747,9 +7352,11 @@ def main() -> int:
         f"{held['state'] / 2**20:.2f} MiB, graph pools {held['graph'] / 2**20:.1f} MiB; "
         f"released: {gen.release_graphs() / 2**30:.3f} GiB")
 
+    mark("7a-7b")
     # 7a, 7b. the int4 LM: kernels at the 7B shapes, then the 30 s path through K5 and K6
     w4 = int4_path_phase(model, fa, k5, k6, wav, runs[0][1].first_logits)
 
+    mark("8a-8d")
     # 8a-8d. the paged serving engine: K3 alone, the mixed workload, prefix cache, int4
     from audio_flamingo_tpu_torch.models import qwen2 as qwen2_mod
     from audio_flamingo_tpu_torch.runtime import paged_engine as pe_mod
@@ -6765,16 +7372,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("6, 7c, 8e")
     # 6. f32 card against CPU
     f32_card_vs_cpu_phase(fa, lm)
     # 7c. f32 int4 card against CPU
     f32_int4_card_vs_cpu_phase(fa, k5, k6)
     # 8e. f32 paged engine card against CPU
     f32_engine_card_vs_cpu_phase(pa)
+    mark("9")
     # 9a-9c. training: K7 alone, AF3 stage 2 through loop.run, f32 card against CPU
     k7_res = k7_phase(fa)
     stage2 = stage2_phase(fa)
     f32_train_card_vs_cpu_phase(fa)
+    mark("10")
     # 10a-10e. the w8a8 TTFT path: K8 and K9 alone, the 30 s clip, the 10-minute file on
     # the fused layout, f32 card against CPU
     k8_res = k8_phase(fa8)
@@ -6788,6 +7398,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     a8_f32_card_vs_cpu_phase(fa8, ef)
+    mark("11")
     # 11a-11e. the int8 LM's decode: K4 alone on the 7B int8 LM's codes, bench.py's decode
     # points (bf16 cache, the q8 cache, the int4 LM on the q8 cache), the 30 s clip on the
     # int8 LM, f32 card against CPU on the q8 cache
@@ -6803,6 +7414,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8_clip = int8_clip_phase(k4, wav)
     f32_q8_card_vs_cpu_phase(fa, k4)
+    mark("12")
     # 12a-12d. beam search (the step captured), the beam lane on PagedEngine, BatchEngine on
     # the mixed workload, then f32 card against CPU at 2 + 2 layers (K4, K5, K6 at m = 4)
     gen.release_graphs()
@@ -6819,6 +7431,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_12 = f32_beam_slot_phase(k4, k5, k6)
     gen.release_graphs()
+    mark("13-14")
     # 13a-13d. speculative decoding: K3 at the verify's folded groups (8a's g = 7 re-timed
     # beside it), dense speculation on the 30 s clip at full width, the engines with an int8
     # target and draft, f32 card against CPU at 2 + 2 layers
@@ -6857,6 +7470,7 @@ def main() -> int:
     phase14_s += f32_14["s"]
     log(f"14: phase 14 took {phase14_s:.1f} s (14a {voc14['s']:.1f}, 14b {voice14['s']:.1f}, "
         f"14c {f32_14['s']:.1f})")
+    mark("15")
     # 15a-15d. AF2 at full width: the int8 3B on K4, the fused-w4 3B on K5 (no K6), f32
     # card against CPU (AF2 at 2 + 2 layers, AF1)
     gc.collect()
@@ -6870,6 +7484,7 @@ def main() -> int:
     gen.release_graphs()
     log(f"15: phase 15 took {af2_15['s'] + w4_15['s'] + f32_15['s']:.1f} s (15a "
         f"{af2_15['s']:.1f}, 15b {w4_15['s']:.1f}, 15c + 15d {f32_15['s']:.1f})")
+    mark("16")
     # 16a-16e. the AF1/AF2 serving engines, the AF2 beam and K3 at OPT's head dim 64, after
     # every earlier model is freed
     gc.collect()
@@ -6888,7 +7503,22 @@ def main() -> int:
     gen.release_graphs()
     log(f"16: phase 16 took {time.perf_counter() - t16:.1f} s (16a {s16a:.1f}, 16b + 16d "
         f"{eng16['s']:.1f}, 16c {af1_16['s']:.1f}, 16e {f32_16['s']:.1f})")
+    mark("17")
+    # 17a-17c. LoRA / QLoRA and GRPO training at full width, after every earlier model is
+    # freed: QLoRA-7B, GRPO-1.5B on PagedEngine, f32 card against CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    qlora17 = qlora_phase(fa, k4)
+    grpo17 = grpo_phase(fa, pa)
+    f32_17 = f32_train17_card_vs_cpu_phase(fa)
+    gen.release_graphs()
+    log(f"17: phase 17 took {time.perf_counter() - t17:.1f} s (17a {qlora17['s']:.1f}, 17b "
+        f"{grpo17['s']:.1f}, 17c {f32_17['s']:.1f})")
 
+    mark("end")
+    log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1)
+                                      in zip(marks, marks[1:])))
     for (name, dn), r in long_res.items():
         log(f"K2 {name} {dn}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, plain "
             f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms")
@@ -6922,6 +7552,10 @@ def main() -> int:
                              voice14["k2"]},
         "path_phase12": {"12a beam generate (the second)": beam12["k2_path"],
                          "12c BatchEngine, mixed workload": slot12["res"]["slot"]["k2_path"]},
+        "launches_phase17": {"17a QLoRA-7B train step": qlora17["rows"]["K2"]["count"],
+                             "17b GRPO-1.5B update": grpo17["rows"]["K2"]["count"]},
+        "path_phase17": {"17a QLoRA-7B train step": qlora17["rows"]["K2"],
+                         "17b GRPO-1.5B update": grpo17["rows"]["K2"]},
         "ptxas": [r for r in flash_ptxas if r["kernel"].startswith("flash_fwd")],
     }, {
         "name": "log_mel",
@@ -7024,6 +7658,9 @@ def main() -> int:
         "af2_16b_chunk": {k: eng16["res"]["16b AF2 PagedFlamingoEngine bf16 pool"]["again"]
                           ["graph"][k] for k in ("launches", "graph_ms", "plain_ms", "bound_ms",
                                                  "bound_by")},
+        "launches_phase17": {"17b GRPO-1.5B rollout on PagedEngine, g = 6":
+                             grpo17["k3"]["rollout_launches"]},
+        "rollout_chunk_17b": grpo17["k3"],
         "ptxas": [r for r in k3_ptxas if r["kernel"].endswith(",128>")],
     })
     af1 = af1_16["res"]["16c AF1 PagedFlamingoEngine bf16 pool"]
@@ -7063,6 +7700,10 @@ def main() -> int:
         "bound_ms": rep7["bound_ms"],
         "bound_by": rep7["bound_by"],
         "library_ms": rep7["library_ms"],
+        "launches_phase17": {"17a QLoRA-7B train step": qlora17["rows"]["K7"]["count"],
+                             "17b GRPO-1.5B update": grpo17["rows"]["K7"]["count"]},
+        "path_phase17": {"17a QLoRA-7B train step": qlora17["rows"]["K7"],
+                         "17b GRPO-1.5B update": grpo17["rows"]["K7"]},
         "ptxas": [r for r in flash_ptxas if r["kernel"].startswith("flash_bwd")],
     })
     rep8, clip8 = a8_clip["replay"], a8_clip["warm"]
@@ -7158,6 +7799,9 @@ def main() -> int:
         "max_abs_err_15a": af2_15["worst"][0],
         "af2_3b_15a": shape_rows(af2_15["timing"], "K4"),
         "launches_phase16": {n: r["run"]["k4"] for n, r in eng16["res"].items()},
+        "launches_phase17": {"17a adapted int8 7B decode step (LoRA deltas beside)":
+                             qlora17["k4"]["count"]},
+        "adapted_step_17a": qlora17["k4"],
         "ptxas": k4_ptxas,
     })
     for name, p in paged.items():
@@ -7283,7 +7927,22 @@ def main() -> int:
         "replayed in one CUDA graph (device time), the plain version timed on each, their "
         "bounds, summed; max_abs_err = the largest |o/l - plain| of 16a and of every launch "
         "of 16c's second runs (both pools); shapes_16a: each hd-64 shape alone at the "
-        "engine's rows (ms with the wrapper, graph_ms one call in a CUDA graph).")
+        "engine's rows (ms with the wrapper, graph_ms one call in a CUDA graph). "
+        "launches_phase17 (flash_attention_fwd, flash_attention_bwd, paged_attention, "
+        "w8a16_matmul): each kernel's launches on phase 17's paths, counted from 0 just before "
+        "each and read just after (K2, K7: one QLoRA-7B train step, 17a, and one GRPO-1.5B "
+        "update, 17b; K3: one timed GRPO rollout on PagedEngine at g = 6; K4: one decode step "
+        "of the adapted int8 7B); path_phase17: those steps' K2 and K7 launches, count, ms "
+        "their device time in the step (CUDA events), bound_ms summed per launch, plain_ms "
+        "and library_ms (SDPA, SDPA's backward): 17a every launch of one more step re-run "
+        "against its plain version and timed on its own inputs (err, ratio), 17b timed on "
+        "one launch of each shape times its count; "
+        "rollout_chunk_17b: the first rollout chunk's K3 launches held to the plain version, "
+        "path_ms by events, graph_ms replayed in one CUDA graph, bound_ms summed, plain_ms "
+        "one step's launches timed alone times the chunk's steps; adapted_step_17a: one "
+        "decode step's 113 K4 launches, ms their device time in a profiled replay of the "
+        "captured step, plain_ms, library_ms and bound_ms per shape times its count, err and "
+        "ratio of every launch of the step re-run against the plain version.")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")

@@ -11,6 +11,8 @@ from audio_flamingo_tpu.ops import attention as ja
 from audio_flamingo_tpu.ops import mlp as jm
 from audio_flamingo_tpu.ops import norms as jn
 from audio_flamingo_tpu.ops import rope as jr
+from audio_flamingo_tpu_torch.config import Qwen2Config
+from audio_flamingo_tpu_torch.models import qwen2
 from audio_flamingo_tpu_torch.ops import attention as ta
 from audio_flamingo_tpu_torch.ops import mlp as tm
 from audio_flamingo_tpu_torch.ops import norms as tn
@@ -50,7 +52,14 @@ def test_mlps_match_jax(activation):
     x = _rand(2, 5, 16)
     g, u, d = _rand(16, 32, seed=1), _rand(16, 32, seed=2), _rand(32, 16, seed=3)
     want = jm.swiglu_mlp(jnp.asarray(x), {"gate": g, "up": u, "down": d})
-    got = tm.swiglu_mlp(torch.from_numpy(x), *(torch.from_numpy(a.T.copy()) for a in (g, u, d)))
+    cfg = Qwen2Config(vocab_size=8, hidden_size=16, intermediate_size=32, num_layers=1,
+                      num_heads=2, num_kv_heads=1)
+    lm = qwen2.Qwen2(cfg)
+    with torch.no_grad():
+        for lin, a in zip((lm.layers[0].gate_proj, lm.layers[0].up_proj,
+                           lm.layers[0].down_proj), (g, u, d)):
+            lin.weight.copy_(torch.from_numpy(a.T.copy()))
+        got = qwen2.mlp_forward(torch.from_numpy(x), lm, cfg, 0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
     b1, b2 = _rand(32, seed=4), _rand(16, seed=5)
     want = jm.gelu_mlp(jnp.asarray(x), {"fc1": g, "fc1_b": b1, "fc2": d, "fc2_b": b2},
