@@ -142,10 +142,12 @@ class AudioFlamingo:
                                 chat)
 
         # right-pad the prompt with EOS to its token bucket: one prefill shape per bucket
+        # (a prompt past the last bucket, 15 minutes of Music Flamingo, runs unpadded;
+        # JAX's generate asks for a negative pad there and fails)
         t = ids.shape[1]
         bucket = bucket_tokens(t)
         prompt_len = None
-        if bucket != t:
+        if bucket > t:
             pad = torch.full((ids.shape[0], bucket - t), self.eos_token_id, dtype=torch.long,
                              device=self.device)
             ids = torch.cat([ids, pad], dim=1)
@@ -439,7 +441,7 @@ class AudioFlamingo2:
         t = ids.shape[1]
         bucket = bucket_tokens(t)
         prompt_len = None
-        if bucket != t:
+        if bucket > t:
             ids = torch.cat([ids, torch.full((1, bucket - t), self.eos_token_id,
                                              dtype=torch.long, device=device)], dim=1)
             prompt_len = t

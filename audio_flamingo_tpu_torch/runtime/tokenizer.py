@@ -1,7 +1,13 @@
-"""Byte-level BPE tokenizer (Qwen2/GPT-2 family), pure Python.
+"""Byte-level BPE tokenizer (Qwen2/GPT-2 family): Python pretokenization, the merge loop
+in C++ (``runtime/cpp/bpe.cpp``) or in Python.
 
-Same algorithm and vocab formats as ``audio_flamingo_tpu/runtime/tokenizer.py`` (the
-pure-Python BPE; its native ``libbpe`` path is not ported yet). The Qwen2 pretokenizer
+Same algorithm and vocab formats as ``audio_flamingo_tpu/runtime/tokenizer.py``. The
+native merge loop is built by g++ into the port's ``_build/`` at first use and bound with
+ctypes (``use_native=True``, the default, as in JAX). As in JAX, a pretoken the native
+encoder cannot answer (more than ``NATIVE_MAX_IDS`` ids) goes through the Python merge
+loop, and so does every pretoken of a vocab the library cannot hold (ids not dense
+0..N-1, or an empty or multi-line entry). Unlike JAX, a failed build raises with g++'s
+stderr instead of falling back. The Qwen2 pretokenizer
 regex uses Unicode property classes (``\\p{L}``, ``\\p{N}``) that the standard ``re``
 module lacks, so the classes are spelled out as code-point ranges from ``unicodedata``
 once per process, and ``\\s`` is the Unicode White_Space set. No third-party regex
@@ -10,13 +16,17 @@ package is needed.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import os
 import re
 import sys
+import threading
 import unicodedata
 from typing import Iterable
+
+from audio_flamingo_tpu_torch.ops.kernels import _build
 
 # AF-specific special tokens (audio placeholder; Qwen2 chat markers)
 DEFAULT_SPECIAL_TOKENS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<sound>",
@@ -67,9 +77,76 @@ def bytes_to_unicode() -> dict[int, str]:
     return dict(zip(bs, (chr(c) for c in cs)))
 
 
+CPP_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cpp", "bpe.cpp")
+NATIVE_MAX_IDS = 4096   # ids one native call may return (JAX's buffer); longer: Python
+
+_lib: ctypes.CDLL | None = None
+
+
+def get_lib() -> ctypes.CDLL:
+    """ctypes handle to the native BPE library, built on first use; raises if it cannot be."""
+    global _lib
+    if _lib is None:
+        path, _, _ = _build.compile_library("g++", ("-O3", "-shared", "-fPIC"), [CPP_SOURCE],
+                                            "libaf_bpe")
+        lib = ctypes.CDLL(path)
+        lib.af_bpe_new.restype = ctypes.c_void_p
+        lib.af_bpe_new.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
+                                   ctypes.c_uint64]
+        lib.af_bpe_encode.restype = ctypes.c_int64
+        lib.af_bpe_encode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64,
+                                      ctypes.POINTER(ctypes.c_int32), ctypes.c_uint64]
+        lib.af_bpe_free.restype = None
+        lib.af_bpe_free.argtypes = [ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+class NativeBpe:
+    """One vocab and merge table in the native library (JAX ``_NativeBpe``). ``encode``
+    is serialized by a lock: the library's per-table cache is not thread-safe."""
+
+    def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]]):
+        lib = get_lib()
+        inv = sorted(vocab.items(), key=lambda kv: kv[1])
+        vocab_blob = "\n".join(k for k, _ in inv).encode("utf-8")
+        merges_blob = "\n".join(f"{a} {b}" for a, b in merges).encode("utf-8")
+        handle = lib.af_bpe_new(vocab_blob, len(vocab_blob), merges_blob, len(merges_blob))
+        if not handle:
+            raise RuntimeError("af_bpe_new returned no table")
+        self._lib, self._handle = lib, handle
+        self._buf = (ctypes.c_int32 * NATIVE_MAX_IDS)()
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def supports(vocab: dict[str, int], merges: list[tuple[str, str]]) -> bool:
+        """The library's line-indexed format holds this table: ids dense 0..N-1 (JAX's
+        test), every entry one non-empty line and every merge two words."""
+        if sorted(vocab.values()) != list(range(len(vocab))):
+            return False
+        if any(not k or "\n" in k for k in vocab):
+            return False
+        return all(a and b and not any(c in a + b for c in " \n") for a, b in merges)
+
+    def encode(self, pretoken: str) -> list[int] | None:
+        """The pretoken's ids, or None where the library answers -1 (an unknown piece, or
+        more than NATIVE_MAX_IDS ids)."""
+        data = pretoken.encode("utf-8")
+        with self._lock:
+            n = self._lib.af_bpe_encode(self._handle, data, len(data), self._buf,
+                                        NATIVE_MAX_IDS)
+            return None if n < 0 else list(self._buf[:n])
+
+    def __del__(self):
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle:
+            self._lib.af_bpe_free(handle)
+
+
 class BBPETokenizer:
     def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]],
-                 special_tokens: Iterable[str] = DEFAULT_SPECIAL_TOKENS):
+                 special_tokens: Iterable[str] = DEFAULT_SPECIAL_TOKENS,
+                 use_native: bool = True):
         self.vocab = dict(vocab)
         self.inv_vocab = {v: k for k, v in self.vocab.items()}
         self.merges = [tuple(m) for m in merges]
@@ -87,6 +164,21 @@ class BBPETokenizer:
                 "(" + "|".join(re.escape(t) for t in sorted(self.special_tokens,
                                                             key=len, reverse=True)) + ")")
         self._bpe_cache: dict[str, list[str]] = {}
+        self.use_native = use_native
+        self._native = self._native_table()
+
+    def _native_table(self) -> NativeBpe | None:
+        if self.use_native and NativeBpe.supports(self.vocab, self.merges):
+            return NativeBpe(self.vocab, self.merges)
+        return None
+
+    def __getstate__(self) -> dict:
+        # the native table is a pointer into this process: a copy builds its own
+        return {k: v for k, v in self.__dict__.items() if k != "_native"}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._native = self._native_table()
 
     # ---------------------------------------------------------------- construction
     @classmethod
@@ -152,8 +244,14 @@ class BBPETokenizer:
 
     def _encode_ordinary(self, text: str) -> list[int]:
         ids = []
+        native = self._native
         for tok in self.pat.findall(text):
             mapped = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
+            if native is not None:
+                got = native.encode(mapped)
+                if got is not None:
+                    ids.extend(got)
+                    continue
             for piece in self._bpe(mapped):
                 ids.append(self.vocab[piece])
         return ids

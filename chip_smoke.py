@@ -42,7 +42,8 @@ Phases, each line stamped with elapsed seconds:
      warm run's end-to-end time, processor share, TTFT, kernel device times, launch
      shapes and peak memory;
   6. f32 card against CPU: full width, 2 encoder and 2 LM layers, weights made on the CPU
-     from a seed and moved to the card; af3.logits within 1e-4 and greedy ids
+     from a seed and moved to the card (one model, made once, f32_base, is the CPU side of
+     6, 7c, 8e, 9c, 10e, 12d and 13d); af3.logits within 1e-4 and greedy ids
      token-exact (and not all one token), with flash and the log-mel kernel on the card;
   7. the int4 LM (load(quantize_lm="int4")'s quantize_lm_params_w4), run after phase 5:
      a. the w4a16 matmul (K5) and the fused decode suffixes (K6) against their plain
@@ -228,8 +229,9 @@ Phases, each line stamped with elapsed seconds:
         ids agree with plain greedy (bf16: the 5-token verify and the 1-token step round
         differently), every emitted token the argmax of the verify at its position (an
         instrumented eager run), sampled (temperature 0.7, top-p 0.9) twice from one seed;
-     c. bench.py's bench_spec_engine cut to fit (the 7B int8 target and a 0.5B int8 draft
-        from random_quantized_lm, 8 requests of 500 random ids, SPEC_MAX_NEW tokens):
+     c. bench.py's bench_spec_engine cut to fit (the 7B int8 target at full width and 14 of
+        its 28 layers, SPEC_TARGET_LAYERS, and a 0.5B int8 draft from random_quantized_lm,
+        8 requests of 500 random ids, SPEC_MAX_NEW tokens):
         BatchEngine (8 slots of 1024, k 4, 6 rounds) plain and at spec_accept_sim 0.6 and
         1.0, tok/s; PagedEngine with the draft at a = 1.0 on a bf16 and an int8 pool: tok/s,
         every K3 launch a verify at g' = 35 (6 x 28 a chunk), one chunk's launches re-run
@@ -302,22 +304,24 @@ Phases, each line stamped with elapsed seconds:
         (merge_block_tokens); rows {400, 1500, 1, 0} at layers 0 and 23, two launches
         bit-identical; each shape timed at the engine's rows with the wrapper and as device
         time beside its plain version and bound; a CUDA call at hd 96 refused;
-     b. AF2 at full width (15a's build) behind bench_xattn_engines' settings and requests
+     b. AF2 at full width and 18 of its 36 layers (15a's build otherwise; XATTN_LAYERS)
+        behind bench_xattn_engines' settings and requests
         (3 x (400, 1500 random ids), 30 windows each, 16 greedy tokens): FlamingoEngine (4
         slots of 2048), PagedFlamingoEngine (4 rows, 56 pages of 128) on a bf16 and an int8
         pool; each a warm-up instance, then the six requests twice (ids equal): tok/s, TTFT
-        from submit, per decode step 145 K4 and 36 K3 (paged) launches counted inside the
+        from submit, per decode step 73 K4 and 18 K3 (paged) launches counted inside the
         chunks; every K3 launch of the second paged runs held to the plain version right
         after its chunk, and (bf16 pool) the first chunk's launches replayed in one CUDA
         graph beside their bounds and the plain version timed on each; the slot and paged
         engines' ids compared (they need not agree at bf16);
-     c. AF1 at full width (AF1Config.make with xattn every second layer, OPT-IML-1.3B's
-        widths, bf16 from a seed) behind PagedFlamingoEngine on a bf16 and an int8 pool, as
-        16b: 24 K3 launches a step at hd 64, every one held to the plain version;
+     c. AF1 at full width and 12 of its 24 layers (AF1Config.make with xattn every second
+        layer, OPT-IML-1.3B's widths, bf16 from a seed) behind PagedFlamingoEngine on a bf16
+        and an int8 pool, as 16b: 12 K3 launches a step at hd 64, every one held to the
+        plain version;
      d. the AF2 beam: AudioFlamingo2.generate(num_beams=4, 16 tokens) on a 30 s clip twice
         (one answer, the step captured once), the captured step against the eager one from
         one prefill (the search's sequences, scores and flags equal), ms a step beside the
-        bound, 145 K4 launches a step;
+        bound, 73 K4 launches a step;
      e. f32 card against CPU at full width, 2 + 2 layers, lively (liven): AF2 on both
         engines (f32 and int8 pools) and AF1 on the paged engine (K3 at hd 64), three
         requests each, ids token-exact and varying; a speculative run on AF2's slot and
@@ -345,6 +349,33 @@ Phases, each line stamped with elapsed seconds:
      c. f32 card against CPU at full width, 2 + 2 layers, 1 x 128 tokens: a QLoRA step's
         loss and adapter gradients (the 7B's widths) and grpo_loss with its LM gradients
         (the 1.5B's widths) within 1e-4.
+ 18. the user entry points and 15 minutes of Music Flamingo, after every earlier model is
+     freed; no kernel of its own (K1 and K2 run on its paths):
+     a. the native BPE (runtime/cpp/bpe.cpp, built by g++ into _build/) against the Python
+        merge loop, token for token, with and without the special tokens, on a 20,000-word
+        mixed-script text, a repeated mixed text, a chat-templated 30 s prompt and every
+        prompt of this phase, for a 152,064-id tokenizer (the 256 byte symbols, random
+        merges, the specials: random weights then answer in text) and from_random's
+        trained one; both timed on the longest text;
+     b. python -m audio_flamingo_tpu_torch in subprocesses, one at a time, on a full-width
+        AF3 checkpoint at 2 + 2 layers written in bf16 by io/hf_export.save_pretrained:
+        infer on a 30 s 16 kHz WAV (16 tokens) prints load(DIR).generate's greedy answer;
+        chat with two turns on stdin (':audio <path>', then two prompts) prints
+        generate(chat=True)'s two answers; every exit code 0;
+     c. serve/demo.DemoServer on port 0 over a full-depth bf16 7B (AF3Config.music_flamingo(),
+        its held decode steps released so that the first request captures on a handler
+        thread): a WAV upload and a mic-PCM turn, each answer equal to generate(chat=True) on
+        the same input; the page; /api/reset; a bad upload answering 400;
+     d. eval/harness.evaluate and evaluate_batched (BatchEngine, 4 slots) on four 30 s
+        examples (asr, mcq, qa, caption; 16 tokens) on that 7B: both finish, each route's
+        scores are _score of its answers, the answers that differ between the routes
+        counted; then on 18b's checkpoint loaded in f32, where both routes answer alike;
+     e. 15 minutes of Music Flamingo on that 7B: a 900 s 16 kHz mono WAV through
+        load_audio and the K1 frontend (30 windows), the encoder, a ~22.6k-token prefill
+        (past the last token bucket: unpadded), 16 greedy tokens, twice (ids identical);
+        K1 at [30, 480000] on the clip's windows and the first encoder and prefill K2
+        launches held to their plain versions (the prefill's over blocks of 1024 rows),
+        timed beside SDPA and the bounds; user TTFT and peak memory.
 Prints a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -361,6 +392,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unicodedata
 import wave
 
 import numpy as np
@@ -772,15 +804,17 @@ def log_mel_phase(lm, fe) -> dict:
     return results
 
 
-def write_wav(path: str, seconds: int, sr: int, seed: int) -> None:
-    """A 16-bit stereo WAV: a tone per channel plus noise, from a numpy seed."""
+def write_wav(path: str, seconds: int, sr: int, seed: int, mono: bool = False) -> None:
+    """A 16-bit stereo WAV: a tone per channel plus noise, from a numpy seed (mono: the
+    left channel alone)."""
     rng = np.random.default_rng(seed)
     t = np.arange(seconds * sr, dtype=np.float64) / sr
     left = 0.3 * np.sin(2 * np.pi * 440.0 * t) + 0.05 * rng.standard_normal(t.size)
     right = 0.2 * np.sin(2 * np.pi * 660.0 * t) + 0.05 * rng.standard_normal(t.size)
-    pcm = np.clip(np.stack([left, right], 1) * 32767, -32768, 32767).astype("<i2")
+    pcm = np.clip(np.stack([left] if mono else [left, right], 1) * 32767, -32768,
+                  32767).astype("<i2")
     with wave.open(path, "wb") as w:
-        w.setnchannels(2)
+        w.setnchannels(1 if mono else 2)
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(pcm.tobytes())
@@ -874,6 +908,49 @@ def ten_minute_phase(model, fa, lm) -> dict:
     return warm
 
 
+_F32_BASE: list = []   # f32_base's model, made once
+F32_FLAGS = ("use_flash", "remat", "a8_attention", "a8_prefill", "fused_stages")
+
+
+def f32_base(cfg):
+    """The f32 AF3 at full width and 2 + 2 layers, its weights made on the CPU from seed 0
+    (the CPU side of phases 6, 7c, 8e, 9c, 10e, 12d and 13d), under ``cfg``: that config's
+    switches (flash, remat, the a8 flags) over the same weights, whose shapes ``cfg`` must
+    give. Before PR 24 each of those phases made the same weights itself, 12-20 s a build
+    on the card's host; now they are made once and shared, so no phase may change them
+    (9c trains copies). ``release_f32_base`` frees them after 13d."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.config import AF3Config
+
+    def shapes(c):
+        return dataclasses.replace(
+            c, audio_token_id=0,
+            encoder=dataclasses.replace(c.encoder, **{f: getattr(AF3Config().encoder, f)
+                                                      for f in F32_FLAGS
+                                                      if hasattr(c.encoder, f)}),
+            lm=dataclasses.replace(c.lm, **{f: getattr(AF3Config().lm, f) for f in F32_FLAGS
+                                            if hasattr(c.lm, f)}))
+
+    full = AF3Config()
+    if not _F32_BASE:
+        dims = with_flash(dataclasses.replace(
+            full, encoder=dataclasses.replace(full.encoder, num_layers=2),
+            lm=dataclasses.replace(full.lm, num_layers=2)), True)
+        t0 = time.perf_counter()
+        _F32_BASE.append(AudioFlamingo.from_random(dims, seed=0, compute_dtype=torch.float32,
+                                                   device="cpu"))
+        log(f"f32 base: AF3 at full width, 2 + 2 layers, made on the CPU from seed 0 in "
+            f"{time.perf_counter() - t0:.1f}s (shared by 6, 7c, 8e, 9c, 10e, 12d, 13d)")
+    base = _F32_BASE[0]
+    check(shapes(cfg) == shapes(base.cfg), "f32_base: the config's shapes are not the base's")
+    return base.with_config(dataclasses.replace(cfg, audio_token_id=base.cfg.audio_token_id))
+
+
+def release_f32_base() -> None:
+    _F32_BASE.clear()
+    gc.collect()
+
+
 def f32_card_vs_cpu_phase(fa, lm) -> None:
     """The same weights at f32 on the card and on the CPU (whose path the CPU tests pin to
     the JAX package): full width, 2 encoder and 2 LM layers, weights made on the CPU from
@@ -893,7 +970,7 @@ def f32_card_vs_cpu_phase(fa, lm) -> None:
     torch.backends.cudnn.allow_tf32 = False      # the conv stem in full f32 (README)
     try:
         t0 = time.perf_counter()
-        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        cpu = f32_base(cfg)
         card = AudioFlamingo.from_state_dict(cpu.cfg, cpu.model.state_dict(),
                                              cpu.processor.tokenizer, torch.float32,
                                              device="cuda")
@@ -1610,7 +1687,7 @@ def f32_int4_card_vs_cpu_phase(fa, k5, k6) -> None:
     torch.backends.cudnn.allow_tf32 = False      # the conv stem in full f32 (README)
     try:
         t0 = time.perf_counter()
-        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        cpu = f32_base(cfg)
         tree = quantize_lm_params_w4(cpu.model.lm.state_dict())
         # Queue 3 item 8: the same tree quantized on the card, codes and group scales equal
         lm_state = {k: v.cuda() for k, v in cpu.model.lm.state_dict().items()}
@@ -2282,7 +2359,7 @@ def f32_engine_card_vs_cpu_phase(pa) -> None:
     torch.backends.cudnn.allow_tf32 = False
     real_emit = pe._emit_first_token
     try:
-        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        cpu = f32_base(cfg)
         card = AudioFlamingo.from_state_dict(cpu.cfg, cpu.model.state_dict(),
                                              cpu.processor.tokenizer, torch.float32,
                                              device="cuda")
@@ -2697,10 +2774,11 @@ def f32_train_card_vs_cpu_phase(fa) -> None:
     torch.backends.cudnn.allow_tf32 = False      # the conv stem in full f32 (README)
     try:
         t0 = time.perf_counter()
-        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        cpu = f32_base(cfg)
         cfg = cpu.cfg                            # audio_token_id: the tokenizer's <sound>
         tree = quantize_lm_params(cpu.model.lm.state_dict())
-        models = {"cpu": af3.AF3Model(cpu.model.encoder, cpu.model.adaptor,
+        models = {"cpu": af3.AF3Model(copy.deepcopy(cpu.model.encoder),
+                                      copy.deepcopy(cpu.model.adaptor),
                                       qwen2.quantized_lm(tree, torch.float32, "cpu")),
                   "card": af3.AF3Model(copy.deepcopy(cpu.model.encoder).to("cuda"),
                                        copy.deepcopy(cpu.model.adaptor).to("cuda"),
@@ -3350,7 +3428,7 @@ def a8_f32_card_vs_cpu_phase(fa8, ef) -> None:
     torch.backends.cudnn.allow_tf32 = False      # the conv stem in full f32 (README)
     try:
         t0 = time.perf_counter()
-        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        cpu = f32_base(cfg)
         cfg = cpu.cfg
         float_enc = {"cpu": cpu.model.encoder,
                      "cuda": copy.deepcopy(cpu.model.encoder).to("cuda")}
@@ -4371,7 +4449,7 @@ def f32_beam_slot_phase(k4, k5, k6) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     out: dict = {}
     try:
-        cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+        cpu = f32_base(cfg)
         card = AudioFlamingo.from_state_dict(cpu.cfg, cpu.model.state_dict(),
                                              cpu.processor.tokenizer, torch.float32,
                                              device="cuda")
@@ -4845,11 +4923,13 @@ def spec_dense_phase(model, fa, wav) -> dict:
 SPEC_ENGINE = dict(num_slots=8, capacity=1024, chunk=16, eos_token_id=ENGINE["eos_token_id"])
 SPEC_MAX_NEW = 16      # bench_spec_engine's 256 tokens a request, cut to fit the run (64 before
                        # phase 15, 32 before phase 16)
+SPEC_TARGET_LAYERS = 14   # 13c's 7B int8 target at half its 28 layers, full width (its eager
+                          # engines take time by the layer; cut to make room for phase 18)
 
 
 def spec_engine_phase(pa, k4) -> dict:
-    """13c. bench.py's bench_spec_engine cut to fit: the 7B int8 target
-    (random_quantized_lm, seed 0) and a Qwen2.5-0.5B int8 draft (seed 1), 8 requests of 500
+    """13c. bench.py's bench_spec_engine cut to fit: the 7B int8 target at full width and
+    SPEC_TARGET_LAYERS of its 28 layers (random_quantized_lm, seed 0) and a Qwen2.5-0.5B int8 draft (seed 1), 8 requests of 500
     random ids, SPEC_MAX_NEW greedy tokens each. BatchEngine (8 slots of 1024, chunk 16, k 4,
     6 rounds): plain, then spec_accept_sim 0.6 and 1.0 with the guard off, each after a
     warm-up instance: tok/s. PagedEngine (8b's settings, preempt off) with the same draft
@@ -4861,7 +4941,9 @@ def spec_engine_phase(pa, k4) -> dict:
     from audio_flamingo_tpu_torch.runtime.engine import BatchEngine, Request
     from audio_flamingo_tpu_torch.runtime.paged_engine import PagedEngine
 
-    cfg = with_flash(AF3Config(), True)
+    full = AF3Config()
+    cfg = with_flash(dataclasses.replace(
+        full, lm=dataclasses.replace(full.lm, num_layers=SPEC_TARGET_LAYERS)), True)
     tree = random_quantized_lm(torch.Generator(device="cuda").manual_seed(0), cfg.lm, "cuda")
     # text-only requests never run the encoder: its weights are allocated, not made
     model = af3.build(cfg, "cuda", torch.bfloat16,
@@ -4982,8 +5064,8 @@ def spec_engine_phase(pa, k4) -> dict:
                             stats=stats, chunk_launches=len(launches),
                             path_ms=path_ms, graph_ms=graph, **sums, **worst)
         del eng
-    log("13c bench_spec_engine cut to fit (7B int8 target, 0.5B int8 draft, 8 x 500 random "
-        f"ids, {SPEC_MAX_NEW} greedy tokens each; k {SPEC_K}, 6 rounds a chunk): BatchEngine "
+    log(f"13c bench_spec_engine cut to fit (7B int8 target at {SPEC_TARGET_LAYERS} of its 28 "
+        f"layers, 0.5B int8 draft, 8 x 500 random ids, {SPEC_MAX_NEW} greedy tokens each; k {SPEC_K}, 6 rounds a chunk): BatchEngine "
         + "; ".join(f"{n} {r['tps']:.1f} tok/s ({r['tokens']} tokens in {r['wall']:.3f} s, "
                     f"{r['k4']} K4 launches)" for n, r in res.items())
         + f"; a = 0.6 is {res['a0.6']['tps'] / res['plain']['tps']:.2f}x plain, a = 1.0 "
@@ -5087,7 +5169,7 @@ def f32_spec_card_vs_cpu_phase() -> dict:
         full, encoder=dataclasses.replace(full.encoder, num_layers=2),
         lm=dataclasses.replace(full.lm, num_layers=2)), True)
     dcfg = dataclasses.replace(Qwen2Config.qwen25_0_5b(), num_layers=2)
-    cpu = AudioFlamingo.from_random(cfg, seed=0, compute_dtype=torch.float32, device="cpu")
+    cpu = f32_base(cfg)
     card = AudioFlamingo.from_state_dict(cpu.cfg, cpu.model.state_dict(), cpu.processor.tokenizer,
                                          torch.float32, device="cuda")
     d_cpu = qwen2.Qwen2(dcfg, dtype=torch.float32)
@@ -6161,6 +6243,8 @@ def k3_hd64_phase(pa) -> dict:
 
 XATTN_TOKENS = 16      # new tokens a request in 16b-16d (bench_xattn_engines asks 64; 32
 #                        before phase 17 needed the room)
+XATTN_LAYERS = {"af2": 18, "af1": 12}   # 16b-16d's depth at full width: half of the 3B's 36
+#                        and OPT-IML-1.3B's 24 layers (all before phase 18 needed the room)
 XATTN_WPM = 30         # media windows a request: bench_xattn_engines' 5-minute buffer
 XATTN_EOS = {"af2": 151_645, "af1": 2}
 SLOT_XATTN = dict(num_slots=4, capacity=2048, chunk=16)
@@ -6340,7 +6424,8 @@ def xattn_engine_runs(name: str, make, reqs, probe, n_layers: int, k4_step: int,
 
 
 def xattn_engines_phase(pa, k4) -> dict:
-    """16b, 16d. AF2 at full width (15a's build: AF2Config(), HTSAT-base, 36 xattn blocks,
+    """16b, 16d. AF2 at full width and XATTN_LAYERS["af2"] of the 3B's 36 layers (15a's
+    build otherwise: HTSAT-base, an xattn block a layer,
     the int8 Qwen2.5-3B from random_quantized_lm, the fusion stacks and tower bf16 from a
     seed, gates AF2_GATE) behind the AF1/AF2 engines with bench_xattn_engines' settings and
     requests (XATTN_TOKENS greedy tokens each): FlamingoEngine (4 slots of 2048), then
@@ -6359,7 +6444,7 @@ def xattn_engines_phase(pa, k4) -> dict:
     from audio_flamingo_tpu_torch.runtime.paged_flamingo_engine import PagedFlamingoEngine
 
     t_phase = time.perf_counter()
-    cfg = AF2Config()
+    cfg = AF2Config(lm=dataclasses.replace(AF2Config().lm, num_layers=XATTN_LAYERS["af2"]))
     n_layers = cfg.lm.num_layers
     g = torch.Generator(device="cuda").manual_seed(0)
     qlm = qwen2.quantized_lm(random_quantized_lm(g, cfg.lm, "cuda"), torch.bfloat16, "cuda")
@@ -6453,11 +6538,11 @@ def xattn_engines_phase(pa, k4) -> dict:
 
 def af1_engine_phase(pa) -> dict:
     """16c. AF1 at full width: AF1Config.make with xattn before every second layer (32
-    heads), OPT-IML-1.3B's widths (24 layers, 32 heads of 64), the LM and the fusion stacks
-    bf16 from a seed, gates AF2_GATE, behind PagedFlamingoEngine with 16b's settings and
-    requests (ids from OPT's vocabulary) on a bf16 and an int8 pool (xattn_engine_runs): K3
-    at hd 64, g 1, scale 1, 24 launches a decode step, every one held against the plain
-    version."""
+    heads), OPT-IML-1.3B's widths (XATTN_LAYERS["af1"] of its 24 layers, 32 heads of 64),
+    the LM and the fusion stacks bf16 from a seed, gates AF2_GATE, behind
+    PagedFlamingoEngine with 16b's settings and requests (ids from OPT's vocabulary) on a
+    bf16 and an int8 pool (xattn_engine_runs): K3 at hd 64, g 1, scale 1, a launch a layer a
+    decode step, every one held against the plain version."""
     from audio_flamingo_tpu_torch.config import AF1Config, GatedXAttnConfig
     from audio_flamingo_tpu_torch.models import flamingo
     from audio_flamingo_tpu_torch.ops.kernels import w8a16_matmul as k4
@@ -6465,6 +6550,7 @@ def af1_engine_phase(pa) -> dict:
 
     t_phase = time.perf_counter()
     cfg = AF1Config.make(xattn=GatedXAttnConfig(cross_every_n_layers=2, num_heads=32))
+    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, num_layers=XATTN_LAYERS["af1"]))
     model = flamingo.init(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
                           torch.bfloat16)
     set_gates(model, AF2_GATE)
@@ -7144,6 +7230,542 @@ def f32_train17_card_vs_cpu_phase(fa) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------------------
+# Phase 18: the user entry points (the native BPE, python -m audio_flamingo_tpu_torch, the
+# demo server, the eval harness) and 15 minutes of Music Flamingo
+
+P18_TOKENS = 16                 # new tokens of every 18b-18e answer
+CLI_LAYERS = (2, 2)             # 18b's checkpoint: encoder and LM layers, at full width
+CLI_PROMPT = "Describe the audio in detail."   # the CLI's default infer prompt
+CHAT_TURNS = ("What do you hear?", "And then?")
+EVAL_TASKS = (("asr", "Transcribe the speech.", "the quick brown fox"),
+              ("mcq", "Which instrument plays? (A) piano (B) drums. Answer with a letter.",
+               "A"),
+              ("qa", "What is the loudest sound?", "a tone"),
+              ("caption", "Describe the audio.", ["a steady tone over noise",
+                                                  "a high pitched hum"]))
+MUSIC_SECONDS = 900             # 15 minutes: Music Flamingo's 30 windows
+MIXED_TEXT = ("Audio Flamingo hört zu: «Ça sonne bien», говорит он; 音楽と音声を説明して"
+              "ください。 صوت الموسيقى ١٢٣ 12,345.67 —   tabs\tand\r\nnew lines\n\n"
+              " emoji 😀🎵 ♪ naïve café ﬁ 並 x\x1cy don't I'LL 'S  ")
+
+
+def synthetic_tokenizer(vocab_size: int, seed: int):
+    """A byte-level BPE tokenizer whose ids fill an LM's whole vocab: the 256 byte symbols,
+    then merges of two earlier tokens drawn at random (each making a new string), then
+    the special tokens. A random-weight model's greedy ids then decode to text, so that an
+    answer compared as text (the CLI's stdout, the demo's reply) compares every token."""
+    from audio_flamingo_tpu_torch.runtime.tokenizer import (DEFAULT_SPECIAL_TOKENS,
+                                                            BBPETokenizer, bytes_to_unicode)
+
+    rng = np.random.default_rng(seed)
+    tokens = sorted(bytes_to_unicode().values())
+    seen = set(tokens)
+    merges = []
+    n_merges = vocab_size - len(tokens) - len(DEFAULT_SPECIAL_TOKENS)
+    while len(merges) < n_merges:
+        # draw from the shorter half more often, so that merges of common pairs exist
+        for a, b in rng.integers(0, len(tokens), (4096, 2)) // rng.integers(1, 3, (4096, 1)):
+            new = tokens[a] + tokens[b]
+            if new not in seen and len(merges) < n_merges:
+                seen.add(new)
+                tokens.append(new)
+                merges.append((tokens[a], tokens[b]))
+    vocab = {t: i for i, t in enumerate(tokens)}
+    for t in DEFAULT_SPECIAL_TOKENS:
+        vocab[t] = len(vocab)
+    return BBPETokenizer(vocab, merges)
+
+
+def bpe_phase(tokenizers: dict, texts: list) -> dict:
+    """18a. The native BPE (runtime/cpp/bpe.cpp) against the Python merge loop, token for
+    token, on every tokenizer given (a fresh copy of each path, so neither reads a cache
+    the other filled) over the texts, each also with the special tokens off; and each
+    path's time on the longest text."""
+    from audio_flamingo_tpu_torch.runtime.tokenizer import BBPETokenizer
+
+    out = {}
+    for name, tok in tokenizers.items():
+        native = BBPETokenizer(tok.vocab, tok.merges)
+        plain = BBPETokenizer(tok.vocab, tok.merges, use_native=False)
+        check(native._native is not None, f"18a {name}: the native BPE is not on")
+        longest = max(texts, key=len)
+        t0 = time.perf_counter()
+        ids_native = native.encode(longest)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids_plain = plain.encode(longest)
+        plain_s = time.perf_counter() - t0
+        check(ids_native == ids_plain, f"18a {name}: the longest text differs")
+        n_ids = 0
+        for text in texts:
+            for special in (True, False):
+                a, b = native.encode(text, special), plain.encode(text, special)
+                check(a == b, f"18a {name}: native and Python ids differ on {text[:60]!r}")
+                n_ids += len(a)
+            check(native.decode(native.encode(text)) == unicodedata.normalize("NFC", text),
+                  f"18a {name}: decode(encode(text)) != text for {text[:60]!r}")
+        out[name] = dict(vocab=len(tok.vocab), texts=len(texts), ids=n_ids,
+                         longest=(len(longest), len(ids_native)), native_s=native_s,
+                         plain_s=plain_s)
+        log(f"18a native BPE, {name} ({len(tok.vocab)} ids, {len(tok.merges)} merges): "
+            f"{len(texts)} texts x 2, {n_ids} ids, token for token equal to the Python merge "
+            f"loop; the longest ({len(longest)} chars, {len(ids_native)} ids) in "
+            f"{native_s * 1e3:.1f} ms native, {plain_s * 1e3:.1f} ms Python (host, cold caches)")
+    return out
+
+
+def random_text(seed: int, words: int) -> str:
+    """Words of 1-12 characters drawn from Latin, Cyrillic, Greek, CJK, kana, Arabic and
+    digits, joined by spaces, punctuation and newlines: mostly distinct pretokens, so that
+    the merge loops run instead of their caches."""
+    rng = np.random.default_rng(seed)
+    pools = [list(range(0x61, 0x7b)), list(range(0x430, 0x450)), list(range(0x3b1, 0x3ca)),
+             list(range(0x4e00, 0x4f00)), list(range(0x3041, 0x3097)), list(range(0x627, 0x64b)),
+             list(range(0x30, 0x3a))]
+    seps = [" ", " ", " ", ", ", ". ", "\n", " — ", "'s ", "  "]
+    out = []
+    for _ in range(words):
+        pool = pools[int(rng.integers(len(pools)))]
+        out.append("".join(chr(pool[int(i)]) for i in rng.integers(0, len(pool),
+                                                                    int(rng.integers(1, 13)))))
+        out.append(seps[int(rng.integers(len(seps)))])
+    return "".join(out)
+
+
+def run_cli(args: list, stdin: str = "") -> tuple:
+    """``python -m audio_flamingo_tpu_torch <args>`` from the repo root: (stdout, seconds).
+    A non-zero exit fails the check with the process's stderr."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "audio_flamingo_tpu_torch", *args],
+                          input=stdin.encode(), capture_output=True, cwd=root, timeout=600,
+                          env=dict(os.environ, PYTHONIOENCODING="utf-8"))
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"18b `{' '.join(args[:1])}` exited {proc.returncode}: "
+                                f"{proc.stderr.decode(errors='replace')[-3000:]}")
+    return proc.stdout.decode("utf-8"), seconds
+
+
+def cli_phase(fa, tok, tmp: str) -> dict:
+    """18b. python -m audio_flamingo_tpu_torch infer and chat, one subprocess at a time, on
+    a full-width AF3 checkpoint at CLI_LAYERS depth written in bf16 by
+    io/hf_export.save_pretrained: each answer equal to load(DIR).generate in this process
+    on the same file (the CLI's greedy sampling), every exit code 0."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo, load
+    from audio_flamingo_tpu_torch.audio.io import load_audio
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.io.hf_export import save_pretrained
+    from audio_flamingo_tpu_torch.ops.sampling import SamplingParams
+
+    t0 = time.perf_counter()
+    full = AF3Config()
+    cfg = with_flash(dataclasses.replace(
+        full, encoder=dataclasses.replace(full.encoder, num_layers=CLI_LAYERS[0]),
+        lm=dataclasses.replace(full.lm, num_layers=CLI_LAYERS[1])), True)
+    src = AudioFlamingo.from_random(cfg, tokenizer=tok, seed=3, compute_dtype=torch.bfloat16,
+                                    device="cuda")
+    path = os.path.join(tmp, "af3_cli")
+    save_pretrained(path, src.model, src.cfg, tok, dtype="bf16")
+    n_params = sum(p.numel() for p in src.model.parameters())
+    del src
+    torch.cuda.empty_cache()
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    log(f"18b checkpoint: full AF3 width, {CLI_LAYERS[0]} encoder + {CLI_LAYERS[1]} LM layers "
+        f"(of 32 + 28), bf16, {n_params / 1e9:.3f} B params, {size / 1e9:.2f} GB written by "
+        f"save_pretrained in {time.perf_counter() - t0:.1f}s")
+    clip = os.path.join(tmp, "clip30.wav")
+    write_wav(clip, 30, 16_000, seed=6, mono=True)
+
+    model = load(path, device="cuda")
+    wav = load_audio(clip)
+    sampling = SamplingParams(greedy=True, temperature=0.7, top_k=50, top_p=0.95)
+    fa.LAUNCHES.reset()
+    want = model.generate(sound=wav, prompt=CLI_PROMPT, max_new_tokens=P18_TOKENS,
+                          sampling=sampling)
+    k2 = fa.LAUNCHES.count
+    check(k2 == sum(CLI_LAYERS), f"18b in-process generate launched K2 {k2} times")
+    out, infer_s = run_cli(["infer", "--model", path, "--audio", clip, "--max-new-tokens",
+                            str(P18_TOKENS)])
+    check(out == want + "\n", f"18b infer printed {ascii(out)}, load(DIR).generate answers "
+                               f"{ascii(want)}")
+    model.reset_chat()
+    answers = [model.generate(sound=wav if i == 0 else None, prompt=turn, chat=True,
+                              max_new_tokens=P18_TOKENS) for i, turn in enumerate(CHAT_TURNS)]
+    stdin = f":audio {clip}\n" + "".join(f"{turn}\n" for turn in CHAT_TURNS)
+    out, chat_s = run_cli(["chat", "--model", path, "--max-new-tokens", str(P18_TOKENS)], stdin)
+    expect = "user> " + "".join(f"user> assistant> {a}\n" for a in answers) + "user> "
+    check(out == expect, f"18b chat printed {ascii(out)}, generate(chat=True) twice gives "
+                         f"{ascii(expect)}")
+    check(all(answers) and want, "18b: an answer is empty")
+    log(f"18b infer: subprocess {infer_s:.1f}s (start, load, build cached, generate), stdout "
+        f"equal to load(DIR).generate ({len(want)} chars: {ascii(want[:40])}...); chat, two turns "
+        f"on stdin (':audio' then two prompts): {chat_s:.1f}s, both answers equal to "
+        f"generate(chat=True); K2 {k2} launches in the in-process generate")
+    return dict(path=path, clip=clip, wav=wav, infer_s=infer_s, chat_s=chat_s, model=model)
+
+
+def _post(port: int, route: str, payload: dict) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}",
+                                 data=json.dumps(payload).encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def demo_phase(model, fa, clip: str) -> dict:
+    """18c. DemoServer over the full-depth bf16 7B on port 0, its captured decode steps
+    released first, so that the first request captures the step on a handler thread: a
+    WAV upload and a mic-PCM turn, each answer equal to generate(chat=True) on the same
+    input (replayed in this thread after /api/reset), the page, /api/reset and a bad
+    upload answering 400."""
+    import base64
+    import urllib.request
+
+    from audio_flamingo_tpu_torch.audio.io import decode_audio
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+    from audio_flamingo_tpu_torch.serve.demo import DemoServer
+
+    gen.release_graphs()
+    with open(clip, "rb") as f:
+        wav_bytes = f.read()
+    rng = np.random.default_rng(7)
+    t = np.arange(12 * 16_000) / 16_000
+    mic = (0.2 * np.sin(2 * np.pi * 523.0 * t) + 0.05 * rng.standard_normal(t.size)).astype(
+        np.float32)
+    turns = [{"prompt": "Describe.", "file_b64": base64.b64encode(wav_bytes).decode()},
+             {"prompt": "What do you hear?", "pcm_b64": base64.b64encode(mic.tobytes()).decode()}]
+    model.reset_chat()
+    srv = DemoServer(model, port=0, max_new_tokens=P18_TOKENS)
+    srv.start_background()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/", timeout=30) as r:
+            check(r.status == 200 and "/api/chat" in r.read().decode(), "18c: the page")
+        fa.LAUNCHES.reset()
+        replies, times = [], []
+        for turn in turns:
+            t0 = time.perf_counter()
+            code, body = _post(srv.port, "/api/chat", turn)
+            times.append(time.perf_counter() - t0)
+            check(code == 200, f"18c /api/chat answered {code}: {body}")
+            replies.append(body["text"])
+        k2 = fa.LAUNCHES.count
+        check(len(model.history) == 4, f"18c: {len(model.history)} history entries, not 4")
+        code, body = _post(srv.port, "/api/reset", {})
+        check(code == 200 and body == {"ok": True} and model.history == [], "18c /api/reset")
+        code, body = _post(srv.port, "/api/chat", {"prompt": "x", "file_b64":
+                                                   base64.b64encode(b"RIFFnope").decode()})
+        check(code == 400 and "audio decode failed" in body.get("error", ""),
+              f"18c: a bad upload answered {code}: {body}")
+        check(model.history == [], "18c: a refused upload changed the history")
+    finally:
+        srv.shutdown()
+    decoded, _ = decode_audio(wav_bytes)
+    want = [model.generate(decoded, turns[0]["prompt"], chat=True, max_new_tokens=P18_TOKENS),
+            model.generate(mic, turns[1]["prompt"], chat=True, max_new_tokens=P18_TOKENS)]
+    model.reset_chat()
+    check(replies == want, f"18c: the demo answered {ascii(replies)}, generate(chat=True) "
+                           f"{ascii(want)}")
+    check(k2 == 120, f"18c: K2 launched {k2} times in two demo turns, not 2 x 60")
+    log(f"18c demo: WAV upload {times[0]:.2f}s (its decode step captured on the handler "
+        f"thread), mic-PCM turn {times[1]:.2f}s, both answers equal to generate(chat=True) on "
+        f"the same input; /api/reset cleared the history, a bad upload answered 400; K2 "
+        f"{k2} launches in the two turns")
+    return dict(times=times, k2=k2)
+
+
+def eval_examples(seconds: int = 30) -> list:
+    from audio_flamingo_tpu_torch.eval.harness import EvalExample
+
+    rng = np.random.default_rng(8)
+    t = np.arange(seconds * 16_000) / 16_000
+    return [EvalExample(audio=(0.3 * np.sin(2 * np.pi * (220.0 * (i + 1)) * t)
+                               + 0.05 * rng.standard_normal(t.size)).astype(np.float32),
+                        prompt=prompt, target=target, task=task)
+            for i, (task, prompt, target) in enumerate(EVAL_TASKS)]
+
+
+def eval_routes(model, fa, examples, tag: str) -> dict:
+    """evaluate and evaluate_batched (4 slots of 2048, chunks of 16) on the examples: both
+    finish, each route's scores equal _score of its answers; K2's launches of each."""
+    from audio_flamingo_tpu_torch.eval import harness
+
+    out = {}
+    for name, fn, kw in (("evaluate", harness.evaluate, {}),
+                         ("evaluate_batched", harness.evaluate_batched,
+                          dict(num_slots=4, capacity=2048, chunk=16))):
+        fa.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(model, examples, max_new_tokens=P18_TOKENS, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        answers = [e["answer"] for e in res.per_example]
+        by_task: dict = {}
+        for e in res.per_example:
+            by_task.setdefault(e["task"], []).append((e["target"], e["answer"]))
+        check(len(answers) == len(examples), f"{tag} {name}: {len(answers)} answers")
+        check(res.task_scores == harness._score(by_task),
+              f"{tag} {name}: scores {res.task_scores} are not _score of the answers")
+        check(set(res.task_scores) == {"asr_wer", "mcq_acc", "qa_acc", "caption_cider_d"},
+              f"{tag} {name}: scores {res.task_scores}")
+        out[name] = dict(answers=answers, scores=res.task_scores, s=seconds,
+                         k2=fa.LAUNCHES.count)
+        # generate: a launch per encoder and per LM layer an example (one window each); the
+        # slot engine's prefill runs the same two towers
+        per = model.cfg.encoder.num_layers + model.cfg.lm.num_layers
+        check(fa.LAUNCHES.count == per * len(examples) if name == "evaluate"
+              else fa.LAUNCHES.count > 0, f"{tag} {name}: K2 launched {fa.LAUNCHES.count} times")
+        log(f"{tag} {name}: {len(examples)} examples in {seconds:.2f}s, scores "
+            f"{ {k: round(v, 4) for k, v in res.task_scores.items()} }, K2 "
+            f"{fa.LAUNCHES.count} launches")
+    fa.LAUNCHES.reset()
+    return out
+
+
+def eval_phase(model, fa, cli_path: str) -> dict:
+    """18d. The eval harness on four 30 s examples (asr, mcq, qa, caption), 16 tokens:
+    evaluate and evaluate_batched on the full-depth bf16 7B (both finish, scores from
+    their answers; the answers that differ between the routes counted: bf16's slot
+    engine and generate round differently), then on 18b's checkpoint loaded in f32 (2 + 2
+    layers at full width), where both routes must give the same answers."""
+    from audio_flamingo_tpu_torch.api import load
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+
+    examples = eval_examples()
+    bf16 = eval_routes(model, fa, examples, "18d bf16 7B")
+    differ = sum(a != b for a, b in zip(bf16["evaluate"]["answers"],
+                                        bf16["evaluate_batched"]["answers"]))
+    log(f"18d bf16 7B: {differ} of {len(examples)} answers differ between evaluate and "
+        "evaluate_batched")
+    gen.release_graphs()
+    f32 = load(cli_path, torch.float32, device="cuda")
+    fp = eval_routes(f32, fa, examples, "18d f32 2 + 2 layers")
+    check(fp["evaluate"]["answers"] == fp["evaluate_batched"]["answers"],
+          f"18d f32: the routes answer {ascii(fp['evaluate']['answers'])} and "
+          f"{ascii(fp['evaluate_batched']['answers'])}")
+    check(fp["evaluate"]["scores"] == fp["evaluate_batched"]["scores"], "18d f32: scores differ")
+    check(any(fp["evaluate"]["answers"]), "18d f32: every answer is empty")
+    del f32
+    gen.release_graphs()
+    return dict(bf16=bf16, bf16_differ=differ, f32=fp)
+
+
+class FirstOfEachShape(list):
+    """A launch counter's ``inputs`` that keeps the first launch of each shape only (the
+    15-minute path's 60 K2 launches would hold ~17 GB of inputs)."""
+
+    def __init__(self):
+        super().__init__()
+        self.keys = set()
+
+    def append(self, inputs) -> None:
+        q, k = inputs[0], inputs[1]
+        key = (tuple(q.shape), tuple(k.shape))
+        if key not in self.keys:
+            self.keys.add(key)
+            super().append(inputs)
+
+
+def music_phase(model, fa, lm) -> dict:
+    """18e. 15 minutes of Music Flamingo (AF3Config.music_flamingo(): 30 windows) at full
+    width: a 900 s 16 kHz mono WAV (no resample), load_audio, generate() with the K1
+    frontend: K1 on 30 windows, the encoder on 30 windows, a ~22.6k-token prefill (past
+    the last token bucket: unpadded), 16 greedy tokens, twice (ids identical); K1 at
+    [30, 480000] on the clip's own windows, and the first encoder and prefill K2 launches
+    of run 1 (the prefill through the row-blocked plain version), held to their plain
+    versions and timed beside SDPA and the bounds; user TTFT and peak memory."""
+    from audio_flamingo_tpu_torch.audio import io as aio
+    from audio_flamingo_tpu_torch.audio.mel import WhisperMelFrontend
+    from audio_flamingo_tpu_torch.config import MelConfig
+    from audio_flamingo_tpu_torch.runtime.processor import AF3Processor
+
+    check(model.cfg.max_windows == 30, "18e: the model is not Music Flamingo's config")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fifteen_minutes.wav")
+        write_wav(path, MUSIC_SECONDS, 16_000, seed=9, mono=True)
+        t0 = time.perf_counter()
+        wav = aio.load_audio(path)
+        load_s = time.perf_counter() - t0
+    check(wav.shape == (MUSIC_SECONDS * 16_000,), f"18e load_audio gave {wav.shape}")
+    fe = WhisperMelFrontend(MelConfig(num_mel_bins=model.cfg.encoder.num_mel_bins),
+                            use_pallas=True)
+    music = dataclasses.replace(model, processor=AF3Processor(
+        tokenizer=model.processor.tokenizer, cfg=model.cfg, frontend=fe),
+        history=[], last_output=None, last_processor_s=None)
+    prompt = "Describe this song: its genre, instruments and structure."
+    prompt_len = int(music.processor(messages=[{"role": "user", "content": f"<sound>{prompt}"}],
+                                     audios=[wav])["ids"].shape[1])
+    check(16384 < prompt_len <= 32768, f"18e prompt of {prompt_len} tokens")
+    runs = []
+    for i in range(2):
+        for counter in (fa.LAUNCHES, lm.LAUNCHES):
+            counter.reset()
+            counter.timing = True
+        if i == 0:
+            fa.LAUNCHES.inputs, fa.LAUNCHES.capture = FirstOfEachShape(), True
+        torch.cuda.reset_peak_memory_stats()
+        _, e2e, split = timed_generate(music, sound=wav, prompt=prompt,
+                                       max_new_tokens=P18_TOKENS)
+        out = music.last_output
+        run = dict(e2e=e2e, proc=music.last_processor_s, ttft=out.ttft_s,
+                   ids=out.tokens[0, : int(out.lengths[0])].tolist(),
+                   finite=bool(torch.isfinite(out.first_logits).all()),
+                   k1=lm.LAUNCHES.count, k1_shapes=dict(lm.LAUNCHES.shapes),
+                   k1_ms=lm.LAUNCHES.device_ms(), k2=fa.LAUNCHES.count,
+                   k2_shapes=dict(fa.LAUNCHES.shapes), k2_ms=fa.LAUNCHES.device_ms(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        captured = list(fa.LAUNCHES.inputs)
+        fa.LAUNCHES.capture = False
+        fa.LAUNCHES.inputs = []
+        for counter in (fa.LAUNCHES, lm.LAUNCHES):
+            counter.timing = False
+            counter.reset()
+        log(f"18e 15-minute generate #{i + 1}: ids={run['ids'][:8]}... {split}; K1 "
+            f"{run['k1']} launches {run['k1_ms']:.3f} ms; K2 {run['k2']} launches "
+            f"{run['k2_ms']:.1f} ms; peak GPU memory {run['peak_gib']:.2f} GiB")
+        runs.append(run)
+        if i == 0:
+            k2_rows = music_k2_holds(fa, captured)
+        del captured
+    k1_want = {("log_mel", (30, 480_000)): 1, ("clamp", (30, 3000, 128)): 1}
+    k2_want = {((30, 1500, 20, 64), (30, 1500, 20, 64), False): 32,
+               ((1, prompt_len, 28, 128), (1, prompt_len, 4, 128), True): 28}
+    for run in runs:
+        check(run["k1_shapes"] == k1_want, f"18e K1 launches {run['k1_shapes']}")
+        check(run["k2_shapes"] == k2_want, f"18e K2 launches {run['k2_shapes']}")
+        check(run["finite"], "18e prefill logits not finite")
+        check(len(run["ids"]) >= 1 and all(0 <= t < model.cfg.lm.vocab_size
+                                           for t in run["ids"]), "18e ids out of vocab")
+    check(runs[0]["ids"] == runs[1]["ids"], f"18e greedy ids differ: {runs[0]['ids']} vs "
+                                            f"{runs[1]['ids']}")
+    k1_row = music_k1_hold(lm, fe, wav)
+    warm = runs[1]
+    log(f"18e 15-minute warm run: {prompt_len}-token prompt (past the 16,384 bucket, unpadded),"
+        f" end to end {warm['e2e']:.3f} s, user TTFT {warm['proc'] + warm['ttft']:.3f} s, of "
+        f"which processor {warm['proc']:.3f} s (K1 {warm['k1_ms']:.3f} ms), K2 "
+        f"{warm['k2_ms'] / 1e3:.3f} s, rest of the prefill {warm['ttft'] - warm['k2_ms'] / 1e3:.3f}"
+        f" s; load_audio {load_s:.2f}s (host); peak GPU memory {warm['peak_gib']:.2f} GiB")
+    return dict(warm=warm, prompt_len=prompt_len, k2=k2_rows, k1=k1_row, runs=runs)
+
+
+def music_k2_holds(fa, captured: list) -> dict:
+    """The first encoder and prefill K2 launches of a 15-minute generate, on their own
+    inputs: held to the plain version (the prefill's over blocks of 1024 query rows), the
+    kernel, the plain version and SDPA timed, the bound."""
+    rows = {}
+    check(len(captured) == 2, f"18e captured {len(captured)} K2 launch shapes, not 2")
+    for q, k, v, kw in captured:
+        name = "encoder_15min" if not kw["causal"] else "lm_prefill_15min"
+        plain = plain_blocked(fa, 1024) if kw["causal"] else plain_blocked(fa, 500)
+        r = compare(fa, q, k, v, kw, plain)
+        check_compare(f"18e {name}", r)
+        r["ms"] = time_ms(lambda: fa.flash_attention_lse(q, k, v, **kw), 3, 1)
+        r["plain_ms"] = time_ms(lambda: plain(q, k, v, **kw), 2, 1)
+        r["library_ms"] = time_ms(sdpa_call(q, k, v, kw), 3, 1)
+        r["bound_ms"], r["bound_by"] = attention_bound_ms(tuple(q.shape), tuple(k.shape),
+                                                          kw["causal"], kw["q_offset"],
+                                                          r["dtype"])
+        r["shape"] = (tuple(q.shape), tuple(k.shape))
+        log(f"18e K2 {name} {r['dtype']} q{list(q.shape)} k{list(k.shape)}: max|o-plain|="
+            f"{r['err']:.3e} (at {r['ratio']:.3f} of its limit) max|lse-plain|="
+            f"{r['lse_err']:.3e}; ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f} library_ms="
+            f"{r['library_ms']:.3f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) = "
+            f"{r['bound_ms'] / r['ms'] * 100:.2f} % of the kernel's time")
+        rows[name] = r
+    return rows
+
+
+def music_k1_hold(lm, fe, wav) -> dict:
+    """K1 at [30, 480000] on the 15-minute clip's own windows, held to the plain version,
+    twice bit-identical, timed (and as device time) beside the plain version and bound."""
+    wins = torch.tensor(fe.pad_or_trim(wav, num_windows=30).reshape(30, -1), device="cuda")
+    args = (wins, fe.dft_cos, fe.dft_sin, fe.mel_weights, fe.cfg.hop_length,
+            fe.frames_per_window)
+    call = lambda: lm.fused_log_mel(*args, bases=fe.kernel_bases)
+    out, again = call(), call()
+    ref = lm.log_mel_reference(*args)
+    diff = (out - ref).abs()
+    atol, rtol = MEL_TOL
+    r = dict(err=diff.max().item(), ratio=(diff / (atol + rtol * ref.abs())).max().item())
+    check(out.shape == (30, fe.frames_per_window, fe.cfg.num_mel_bins), "18e K1 output shape")
+    check(torch.equal(out, again), "18e K1 at [30, 480000]: two launches differ")
+    check(r["ratio"] <= 1.0, f"18e K1 at [30, 480000]: |x - plain| at {r['ratio']:.3f} of its "
+                             "limit")
+    r["ms"] = time_ms(call)
+    r["dev_ms"] = graph_ms(call, 10, 2)
+    r["plain_ms"] = time_ms(lambda: lm.log_mel_reference(*args), 5, 1)
+    r["bound_ms"], r["bound_by"], r["bound_f32_ms"] = log_mel_bound_ms(30, fe)
+    log(f"18e K1 log_mel [30,480000] on the clip: max|x-plain|={r['err']:.3e} (at "
+        f"{r['ratio']:.3f} of its limit), replay bit-identical; ms={r['ms']:.4f} device "
+        f"{r['dev_ms']:.4f} ms; plain_ms={r['plain_ms']:.4f}; bound_ms={r['bound_ms']:.4f} "
+        f"(3xTF32, {r['bound_by']}) = {r['bound_ms'] / r['dev_ms'] * 100:.1f} % of the device "
+        f"time; f32 CUDA-core bound {r['bound_f32_ms']:.4f} ms")
+    return r
+
+
+def entry_points_phase(fa, lm) -> dict:
+    """Phase 18, after every earlier model is freed: 18a the native BPE, 18b the CLI, 18c
+    the demo, 18d the eval harness, 18e 15 minutes of Music Flamingo."""
+    from audio_flamingo_tpu_torch.api import AudioFlamingo
+    from audio_flamingo_tpu_torch.config import AF3Config
+    from audio_flamingo_tpu_torch.runtime import generate as gen
+    from audio_flamingo_tpu_torch.runtime.processor import AF3Processor
+    from audio_flamingo_tpu_torch.runtime.tokenizer import BBPETokenizer, train_bpe
+
+    t0 = time.perf_counter()
+    seconds = {}
+    tok = synthetic_tokenizer(AF3Config().lm.vocab_size, seed=0)
+    small = BBPETokenizer(*train_bpe(["describe the sound of music and speech"], 400))
+    proc = AF3Processor(tokenizer=tok, cfg=AF3Config(), device="cpu")
+    one_clip = proc.expand_audio_tokens(proc.apply_chat_template(
+        [{"role": "user", "content": "<sound>What do you hear?"}]), [1])
+    texts = ([random_text(10, 20_000), MIXED_TEXT * 40, one_clip, CLI_PROMPT, *CHAT_TURNS, "Describe.",
+              "What do you hear?", "Describe this song: its genre, instruments and structure."]
+             + [p for _, p, _ in EVAL_TASKS] + [MIXED_TEXT[i:i + 50] for i in range(0, 200, 7)])
+    bpe = bpe_phase({"the 152,064-id tokenizer of 18b-18e": tok,
+                     "from_random's trained tokenizer": small}, texts)
+    seconds["18a"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_phase(fa, tok, tmp)
+        del cli["model"]
+        gen.release_graphs()
+        torch.cuda.empty_cache()
+        seconds["18b"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        model = AudioFlamingo.from_random(with_flash(AF3Config.music_flamingo(), True),
+                                          tokenizer=tok, seed=0, compute_dtype=torch.bfloat16,
+                                          device="cuda")
+        log(f"18c-18e model: AF3Config.music_flamingo() at full width (32 + 28 layers), bf16, "
+            f"made on the card in {time.perf_counter() - t1:.1f}s")
+        demo = demo_phase(model, fa, cli["clip"])
+        seconds["18c"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ev = eval_phase(model, fa, cli["path"])
+        seconds["18d"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    gen.release_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    music = music_phase(model, fa, lm)
+    del model
+    gen.release_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["18e"] = time.perf_counter() - t1
+    total = time.perf_counter() - t0
+    log(f"18: phase 18 took {total:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                          seconds.items()) + ")")
+    return dict(bpe=bpe, cli=cli, demo=demo, eval=ev, music=music, seconds=seconds, s=total)
+
+
 def serve_any(engine, specs, max_new_tokens: int) -> dict:
     """``serve`` on any device (the CPU's engines need no synchronization)."""
     from audio_flamingo_tpu_torch.runtime.engine import Request
@@ -7464,6 +8086,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     f32_spec_card_vs_cpu_phase()
+    release_f32_base()
     gen.release_graphs()
     # 14c. voice: f32 card against CPU at small size
     f32_14 = f32_voice_card_vs_cpu_phase()
@@ -7515,6 +8138,13 @@ def main() -> int:
     gen.release_graphs()
     log(f"17: phase 17 took {time.perf_counter() - t17:.1f} s (17a {qlora17['s']:.1f}, 17b "
         f"{grpo17['s']:.1f}, 17c {f32_17['s']:.1f})")
+    mark("18")
+    # 18a-18e. the user entry points (the native BPE, the CLI in subprocesses, the demo
+    # server, the eval harness) and 15 minutes of Music Flamingo, after every earlier model
+    # is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    p18 = entry_points_phase(fa, lm)
 
     mark("end")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1)
@@ -7529,6 +8159,12 @@ def main() -> int:
         f"SDPA {sum(n * long_res[(k, 'bfloat16')]['library_ms'] for k, n in per_gen.items()):.3f} "
         f"ms, plain {sum(n * long_res[(k, 'bfloat16')]['plain_ms'] for k, n in per_gen.items()):.1f} "
         f"ms; in the path {warm['k2_ms']:.1f} ms")
+    m18 = p18["music"]
+    log("K2 per 15-minute generate (bf16), summed from 18e's rows over its 32 x "
+        "encoder_15min + 28 x lm_prefill_15min: " + ", ".join(
+            f"{key} {32 * m18['k2']['encoder_15min'][key] + 28 * m18['k2']['lm_prefill_15min'][key]:.3f} ms"
+            for key in ("ms", "bound_ms", "library_ms", "plain_ms"))
+        + f"; in the path {m18['warm']['k2_ms']:.1f} ms")
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -7556,6 +8192,15 @@ def main() -> int:
                              "17b GRPO-1.5B update": grpo17["rows"]["K2"]["count"]},
         "path_phase17": {"17a QLoRA-7B train step": qlora17["rows"]["K2"],
                          "17b GRPO-1.5B update": grpo17["rows"]["K2"]},
+        "launches_phase18": {
+            "18c demo, two turns": p18["demo"]["k2"],
+            **{f"18d {route}, bf16 7B, 4 examples": r["k2"]
+               for route, r in p18["eval"]["bf16"].items()},
+            "18e 15-minute generate (the warm run)": m18["warm"]["k2"]},
+        "shapes_18e": {name: {n: (list(map(list, r[n])) if n == "shape" else r[n])
+                              for n in ("shape", "err", "ratio", "ms", "plain_ms",
+                                        "library_ms", "bound_ms", "bound_by")}
+                       for name, r in m18["k2"].items()},
         "ptxas": [r for r in flash_ptxas if r["kernel"].startswith("flash_fwd")],
     }, {
         "name": "log_mel",
@@ -7572,6 +8217,9 @@ def main() -> int:
         "bound_f32_cuda_cores_ms": mel_res[(20, "normal")]["bound_f32_ms"],
         "device_ms": mel_res[(20, "normal")]["dev_ms"],
         "library_ms": None,
+        "launches_phase18": {"18e 15-minute generate (the warm run)": m18["warm"]["k1"]},
+        "shape_18e": {n: m18["k1"][n] for n in ("err", "ratio", "ms", "dev_ms", "plain_ms",
+                                                "bound_ms", "bound_by", "bound_f32_ms")},
         "ptxas": k1_ptxas,
     }]
     iw = w4["warm"]
@@ -7942,7 +8590,14 @@ def main() -> int:
         "one step's launches timed alone times the chunk's steps; adapted_step_17a: one "
         "decode step's 113 K4 launches, ms their device time in a profiled replay of the "
         "captured step, plain_ms, library_ms and bound_ms per shape times its count, err and "
-        "ratio of every launch of the step re-run against the plain version.")
+        "ratio of every launch of the step re-run against the plain version. "
+        "launches_phase18 (flash_attention_fwd, log_mel): each kernel's launches on phase "
+        "18's paths, counted from 0 just before each and read just after (K2: the demo's two "
+        "turns, 18c; each eval route on the bf16 7B, 18d; the warm 15-minute generate, 18e; "
+        "K1: that generate); shapes_18e / shape_18e: the first encoder and prefill K2 launch "
+        "of the first 15-minute generate and K1 on the clip's 30 windows, held to the plain "
+        "version (err, ratio) and timed (ms with the wrapper, K1 also as device time), "
+        "beside the plain version, SDPA (K2) and the bound.")
     log(f"card (again, for the record): {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done")
